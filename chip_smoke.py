@@ -1,0 +1,466 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``upsnet_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; there is no CPU path):
+
+1. build: compile every CUDA kernel of ``upsnet_torch/csrc`` with nvcc, one
+   process per source, all at once;
+2. kernels: each kernel against its plain PyTorch version on the card, on
+   the predict path's shapes at batch 2, with errors, kernel / plain /
+   library-call times (CUDA events, median of 30) and the least time the
+   card could take for the same work;
+3. predict: ``resnet_50_upsnet`` at full width (COCO: 81 classes, 133 seg
+   classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
+   offset biases set to +-2 px, serving three batch-2 requests through
+   ``forward_predict``; the kernel launch counters must move by exactly 8
+   (K1) and 2 (K4) per request; with ``--profile``, one more request under
+   torch.profiler (device time per stage and kernel, idle share); then a
+   tiny float32 model on the card against the same model on the CPU
+   (plain versions, no kernels).
+
+The line before the last two is a JSON object with every kernel's numbers;
+then the card's name and power limit; the last line is the device record.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: CUDA is not available")
+
+import torch.nn.functional as F  # noqa: E402
+
+from upsnet_torch.config import default_config  # noqa: E402
+from upsnet_torch.models import layers  # noqa: E402
+from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
+from upsnet_torch.ops import cuda_build, deform_sample, nms, roi_align_fpn  # noqa: E402
+from upsnet_torch.ops.anchors import pyramid_anchors  # noqa: E402
+from upsnet_torch.ops.boxes import fpn_level_assignment  # noqa: E402
+from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
+BUCKET = (832, 1344)
+IM_HW = (800.0, 1333.0)
+BATCH = 2
+REPS = 30
+
+
+def time_ms(fn, reps: int = REPS) -> float:
+    """Median of ``reps`` CUDA-event-timed calls after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(got: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
+    """Max abs/rel error; raises unless |got - ref| <= rtol*|ref| + atol."""
+    got, ref = got.float(), ref.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output has non-finite values")
+    err = (got - ref).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / ref.abs().clamp(min=1e-3)).max())
+    bad = err > rtol * ref.abs() + atol
+    if bad.any():
+        raise AssertionError(
+            f"{int(bad.sum())} elements outside tolerance; max abs {max_abs}")
+    return max_abs, max_rel
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    cuda_build.build()
+    for name in cuda_build.SOURCES:
+        cuda_build.load(name)
+    print(f"[build] {len(cuda_build.SOURCES)} kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc {cuda_build.nvcc_path()})")
+
+
+def check_k1(dev) -> dict:
+    """K1 at the four FCN levels of the path (P2 208x336 .. P5 26x42), C=128
+    bf16, 9 taps: +-2 px offsets with 3% of the samples moved 6-12 px and 1%
+    pushed beyond the image edge. Every level is checked against the plain
+    version; times, the bound and the library yardstick are for P2."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    taps, b, c = 9, BATCH, 128
+    kk = torch.arange(taps, device=dev)
+    ky = (kk // 3 - 1).float()[:, None, None, None]
+    kx = (kk % 3 - 1).float()[:, None, None, None]
+
+    def inputs(h, w):
+        shape = (taps, b, h, w)
+        y9 = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+        iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+        ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+
+        def offsets():
+            off = torch.rand(shape, generator=g, device=dev) * 4 - 2
+            far = torch.rand(shape, generator=g, device=dev) < 0.03
+            mag = 6 + 6 * torch.rand(shape, generator=g, device=dev)
+            sign = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5, -1.0, 1.0)
+            return torch.where(far, sign * mag, off)
+
+        sy9 = iy + ky + offsets()
+        sx9 = (ix + kx + offsets()).contiguous()
+        edge = torch.rand(shape, generator=g, device=dev) < 0.01
+        sy9 = torch.where(edge, sy9 + torch.where(sy9 < h / 2, -float(h), float(h)), sy9)
+        return y9, sy9.contiguous(), sx9
+
+    # f32 sums in a different order, each rounded once to bf16: at most one
+    # bf16 ulp (<= 2^-7 relative) apart, plus f32 slack near zero
+    rtol, atol = 2.0 ** -7, 1e-4
+    max_abs = 0.0
+    for stride in (32, 16, 8, 4):  # P2 last: its tensors are timed below
+        h, w = BUCKET[0] // stride, BUCKET[1] // stride
+        y9, sy9, sx9 = inputs(h, w)
+        got = deform_sample.deform_sample9(y9, sy9, sx9)
+        ref = deform_sample.deform_sample9_plain(y9, sy9, sx9)
+        torch.cuda.synchronize()
+        err, rel = compare(got, ref, rtol, atol)
+        max_abs = max(max_abs, err)
+        print(f"[K1 deform_sample9] y9 {tuple(y9.shape)} bf16: max abs err {err:.3e}, "
+              f"max rel err {rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g})")
+
+    # the library yardstick: 9 grid_sample calls (zeros padding, corner-
+    # aligned grid = DCN's zero-padded bilinear sampling) and a sum.
+    # grid_sample wants the grid in the input's dtype, and a bf16 grid
+    # cannot hold the coordinates, so it samples float32 copies of y9
+    # (made outside the timed call)
+    grids = torch.stack([2 * sx9 / (w - 1) - 1, 2 * sy9 / (h - 1) - 1], dim=-1)
+    planes = [y9[t].float().permute(0, 3, 1, 2) for t in range(taps)]
+
+    def library():
+        acc = F.grid_sample(planes[0], grids[0], mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+        for t in range(1, taps):
+            acc += F.grid_sample(planes[t], grids[t], mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+        return acc
+
+    lib_err = float((library().permute(0, 2, 3, 1) - ref.float()).abs().max())
+    ms = time_ms(lambda: deform_sample.deform_sample9(y9, sy9, sx9))
+    plain_ms = time_ms(lambda: deform_sample.deform_sample9_plain(y9, sy9, sx9), 10)
+    library_ms = time_ms(library)
+
+    # bytes this run needs: every projection row a counted sample touches
+    # (once), the coordinates, the output; flops: 4 corners x 2 per channel
+    inside = (sy9 > -1) & (sy9 < h) & (sx9 > -1) & (sx9 < w)
+    y0, x0 = sy9.floor().long(), sx9.floor().long()
+    plane_id = (kk[:, None] * b + torch.arange(b, device=dev)[None, :])[..., None, None]
+    cells = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy, xx = y0 + dy, x0 + dx
+            ok = inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            cells.append(((plane_id * h + yy) * w + xx)[ok])
+    n_rows = int(torch.unique(torch.cat(cells)).numel())
+    n_bytes = n_rows * c * 2 + 2 * sy9.numel() * 4 + got.numel() * 2
+    n_flops = int(inside.sum()) * 4 * 2 * c
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    print(f"[K1 deform_sample9] P2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"9x grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP); "
+          f"grid_sample yardstick max abs diff {lib_err:.3e}")
+    return {
+        "name": "deform_sample9", "route": "cuda",
+        "source": "upsnet_torch/csrc/deform_sample.cu",
+        "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:282",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
+def _random_rois(g, dev, n: int) -> torch.Tensor:
+    """n RoIs per image over the 832x1344 canvas: log-uniform 8-800 px
+    sides, centers up to 60 px outside the image, and every tenth RoI
+    wider than 256 px."""
+    hh, ww = BUCKET
+    side = torch.exp(torch.empty((BATCH, n, 2), device=dev).uniform_(
+        math.log(8.0), math.log(800.0), generator=g))
+    side[:, ::10, 0] = torch.empty((BATCH, side[:, ::10].shape[1]), device=dev).uniform_(
+        260.0, 1100.0, generator=g)
+    cx = torch.empty((BATCH, n), device=dev).uniform_(-60.0, ww + 60.0, generator=g)
+    cy = torch.empty((BATCH, n), device=dev).uniform_(-60.0, hh + 60.0, generator=g)
+    return torch.stack([cx - side[..., 0] / 2, cy - side[..., 1] / 2,
+                        cx + side[..., 0] / 2, cy + side[..., 1] / 2], -1).contiguous()
+
+
+def check_k4(dev) -> dict:
+    """K4 over a bf16 832x1344 pyramid (C=256), batch 2: 1000 RoIs at 7x7
+    (the box call) and 100 at 14x14 (the mask call). The returned times and
+    bounds are the sums over the two calls one forward makes; the error is
+    the larger of the two."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    c = 256
+    feats = tuple(
+        torch.randn((BATCH, -(-BUCKET[0] // s), -(-BUCKET[1] // s), c), generator=g,
+                    device=dev).to(torch.bfloat16)
+        for s in (4, 8, 16, 32))
+    rtol, atol = 2.0 ** -7, 1e-4
+    out = {"name": "fpn_roi_align", "route": "cuda",
+           "source": "upsnet_torch/csrc/roi_align_fpn.cu",
+           "replaces": "upsnet_tpu/ops/roi_align_pallas.py:265",
+           "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes", "library_ms": None}
+    for n_rois, pooled in ((1000, 7), (100, 14)):
+        rois = _random_rois(g, dev, n_rois)
+        levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
+        got = roi_align_fpn.fpn_roi_align(feats, rois, levels, pooled)
+        ref = roi_align_fpn.fpn_roi_align_plain(feats, rois, levels, pooled)
+        torch.cuda.synchronize()
+        max_abs, max_rel = compare(got, ref, rtol, atol)
+        ms = time_ms(lambda: roi_align_fpn.fpn_roi_align(feats, rois, levels, pooled))
+        plain_ms = time_ms(
+            lambda: roi_align_fpn.fpn_roi_align_plain(feats, rois, levels, pooled), 10)
+
+        # bytes: distinct feature rows the counted samples touch, the RoIs,
+        # levels and output; flops: 4 samples x 4 corners x 2 + 1 per output
+        n = BATCH * n_rois
+        lev = levels.reshape(n).long()
+        strides = torch.tensor([4.0, 8.0, 16.0, 32.0], device=dev)
+        y, x = _sample_coords(rois.reshape(n, 4) / strides[lev][:, None], 1.0, pooled, 2)
+        hs = torch.tensor([f.shape[1] for f in feats], device=dev, dtype=torch.float32)
+        ws = torch.tensor([f.shape[2] for f in feats], device=dev, dtype=torch.float32)
+        ext = (slice(None),) + (None,) * 4
+        yl, xl, yh, xh, *wts = _bilinear_corners(y, x, hs[lev][ext], ws[lev][ext])
+        inside = sum(wts) > 0
+        img = torch.arange(BATCH, device=dev).repeat_interleave(n_rois)
+        base = ((lev * BATCH + img) * 4096)[ext]
+        cells = torch.cat([((base + yy) * 4096 + xx)[inside]
+                           for yy in (yl, yh) for xx in (xl, xh)])
+        n_rows = int(torch.unique(cells).numel())
+        n_bytes = n_rows * c * 2 + rois.numel() * 4 + levels.numel() * 4 + got.numel() * 2
+        n_flops = got.numel() * (4 * 4 * 2 + 1)
+        bound_ms, bound_by = bound(n_bytes, n_flops)
+        print(f"[K4 fpn_roi_align] {n_rois} RoIs x2 at {pooled}x{pooled}: max abs err "
+              f"{max_abs:.3e}, max rel err {max_rel:.3e} (tolerance {rtol:.4g}*|ref| + "
+              f"{atol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
+              f"{n_flops / 1e9:.3f} GFLOP)")
+        out["max_abs_err"] = max(out["max_abs_err"], max_abs)
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["bound_ms"] += bound_ms
+    return out
+
+
+def perturb_offset_biases(model, generator) -> None:
+    """Offset-conv biases uniform in [-2, 2] px, so that K1 samples at
+    fractional positions as a trained checkpoint would."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, layers.DeformConv):
+                bias = torch.empty(m.offset_conv.bias.shape).uniform_(-2.0, 2.0,
+                                                                       generator=generator)
+                m.offset_conv.bias.copy_(bias)
+
+
+def phase_predict(dev) -> dict:
+    cfg = default_config()
+    net, ds = cfg.network, cfg.dataset
+    print(f"[predict] {cfg.symbol}: {ds.num_classes} classes, {ds.num_seg_classes} seg "
+          f"classes, fpn {net.fpn_feature_dim}, fcn {net.fcn_head_dim}, fc "
+          f"{net.rcnn_fc_dim}, {net.compute_dtype}, dcn_impl {net.dcn_impl}, "
+          f"bucket {BUCKET}, batch {BATCH}")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=gen)
+    perturb_offset_biases(model, gen)
+    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
+    print(f"[predict] model built in {time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=dev).manual_seed(3)
+    batches = [{
+        "images": torch.empty((BATCH, *BUCKET, 3), device=dev).uniform_(-110.0, 140.0,
+                                                                        generator=g),
+        "im_hw": torch.tensor([IM_HW] * BATCH, device=dev),
+    } for _ in range(3)]
+    torch.cuda.synchronize()
+
+    deform_sample.launches = 0
+    roi_align_fpn.launches = 0
+    lat, per_request = [], []
+    for i, batch in enumerate(batches):
+        k1, k4 = deform_sample.launches, roi_align_fpn.launches
+        nms.iterations = 0
+        t0 = time.perf_counter()
+        out = forward_predict(model, cfg, anchors, batch)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        per_request.append((deform_sample.launches - k1, roi_align_fpn.launches - k4))
+        d = cfg.test.max_det
+        hq, wq = BUCKET[0] // 4, BUCKET[1] // 4
+        expect = {"boxes": (BATCH, d, 4), "scores": (BATCH, d), "classes": (BATCH, d),
+                  "det_valid": (BATCH, d), "mask_logits": (BATCH, d, 28, 28),
+                  "seg_logits": (BATCH, hq, wq, ds.num_seg_classes),
+                  "pan_map": (BATCH, hq, wq), "pan_keep": (BATCH, d)}
+        for k, shape in expect.items():
+            if tuple(out[k].shape) != shape:
+                raise AssertionError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
+        for k in ("boxes", "seg_logits", "mask_logits"):
+            if not torch.isfinite(out[k]).all():
+                raise AssertionError(f"request {i}: non-finite {k}")
+        pan = out["pan_map"]
+        if int(pan.min()) < 0 or int(pan.max()) > ds.num_stuff + d:
+            raise AssertionError(f"request {i}: pan_map outside [0, {ds.num_stuff + d}]")
+        print(f"[predict] request {i}: {lat[-1]:.1f} ms, {int(out['det_valid'].sum())} "
+              f"detections, {int(out['pan_keep'].sum())} in pan_map, launches K1 "
+              f"{per_request[-1][0]} K4 {per_request[-1][1]}, NMS fixpoint iterations "
+              f"{nms.iterations} (RPN + detection)")
+    launches = {"deform_sample9": deform_sample.launches,
+                "fpn_roi_align": roi_align_fpn.launches}
+    for k1, k4 in per_request:
+        if (k1, k4) != (8, 2):
+            raise AssertionError(f"launches per forward K1 {k1} K4 {k4}, expected 8 and 2")
+    steady = statistics.median(lat[1:])
+    print(f"[predict] latency per batch-2 request {[round(x, 2) for x in lat]} ms; "
+          f"steady (median of requests 1-2) {steady:.2f} ms = {BATCH * 1e3 / steady:.2f} img/s")
+    return launches, (model, cfg, anchors, batches[-1])
+
+
+def phase_profile(model, cfg, anchors, batch, activities=None) -> None:
+    """One more request under torch.profiler. Per ``predict.*`` stage: host
+    ms (the CPU range), device span ms (first to last kernel of the range)
+    and device busy ms (its kernels' durations); per kernel name, device
+    ms; and the device's idle share of the request's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = activities or [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        forward_predict(model, cfg, anchors, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    host, span, spans, kernels = {}, {}, [], []
+    for e in prof.events():
+        if e.name.startswith("predict."):
+            ms = e.time_range.elapsed_us() / 1e3
+            if e.device_type == DeviceType.CUDA:
+                span[e.name] = ms
+                spans.append((e.time_range.start, e.time_range.end, e.name))
+            else:
+                host[e.name] = ms
+        elif e.device_type == DeviceType.CUDA:
+            kernels.append(e)
+    busy = {name: 0.0 for name in host}
+    per_name: dict[str, float] = {}
+    for k in kernels:
+        ms = k.time_range.elapsed_us() / 1e3
+        per_name[k.name] = per_name.get(k.name, 0.0) + ms
+        for start, end, name in spans:
+            if start <= k.time_range.start <= end:
+                busy[name] = busy.get(name, 0.0) + ms
+    busy_ms = sum(per_name.values())
+    print(f"[profile] one request under torch.profiler: wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, {len(kernels)} device ops")
+    print("[profile] per stage, host ms / device span ms / device busy ms: " + ", ".join(
+        f"{k[len('predict.'):]} {host[k]:.2f} / {span.get(k, 0.0):.2f} / {busy.get(k, 0.0):.2f}"
+        for k in host))
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
+    print("[profile] top device ops (ms): " + "; ".join(f"{n[:70]} {v:.3f}" for n, v in top))
+
+
+def phase_reference(dev) -> None:
+    """A tiny float32 model on the card (kernels, cuDNN) against the same
+    weights on the CPU (plain versions)."""
+    cfg = default_config()
+    cfg = cfg.replace(
+        network=dataclasses.replace(cfg.network, backbone="resnet_test", fpn_feature_dim=32,
+                                    rcnn_fc_dim=64, fcn_head_dim=16, compute_dtype="float32"),
+        dataset=dataclasses.replace(cfg.dataset, num_classes=5, num_seg_classes=7,
+                                    num_stuff=3),
+        test=dataclasses.replace(cfg.test, rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32,
+                                 max_det=8),
+    )
+    gen = torch.Generator().manual_seed(5)
+    cpu_model = build_model(cfg, device="cpu", generator=gen)
+    perturb_offset_biases(cpu_model, gen)
+    with torch.no_grad():
+        for m in cpu_model.modules():  # O(1) activations: frozen-BN scales < 1
+            if isinstance(m, layers.FrozenBatchNorm):
+                m.scale.uniform_(0.3, 0.6, generator=gen)
+    gpu_model = build_model(cfg, device=dev)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    hw = (64, 96)
+    images = torch.empty((2, *hw, 3)).uniform_(-10.0, 10.0, generator=gen)
+    im_hw = torch.tensor([[64.0, 96.0], [56.0, 80.0]])
+    outs = []
+    for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
+        anchors = tuple(torch.as_tensor(a, device=d) for a in pyramid_anchors(hw))
+        o = forward_predict(model, cfg, anchors,
+                            {"images": images.to(d), "im_hw": im_hw.to(d)})
+        outs.append({k: v.cpu() for k, v in o.items()})
+    ref, got = outs
+    seg_err = float((got["seg_logits"] - ref["seg_logits"]).abs().max())
+    seg_scale = float(ref["seg_logits"].abs().max())
+    if seg_err > 1e-3 * seg_scale:
+        raise AssertionError(f"seg_logits card vs CPU: max abs err {seg_err} "
+                             f"(max |ref| {seg_scale})")
+    # discrete outputs may flip on near-ties between cuDNN and CPU sums, so
+    # they are reported, not required
+    same = {k: bool(torch.equal(got[k], ref[k]))
+            for k in ("classes", "det_valid", "pan_map", "pan_keep")}
+    box_err = float((got["boxes"] - ref["boxes"]).abs().max()) if same["classes"] else None
+    print(f"[reference] tiny f32 model, card vs CPU: seg_logits max abs err {seg_err:.3e} "
+          f"(max |ref| {seg_scale:.3f}); discrete outputs equal {same}; boxes max abs "
+          f"err {box_err}")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile one request with torch.profiler")
+    args = parser.parse_args()
+    dev = torch.device("cuda", 0)
+    print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    phase_build()
+    kernels = [check_k1(dev), check_k4(dev)]
+    launches, request = phase_predict(dev)
+    if args.profile:
+        phase_profile(*request)
+    phase_reference(dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,74 @@
+"""JAX parameter tree -> ``upsnet_torch`` state_dict.
+
+The port's module tree follows the flax tree name for name
+(``backbone_net.res2_0.conv1``, ``fpn.lateral2``,
+``fcn_head.subnet.dcn1.offset_conv``, ...), so the bridge is a leaf-by-leaf
+layout transform, the inverse of ``upsnet_tpu/convert/torch_converter.py``:
+
+  * conv kernel HWIO -> OIHW;
+  * Dense kernel (in, out) -> (out, in); the box head's fc1 needs no
+    permutation because the port flattens pooled features in the same
+    (P, P, C) order;
+  * ConvTranspose (the mask head's ``deconv``): flax HWIO, which applies the
+    kernel without a flip -> torch (in, out, kh, kw), spatially reversed;
+  * deformable conv kernel, tap-major (K, in, out) -> (out, in, k, k);
+  * FrozenBN ``scale`` / ``bias`` -> the module's buffers of the same name.
+
+Input is the tree as ``jax.device_get(params)`` gives it: nested dicts of
+numpy arrays. This module imports neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+DECONV_NAMES = ("deconv",)
+
+
+def _convert_kernel(path: tuple, k: np.ndarray) -> np.ndarray:
+    if k.ndim == 4 and path[-2] in DECONV_NAMES:
+        return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+    if k.ndim == 4:
+        return np.transpose(k, (3, 2, 0, 1))
+    if k.ndim == 3:  # deformable conv, tap-major
+        taps, cin, cout = k.shape
+        ks = math.isqrt(taps)
+        if ks * ks != taps:
+            raise ValueError(f"{'.'.join(path)}: {taps} taps is not a square kernel")
+        return np.transpose(k, (2, 1, 0)).reshape(cout, cin, ks, ks)
+    if k.ndim == 2:
+        return k.T
+    raise ValueError(f"{'.'.join(path)}: unexpected kernel rank {k.ndim}")
+
+
+def jax_params_to_state_dict(tree: dict) -> dict:
+    """Every leaf of the flax parameter tree as a torch state_dict entry."""
+    out = {}
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            for key, val in node.items():
+                visit(val, path + (key,))
+            return
+        arr = np.asarray(node, dtype=np.float32)
+        name = path[-1]
+        if name == "kernel":
+            arr = _convert_kernel(path, arr)
+            name = "weight"
+        elif name not in ("bias", "scale"):
+            raise ValueError(f"unexpected parameter {'.'.join(path)}")
+        key = ".".join(path[:-1] + (name,))
+        out[key] = torch.from_numpy(np.array(arr, np.float32))  # owned copy
+
+    visit(tree, ())
+    return out
+
+
+def load_jax_params(model: torch.nn.Module, tree: dict) -> None:
+    """Load a flax parameter tree into ``model`` strictly: every leaf must
+    land on a parameter or buffer of matching shape and every parameter and
+    buffer must be filled, or this raises."""
+    model.load_state_dict(jax_params_to_state_dict(tree), strict=True)

@@ -1,0 +1,276 @@
+"""UPSNet: full assembly and the inference forward.
+
+Port of ``upsnet_tpu/models/upsnet.py`` (predict half). ``UPSNetModule``
+holds the parametered sub-networks; ``forward_predict`` runs the predict
+path over a batch: dense trunk -> proposals + NMS -> box ROIAlign (K4) ->
+box head -> joint class-offset detection NMS -> mask ROIAlign (K4) -> mask
+head -> panoptic fusion. The FCN head's deformable convs run the sampling
+kernel K1. Shapes stay static: proposals padded to ``rpn_post_nms_top_n``,
+detections to ``max_det``.
+
+Public tensors keep the JAX package's layouts: images (B, H, W, 3) in,
+``seg_logits`` (B, H/4, W/4, C) out. Inside, convs run NCHW.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from upsnet_torch.config.defaults import Config
+from upsnet_torch.models import layers
+from upsnet_torch.models.fcn import FCNHead
+from upsnet_torch.models.fpn import FPN
+from upsnet_torch.models.heads import BoxHead, MaskHead
+from upsnet_torch.models.registry import register_model
+from upsnet_torch.models.resnet import ResNetBackbone
+from upsnet_torch.models.rpn import RPNHead
+from upsnet_torch.ops import panoptic as pan_ops
+from upsnet_torch.ops.boxes import clip_boxes, decode_boxes, fpn_level_assignment
+from upsnet_torch.ops.mask_paste import paste_masks
+from upsnet_torch.ops.nms import batched_class_nms
+from upsnet_torch.ops.proposals import pyramid_proposals, top_k
+from upsnet_torch.ops.roi_align_fpn import fpn_roi_align
+
+
+class UPSNetModule(nn.Module):
+    """Parametered sub-networks; parameter-free ops live in ops/."""
+
+    def __init__(self, num_classes: int = 81, num_seg_classes: int = 133,
+                 backbone: str = "resnet50", fpn_dim: int = 256,
+                 num_anchors: int = 3, rcnn_fc_dim: int = 1024,
+                 fcn_dim: int = 128, fcn_num_layers: int = 2,
+                 fcn_with_dcn: bool = True, fcn_shared_subnet: bool = True,
+                 dcn_impl: str = "auto", dcn_max_dy: int = 6,
+                 pooled_size_box: int = 7, dtype=torch.float32):
+        super().__init__()
+        self.backbone_net = ResNetBackbone(backbone, dtype)
+        self.fpn = FPN((256, 512, 1024, 2048), fpn_dim, dtype)
+        self.rpn = RPNHead(num_anchors, fpn_dim, fpn_dim, dtype)
+        self.box_head = BoxHead(num_classes, pooled_size_box ** 2 * fpn_dim,
+                                rcnn_fc_dim, dtype)
+        self.mask_head = MaskHead(num_classes, fpn_dim, dtype=dtype)
+        self.fcn_head = FCNHead(num_seg_classes, fpn_dim, fcn_dim,
+                                fcn_num_layers, fcn_with_dcn, fcn_shared_subnet,
+                                dcn_impl, dcn_max_dy, dtype)
+
+    def extract(self, images):
+        """Backbone + FPN + RPN + semantic head (the dense trunk).
+        images (B, 3, H, W) -> (P2..P6 NCHW, RPN cls/bbox per level
+        channel-last, semantic logits NCHW)."""
+        pyramid = self.fpn(self.backbone_net(images))
+        rpn_cls, rpn_bbox = self.rpn(pyramid)
+        fcn_logits, _ = self.fcn_head(pyramid[:4])
+        return pyramid, rpn_cls, rpn_bbox, fcn_logits
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every random parameter of ``model`` from ``generator``."""
+    kinds = (layers.Conv2d, layers.Linear, layers.ConvTranspose2d,
+             layers.DeformConv)
+    for m in model.modules():
+        if isinstance(m, kinds):
+            m.reset_parameters(generator)
+
+
+def build_model(cfg: Config, device=None,
+                generator: torch.Generator | None = None) -> UPSNetModule:
+    """The model of ``cfg`` in eval mode on ``device`` (CUDA unless the
+    caller passes another device), initialised from ``generator`` (default:
+    seeded with ``cfg.seed``). Raises when no device is given and CUDA is
+    not available. Turns TF32 off: the JAX package computes its float32
+    convs and matmuls (DCN offsets, mask paste) in full float32."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
+                               "to run on the CPU")
+        device = "cuda"
+    net = cfg.network
+    if net.backbone_with_dcn or net.norm != "frozen_bn":
+        raise NotImplementedError("backbone DCN and GroupNorm are not ported")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = UPSNetModule(
+        num_classes=cfg.dataset.num_classes,
+        num_seg_classes=cfg.dataset.num_seg_classes,
+        backbone=net.backbone,
+        fpn_dim=net.fpn_feature_dim,
+        num_anchors=net.num_anchors,
+        rcnn_fc_dim=net.rcnn_fc_dim,
+        fcn_dim=net.fcn_head_dim,
+        fcn_num_layers=net.fcn_num_layers,
+        fcn_with_dcn=net.fcn_with_dcn,
+        fcn_shared_subnet=net.fcn_shared_subnet,
+        dcn_impl=net.dcn_impl,
+        dcn_max_dy=net.dcn_max_dy,
+        pooled_size_box=net.pooled_size_box,
+        dtype=getattr(torch, net.compute_dtype),
+    )
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(model, generator)
+    return model.to(device).eval()
+
+
+@register_model("upsnet")
+def upsnet_from_config(cfg: Config, **kw) -> UPSNetModule:
+    """Generic symbol: backbone taken from cfg.network.backbone."""
+    return build_model(cfg, **kw)
+
+
+@register_model("resnet_50_upsnet")
+def resnet_50_upsnet(cfg: Config, **kw) -> UPSNetModule:
+    return build_model(cfg.replace(network=dataclasses.replace(
+        cfg.network, backbone="resnet50")), **kw)
+
+
+@register_model("resnet_101_upsnet")
+def resnet_101_upsnet(cfg: Config, **kw) -> UPSNetModule:
+    return build_model(cfg.replace(network=dataclasses.replace(
+        cfg.network, backbone="resnet101")), **kw)
+
+
+# ---------------------------------------------------------------------------
+# inference forward
+# ---------------------------------------------------------------------------
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor  # (B, D, 4)
+    scores: torch.Tensor  # (B, D)
+    classes: torch.Tensor  # (B, D) int64, 1..C-1
+    valid: torch.Tensor  # (B, D) bool
+
+
+def _pool_boxes(pyramid, rois, pooled: int, sampling_ratio: int = 2):
+    """FPN ROIAlign of rois (B, R, 4) over P2..P5 (NCHW) -> (B, R, P, P, C)."""
+    levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
+    feats = tuple(p.permute(0, 2, 3, 1).contiguous() for p in pyramid[:4])
+    return fpn_roi_align(feats, rois.contiguous(), levels, pooled=pooled,
+                         sampling_ratio=sampling_ratio)
+
+
+def _detection_nms(boxes_pc, scores_pc, cfg_test, num_classes: int) -> Detections:
+    """Joint class-offset NMS + global top-k, batched over images.
+
+    boxes_pc (B, R, C, 4) decoded per class; scores_pc (B, R, C). Classes
+    are shifted apart so per-class NMS is one NMS; the score-ranked pool of
+    ``detection_nms_pool`` candidates enters it and ``max_det`` leave.
+    """
+    b, rr = boxes_pc.shape[:2]
+    nc = num_classes - 1  # classes 1..C-1 (skip background)
+    boxes_f = boxes_pc[:, :, 1:].reshape(b, rr * nc, 4)
+    scores_f = scores_pc[:, :, 1:].reshape(b, rr * nc)
+    classes_f = torch.arange(1, num_classes, device=boxes_pc.device).repeat(rr)
+    classes_f = classes_f.expand(b, rr * nc)
+    sc = torch.where(scores_f >= cfg_test.score_thresh, scores_f,
+                     torch.full_like(scores_f, float("-inf")))
+    pool = min(getattr(cfg_test, "detection_nms_pool", 2048) or rr * nc, rr * nc)
+    top_sc, top_i = top_k(sc, pool)
+    idx, keep = batched_class_nms(
+        torch.gather(boxes_f, 1, top_i[..., None].expand(b, pool, 4)), top_sc,
+        torch.gather(classes_f, 1, top_i), cfg_test.nms_thresh,
+        cfg_test.max_det, torch.isfinite(top_sc),
+    )
+    safe = torch.gather(top_i, 1, idx.clamp(min=0))
+    d = safe.shape[1]
+    return Detections(
+        torch.gather(boxes_f, 1, safe[..., None].expand(b, d, 4)),
+        torch.where(keep, torch.gather(scores_f, 1, safe),
+                    torch.full(safe.shape, float("-inf"), device=safe.device)),
+        torch.gather(classes_f, 1, safe),
+        keep,
+    )
+
+
+def panoptic_fuse(seg_lg, boxes, classes, ms_logits, scores, valid, *,
+                  score_thresh: float, overlap_thresh: float, num_stuff: int):
+    """Panoptic fusion at 1/4 scale, batched: score filter -> MaskRemoval ->
+    streaming argmax. seg_lg (B, H, W, C); boxes (B, D, 4) image coords;
+    classes (B, D); ms_logits (B, D, M, M). Returns pan_map (B, H, W) int32
+    and keep (B, D) bool."""
+    seg_lg = seg_lg.float()
+    b, d, m, _ = ms_logits.shape
+    hw = (seg_lg.shape[1], seg_lg.shape[2])
+    boxes_q = boxes * 0.25
+    pasted = paste_masks(torch.sigmoid(ms_logits).reshape(b * d, m, m),
+                         boxes_q.reshape(b * d, 4), hw).reshape(b, d, *hw)
+    keep = pan_ops.mask_removal(pasted, valid & (scores >= score_thresh),
+                                overlap_thresh)
+    thing = (classes - 1).clamp(min=0)
+    pan_map = torch.stack([
+        pan_ops.panoptic_argmax_stream(seg_lg[i], boxes_q[i], thing[i],
+                                       ms_logits[i], keep[i], num_stuff)
+        for i in range(b)
+    ])
+    return pan_map, keep
+
+
+@torch.no_grad()
+def forward_predict(model: UPSNetModule, cfg: Config, anchors, batch) -> dict:
+    """Inference over batch = {"images": (B, H, W, 3), "im_hw": (B, 2)};
+    anchors: per-level (N_l, 4) tensors on the model's device. Returns the
+    JAX package's padded outputs: boxes, scores, classes, det_valid,
+    mask_logits, seg_logits, pan_map, pan_keep. Each stage runs inside a
+    ``predict.<stage>`` profiler range (free when no profiler records)."""
+    tc, net, ds = cfg.test, cfg.network, cfg.dataset
+    images = batch["images"]
+    im_hw = batch["im_hw"].float()
+    bsz = images.shape[0]
+    with record_function("predict.trunk"):
+        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        pyramid, rpn_cls, rpn_bbox, fcn_logits = model.extract(x)
+
+    with record_function("predict.proposals"):
+        rois, _, roi_valid = pyramid_proposals(
+            rpn_cls, rpn_bbox, anchors, im_hw,
+            pre_nms_top_n=tc.rpn_pre_nms_top_n,
+            post_nms_top_n=tc.rpn_post_nms_top_n,
+            nms_thresh=tc.rpn_nms_thresh,
+        )
+    with record_function("predict.box_branch"):
+        pb = net.pooled_size_box
+        pooled_box = _pool_boxes(pyramid, rois, pb, net.roi_sampling_ratio)
+        r = rois.shape[1]
+        cls_score, bbox_pred = model.box_head(pooled_box.reshape(bsz * r, pb, pb, -1))
+        c = cls_score.shape[-1]
+        scores = torch.softmax(cls_score.float(), -1).reshape(bsz, r, c)
+        deltas = bbox_pred.float().reshape(bsz, r, c, 4)
+        boxes_pc = clip_boxes(
+            decode_boxes(rois[:, :, None, :], deltas, tuple(net.bbox_reg_weights)),
+            im_hw)
+        scores = torch.where(roi_valid[..., None], scores, torch.zeros_like(scores))
+    with record_function("predict.detection_nms"):
+        dets = _detection_nms(boxes_pc, scores, tc, c)
+
+    with record_function("predict.mask_branch"):
+        pm = net.pooled_size_mask
+        pooled_mask = _pool_boxes(pyramid, dets.boxes, pm, net.roi_sampling_ratio)
+        d = dets.boxes.shape[1]
+        mask_all = model.mask_head(pooled_mask.reshape(bsz * d, pm, pm, -1)).float()
+        rows = torch.arange(bsz * d, device=mask_all.device)
+        mask_logits = mask_all[rows, dets.classes.reshape(-1)].reshape(
+            bsz, d, net.mask_size, net.mask_size)
+
+    with record_function("predict.panoptic"):
+        seg_logits = fcn_logits.float().permute(0, 2, 3, 1).contiguous()
+        pan_map, pan_keep = panoptic_fuse(
+            seg_logits, dets.boxes, dets.classes, mask_logits, dets.scores,
+            dets.valid, score_thresh=tc.panoptic_score_thresh,
+            overlap_thresh=tc.panoptic_mask_overlap_thresh,
+            num_stuff=ds.num_stuff,
+        )
+    return {
+        "boxes": dets.boxes,
+        "scores": dets.scores,
+        "classes": dets.classes.to(torch.int32),
+        "det_valid": dets.valid,
+        "mask_logits": mask_logits,
+        "seg_logits": seg_logits,
+        "pan_map": pan_map,  # (B, H/4, W/4) channel indices
+        "pan_keep": pan_keep,  # (B, D) detections present in pan_map
+    }

@@ -1,0 +1,94 @@
+"""Panoptic fusion ops for inference: SegTerm, MaskTerm, MaskRemoval and
+the streaming argmax.
+
+Port of the inference half of ``upsnet_tpu/ops/panoptic.py``. Panoptic
+logits over (S stuff + N instances + 1 unknown) channels at 1/4 scale:
+  Z[j]      = X_stuff_j
+  Z[S + i]  = SegTerm_i + MaskTerm_i
+  Z[S + N]  = max_c X_thing_c - max_i SegTerm_i
+The per-pixel argmax breaks ties first-wins in that order: stuff, then
+instances, then unknown. Single image, as the JAX functions (the batch is a
+loop in ``models.upsnet``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from upsnet_torch.ops.mask_paste import paste_masks
+
+
+def _box_window(boxes: torch.Tensor, hw, dtype) -> torch.Tensor:
+    """(N, H, W) indicator of each box's pixel window (inclusive coords)."""
+    h, w = hw
+    ys = torch.arange(h, dtype=boxes.dtype, device=boxes.device)[None, :, None]
+    xs = torch.arange(w, dtype=boxes.dtype, device=boxes.device)[None, None, :]
+    x1, y1, x2, y2 = (boxes[:, i][:, None, None] for i in range(4))
+    win = ((ys >= torch.floor(y1)) & (ys <= torch.ceil(y2))
+           & (xs >= torch.floor(x1)) & (xs <= torch.ceil(x2)))
+    return win.to(dtype)
+
+
+def seg_term(seg_logits: torch.Tensor, boxes: torch.Tensor,
+             classes: torch.Tensor, num_stuff: int) -> torch.Tensor:
+    """seg_logits (H, W, C) stuff first; boxes (N, 4) at seg scale; classes
+    (N,) thing index. Each instance's thing channel inside its box, 0
+    outside: (N, H, W)."""
+    h, w, _ = seg_logits.shape
+    chan = seg_logits[:, :, num_stuff:].permute(2, 0, 1)[classes.long()]
+    return chan * _box_window(boxes, (h, w), chan.dtype)
+
+
+def mask_term(mask_logits: torch.Tensor, boxes: torch.Tensor,
+              out_hw) -> torch.Tensor:
+    """Per-instance mask logits pasted into canvases (0 outside)."""
+    return paste_masks(mask_logits, boxes, out_hw)
+
+
+def panoptic_argmax_stream(seg_logits, boxes, classes, mask_logits,
+                           inst_valid, num_stuff: int) -> torch.Tensor:
+    """Per-pixel argmax over the panoptic stack without materialising it:
+    (max, argmax) per channel group combined with the first-wins order.
+    Returns (H, W) int32 channel indices."""
+    h, w, _ = seg_logits.shape
+    n = mask_logits.shape[0]
+    stuff_max, stuff_arg = seg_logits[:, :, :num_stuff].max(-1)
+
+    seg_t = seg_term(seg_logits, boxes, classes, num_stuff)
+    inst = seg_t + mask_term(mask_logits, boxes, (h, w))
+    neg = torch.tensor(-1e4, dtype=inst.dtype, device=inst.device)
+    valid = inst_valid[:, None, None]
+    inst = torch.where(valid, inst, neg)
+    inst_max, inst_arg = inst.max(0)
+
+    thing_max = seg_logits[:, :, num_stuff:].amax(-1)
+    segt_max = torch.where(valid, seg_t, neg).amax(0)
+    segt_max = torch.where(inst_valid.any(), segt_max, torch.zeros_like(segt_max))
+    unknown = thing_max - segt_max
+
+    stuff_wins = (stuff_max >= inst_max) & (stuff_max >= unknown)
+    inst_wins = inst_max >= unknown
+    pan = torch.where(stuff_wins, stuff_arg,
+                      torch.where(inst_wins, num_stuff + inst_arg,
+                                  torch.full_like(inst_arg, num_stuff + n)))
+    return pan.to(torch.int32)
+
+
+def mask_removal(masks: torch.Tensor, valid: torch.Tensor,
+                 overlap_keep_thresh: float = 0.5) -> torch.Tensor:
+    """Greedy de-overlap: walk the (score-sorted) masks in order, keep one
+    iff the fraction of its mask not yet claimed is >= the threshold; kept
+    masks claim their pixels. masks (..., N, H, W), valid (..., N), any
+    leading batch dims. Returns (..., N) bool. The scan stays on the
+    device: one step per detection, all images at once."""
+    bin_masks = masks >= 0.5
+    claimed = torch.zeros_like(bin_masks[..., 0, :, :])
+    keep = []
+    for i in range(masks.shape[-3]):
+        m, ok = bin_masks[..., i, :, :], valid[..., i]
+        area = m.sum(dim=(-2, -1)).float()
+        fresh = (m & ~claimed).sum(dim=(-2, -1)).float()
+        k = ok & (area > 0) & (fresh / area.clamp(min=1.0) >= overlap_keep_thresh)
+        claimed = claimed | (m & k[..., None, None])
+        keep.append(k)
+    return torch.stack(keep, dim=-1)
