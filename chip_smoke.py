@@ -9,20 +9,28 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. build: compile every CUDA kernel of ``upsnet_torch/csrc`` with nvcc, one
    process per source, all at once;
-2. kernels: each kernel against its plain PyTorch version on the card, on
-   the predict path's shapes at batch 2, with errors, kernel / plain /
-   library-call times (CUDA events, median of 30) and the least time the
-   card could take for the same work;
+2. kernels: each of the five kernels against its plain PyTorch version on
+   the card, on the shapes the predict path and the train step give it at
+   batch 2, with errors, kernel / plain / library-call times (CUDA events,
+   median of 30) and the least time the card could take for the same work;
 3. predict: ``resnet_50_upsnet`` at full width (COCO: 81 classes, 133 seg
    classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
-   offset biases set to +-2 px, serving three batch-2 requests through
+   offset biases set to +-2 px, serving two batch-2 requests through
    ``forward_predict``; the kernel launch counters must move by exactly 8
    (K1) and 2 (K4) per request; with ``--profile``, one more request under
-   torch.profiler (device time per stage and kernel, idle share); then a
-   tiny float32 model on the card against the same model on the CPU
-   (plain versions, no kernels).
+   torch.profiler (device time per stage and kernel, idle share);
+4. train: the same model in its train configuration (``dcn_impl: pallas``,
+   ``dcn_boundary_grad: clip``) takes four SGD steps through
+   ``train_steps`` on a synthetic batch of 2 (512 RoIs, 256 anchors, 100 GT
+   slots); every step must launch exactly 72 K2, 72 K3, 3 K4, 3 K5 and no
+   K1, give 7 finite loss terms, finite gradients everywhere, non-zero
+   offset-conv gradients, and leave the frozen parameters untouched; with
+   ``--profile``, one more step under torch.profiler;
+5. reference: a tiny float32 model on the card against the same model on
+   the CPU (plain versions, no kernels).
 
-The line before the last two is a JSON object with every kernel's numbers;
+The line before the last two is a JSON object with every kernel's numbers
+(``launches`` sums the predict and the train phase, each counted from 0);
 then the card's name and power limit; the last line is the device record.
 """
 
@@ -45,9 +53,13 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from upsnet_torch.config import default_config  # noqa: E402
+from upsnet_torch.data.synthetic import synthetic_batch  # noqa: E402
 from upsnet_torch.models import layers  # noqa: E402
 from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
 from upsnet_torch.ops import cuda_build, deform_sample, nms, roi_align_fpn  # noqa: E402
+from upsnet_torch.train.optimizer import make_optimizer  # noqa: E402
+from upsnet_torch.train.step import make_train_step  # noqa: E402
+from upsnet_torch.train.trainer import train_steps  # noqa: E402
 from upsnet_torch.ops.anchors import pyramid_anchors  # noqa: E402
 from upsnet_torch.ops.boxes import fpn_level_assignment  # noqa: E402
 from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords  # noqa: E402
@@ -106,6 +118,32 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.2f} s (nvcc {cuda_build.nvcc_path()})")
 
 
+def touched_rows(sy, sx, h: int, w: int) -> tuple[int, int]:
+    """For sample coordinates (..., H, W) over a stack of (H, W) maps, one
+    per leading index: how many distinct map rows (pixels) the counted
+    samples read, and how many samples count."""
+    inside = (sy > -1) & (sy < h) & (sx > -1) & (sx < w)
+    y0, x0 = sy.floor().long(), sx.floor().long()
+    lead = sy.shape[:-2]
+    plane_id = torch.arange(math.prod(lead), device=sy.device).reshape(*lead, 1, 1)
+    cells = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy, xx = y0 + dy, x0 + dx
+            ok = inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            cells.append(((plane_id * h + yy) * w + xx)[ok])
+    return int(torch.unique(torch.cat(cells)).numel()), int(inside.sum())
+
+
+def dcn_offsets(g, dev, shape) -> torch.Tensor:
+    """+-2 px offsets with 3% of them moved 6-12 px."""
+    off = torch.rand(shape, generator=g, device=dev) * 4 - 2
+    far = torch.rand(shape, generator=g, device=dev) < 0.03
+    mag = 6 + 6 * torch.rand(shape, generator=g, device=dev)
+    sign = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    return torch.where(far, sign * mag, off)
+
+
 def check_k1(dev) -> dict:
     """K1 at the four FCN levels of the path (P2 208x336 .. P5 26x42), C=128
     bf16, 9 taps: +-2 px offsets with 3% of the samples moved 6-12 px and 1%
@@ -123,15 +161,8 @@ def check_k1(dev) -> dict:
         iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
         ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
 
-        def offsets():
-            off = torch.rand(shape, generator=g, device=dev) * 4 - 2
-            far = torch.rand(shape, generator=g, device=dev) < 0.03
-            mag = 6 + 6 * torch.rand(shape, generator=g, device=dev)
-            sign = torch.where(torch.rand(shape, generator=g, device=dev) < 0.5, -1.0, 1.0)
-            return torch.where(far, sign * mag, off)
-
-        sy9 = iy + ky + offsets()
-        sx9 = (ix + kx + offsets()).contiguous()
+        sy9 = iy + ky + dcn_offsets(g, dev, shape)
+        sx9 = (ix + kx + dcn_offsets(g, dev, shape)).contiguous()
         edge = torch.rand(shape, generator=g, device=dev) < 0.01
         sy9 = torch.where(edge, sy9 + torch.where(sy9 < h / 2, -float(h), float(h)), sy9)
         return y9, sy9.contiguous(), sx9
@@ -174,18 +205,9 @@ def check_k1(dev) -> dict:
 
     # bytes this run needs: every projection row a counted sample touches
     # (once), the coordinates, the output; flops: 4 corners x 2 per channel
-    inside = (sy9 > -1) & (sy9 < h) & (sx9 > -1) & (sx9 < w)
-    y0, x0 = sy9.floor().long(), sx9.floor().long()
-    plane_id = (kk[:, None] * b + torch.arange(b, device=dev)[None, :])[..., None, None]
-    cells = []
-    for dy in (0, 1):
-        for dx in (0, 1):
-            yy, xx = y0 + dy, x0 + dx
-            ok = inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-            cells.append(((plane_id * h + yy) * w + xx)[ok])
-    n_rows = int(torch.unique(torch.cat(cells)).numel())
+    n_rows, n_inside = touched_rows(sy9, sx9, h, w)
     n_bytes = n_rows * c * 2 + 2 * sy9.numel() * 4 + got.numel() * 2
-    n_flops = int(inside.sum()) * 4 * 2 * c
+    n_flops = n_inside * 4 * 2 * c
     bound_ms, bound_by = bound(n_bytes, n_flops)
     print(f"[K1 deform_sample9] P2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"9x grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -274,6 +296,194 @@ def check_k4(dev) -> dict:
     return out
 
 
+def check_k2_k3(dev) -> tuple[dict, dict]:
+    """K2 and K3 on one tap at P2 of the 832x1344 bucket (2x208x336, C=128,
+    bf16), which is the largest of the four shapes a train step gives them:
+    offsets as in ``check_k1`` (+-2 px, 3% far, 1% beyond the edge) with 5%
+    of the samples on exactly integer rows and another 5% on integer
+    columns, where the coordinate derivative must be zero."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    b, c = BATCH, 128
+    h, w = BUCKET[0] // 4, BUCKET[1] // 4
+    shape = (b, h, w)
+    y = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    sy = iy + dcn_offsets(g, dev, shape)
+    sx = ix + dcn_offsets(g, dev, shape)
+    int_y = torch.rand(shape, generator=g, device=dev) < 0.05
+    int_x = torch.rand(shape, generator=g, device=dev) < 0.05
+    sy = torch.where(int_y, sy.round(), sy)
+    sx = torch.where(int_x, sx.round(), sx).contiguous()
+    edge = torch.rand(shape, generator=g, device=dev) < 0.01
+    sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy).contiguous()
+
+    # K2: the same four f32 products summed in another order, rounded once
+    # to bf16: at most one bf16 ulp (2^-7 relative) apart, plus slack near 0
+    rtol, atol = 2.0 ** -7, 1e-4
+    got = deform_sample.deform_sample(y, sy, sx)
+    ref = deform_sample.deform_sample_plain(y, sy, sx)
+    torch.cuda.synchronize()
+    k2_err, k2_rel = compare(got, ref, rtol, atol)
+    print(f"[K2 deform_sample] y {tuple(y.shape)} bf16: max abs err {k2_err:.3e}, max rel "
+          f"err {k2_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g})")
+
+    # K3. grad_y: f32 canvas sums (atomics on the card, so their order
+    # changes from run to run) rounded once to bf16: one bf16 ulp plus slack.
+    # gsy, gsx: f32 sums of 4 x 128 products of O(1) values in another
+    # order: 1e-4 relative plus 1e-3 absolute.
+    got3 = deform_sample.deform_sample_bwd(y, sy, sx, grad)
+    ref3 = deform_sample.deform_sample_bwd_plain(y, sy, sx, grad)
+    torch.cuda.synchronize()
+    k3_err, k3_rel = compare(got3[0], ref3[0], rtol, atol)
+    c_rtol, c_atol = 1e-4, 1e-3
+    gsy_err, _ = compare(got3[1], ref3[1], c_rtol, c_atol)
+    gsx_err, _ = compare(got3[2], ref3[2], c_rtol, c_atol)
+    at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
+    if float(got3[1][at_int_y].abs().max()) != 0.0 or float(got3[2][at_int_x].abs().max()) != 0.0:
+        raise AssertionError("K3: non-zero coordinate gradient at an integer coordinate")
+    if float(got3[1].abs().max()) == 0.0 or float(got3[2].abs().max()) == 0.0:
+        raise AssertionError("K3: coordinate gradients are all zero")
+    print(f"[K3 deform_sample_bwd] grad_y max abs err {k3_err:.3e}, max rel err "
+          f"{k3_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); gsy / gsx max abs err "
+          f"{gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); exactly 0 "
+          f"at the {int(at_int_y.sum())} integer rows and {int(at_int_x.sum())} integer columns")
+
+    # library yardsticks, on float32 copies made outside the timed calls (a
+    # bf16 grid cannot hold the coordinates): one grid_sample call for K2,
+    # and its backward op for K3. The latter differentiates one-sidedly at
+    # integer coordinates and in normalised coordinates, so it is a
+    # yardstick of speed only.
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
+    y32 = y.float().permute(0, 3, 1, 2).contiguous()
+    g32 = grad.float().permute(0, 3, 1, 2).contiguous()
+
+    def lib_fwd():
+        return F.grid_sample(y32, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    def lib_bwd():
+        return torch.ops.aten.grid_sampler_2d_backward(
+            g32, y32, grid, 0, 0, True, [True, True])
+
+    lib_err = float((lib_fwd().permute(0, 2, 3, 1) - ref.float()).abs().max())
+    k2_ms = time_ms(lambda: deform_sample.deform_sample(y, sy, sx))
+    k2_plain = time_ms(lambda: deform_sample.deform_sample_plain(y, sy, sx), 10)
+    k2_lib = time_ms(lib_fwd)
+    k3_ms = time_ms(lambda: deform_sample.deform_sample_bwd(y, sy, sx, grad))
+    k3_plain = time_ms(lambda: deform_sample.deform_sample_bwd_plain(y, sy, sx, grad), 10)
+    k3_lib = time_ms(lib_bwd)
+
+    # bytes this run needs. K2: the rows of y its counted samples touch, the
+    # coordinates, the output; 4 corners x 2 flops per channel. K3: those
+    # rows, g, the coordinates, grad_y (bf16, every element written) and the
+    # two coordinate gradients; 4 corners x 6 flops per channel.
+    n_rows, n_inside = touched_rows(sy, sx, h, w)
+    coords = 2 * sy.numel() * 4
+    k2_bytes = n_rows * c * 2 + coords + got.numel() * 2
+    k2_bound, k2_by = bound(k2_bytes, n_inside * 4 * 2 * c)
+    k3_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + y.numel() * 2
+    k3_flops = n_inside * 4 * 6 * c
+    k3_bound, k3_by = bound(k3_bytes, k3_flops)
+    print(f"[K2 deform_sample] kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, grid_sample "
+          f"{k2_lib:.4f} ms (max abs diff {lib_err:.3e}), bound {k2_bound:.4f} ms ({k2_by}: "
+          f"{k2_bytes / 1e6:.1f} MB)")
+    print(f"[K3 deform_sample_bwd] kernel {k3_ms:.4f} ms (zeroed canvas, kernel, cast), "
+          f"plain {k3_plain:.4f} ms, grid_sampler_2d_backward {k3_lib:.4f} ms, bound "
+          f"{k3_bound:.4f} ms ({k3_by}: {k3_bytes / 1e6:.1f} MB, {k3_flops / 1e9:.3f} GFLOP)")
+    k2 = {"name": "deform_sample", "route": "cuda",
+          "source": "upsnet_torch/csrc/deform_sample.cu",
+          "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:132",
+          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
+          "bound_by": k2_by, "library_ms": k2_lib}
+    k3 = {"name": "deform_sample_bwd", "route": "cuda",
+          "source": "upsnet_torch/csrc/deform_sample_bwd.cu",
+          "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:637",
+          "max_abs_err": max(k3_err, gsy_err, gsx_err), "ms": k3_ms, "plain_ms": k3_plain,
+          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib}
+    return k2, k3
+
+
+def check_k5(dev) -> dict:
+    """K5 into a bf16 832x1344 pyramid (C=256), batch 2, for the three calls
+    of one train step: 512 RoIs at 7x7 (box head), 128 at 14x14 (fg masks)
+    and 100 at 14x14 (GT boxes of the panoptic loss). The returned times and
+    bounds are the sums over the three; the error is the largest."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    c = 256
+    shapes = [(BATCH, -(-BUCKET[0] // s), -(-BUCKET[1] // s), c) for s in (4, 8, 16, 32)]
+    dtypes = [torch.bfloat16] * 4
+    # overlapping RoIs add up to thousands of f32 terms per canvas element in
+    # an order that atomics change from run to run, then round once to bf16:
+    # one bf16 ulp, plus 1e-3 where the terms cancel
+    rtol, atol = 2.0 ** -7, 1e-3
+    out = {"name": "fpn_roi_align_bwd", "route": "cuda",
+           "source": "upsnet_torch/csrc/roi_align_fpn_bwd.cu",
+           "replaces": "upsnet_tpu/ops/roi_align_pallas.py:465",
+           "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes", "library_ms": None}
+    for n_rois, pooled in ((512, 7), (128, 14), (100, 14)):
+        rois = _random_rois(g, dev, n_rois)
+        levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
+        grad = torch.randn((BATCH, n_rois, pooled, pooled, c), generator=g,
+                           device=dev).to(torch.bfloat16)
+        got = roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes, dtypes)
+        ref = roi_align_fpn.fpn_roi_align_bwd_plain(grad, rois, levels, shapes, dtypes)
+        torch.cuda.synchronize()
+        errs = [compare(a, r, rtol, atol) for a, r in zip(got, ref)]
+        max_abs = max(e[0] for e in errs)
+        if not any(float(a.abs().max()) > 0 for a in got):
+            raise AssertionError("K5: all level gradients are zero")
+        ms = time_ms(lambda: roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes,
+                                                             dtypes))
+        plain_ms = time_ms(lambda: roi_align_fpn.fpn_roi_align_bwd_plain(
+            grad, rois, levels, shapes, dtypes), 10)
+        # bytes: the gradient, RoIs and levels read, the four level gradients
+        # (bf16) written in full; flops: 4 samples x 4 corners x 2 per element
+        n_bytes = (grad.numel() * 2 + rois.numel() * 4 + levels.numel() * 4
+                   + sum(math.prod(sh) for sh in shapes) * 2)
+        n_flops = grad.numel() * (4 * 4 * 2 + 1)
+        bound_ms, bound_by = bound(n_bytes, n_flops)
+        print(f"[K5 fpn_roi_align_bwd] {n_rois} RoIs x2 at {pooled}x{pooled}: max abs err "
+              f"{max_abs:.3e}, max rel err {max(e[1] for e in errs):.3e} (tolerance "
+              f"{rtol:.4g}*|ref| + {atol:g}); kernel {ms:.4f} ms (zeroed canvases, kernel, "
+              f"casts), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP)")
+        out["max_abs_err"] = max(out["max_abs_err"], max_abs)
+        out["ms"] += ms
+        out["plain_ms"] += plain_ms
+        out["bound_ms"] += bound_ms
+    return out
+
+
+COUNTERS = {"deform_sample9": (deform_sample, "launches"),
+            "deform_sample": (deform_sample, "launches_fwd"),
+            "deform_sample_bwd": (deform_sample, "launches_bwd"),
+            "fpn_roi_align": (roi_align_fpn, "launches"),
+            "fpn_roi_align_bwd": (roi_align_fpn, "launches_bwd")}
+
+
+def reset_launches() -> None:
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in COUNTERS.items()}
+
+
+def shrink_bn_scales(model, generator) -> None:
+    """Frozen-BN scales uniform in [0.3, 0.6], below 1 as pretrained
+    statistics give them, so that activations stay O(1) through the random
+    trunk (identity affines let them grow with depth)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, layers.FrozenBatchNorm):
+                scale = torch.empty(m.scale.shape).uniform_(0.3, 0.6, generator=generator)
+                m.scale.copy_(scale)
+
+
 def perturb_offset_biases(model, generator) -> None:
     """Offset-conv biases uniform in [-2, 2] px, so that K1 samples at
     fractional positions as a trained checkpoint would."""
@@ -303,11 +513,10 @@ def phase_predict(dev) -> dict:
         "images": torch.empty((BATCH, *BUCKET, 3), device=dev).uniform_(-110.0, 140.0,
                                                                         generator=g),
         "im_hw": torch.tensor([IM_HW] * BATCH, device=dev),
-    } for _ in range(3)]
+    } for _ in range(2)]
     torch.cuda.synchronize()
 
-    deform_sample.launches = 0
-    roi_align_fpn.launches = 0
+    reset_launches()
     lat, per_request = [], []
     for i, batch in enumerate(batches):
         k1, k4 = deform_sample.launches, roi_align_fpn.launches
@@ -336,42 +545,57 @@ def phase_predict(dev) -> dict:
               f"detections, {int(out['pan_keep'].sum())} in pan_map, launches K1 "
               f"{per_request[-1][0]} K4 {per_request[-1][1]}, NMS fixpoint iterations "
               f"{nms.iterations} (RPN + detection)")
-    launches = {"deform_sample9": deform_sample.launches,
-                "fpn_roi_align": roi_align_fpn.launches}
+    launches = read_launches()
     for k1, k4 in per_request:
         if (k1, k4) != (8, 2):
             raise AssertionError(f"launches per forward K1 {k1} K4 {k4}, expected 8 and 2")
-    steady = statistics.median(lat[1:])
+    if any(launches[k] for k in ("deform_sample", "deform_sample_bwd", "fpn_roi_align_bwd")):
+        raise AssertionError(f"predict launched a training kernel: {launches}")
+    print(f"[predict] launches on this path: {launches}")
     print(f"[predict] latency per batch-2 request {[round(x, 2) for x in lat]} ms; "
-          f"steady (median of requests 1-2) {steady:.2f} ms = {BATCH * 1e3 / steady:.2f} img/s")
-    return launches, (model, cfg, anchors, batches[-1])
+          f"steady (request 1) {lat[1]:.2f} ms = {BATCH * 1e3 / lat[1]:.2f} img/s")
+    return launches, (lambda: forward_predict(model, cfg, anchors, batches[-1]))
 
 
-def phase_profile(model, cfg, anchors, batch, activities=None) -> None:
-    """One more request under torch.profiler. Per ``predict.*`` stage: host
+def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
+    """``run()`` once more under torch.profiler. Per ``<prefix>*`` stage: host
     ms (the CPU range), device span ms (first to last kernel of the range)
     and device busy ms (its kernels' durations); per kernel name, device
-    ms; and the device's idle share of the request's wall time."""
+    ms; and the device's idle share of the wall time. A stage named in
+    ``other_thread`` launches its kernels from another thread (the backward
+    pass runs on autograd's), so the profiler's device range for it is
+    empty or covers a stray kernel: it gets the device time between its
+    neighbours' device ranges instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = activities or [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        forward_predict(model, cfg, anchors, batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    host, span, spans, kernels = {}, {}, [], []
+    host, host_start, span, spans, kernels = {}, {}, {}, [], []
     for e in prof.events():
-        if e.name.startswith("predict."):
+        if e.name.startswith(prefix):
             ms = e.time_range.elapsed_us() / 1e3
-            if e.device_type == DeviceType.CUDA:
+            if e.device_type != DeviceType.CUDA:
+                host[e.name] = ms
+                host_start[e.name] = e.time_range.start
+            elif e.name not in other_thread:
                 span[e.name] = ms
                 spans.append((e.time_range.start, e.time_range.end, e.name))
-            else:
-                host[e.name] = ms
         elif e.device_type == DeviceType.CUDA:
             kernels.append(e)
+    order = sorted(host_start, key=host_start.get)
+    for i, name in enumerate(order):
+        if name not in other_thread:
+            continue
+        before = [e for s_, e, n in spans if n in order[:i]]
+        after = [s_ for s_, e, n in spans if n in order[i + 1:]]
+        start = max(before) if before else 0
+        end = min(after) if after else max(k.time_range.end for k in kernels)
+        span[name] = (end - start) / 1e3
+        spans.append((start, end, name))
     busy = {name: 0.0 for name in host}
     per_name: dict[str, float] = {}
     for k in kernels:
@@ -381,13 +605,100 @@ def phase_profile(model, cfg, anchors, batch, activities=None) -> None:
             if start <= k.time_range.start <= end:
                 busy[name] = busy.get(name, 0.0) + ms
     busy_ms = sum(per_name.values())
-    print(f"[profile] one request under torch.profiler: wall {wall_ms:.2f} ms, device busy "
+    tag = f"[profile {what}]"
+    print(f"{tag} under torch.profiler: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}, {len(kernels)} device ops")
-    print("[profile] per stage, host ms / device span ms / device busy ms: " + ", ".join(
-        f"{k[len('predict.'):]} {host[k]:.2f} / {span.get(k, 0.0):.2f} / {busy.get(k, 0.0):.2f}"
+    print(f"{tag} per stage, host ms / device span ms / device busy ms: " + ", ".join(
+        f"{k[len(prefix):]} {host[k]:.2f} / {span.get(k, 0.0):.2f} / {busy.get(k, 0.0):.2f}"
         for k in host))
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
-    print("[profile] top device ops (ms): " + "; ".join(f"{n[:70]} {v:.3f}" for n, v in top))
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:14]
+    print(f"{tag} top device ops (ms): " + "; ".join(f"{n[:70]} {v:.3f}" for n, v in top))
+
+
+TRAIN_STEPS = 4
+TRAIN_LAUNCHES = {"deform_sample9": 0, "deform_sample": 72, "deform_sample_bwd": 72,
+                  "fpn_roi_align": 3, "fpn_roi_align_bwd": 3}
+LOSS_KEYS = ("rpn_cls", "rpn_bbox", "cls", "bbox", "mask", "seg", "pano")
+
+
+def phase_train(dev):
+    """Four SGD steps of the full-width model on one synthetic batch of 2."""
+    cfg = default_config()
+    cfg = cfg.replace(network=dataclasses.replace(
+        cfg.network, dcn_impl="pallas", dcn_boundary_grad="clip", roi_align_impl="window"))
+    net, tc = cfg.network, cfg.train
+    print(f"[train] {cfg.symbol}: {net.compute_dtype} from {net.param_dtype} parameters, "
+          f"dcn_impl {net.dcn_impl}, dcn_boundary_grad {net.dcn_boundary_grad}, bucket "
+          f"{BUCKET}, batch {BATCH}, batch_rois {tc.batch_rois}, rpn_batch_size "
+          f"{tc.rpn_batch_size}, {tc.max_gt_instances} GT slots, lr {tc.lr}, grad_clip "
+          f"{tc.grad_clip}")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = build_model(cfg, device=dev, generator=gen)
+    perturb_offset_biases(model, gen)
+    shrink_bn_scales(model, gen)  # losses of a sane order, so the steps mean something
+    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
+        cfg, BUCKET, BATCH, seed=7, image_hw=tuple(int(x) for x in IM_HW)).items()}
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if not p.requires_grad}
+    trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    print(f"[train] {len(trainable)} trainable tensors "
+          f"({sum(p.numel() for p in trainable.values()) / 1e6:.2f} M parameters), "
+          f"{len(frozen)} frozen; {int(batch['gt_valid'].sum())} GT instances")
+    optimizer = make_optimizer(cfg, model)
+    noise_gen = torch.Generator(device=dev).manual_seed(11)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    marks = [time.perf_counter()]
+    per_step = []
+
+    def on_step(i, metrics):  # train_steps has read the losses: the step is done
+        marks.append(time.perf_counter())
+        per_step.append(read_launches())
+        bad = [k for k in LOSS_KEYS if not math.isfinite(metrics[k])]
+        if bad:
+            raise AssertionError(f"step {i}: non-finite loss terms {bad}: {metrics}")
+        print(f"[train] step {i}: {(marks[-1] - marks[-2]) * 1e3:.1f} ms, "
+              + ", ".join(f"{k} {metrics[k]:.4f}" for k in (*LOSS_KEYS, "total")))
+
+    history = train_steps(model, cfg, anchors, [batch] * TRAIN_STEPS, optimizer=optimizer,
+                          generator=noise_gen, on_step=on_step)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    prev = {k: 0 for k in launches}
+    for i, now in enumerate(per_step):
+        moved = {k: now[k] - prev[k] for k in now}
+        if moved != TRAIN_LAUNCHES:
+            raise AssertionError(f"step {i}: launches {moved}, expected {TRAIN_LAUNCHES}")
+        prev = now
+    if len(history) != TRAIN_STEPS or set(history[0]) != {*LOSS_KEYS, "total"}:
+        raise AssertionError(f"train_steps returned {len(history)} dicts, keys {set(history[0])}")
+    for name, p in trainable.items():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"{name}: missing or non-finite gradient")
+        if not torch.isfinite(p).all():
+            raise AssertionError(f"{name}: non-finite after {TRAIN_STEPS} steps")
+    offset_grads = {n: float(p.grad.abs().max()) for n, p in trainable.items()
+                    if "offset_conv" in n}
+    if not offset_grads or max(offset_grads.values()) == 0.0:
+        raise AssertionError(f"offset-conv gradients all zero: {offset_grads}")
+    now = dict(model.named_parameters())
+    for name, before in frozen.items():
+        if not torch.equal(now[name], before):
+            raise AssertionError(f"frozen parameter {name} changed")
+    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    steady = statistics.median(ms[1:])
+    print(f"[train] launches per step {TRAIN_LAUNCHES}; on this path {launches}")
+    print(f"[train] offset-conv max |grad| after the last step: "
+          + ", ".join(f"{n} {v:.3e}" for n, v in offset_grads.items()))
+    print(f"[train] step ms {[round(x, 1) for x in ms]}; step 0 {ms[0]:.1f} ms, steady "
+          f"(median of steps 1-3) {steady:.1f} ms = {BATCH * 1e3 / steady:.2f} img/s; "
+          f"peak memory allocated {peak / 2 ** 30:.2f} GiB; {len(frozen)} frozen tensors "
+          f"unchanged")
+    step = make_train_step(model, cfg, anchors, optimizer, generator=noise_gen)
+    return launches, (lambda: step(batch))
 
 
 def phase_reference(dev) -> None:
@@ -405,10 +716,7 @@ def phase_reference(dev) -> None:
     gen = torch.Generator().manual_seed(5)
     cpu_model = build_model(cfg, device="cpu", generator=gen)
     perturb_offset_biases(cpu_model, gen)
-    with torch.no_grad():
-        for m in cpu_model.modules():  # O(1) activations: frozen-BN scales < 1
-            if isinstance(m, layers.FrozenBatchNorm):
-                m.scale.uniform_(0.3, 0.6, generator=gen)
+    shrink_bn_scales(cpu_model, gen)
     gpu_model = build_model(cfg, device=dev)
     gpu_model.load_state_dict(cpu_model.state_dict())
     hw = (64, 96)
@@ -439,19 +747,27 @@ def phase_reference(dev) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one request with torch.profiler")
+                        help="also profile one request and one train step with "
+                             "torch.profiler")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = [check_k1(dev), check_k4(dev)]
-    launches, request = phase_predict(dev)
-    if args.profile:
-        phase_profile(*request)
+    kernels = [check_k1(dev), *check_k2_k3(dev), check_k4(dev), check_k5(dev)]
+    launches = {k["name"]: 0 for k in kernels}
+    for name, phase in (("predict", phase_predict), ("train", phase_train)):
+        counts, run = phase(dev)  # counts every kernel from 0 over its own path
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        if args.profile:
+            phase_profile(run, f"{name}.", name, other_thread=("train.backward",))
+        del run
+        torch.cuda.empty_cache()
     phase_reference(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} was not launched on a main path")
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,4 +1,4 @@
-"""JAX parameter tree -> ``upsnet_torch`` state_dict.
+"""JAX parameter tree <-> ``upsnet_torch`` state_dict.
 
 The port's module tree follows the flax tree name for name
 (``backbone_net.res2_0.conv1``, ``fpn.lateral2``,
@@ -15,7 +15,9 @@ layout transform, the inverse of ``upsnet_tpu/convert/torch_converter.py``:
   * FrozenBN ``scale`` / ``bias`` -> the module's buffers of the same name.
 
 Input is the tree as ``jax.device_get(params)`` gives it: nested dicts of
-numpy arrays. This module imports neither jax nor the JAX package.
+numpy arrays. ``to_jax`` runs the same rules backwards, so that parameters
+or gradients of the port can be held against the JAX package's leaf by
+leaf. This module imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -72,3 +74,41 @@ def load_jax_params(model: torch.nn.Module, tree: dict) -> None:
     land on a parameter or buffer of matching shape and every parameter and
     buffer must be filled, or this raises."""
     model.load_state_dict(jax_params_to_state_dict(tree), strict=True)
+
+
+def _restore_kernel(path: tuple, w: np.ndarray, like: np.ndarray) -> np.ndarray:
+    """The inverse of ``_convert_kernel`` for the leaf at ``path`` whose JAX
+    shape is ``like.shape``."""
+    if like.ndim == 4 and path[-2] in DECONV_NAMES:
+        return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]
+    if like.ndim == 4:
+        return np.transpose(w, (2, 3, 1, 0))
+    if like.ndim == 3:  # deformable conv: (out, in, k, k) -> tap-major
+        cout, cin = w.shape[:2]
+        return np.transpose(w.reshape(cout, cin, -1), (2, 1, 0))
+    if like.ndim == 2:
+        return w.T
+    raise ValueError(f"{'.'.join(path)}: unexpected kernel rank {like.ndim}")
+
+
+def to_jax(state_dict: dict, template: dict) -> dict:
+    """A state_dict-shaped mapping (name -> tensor or array: parameters, or
+    their gradients) as the JAX parameter tree of numpy arrays. ``template``
+    is a JAX tree of the same model; it gives the structure and each
+    kernel's rank. Every leaf of the template must be present."""
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            return {key: visit(val, path + (key,)) for key, val in node.items()}
+        name = "weight" if path[-1] == "kernel" else path[-1]
+        value = state_dict[".".join(path[:-1] + (name,))]
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        arr = np.asarray(value, np.float32)
+        if path[-1] == "kernel":
+            arr = _restore_kernel(path, arr, np.asarray(node))
+        if arr.shape != np.shape(node):
+            raise ValueError(f"{'.'.join(path)}: shape {arr.shape} != {np.shape(node)}")
+        return np.ascontiguousarray(arr)
+
+    return visit(template, ())

@@ -26,7 +26,8 @@ class FCNSubNet(nn.Module):
     def __init__(self, in_channels: int, channels: int = 128,
                  num_layers: int = 2, with_dcn: bool = True,
                  dcn_impl: str = "auto", dcn_max_dy: int = 6,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dcn_boundary_grad: str = "clip",
+                 dcn_impl_train: str = ""):
         super().__init__()
         self.layer_names = []
         cin = in_channels
@@ -34,7 +35,9 @@ class FCNSubNet(nn.Module):
             if with_dcn:
                 name = f"dcn{i + 1}"
                 layer = DeformConv(cin, channels, 3, dtype=dtype, impl=dcn_impl,
-                                   max_dy=dcn_max_dy)
+                                   max_dy=dcn_max_dy,
+                                   boundary_grad=dcn_boundary_grad,
+                                   impl_train=dcn_impl_train)
             else:
                 name = f"conv{i + 1}"
                 layer = Conv2d(cin, channels, 3, bias=True, dtype=dtype)
@@ -53,12 +56,14 @@ class FCNHead(nn.Module):
                  channels: int = 128, num_layers: int = 2,
                  with_dcn: bool = True, shared_subnet: bool = True,
                  dcn_impl: str = "auto", dcn_max_dy: int = 6,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dcn_boundary_grad: str = "clip",
+                 dcn_impl_train: str = ""):
         super().__init__()
 
         def subnet():
             return FCNSubNet(in_channels, channels, num_layers, with_dcn,
-                             dcn_impl, dcn_max_dy, dtype)
+                             dcn_impl, dcn_max_dy, dtype, dcn_boundary_grad,
+                             dcn_impl_train)
 
         self.shared_subnet = shared_subnet
         if shared_subnet:

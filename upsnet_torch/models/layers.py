@@ -103,17 +103,21 @@ class DeformConv(nn.Module):
     predicts the offsets, ``ops.deform_conv.deform_conv2d`` consumes them.
 
     ``weight`` is (out, in, k, k) like a torch conv; ``impl`` is the JAX
-    ``dcn_impl`` ('auto'/'gather' exact, 'pallas'/'mxu' dy clamped to
-    +-max_dy).
+    ``dcn_impl`` ('auto'/'gather' exact, 'pallas'/'mxu' dy clipped to
+    +-max_dy). ``impl_train`` (default: ``impl``) takes its place whenever
+    autograd records, as the JAX train step swaps in ``dcn_impl_train``;
+    ``boundary_grad`` is the gradient of that clip.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3,
                  dilation: int = 1, use_bias: bool = True,
-                 dtype=torch.float32, impl: str = "auto", max_dy: int = 6):
+                 dtype=torch.float32, impl: str = "auto", max_dy: int = 6,
+                 boundary_grad: str = "clip", impl_train: str = ""):
         super().__init__()
         k = kernel_size
         self.kernel_size, self.dilation = k, dilation
         self.dtype, self.impl, self.max_dy = dtype, impl, max_dy
+        self.boundary_grad, self.impl_train = boundary_grad, impl_train or impl
         self.offset_conv = nn.Conv2d(cin, 2 * k * k, k, dilation=dilation,
                                      padding=dilation * (k // 2))
         self.weight = nn.Parameter(torch.empty(features, cin, k, k))
@@ -135,6 +139,7 @@ class DeformConv(nn.Module):
         y = deform_conv2d(
             x.to(self.dtype).permute(0, 2, 3, 1), offsets.permute(0, 2, 3, 1),
             w_taps, self.bias, kernel_size=k, dilation=self.dilation,
-            impl=self.impl, max_dy=self.max_dy,
+            impl=self.impl_train if torch.is_grad_enabled() else self.impl,
+            max_dy=self.max_dy, boundary_grad=self.boundary_grad,
         )
         return y.permute(0, 3, 1, 2)

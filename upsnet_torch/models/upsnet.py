@@ -1,12 +1,17 @@
-"""UPSNet: full assembly and the inference forward.
+"""UPSNet: full assembly, the training forward and the inference forward.
 
-Port of ``upsnet_tpu/models/upsnet.py`` (predict half). ``UPSNetModule``
-holds the parametered sub-networks; ``forward_predict`` runs the predict
-path over a batch: dense trunk -> proposals + NMS -> box ROIAlign (K4) ->
-box head -> joint class-offset detection NMS -> mask ROIAlign (K4) -> mask
-head -> panoptic fusion. The FCN head's deformable convs run the sampling
-kernel K1. Shapes stay static: proposals padded to ``rpn_post_nms_top_n``,
-detections to ``max_det``.
+Port of ``upsnet_tpu/models/upsnet.py``. ``UPSNetModule`` holds the
+parametered sub-networks. ``forward_predict`` runs the predict path over a
+batch: dense trunk -> proposals + NMS -> box ROIAlign (K4) -> box head ->
+joint class-offset detection NMS -> mask ROIAlign (K4) -> mask head ->
+panoptic fusion; the FCN head's deformable convs run the sampling kernel
+K1. ``forward_train`` returns the 7-term loss dict: the same trunk with the
+per-tap sampler (K2, backward K3), anchor and RoI target assignment on the
+device, ROIAlign through ``FPNRoIAlign`` (K4, backward K5) for the box
+head, the fg mask head and the GT-box mask logits of the teacher-forced
+panoptic loss. Shapes stay static: proposals padded to
+``rpn_post_nms_top_n``, sampled RoIs to ``batch_rois``, detections to
+``max_det``, GT to ``max_gt_instances``.
 
 Public tensors keep the JAX package's layouts: images (B, H, W, 3) in,
 ``seg_logits`` (B, H/4, W/4, C) out. Inside, convs run NCHW.
@@ -30,11 +35,14 @@ from upsnet_torch.models.registry import register_model
 from upsnet_torch.models.resnet import ResNetBackbone
 from upsnet_torch.models.rpn import RPNHead
 from upsnet_torch.ops import panoptic as pan_ops
+from upsnet_torch.ops.anchors import FPN_STRIDES
 from upsnet_torch.ops.boxes import clip_boxes, decode_boxes, fpn_level_assignment
 from upsnet_torch.ops.mask_paste import paste_masks
 from upsnet_torch.ops.nms import batched_class_nms
 from upsnet_torch.ops.proposals import pyramid_proposals, top_k
-from upsnet_torch.ops.roi_align_fpn import fpn_roi_align
+from upsnet_torch.ops.roi_align_fpn import FPNRoIAlign
+from upsnet_torch.ops.targets import proposal_mask_targets, rpn_targets
+from upsnet_torch.train import losses as L
 
 
 class UPSNetModule(nn.Module):
@@ -46,7 +54,8 @@ class UPSNetModule(nn.Module):
                  fcn_dim: int = 128, fcn_num_layers: int = 2,
                  fcn_with_dcn: bool = True, fcn_shared_subnet: bool = True,
                  dcn_impl: str = "auto", dcn_max_dy: int = 6,
-                 pooled_size_box: int = 7, dtype=torch.float32):
+                 pooled_size_box: int = 7, dtype=torch.float32,
+                 dcn_boundary_grad: str = "clip", dcn_impl_train: str = ""):
         super().__init__()
         self.backbone_net = ResNetBackbone(backbone, dtype)
         self.fpn = FPN((256, 512, 1024, 2048), fpn_dim, dtype)
@@ -56,7 +65,8 @@ class UPSNetModule(nn.Module):
         self.mask_head = MaskHead(num_classes, fpn_dim, dtype=dtype)
         self.fcn_head = FCNHead(num_seg_classes, fpn_dim, fcn_dim,
                                 fcn_num_layers, fcn_with_dcn, fcn_shared_subnet,
-                                dcn_impl, dcn_max_dy, dtype)
+                                dcn_impl, dcn_max_dy, dtype, dcn_boundary_grad,
+                                dcn_impl_train)
 
     def extract(self, images):
         """Backbone + FPN + RPN + semantic head (the dense trunk).
@@ -77,13 +87,28 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters(generator)
 
 
+def freeze_stages(model: UPSNetModule, frozen_stages) -> None:
+    """``requires_grad_(False)`` on the backbone's conv1 (stage 1) and res2
+    blocks (stage 2) when listed, as the reference freezes them. FrozenBN
+    affines are buffers and never train."""
+    prefixes = []
+    if 1 in frozen_stages:
+        prefixes.append("backbone_net.conv1.")
+    if 2 in frozen_stages:
+        prefixes.append("backbone_net.res2_")
+    for name, p in model.named_parameters():
+        if name.startswith(tuple(prefixes)):
+            p.requires_grad_(False)
+
+
 def build_model(cfg: Config, device=None,
                 generator: torch.Generator | None = None) -> UPSNetModule:
     """The model of ``cfg`` in eval mode on ``device`` (CUDA unless the
     caller passes another device), initialised from ``generator`` (default:
-    seeded with ``cfg.seed``). Raises when no device is given and CUDA is
-    not available. Turns TF32 off: the JAX package computes its float32
-    convs and matmuls (DCN offsets, mask paste) in full float32."""
+    seeded with ``cfg.seed``), with ``cfg.network.frozen_stages`` frozen.
+    Raises when no device is given and CUDA is not available. Turns TF32
+    off: the JAX package computes its float32 convs and matmuls (DCN
+    offsets, mask paste) in full float32."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("build_model: no CUDA device; pass device='cpu' "
@@ -109,7 +134,10 @@ def build_model(cfg: Config, device=None,
         dcn_max_dy=net.dcn_max_dy,
         pooled_size_box=net.pooled_size_box,
         dtype=getattr(torch, net.compute_dtype),
+        dcn_boundary_grad=net.dcn_boundary_grad,
+        dcn_impl_train=net.dcn_impl_train,
     )
+    freeze_stages(model, net.frozen_stages)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
@@ -147,11 +175,178 @@ class Detections(NamedTuple):
 
 
 def _pool_boxes(pyramid, rois, pooled: int, sampling_ratio: int = 2):
-    """FPN ROIAlign of rois (B, R, 4) over P2..P5 (NCHW) -> (B, R, P, P, C)."""
+    """FPN ROIAlign of rois (B, R, 4) over P2..P5 (NCHW) -> (B, R, P, P, C),
+    differentiable in the pyramid only."""
+    rois = rois.detach().contiguous()
     levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
     feats = tuple(p.permute(0, 2, 3, 1).contiguous() for p in pyramid[:4])
-    return fpn_roi_align(feats, rois.contiguous(), levels, pooled=pooled,
-                         sampling_ratio=sampling_ratio)
+    return FPNRoIAlign.apply(rois, levels, pooled, sampling_ratio,
+                             FPN_STRIDES[:4], *feats)
+
+
+def _flatten_rpn(rpn_cls, rpn_bbox):
+    """Per-level (B, H, W, A*k) -> (B, sum HWA, k), row-major (y, x, a) to
+    match the anchor grid layout."""
+    cls_flat = [c.reshape(c.shape[0], -1, 2) for c in rpn_cls]
+    bbox_flat = [b.reshape(b.shape[0], -1, 4) for b in rpn_bbox]
+    return torch.cat(cls_flat, 1), torch.cat(bbox_flat, 1)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+NOISE_KEYS = ("rpn_fg", "rpn_bg", "roi_fg", "roi_bg", "unknown")
+
+
+def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
+                  noise: dict | None = None,
+                  generator: torch.Generator | None = None):
+    """One training forward pass. Returns (total_loss, loss_dict) with the
+    keys rpn_cls, rpn_bbox, cls, bbox, mask, seg, pano.
+
+    batch: images (B, H, W, 3), im_hw (B, 2), gt_boxes (B, G, 4), gt_classes
+    (B, G), gt_valid (B, G), gt_masks (B, G, H/4, W/4), seg_gt (B, H/4, W/4);
+    optional crowd_boxes (B, Gc, 4) and crowd_valid (B, Gc). anchors:
+    per-level (N_l, 4) tensors on the model's device.
+
+    Randomness enters through uniform [0, 1) draws only, each optional in
+    ``noise``: ``rpn_fg``, ``rpn_bg`` (B, anchors) and ``roi_fg``, ``roi_bg``
+    (B, proposals + G) sampling priorities, and ``unknown`` (B, G), which
+    routes GT instance i to the unknown channel where it exceeds
+    ``panoptic_box_keep_fraction``. Absent ones are drawn from ``generator``
+    on the batch's device. Each stage runs inside a ``train.<stage>``
+    profiler range.
+    """
+    tc, net, ds = cfg.train, cfg.network, cfg.dataset
+    noise = noise or {}
+    unknown_keys = set(noise) - set(NOISE_KEYS)
+    if unknown_keys:
+        raise KeyError(f"unknown noise keys {sorted(unknown_keys)}")
+    images = batch["images"]
+    bsz = images.shape[0]
+    dev = images.device
+    im_hw = batch["im_hw"].float()
+    gt_boxes, gt_valid = batch["gt_boxes"], batch["gt_valid"]
+    gt_classes = batch["gt_classes"]
+    gcn = tc.max_crowd_instances
+    crowd_boxes = batch.get("crowd_boxes")
+    if crowd_boxes is None:
+        crowd_boxes = torch.zeros((bsz, gcn, 4), device=dev)
+    crowd_valid = batch.get("crowd_valid")
+    if crowd_valid is None:
+        crowd_valid = torch.zeros((bsz, gcn), dtype=torch.bool, device=dev)
+
+    with record_function("train.trunk"):
+        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        pyramid, rpn_cls, rpn_bbox, fcn_logits = model.extract(x)
+        cls_flat, bbox_flat = _flatten_rpn(rpn_cls, rpn_bbox)
+
+    with record_function("train.targets"), torch.no_grad():
+        rt = rpn_targets(
+            torch.cat(list(anchors), dim=0), gt_boxes, gt_valid, im_hw,
+            batch_size=tc.rpn_batch_size, fg_fraction=tc.rpn_fg_fraction,
+            positive_overlap=tc.rpn_positive_overlap,
+            negative_overlap=tc.rpn_negative_overlap,
+            straddle_thresh=tc.rpn_straddle_thresh,
+            crowd_boxes=crowd_boxes, crowd_valid=crowd_valid,
+            crowd_thresh=tc.crowd_filter_thresh,
+            pri_fg=noise.get("rpn_fg"), pri_bg=noise.get("rpn_bg"),
+            generator=generator,
+        )
+        # proposals carry no gradient (the JAX stop_gradient)
+        rois, _, roi_valid = pyramid_proposals(
+            rpn_cls, rpn_bbox, anchors, im_hw,
+            pre_nms_top_n=tc.rpn_pre_nms_top_n,
+            post_nms_top_n=tc.rpn_post_nms_top_n,
+            nms_thresh=tc.rpn_nms_thresh, min_size=tc.rpn_min_size,
+        )
+        tgt = proposal_mask_targets(
+            rois, roi_valid, gt_boxes, gt_classes, gt_valid, batch["gt_masks"],
+            batch_rois=tc.batch_rois, fg_fraction=tc.fg_fraction,
+            fg_thresh=tc.fg_thresh, bg_thresh_hi=tc.bg_thresh_hi,
+            bg_thresh_lo=tc.bg_thresh_lo,
+            bbox_weights=tuple(net.bbox_reg_weights), mask_size=net.mask_size,
+            mask_scale=0.25,  # gt_masks live at 1/4 scale
+            crowd_boxes=crowd_boxes, crowd_valid=crowd_valid,
+            crowd_thresh=tc.crowd_filter_thresh,
+            pri_fg=noise.get("roi_fg"), pri_bg=noise.get("roi_bg"),
+            generator=generator,
+        )
+
+    with record_function("train.rpn_loss"):
+        loss_rpn_cls = L.rpn_cls_loss(cls_flat.reshape(-1, 2), rt.labels.reshape(-1))
+        loss_rpn_bbox = L.rpn_bbox_loss(
+            bbox_flat.reshape(-1, 4), rt.bbox_targets.reshape(-1, 4),
+            rt.bbox_inside.reshape(-1), rt.norm.sum())
+
+    with record_function("train.box_branch"):
+        pb, r = net.pooled_size_box, tc.batch_rois
+        pooled_box = _pool_boxes(pyramid, tgt.rois, pb, net.roi_sampling_ratio)
+        cls_score, bbox_pred = model.box_head(pooled_box.reshape(bsz * r, pb, pb, -1))
+        loss_cls = L.rcnn_cls_loss(cls_score, tgt.labels.reshape(-1),
+                                   tgt.valid.reshape(-1))
+        loss_bbox = L.rcnn_bbox_loss(
+            bbox_pred, tgt.labels.reshape(-1), tgt.bbox_targets.reshape(-1, 4),
+            tgt.fg.reshape(-1), tgt.valid.reshape(-1))
+
+    # mask head on the fg RoIs, which occupy the first k_fg slots
+    with record_function("train.mask_branch"):
+        pm, ms = net.pooled_size_mask, net.mask_size
+        k_fg = int(tc.batch_rois * tc.fg_fraction)
+        pooled_mask = _pool_boxes(pyramid, tgt.rois[:, :k_fg], pm, net.roi_sampling_ratio)
+        mask_logits = model.mask_head(pooled_mask.reshape(bsz * k_fg, pm, pm, -1))
+        loss_mask = L.mask_loss(
+            mask_logits, tgt.labels[:, :k_fg].reshape(-1),
+            tgt.mask_targets[:, :k_fg].reshape(-1, ms, ms), tgt.fg[:, :k_fg].reshape(-1))
+
+    zero = torch.zeros((), device=dev)
+    seg_gt = batch["seg_gt"].long()
+    with record_function("train.seg_loss"):
+        seg_logits = fcn_logits.permute(0, 2, 3, 1)  # (B, H/4, W/4, C)
+        loss_seg = L.seg_loss(seg_logits, seg_gt) if net.has_fcn_head else zero
+        if net.has_fcn_head and tc.fcn_with_roi_loss:
+            roi_seg = L.seg_roi_loss(seg_logits, seg_gt, gt_boxes * 0.25, gt_valid)
+            loss_seg = loss_seg + tc.fcn_roi_loss_weight * roi_seg.mean()
+
+    # panoptic head, teacher-forced: GT boxes and classes with the mask
+    # head's logits for them; needs the semantic head
+    with record_function("train.panoptic"):
+        if net.has_panoptic_head and net.has_fcn_head:
+            g = gt_boxes.shape[1]
+            pooled_gt = _pool_boxes(pyramid, gt_boxes, pm, net.roi_sampling_ratio)
+            gt_mask_logits = model.mask_head(pooled_gt.reshape(bsz * g, pm, pm, -1))
+            rows = torch.arange(bsz * g, device=dev)
+            gt_chan = gt_mask_logits.float()[rows, gt_classes.reshape(-1).long()]
+            gt_chan = gt_chan.reshape(bsz, g, ms, ms)
+            draw = noise.get("unknown")
+            if draw is None:
+                draw = torch.rand((bsz, g), device=dev, generator=generator)
+            to_unknown = draw > tc.panoptic_box_keep_fraction
+            seg_f = seg_logits.float()
+            per_image = []
+            for i in range(bsz):
+                pan_logits = pan_ops.panoptic_logits(
+                    seg_f[i], gt_boxes[i] * 0.25, (gt_classes[i].long() - 1).clamp(min=0),
+                    gt_chan[i], gt_valid[i] & ~to_unknown[i], ds.num_stuff)
+                pan_gt = pan_ops.mask_matching(
+                    seg_gt[i], batch["gt_masks"][i], gt_valid[i], to_unknown[i],
+                    ds.num_stuff)
+                per_image.append(L.panoptic_loss(pan_logits, pan_gt.long()))
+            loss_pano = torch.stack(per_image).mean()
+        else:
+            loss_pano = zero
+
+    losses = {
+        "rpn_cls": loss_rpn_cls,
+        "rpn_bbox": loss_rpn_bbox,
+        "cls": loss_cls,
+        "bbox": loss_bbox,
+        "mask": loss_mask,
+        "seg": loss_seg * tc.fcn_loss_weight,
+        "pano": loss_pano * tc.panoptic_loss_weight,
+    }
+    return sum(losses.values()), losses
 
 
 def _detection_nms(boxes_pc, scores_pc, cfg_test, num_classes: int) -> Detections:

@@ -1,4 +1,4 @@
-"""Box utilities: IoU, decode, clip, FPN level assignment.
+"""Box utilities: IoU, encode, decode, clip, FPN level assignment.
 
 Port of ``upsnet_tpu/ops/boxes.py``. Boxes are ``(x1, y1, x2, y2)`` with the
 Detectron **legacy +1 convention** (``width = x2 - x1 + 1``), which the
@@ -37,6 +37,25 @@ def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor,
     union = a1 + a2 - inter
     iou = inter / union.clamp(min=1e-12)
     return torch.where(union > 0, iou, torch.zeros_like(iou))
+
+
+def encode_boxes(boxes: torch.Tensor, gt_boxes: torch.Tensor,
+                 weights=(1.0, 1.0, 1.0, 1.0), offset: float = 1.0) -> torch.Tensor:
+    """Box regression targets (dx, dy, dw, dh) from ``boxes`` to ``gt_boxes``."""
+    w, h = box_wh(boxes, offset)
+    cx = boxes[..., 0] + 0.5 * w
+    cy = boxes[..., 1] + 0.5 * h
+    gw, gh = box_wh(gt_boxes, offset)
+    gcx = gt_boxes[..., 0] + 0.5 * gw
+    gcy = gt_boxes[..., 1] + 0.5 * gh
+    wx, wy, ww, wh_ = weights
+    w = w.clamp(min=1e-6)
+    h = h.clamp(min=1e-6)
+    dx = wx * (gcx - cx) / w
+    dy = wy * (gcy - cy) / h
+    dw = ww * torch.log(gw.clamp(min=1e-6) / w)
+    dh = wh_ * torch.log(gh.clamp(min=1e-6) / h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_boxes(boxes: torch.Tensor, deltas: torch.Tensor,

@@ -1,21 +1,25 @@
 """Deformable convolution (DCNv1), project-then-sample.
 
-Port of the inference forward of ``upsnet_tpu/ops/deform_conv.py`` and of
-``deform_conv_pallas.py:_fused_untiled``:
+Port of ``upsnet_tpu/ops/deform_conv.py`` and of the two untiled forms of
+``deform_conv_pallas.py``: ``_fused_untiled`` (inference) and
+``_pertap_untiled`` (training), chosen as ``_untiled_dispatch`` chooses:
 
     y(p) = sum_k W_k . x(p + p_k * dilation + dp_k(p))
          = sum_k (x @ W_k)(p + p_k * dilation + dp_k(p))
 
 Bilinear interpolation is linear, so each tap's weight is applied first (one
-plain matmul per tap into a tap-major stack) and the K1 kernel
-(``ops/deform_sample.py``) samples and sums the projections.
+plain matmul per tap into a tap-major stack). Without gradients the K1
+kernel (``ops/deform_sample.py``) samples and sums the projections in one
+launch. When gradients are recorded, each tap goes through ``DeformSample``
+(forward K2, backward K3) and the taps are added in ``x.dtype`` in tap
+order, which in bf16 is what the JAX package's training does.
 
 Offsets are ``(..., 2K)`` ordered ``(dy_0, dx_0, dy_1, dx_1, ...)`` over the
 row-major taps, as in the reference. Routing on the card has no window:
 
   * ``auto`` / ``gather``: exact sampling at the offsets as given;
-  * ``pallas`` / ``mxu``: dy clamped to +-max_dy first (the JAX windowed
-    routes' forward), dx unrestricted, then the same kernel.
+  * ``pallas`` / ``mxu``: dy clipped to +-max_dy first by ``clip_offsets``
+    (the JAX windowed routes), dx unrestricted, then the same kernels.
 
 Any odd kernel size works; stride is 1 (the caffe ResNet keeps every 3x3
 at stride 1).
@@ -25,24 +29,60 @@ from __future__ import annotations
 
 import torch
 
-from upsnet_torch.ops.deform_sample import deform_sample9
+from upsnet_torch.ops.deform_sample import DeformSample, deform_sample9
 
 CLIPPED_IMPLS = ("pallas", "mxu")
 EXACT_IMPLS = ("auto", "gather")
 
 
-def clip_offsets(v: torch.Tensor, bound: float) -> torch.Tensor:
-    """The inference forward of every ``boundary_grad`` mode of the JAX
-    ``clip_offsets`` with ``'clip'``: a clamp to [-bound, bound]."""
-    return v.clamp(-bound, bound)
+BOUNDARY_GRADS = ("clip", "damped", "straight_through")
+
+
+class _DampedClip(torch.autograd.Function):
+    """Clip to +-(bound - 1e-3) with a one-sided backward: inside the window
+    the gradient passes; outside it passes only where a descent step would
+    move the value back toward the window (g has the sign of v)."""
+
+    @staticmethod
+    def forward(ctx, v, bound: float):
+        ctx.save_for_backward(v)
+        ctx.bound = bound
+        return v.clamp(-(bound - 1e-3), bound - 1e-3)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        keep = (v.abs() < ctx.bound - 1e-3) | (g * torch.sign(v) > 0)
+        return torch.where(keep, g, torch.zeros_like(g)), None
+
+
+def clip_offsets(v: torch.Tensor, bound: float,
+                 boundary_grad: str = "clip") -> torch.Tensor:
+    """Clip offsets into the reachable window (the JAX ``clip_offsets``).
+
+    ``clip``: a clamp to [-bound, bound] with its true gradient, zero beyond
+    the window. ``damped``: clamp to +-(bound - 1e-3); beyond the window the
+    gradient passes only when it points back inside. ``straight_through``:
+    the same clamp with the full gradient passed through. The two latter
+    stop 1e-3 short of the bound because a sample exactly on a grid row has
+    a zero coordinate derivative.
+    """
+    if boundary_grad == "clip":
+        return v.clamp(-bound, bound)
+    if boundary_grad == "damped":
+        return _DampedClip.apply(v, float(bound))
+    if boundary_grad == "straight_through":
+        c = v.clamp(-(bound - 1e-3), bound - 1e-3)
+        return v + (c - v).detach()
+    raise ValueError(f"boundary_grad {boundary_grad!r} not in {BOUNDARY_GRADS}")
 
 
 def sample_coords(offsets: torch.Tensor, kernel_size: int, dilation: int,
-                  max_dy: int | None = None):
+                  max_dy: int | None = None, boundary_grad: str = "clip"):
     """Per-tap absolute f32 sample coordinates.
 
-    offsets (B, H, W, 2K) -> sy9, sx9 (K, B, H, W); dy clamped to +-max_dy
-    when max_dy is given.
+    offsets (B, H, W, 2K) -> sy9, sx9 (K, B, H, W); dy clipped to +-max_dy
+    by ``clip_offsets`` when max_dy is given.
     """
     b, h, w, _ = offsets.shape
     k = kernel_size * kernel_size
@@ -51,7 +91,7 @@ def sample_coords(offsets: torch.Tensor, kernel_size: int, dilation: int,
     off_y = off[..., 0::2].permute(3, 0, 1, 2)
     off_x = off[..., 1::2].permute(3, 0, 1, 2)
     if max_dy is not None:
-        off_y = clip_offsets(off_y, float(max_dy))
+        off_y = clip_offsets(off_y, float(max_dy), boundary_grad)
     dev = offsets.device
     iy = torch.arange(h, dtype=torch.float32, device=dev)[None, None, :, None]
     ix = torch.arange(w, dtype=torch.float32, device=dev)[None, None, None, :]
@@ -75,12 +115,14 @@ def tap_projections(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None = None, kernel_size: int = 3,
-                  dilation: int = 1, impl: str = "auto",
-                  max_dy: int = 6) -> torch.Tensor:
+                  dilation: int = 1, impl: str = "auto", max_dy: int = 6,
+                  boundary_grad: str = "clip") -> torch.Tensor:
     """Deformable 2-D convolution, stride 1, SAME padding.
 
     x (B, H, W, Cin); offsets (B, H, W, 2K); weight (K, Cin, Cout) tap-major;
-    bias (Cout,). Returns (B, H, W, Cout) in x.dtype.
+    bias (Cout,). Returns (B, H, W, Cout) in x.dtype. Differentiable in x,
+    offsets, weight and bias; ``boundary_grad`` is the gradient of the dy
+    clip of the windowed impls.
     """
     if impl in CLIPPED_IMPLS:
         clip = max_dy
@@ -91,8 +133,15 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     if kernel_size % 2 != 1:
         raise ValueError(f"kernel_size must be odd, got {kernel_size}")
     y9 = tap_projections(x, weight)
-    sy9, sx9 = sample_coords(offsets, kernel_size, dilation, clip)
-    out = deform_sample9(y9, sy9, sx9)
+    sy9, sx9 = sample_coords(offsets, kernel_size, dilation, clip, boundary_grad)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, offsets, weight)):
+        out = None
+        for y, sy, sx in zip(y9.unbind(0), sy9.unbind(0), sx9.unbind(0)):
+            tap = DeformSample.apply(y, sy, sx)
+            out = tap if out is None else out + tap
+    else:
+        out = deform_sample9(y9, sy9, sx9)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -1,6 +1,12 @@
-"""K1: summed deformable bilinear sampling of tap-major projections.
+"""K1, K2, K3: deformable bilinear sampling of tap projections and its
+backward.
 
-Replaces the TPU kernel ``upsnet_tpu/ops/deform_conv_pallas.py:
+K1 (``deform_sample9``), the inference sampler, sums all taps in one launch.
+K2 (``deform_sample``) is one tap of it and K3 (``deform_sample_bwd``) its
+backward; ``DeformSample`` ties the two into autograd for training. K2 and
+K3 are described above their wrappers below.
+
+K1 replaces the TPU kernel ``upsnet_tpu/ops/deform_conv_pallas.py:
 _sample_pallas9`` (kernel body ``_sample9_kernel``), the inference DCN
 sampler: given the per-tap projections ``y9[t] = x @ W_t`` and per-tap f32
 sample coordinates, it returns ``sum_t bilinear(y9[t]; sy9[t], sx9[t])`` with
@@ -28,7 +34,8 @@ and its plain version add in f32 and round once, so they differ from the
 TPU result by bf16 rounding of the partial sums, and from each other only
 by f32 summation order before that one rounding.
 
-``launches`` counts kernel launches (CPU calls do not count).
+``launches`` counts K1's kernel launches, ``launches_fwd`` K2's and
+``launches_bwd`` K3's (CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -40,14 +47,16 @@ import torch
 from upsnet_torch.ops import cuda_build
 
 launches = 0
+launches_fwd = 0
+launches_bwd = 0
 
 
-def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None):
-    """DCNv1 bilinear sample with zero padding, f32 result.
+def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None, acc=torch.float32):
+    """DCNv1 bilinear sample with zero padding, result in ``acc`` (f32).
 
     flat: (N, C) feature rows; y, x: f32 coords of any shape S; base: int64
     row offset broadcast against S (the image's first row), or None.
-    Returns (*S, C) float32.
+    Returns (*S, C) in ``acc``.
     """
     inside = (y > -1.0) & (y < h) & (x > -1.0) & (x < w)
     y_low = torch.floor(y)
@@ -56,8 +65,7 @@ def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None):
     lx = x - x_low
     yl = y_low.to(torch.int64)
     xl = x_low.to(torch.int64)
-    out = torch.zeros((*y.shape, flat.shape[-1]), dtype=torch.float32,
-                      device=flat.device)
+    out = torch.zeros((*y.shape, flat.shape[-1]), dtype=acc, device=flat.device)
     for yy, xx, wgt in ((yl, xl, (1 - ly) * (1 - lx)),
                         (yl, xl + 1, (1 - ly) * lx),
                         (yl + 1, xl, ly * (1 - lx)),
@@ -66,7 +74,7 @@ def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None):
         idx = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
         if base is not None:
             idx = idx + base
-        vals = flat[idx.reshape(-1)].reshape(out.shape).float()
+        vals = flat[idx.reshape(-1)].reshape(out.shape).to(acc)
         out += vals * (wgt * ok)[..., None]
     return out
 
@@ -135,3 +143,197 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor,
     cuda_build.check(lib, status, "deform_sample9")
     launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K2 and K3: the training pair
+# ---------------------------------------------------------------------------
+#
+# K2 replaces the TPU kernel ``deform_conv_pallas.py:_sample_pallas``
+# (``_sample_kernel``) and K3 ``_sample_pallas_bwd`` (``_sample_bwd_kernel``).
+# Training samples tap by tap (``ops/deform_conv.py``), because each tap's
+# backward needs its own projection and coordinates. On the TPU both kernels
+# work on zero-padded rows inside a +-max_dy window and K3 read-modify-writes
+# a window of an f32 canvas per sequential grid step; on the card a thread
+# reads any coordinate of the unpadded map, and K3 scatters into a zeroed f32
+# canvas with atomics because blocks run in no order
+# (``csrc/deform_sample_bwd.cu``). The wrapper casts the canvas to
+# ``y.dtype``, as the TPU wrapper does.
+#
+# What bounds them: bytes. K2 reads y and the coordinates and writes the
+# output; K3 reads y, g and the coordinates and writes the canvas and the
+# two coordinate gradients. About 9 flops per element and corner.
+#
+# The coordinate derivative follows the TPU kernel: with the hat weight
+# v(d) = max(0, 1 - |d|) of a node at distance d, dv/dd = -sign(d) where
+# |d| < 1 and 0 elsewhere. At an integer coordinate the peak has d = 0 and
+# its neighbours |d| = 1, so gsy = gsx = 0 there (a floor-based one-sided
+# derivative, as autograd through ``_bilinear_zero_pad`` gives, does not).
+
+
+def _accum_dtype(dtype):
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def deform_sample_plain(y: torch.Tensor, sy: torch.Tensor,
+                        sx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2: one tap, accumulated in f32 (f64 for f64
+    input), rounded once to ``y.dtype``."""
+    b, h, w, c = y.shape
+    base = (torch.arange(b, device=y.device) * (h * w))[:, None, None]
+    return _bilinear_zero_pad(y.reshape(b * h * w, c), sy, sx, h, w, base,
+                              _accum_dtype(y.dtype)).to(y.dtype)
+
+
+def _hat_nodes(s: torch.Tensor):
+    """The two nodes a coordinate's hat can reach: ((index, v, dv), ...) with
+    v = max(0, 1 - |d|) and dv = -sign(d) on |d| < 1, else 0."""
+    low = torch.floor(s)
+    frac = s - low
+    moved = (frac > 0).to(s.dtype)  # 0 at an integer coordinate
+    idx = low.to(torch.int64)
+    return ((idx, 1 - frac, -moved), (idx + 1, frac, moved))
+
+
+def deform_sample_bwd_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                            g: torch.Tensor):
+    """Plain PyTorch version of K3, written out over the 2x2 support with
+    the hat weights and their derivative (not autograd through the forward,
+    which would give a one-sided derivative at integer coordinates).
+    Returns (grad_y in ``y.dtype``, gsy, gsx in ``sy.dtype``)."""
+    b, h, w, c = y.shape
+    acc = _accum_dtype(y.dtype)
+    n = b * h * w
+    inside = ((sy > -1.0) & (sy < h) & (sx > -1.0) & (sx < w)).reshape(n)
+    base = (torch.arange(b, device=y.device) * (h * w))[:, None, None].expand(b, h, w)
+    base = base.reshape(n)
+    y_flat = y.reshape(n, c)
+    g_flat = g.reshape(n, c).to(acc)
+    canvas = torch.zeros((n, c), dtype=acc, device=y.device)
+    gsy = torch.zeros(n, dtype=acc, device=y.device)
+    gsx = torch.zeros(n, dtype=acc, device=y.device)
+    sy_f, sx_f = sy.reshape(n).to(acc), sx.reshape(n).to(acc)
+    for yy, vy, dvy in _hat_nodes(sy_f):
+        for xx, vx, dvx in _hat_nodes(sx_f):
+            ok = (inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)).to(acc)
+            idx = base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+            dot = (y_flat[idx].to(acc) * g_flat).sum(-1) * ok
+            gsy += dvy * vx * dot
+            gsx += vy * dvx * dot
+            canvas.index_add_(0, idx, (vy * vx * ok)[:, None] * g_flat)
+    return (canvas.reshape(b, h, w, c).to(y.dtype),
+            gsy.reshape(b, h, w).to(sy.dtype), gsx.reshape(b, h, w).to(sx.dtype))
+
+
+def _check_tap(y, sy, sx, g=None):
+    """Shapes, dtypes and devices of one tap's tensors; on CUDA also the
+    kernel's layout needs. float64 passes on the CPU only."""
+    if y.dim() != 4:
+        raise ValueError(f"y must be (B, H, W, C), got {tuple(y.shape)}")
+    cpu = y.device.type == "cpu"
+    # the plain versions also take float64, for finite-difference checks
+    allowed = tuple(cuda_build.DTYPE_CODES) + ((torch.float64,) if cpu else ())
+    if y.dtype not in allowed:
+        raise TypeError(f"y dtype {y.dtype} not in {list(allowed)}")
+    coord_dtype = torch.float64 if y.dtype == torch.float64 else torch.float32
+    b, h, w, c = y.shape
+    named = [("y", y), ("sy", sy), ("sx", sx)]
+    for name, s in named[1:]:
+        if s.shape != (b, h, w):
+            raise ValueError(f"{name} must be {(b, h, w)}, got {tuple(s.shape)}")
+        if s.dtype != coord_dtype:
+            raise TypeError(f"{name} must be {coord_dtype}, got {s.dtype}")
+    if g is not None:
+        if g.shape != y.shape:
+            raise ValueError(f"g must be {tuple(y.shape)}, got {tuple(g.shape)}")
+        if g.dtype != y.dtype:
+            raise TypeError(f"g must be {y.dtype}, got {g.dtype}")
+        named.append(("g", g))
+    for name, s in named:
+        if s.device != y.device:
+            raise ValueError(f"{name} on {s.device}, y on {y.device}")
+    if cpu:
+        return
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    if c % 8:
+        raise ValueError(f"C={c} must be a multiple of 8")
+    for name, s in named:
+        if not s.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if y.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
+        raise ValueError("y and g must be 16-byte aligned")
+
+
+def deform_sample(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """K2: bilinear(y; sy, sx) with DCNv1 zero padding, one tap.
+
+    y (B, H, W, C) bf16/f32 unpadded projection; sy, sx (B, H, W) f32
+    absolute sample coordinates. Returns (B, H, W, C) in ``y.dtype``. CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (C % 8 == 0, contiguous, 16-byte aligned). Not differentiable by
+    itself: ``DeformSample`` is.
+    """
+    global launches_fwd
+    _check_tap(y, sy, sx)
+    if y.device.type == "cpu":
+        return deform_sample_plain(y, sy, sx)
+    b, h, w, c = y.shape
+    out = torch.empty_like(y)
+    lib = cuda_build.load("deform_sample")
+    fn = lib.deform_sample
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    with torch.cuda.device(y.device):
+        status = fn(y.data_ptr(), sy.data_ptr(), sx.data_ptr(), out.data_ptr(),
+                    b, h, w, c, cuda_build.DTYPE_CODES[y.dtype], stream)
+    cuda_build.check(lib, status, "deform_sample")
+    launches_fwd += 1
+    return out
+
+
+def deform_sample_bwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                      g: torch.Tensor):
+    """K3: the backward of ``deform_sample`` for upstream gradient g.
+
+    Returns (grad_y (B, H, W, C) in ``y.dtype``, gsy, gsx (B, H, W) f32).
+    grad_y is summed in an f32 canvas and cast once. On the card the canvas
+    is filled with atomics, so its sums differ between runs by f32 rounding.
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    global launches_bwd
+    _check_tap(y, sy, sx, g)
+    if y.device.type == "cpu":
+        return deform_sample_bwd_plain(y, sy, sx, g)
+    b, h, w, c = y.shape
+    canvas = torch.zeros((b, h, w, c), dtype=torch.float32, device=y.device)
+    gsy = torch.empty((b, h, w), dtype=torch.float32, device=y.device)
+    gsx = torch.empty_like(gsy)
+    lib = cuda_build.load("deform_sample_bwd")
+    fn = lib.deform_sample_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    with torch.cuda.device(y.device):
+        status = fn(y.data_ptr(), sy.data_ptr(), sx.data_ptr(), g.data_ptr(),
+                    canvas.data_ptr(), gsy.data_ptr(), gsx.data_ptr(), b, h, w, c,
+                    cuda_build.DTYPE_CODES[y.dtype], stream)
+    cuda_build.check(lib, status, "deform_sample_bwd")
+    launches_bwd += 1
+    return canvas.to(y.dtype), gsy, gsx
+
+
+class DeformSample(torch.autograd.Function):
+    """``deform_sample`` with gradients to y, sy and sx: forward K2,
+    backward K3 (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, y, sy, sx):
+        ctx.save_for_backward(y, sy, sx)
+        return deform_sample(y, sy, sx)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, sy, sx = ctx.saved_tensors
+        return deform_sample_bwd(y, sy, sx, g.contiguous())

@@ -1,7 +1,7 @@
-"""Panoptic fusion ops for inference: SegTerm, MaskTerm, MaskRemoval and
-the streaming argmax.
+"""Panoptic head ops: SegTerm, MaskTerm, MaskRemoval, the streaming argmax
+of inference, and the logit stack and MaskMatching GT of training.
 
-Port of the inference half of ``upsnet_tpu/ops/panoptic.py``. Panoptic
+Port of ``upsnet_tpu/ops/panoptic.py``. Panoptic
 logits over (S stuff + N instances + 1 unknown) channels at 1/4 scale:
   Z[j]      = X_stuff_j
   Z[S + i]  = SegTerm_i + MaskTerm_i
@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops.mask_paste import paste_masks
+
+IGNORE = 255
 
 
 def _box_window(boxes: torch.Tensor, hw, dtype) -> torch.Tensor:
@@ -43,6 +45,57 @@ def mask_term(mask_logits: torch.Tensor, boxes: torch.Tensor,
               out_hw) -> torch.Tensor:
     """Per-instance mask logits pasted into canvases (0 outside)."""
     return paste_masks(mask_logits, boxes, out_hw)
+
+
+def panoptic_logits(seg_logits, boxes, classes, mask_logits, inst_valid,
+                    num_stuff: int) -> torch.Tensor:
+    """The (S + N + 1, H, W) panoptic logit stack the training loss needs,
+    differentiable in seg_logits and mask_logits. seg_logits (H, W, C);
+    boxes (N, 4) at seg scale; classes (N,) thing index; mask_logits
+    (N, M, M); inst_valid (N,) bool (invalid instances sit at -1e4)."""
+    h, w, _ = seg_logits.shape
+    stuff = seg_logits[:, :, :num_stuff].permute(2, 0, 1)
+    seg_t = seg_term(seg_logits, boxes, classes, num_stuff)
+    inst = seg_t + mask_term(mask_logits, boxes, (h, w))
+    neg = torch.tensor(-1e4, dtype=inst.dtype, device=inst.device)
+    valid = inst_valid[:, None, None]
+    inst = torch.where(valid, inst, neg)
+    thing_max = seg_logits[:, :, num_stuff:].amax(-1)
+    inst_max = torch.where(valid, seg_t, neg).amax(0)
+    inst_max = torch.where(inst_valid.any(), inst_max, torch.zeros_like(inst_max))
+    unknown = (thing_max - inst_max)[None]
+    return torch.cat([stuff, inst, unknown], dim=0)
+
+
+def panoptic_argmax(seg_logits, boxes, classes, mask_logits, inst_valid,
+                    num_stuff: int):
+    """Per-pixel argmax over the stack (ties to the first channel) and the
+    stack itself: (pan_id (H, W) int32, logits (S + N + 1, H, W))."""
+    logits = panoptic_logits(seg_logits, boxes, classes, mask_logits, inst_valid,
+                             num_stuff)
+    return logits.argmax(dim=0).to(torch.int32), logits
+
+
+def mask_matching(seg_gt, gt_masks, gt_valid, to_unknown, num_stuff: int,
+                  ignore: int = IGNORE) -> torch.Tensor:
+    """The panoptic head's GT index map. seg_gt (H, W) int semantic GT
+    (stuff first, 255 ignore); gt_masks (G, H, W); gt_valid, to_unknown
+    (G,) bool. Stuff pixels keep their channel; pixels of GT instance i get
+    ``num_stuff + i``, or the unknown channel ``num_stuff + G`` when the
+    instance is flagged ``to_unknown``; later instances overwrite earlier
+    ones; thing pixels under no instance are ignore. Returns (H, W) int32."""
+    g = gt_masks.shape[0]
+    dev = seg_gt.device
+    is_stuff = (seg_gt < num_stuff) & (seg_gt != ignore)
+    out = torch.where(is_stuff, seg_gt, torch.full_like(seg_gt, ignore)).to(torch.int32)
+    ids = torch.arange(g, device=dev)
+    chan = torch.where(to_unknown, torch.full_like(ids, num_stuff + g), num_stuff + ids)
+    chan = torch.where(gt_valid, chan, torch.full_like(ids, ignore)).to(torch.int32)
+    # the last covering instance wins, as the reference's sequential overwrite
+    cover = (gt_masks > 0) & (chan != ignore)[:, None, None]
+    last = torch.where(cover, ids[:, None, None], torch.full_like(ids, -1)[:, None, None]
+                       ).amax(dim=0)
+    return torch.where(last >= 0, chan[last.clamp(min=0)], out)
 
 
 def panoptic_argmax_stream(seg_logits, boxes, classes, mask_logits,
