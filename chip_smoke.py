@@ -9,10 +9,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. build: compile every CUDA kernel of ``upsnet_torch/csrc`` with nvcc, one
    process per source, all at once;
-2. kernels: each of the five kernels against its plain PyTorch version on
+2. kernels: each of the eight kernels against its plain PyTorch version on
    the card, on the shapes the predict path and the train step give it at
    batch 2, with errors, kernel / plain / library-call times (CUDA events,
    median of 30) and the least time the card could take for the same work;
+   K8b (the gather adjoint) must also give the same bits on two runs;
 3. predict: ``resnet_50_upsnet`` at full width (COCO: 81 classes, 133 seg
    classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
    offset biases set to +-2 px, serving two batch-2 requests through
@@ -22,15 +23,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 4. train: the same model in its train configuration (``dcn_impl: pallas``,
    ``dcn_boundary_grad: clip``) takes four SGD steps through
    ``train_steps`` on a synthetic batch of 2 (512 RoIs, 256 anchors, 100 GT
-   slots); every step must launch exactly 72 K2, 72 K3, 3 K4, 3 K5 and no
-   K1, give 7 finite loss terms, finite gradients everywhere, non-zero
-   offset-conv gradients, and leave the frozen parameters untouched; with
+   slots) with a display interval of one step; every interval must launch
+   exactly 72 K2, 72 K3, 3 K4, 3 K5 for its step and 8 K1 for the
+   saturation watch's probe of the trunk, give 7 finite loss terms, finite
+   gradients everywhere, non-zero offset-conv gradients, leave the frozen
+   parameters untouched and append one line to ``metrics.jsonl``; with
    ``--profile``, one more step under torch.profiler;
-5. reference: a tiny float32 model on the card against the same model on
+5. predict_shift, train_shift: phases 3 and 4 again with
+   ``dcn_impl: shift`` (three train steps). The launch counts follow from
+   the port's ``shift_route_ok``: the levels it accepts (P2, P3) run K8a,
+   and K8b + K8c in backward, the others K1, or K2 + K3 under autograd; the
+   JAX loop does not watch ``shift``, so there is no probe. ``seg_logits``
+   and the step-0 losses are held against the ``pallas`` route's on the
+   same weights: with offsets within +-2 px neither clip acts, so the two
+   differ by rounding only;
+6. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels).
 
 The line before the last two is a JSON object with every kernel's numbers
-(``launches`` sums the predict and the train phase, each counted from 0);
+(``launches`` sums the four predict and train phases, each counted from 0);
 then the card's name and power limit; the last line is the device record.
 """
 
@@ -40,6 +51,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -56,10 +68,12 @@ from upsnet_torch.config import default_config  # noqa: E402
 from upsnet_torch.data.synthetic import synthetic_batch  # noqa: E402
 from upsnet_torch.models import layers  # noqa: E402
 from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
-from upsnet_torch.ops import cuda_build, deform_sample, nms, roi_align_fpn  # noqa: E402
+from upsnet_torch.ops import (  # noqa: E402
+    cuda_build, deform_sample, deform_shift, nms, roi_align_fpn)
+from upsnet_torch.ops.deform_conv import clip_offsets  # noqa: E402
 from upsnet_torch.train.optimizer import make_optimizer  # noqa: E402
 from upsnet_torch.train.step import make_train_step  # noqa: E402
-from upsnet_torch.train.trainer import train_steps  # noqa: E402
+from upsnet_torch.train.trainer import WATCHED_IMPLS, train_steps  # noqa: E402
 from upsnet_torch.ops.anchors import pyramid_anchors  # noqa: E402
 from upsnet_torch.ops.boxes import fpn_level_assignment  # noqa: E402
 from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords  # noqa: E402
@@ -457,11 +471,192 @@ def check_k5(dev) -> dict:
     return out
 
 
+def check_k8(dev) -> tuple[dict, dict, dict]:
+    """K8a, K8b, K8c at P2 of the 832x1344 bucket (2x208x336, 9 taps, C=128,
+    bf16), the largest shape the shift route gives them: offsets as in
+    ``check_k1`` (+-2 px, 3% at 6-12 px) clipped to +-6 on both axes as
+    ``deform_conv2d_shift`` clips them, 5% of the samples on exactly integer
+    rows and another 5% on integer columns (zero coordinate derivative
+    there), and 1% pushed beyond the image edge (not counted, so they may
+    lie beyond K8b's reach of 7)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    taps, b, c, max_d = 9, BATCH, 128, 6
+    reach = max_d + 1  # max_dy + dilation
+    h, w = BUCKET[0] // 4, BUCKET[1] // 4
+    shape = (taps, b, h, w)
+    y = torch.randn((b, h, w, taps * c), generator=g, device=dev).to(torch.bfloat16)
+    grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    kk = torch.arange(taps, device=dev)
+    ky = (kk // 3 - 1).float()[:, None, None, None]
+    kx = (kk % 3 - 1).float()[:, None, None, None]
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+    sy = iy + ky + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
+    sx = ix + kx + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
+    int_y = torch.rand(shape, generator=g, device=dev) < 0.05
+    int_x = torch.rand(shape, generator=g, device=dev) < 0.05
+    sy = torch.where(int_y, sy.round(), sy)
+    sx = torch.where(int_x, sx.round(), sx).contiguous()
+    edge = torch.rand(shape, generator=g, device=dev) < 0.01
+    sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy).contiguous()
+    deform_shift.check_reach(sy, sx, reach, reach)
+
+    # K8a and K8b: f32 sums in another order than the plain version's, each
+    # rounded once to bf16: at most one bf16 ulp (2^-7 relative) apart, plus
+    # f32 slack near zero
+    rtol, atol = 2.0 ** -7, 1e-4
+    got_a = deform_shift.shift_fwd(y, sy, sx)
+    ref_a = deform_shift.shift_fwd_plain(y, sy, sx)
+    torch.cuda.synchronize()
+    a_err, a_rel = compare(got_a, ref_a, rtol, atol)
+    print(f"[K8a shift_fwd] y {tuple(y.shape)} bf16, {taps} taps: max abs err {a_err:.3e}, "
+          f"max rel err {a_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g})")
+
+    got_b = deform_shift.shift_adjoint(grad, sy, sx, reach, reach)
+    again = deform_shift.shift_adjoint(grad, sy, sx, reach, reach)
+    ref_b = deform_shift.shift_adjoint_plain(grad, sy, sx)
+    torch.cuda.synchronize()
+    b_err, b_rel = compare(got_b, ref_b, rtol, atol)
+    if not torch.equal(got_b, again):
+        raise AssertionError("K8b: two runs on the same inputs differ")
+    if float(got_b.float().abs().max()) == 0.0:
+        raise AssertionError("K8b: gradient to y is all zero")
+    del again, ref_b
+    print(f"[K8b shift_adjoint] gy {tuple(got_b.shape)} bf16: max abs err {b_err:.3e}, max "
+          f"rel err {b_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); two runs "
+          f"bit-identical")
+
+    # K8c: f32 sums of 4 x 128 products of O(1) values in another order:
+    # 1e-4 relative plus 1e-3 absolute
+    c_rtol, c_atol = 1e-4, 1e-3
+    got_c = deform_shift.shift_offset_grads(y, sy, sx, grad)
+    ref_c = deform_shift.shift_offset_grads_plain(y, sy, sx, grad)
+    torch.cuda.synchronize()
+    gsy_err, _ = compare(got_c[0], ref_c[0], c_rtol, c_atol)
+    gsx_err, _ = compare(got_c[1], ref_c[1], c_rtol, c_atol)
+    at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
+    if float(got_c[0][at_int_y].abs().max()) != 0.0 or float(got_c[1][at_int_x].abs().max()) != 0.0:
+        raise AssertionError("K8c: non-zero coordinate gradient at an integer coordinate")
+    if float(got_c[0].abs().max()) == 0.0 or float(got_c[1].abs().max()) == 0.0:
+        raise AssertionError("K8c: coordinate gradients are all zero")
+    print(f"[K8c shift_offset_grads] gsy / gsx max abs err {gsy_err:.3e} / {gsx_err:.3e} "
+          f"(tolerance {c_rtol:g}*|ref| + {c_atol:g}); exactly 0 at the "
+          f"{int(at_int_y.sum())} integer rows and {int(at_int_x.sum())} integer columns")
+
+    # library yardsticks on float32 copies made outside the timed calls (a
+    # bf16 grid cannot hold the coordinates): 9 grid_sample calls and a sum
+    # for K8a; 9 calls of its backward op for K8b (gradient to the input)
+    # and 9 for K8c (gradient to the grid; one-sided at integer coordinates
+    # and in normalised coordinates, so a yardstick of speed only)
+    grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
+    y_taps = y.view(b, h, w, taps, c)
+    planes = [y_taps[:, :, :, t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+    g32 = grad.float().permute(0, 3, 1, 2).contiguous()
+
+    def lib_fwd():
+        acc = F.grid_sample(planes[0], grids[0], mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+        for t in range(1, taps):
+            acc += F.grid_sample(planes[t], grids[t], mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+        return acc
+
+    def lib_bwd(mask):
+        return [torch.ops.aten.grid_sampler_2d_backward(g32, planes[t], grids[t], 0, 0, True,
+                                                        mask) for t in range(taps)]
+
+    lib_err = float((lib_fwd().permute(0, 2, 3, 1) - ref_a.float()).abs().max())
+    a_ms = time_ms(lambda: deform_shift.shift_fwd(y, sy, sx))
+    a_plain = time_ms(lambda: deform_shift.shift_fwd_plain(y, sy, sx), 10)
+    a_lib = time_ms(lib_fwd)
+    b_ms = time_ms(lambda: deform_shift.shift_adjoint(grad, sy, sx, reach, reach))
+    b_plain = time_ms(lambda: deform_shift.shift_adjoint_plain(grad, sy, sx), 10)
+    b_lib = time_ms(lambda: lib_bwd([True, False]), 10)
+    c_ms = time_ms(lambda: deform_shift.shift_offset_grads(y, sy, sx, grad))
+    c_plain = time_ms(lambda: deform_shift.shift_offset_grads_plain(y, sy, sx, grad), 10)
+    c_lib = time_ms(lambda: lib_bwd([False, True]), 10)
+
+    # bytes this run needs. K8a: the tap blocks of y its counted samples
+    # touch, the coordinates, the output; 4 corners x 2 flops per channel.
+    # K8b: g and the coordinates read, gy written in full (bf16); 2 flops per
+    # channel and hit. K8c: the touched blocks, g, the coordinates, the two
+    # gradient fields; 4 corners x 2 flops per channel.
+    n_rows, n_inside = touched_rows(sy, sx, h, w)
+    coords = 2 * sy.numel() * 4
+    a_bytes = n_rows * c * 2 + coords + got_a.numel() * 2
+    a_bound, a_by = bound(a_bytes, n_inside * 4 * 2 * c)
+    b_bytes = grad.numel() * 2 + coords + got_b.numel() * 2
+    b_bound, b_by = bound(b_bytes, n_inside * 4 * 2 * c)
+    c_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords
+    c_bound, c_by = bound(c_bytes, n_inside * 4 * 2 * c)
+    print(f"[K8a shift_fwd] kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms, 9x grid_sample "
+          f"{a_lib:.4f} ms (max abs diff {lib_err:.3e}), bound {a_bound:.4f} ms ({a_by}: "
+          f"{a_bytes / 1e6:.1f} MB)")
+    print(f"[K8b shift_adjoint] kernel {b_ms:.4f} ms, plain {b_plain:.4f} ms, 9x "
+          f"grid_sampler_2d_backward (input) {b_lib:.4f} ms, bound {b_bound:.4f} ms ({b_by}: "
+          f"{b_bytes / 1e6:.1f} MB); {n_inside * 4 / 1e6:.2f} M hits in "
+          f"{sy.numel() * (2 * reach + 1) ** 2 / 1e6:.0f} M candidates")
+    print(f"[K8c shift_offset_grads] kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms, 9x "
+          f"grid_sampler_2d_backward (grid) {c_lib:.4f} ms, bound {c_bound:.4f} ms ({c_by}: "
+          f"{c_bytes / 1e6:.1f} MB)")
+    line = "upsnet_tpu/ops/deform_shift_pallas.py"
+    k8a = {"name": "shift_fwd", "route": "cuda",
+           "source": "upsnet_torch/csrc/deform_shift.cu", "replaces": f"{line}:167",
+           "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+           "bound_by": a_by, "library_ms": a_lib}
+    k8b = {"name": "shift_adjoint", "route": "cuda",
+           "source": "upsnet_torch/csrc/deform_shift_adjoint.cu", "replaces": f"{line}:308",
+           "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+           "bound_by": b_by, "library_ms": b_lib}
+    k8c = {"name": "shift_offset_grads", "route": "cuda",
+           "source": "upsnet_torch/csrc/deform_shift.cu", "replaces": f"{line}:460",
+           "max_abs_err": max(gsy_err, gsx_err), "ms": c_ms, "plain_ms": c_plain,
+           "bound_ms": c_bound, "bound_by": c_by, "library_ms": c_lib}
+    return k8a, k8b, k8c
+
+
 COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample": (deform_sample, "launches_fwd"),
             "deform_sample_bwd": (deform_sample, "launches_bwd"),
             "fpn_roi_align": (roi_align_fpn, "launches"),
-            "fpn_roi_align_bwd": (roi_align_fpn, "launches_bwd")}
+            "fpn_roi_align_bwd": (roi_align_fpn, "launches_bwd"),
+            "shift_fwd": (deform_shift, "launches_fwd"),
+            "shift_adjoint": (deform_shift, "launches_adjoint"),
+            "shift_offset_grads": (deform_shift, "launches_offset_grads")}
+
+
+def expected_launches(cfg, grad: bool, heads: bool = True) -> dict:
+    """The launches of one ``forward_predict`` (grad False) or one train step
+    (grad True) of ``cfg`` at BUCKET, from the routing rule: a DCN layer
+    that ``dcn_impl: shift`` sends to the shift route launches K8a (and K8b
+    + K8c in backward); any other launches K1 without autograd and 9 x (K2 +
+    K3) with it. ``heads`` False leaves out the ROIAlign calls (a pass of
+    the trunk alone)."""
+    net = cfg.network
+    impl = (net.dcn_impl_train or net.dcn_impl) if grad else net.dcn_impl
+    n = dict.fromkeys(COUNTERS, 0)
+    for stride in (4, 8, 16, 32):
+        h, w = -(-BUCKET[0] // stride), -(-BUCKET[1] // stride)
+        for layer in range(net.fcn_num_layers):
+            cin = net.fpn_feature_dim if layer == 0 else net.fcn_head_dim
+            if impl == "shift" and deform_shift.shift_route_ok(
+                    (BATCH, h, w, cin), net.fcn_head_dim, net.dcn_max_dy, net.dcn_max_dy, 1):
+                n["shift_fwd"] += 1
+                n["shift_adjoint"] += grad
+                n["shift_offset_grads"] += grad
+            elif grad:
+                n["deform_sample"] += 9
+                n["deform_sample_bwd"] += 9
+            else:
+                n["deform_sample9"] += 1
+    if heads:
+        n["fpn_roi_align"] = 3 if grad else 2  # box, mask (+ GT boxes of the panoptic loss)
+        n["fpn_roi_align_bwd"] = 3 if grad else 0
+    return n
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
 
 
 def reset_launches() -> None:
@@ -495,10 +690,15 @@ def perturb_offset_biases(model, generator) -> None:
                 m.offset_conv.bias.copy_(bias)
 
 
-def phase_predict(dev) -> dict:
+def phase_predict(dev, impl: str = "auto", tag: str = "predict"):
+    """Two full-width batch-2 requests through ``forward_predict`` with
+    ``dcn_impl: impl``. Returns (launches, a closure that serves one more
+    request, the model, the last batch and its seg_logits)."""
     cfg = default_config()
+    cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl=impl))
     net, ds = cfg.network, cfg.dataset
-    print(f"[predict] {cfg.symbol}: {ds.num_classes} classes, {ds.num_seg_classes} seg "
+    expect_n = expected_launches(cfg, grad=False)
+    print(f"[{tag}] {cfg.symbol}: {ds.num_classes} classes, {ds.num_seg_classes} seg "
           f"classes, fpn {net.fpn_feature_dim}, fcn {net.fcn_head_dim}, fc "
           f"{net.rcnn_fc_dim}, {net.compute_dtype}, dcn_impl {net.dcn_impl}, "
           f"bucket {BUCKET}, batch {BATCH}")
@@ -507,7 +707,7 @@ def phase_predict(dev) -> dict:
     model = build_model(cfg, device=dev, generator=gen)
     perturb_offset_biases(model, gen)
     anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
-    print(f"[predict] model built in {time.perf_counter() - t0:.2f} s")
+    print(f"[{tag}] model built in {time.perf_counter() - t0:.2f} s")
     g = torch.Generator(device=dev).manual_seed(3)
     batches = [{
         "images": torch.empty((BATCH, *BUCKET, 3), device=dev).uniform_(-110.0, 140.0,
@@ -519,13 +719,13 @@ def phase_predict(dev) -> dict:
     reset_launches()
     lat, per_request = [], []
     for i, batch in enumerate(batches):
-        k1, k4 = deform_sample.launches, roi_align_fpn.launches
+        before = read_launches()
         nms.iterations = 0
         t0 = time.perf_counter()
         out = forward_predict(model, cfg, anchors, batch)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-        per_request.append((deform_sample.launches - k1, roi_align_fpn.launches - k4))
+        per_request.append({k: v - before[k] for k, v in read_launches().items()})
         d = cfg.test.max_det
         hq, wq = BUCKET[0] // 4, BUCKET[1] // 4
         expect = {"boxes": (BATCH, d, 4), "scores": (BATCH, d), "classes": (BATCH, d),
@@ -541,20 +741,19 @@ def phase_predict(dev) -> dict:
         pan = out["pan_map"]
         if int(pan.min()) < 0 or int(pan.max()) > ds.num_stuff + d:
             raise AssertionError(f"request {i}: pan_map outside [0, {ds.num_stuff + d}]")
-        print(f"[predict] request {i}: {lat[-1]:.1f} ms, {int(out['det_valid'].sum())} "
-              f"detections, {int(out['pan_keep'].sum())} in pan_map, launches K1 "
-              f"{per_request[-1][0]} K4 {per_request[-1][1]}, NMS fixpoint iterations "
+        print(f"[{tag}] request {i}: {lat[-1]:.1f} ms, {int(out['det_valid'].sum())} "
+              f"detections, {int(out['pan_keep'].sum())} in pan_map, launches "
+              f"{nonzero(per_request[-1])}, NMS fixpoint iterations "
               f"{nms.iterations} (RPN + detection)")
     launches = read_launches()
-    for k1, k4 in per_request:
-        if (k1, k4) != (8, 2):
-            raise AssertionError(f"launches per forward K1 {k1} K4 {k4}, expected 8 and 2")
-    if any(launches[k] for k in ("deform_sample", "deform_sample_bwd", "fpn_roi_align_bwd")):
-        raise AssertionError(f"predict launched a training kernel: {launches}")
-    print(f"[predict] launches on this path: {launches}")
-    print(f"[predict] latency per batch-2 request {[round(x, 2) for x in lat]} ms; "
+    for moved in per_request:  # exact, so a training kernel in a request fails too
+        if moved != expect_n:
+            raise AssertionError(f"launches per forward {moved}, expected {expect_n}")
+    print(f"[{tag}] launches on this path: {launches}")
+    print(f"[{tag}] latency per batch-2 request {[round(x, 2) for x in lat]} ms; "
           f"steady (request 1) {lat[1]:.2f} ms = {BATCH * 1e3 / lat[1]:.2f} img/s")
-    return launches, (lambda: forward_predict(model, cfg, anchors, batches[-1]))
+    run = lambda: forward_predict(model, cfg, anchors, batches[-1])  # noqa: E731
+    return launches, run, model, batches[-1], out["seg_logits"]
 
 
 def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
@@ -615,23 +814,65 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
     print(f"{tag} top device ops (ms): " + "; ".join(f"{n[:70]} {v:.3f}" for n, v in top))
 
 
-TRAIN_STEPS = 4
-TRAIN_LAUNCHES = {"deform_sample9": 0, "deform_sample": 72, "deform_sample_bwd": 72,
-                  "fpn_roi_align": 3, "fpn_roi_align_bwd": 3}
 LOSS_KEYS = ("rpn_cls", "rpn_bbox", "cls", "bbox", "mask", "seg", "pano")
+METRIC_FIELDS = {*LOSS_KEYS, "total", "iter", "images_per_sec", "step_s", "loader_wait_s",
+                 "platform"}
+WATCH_FIELDS = {"dcn_max_dy", "dcn_max_dx", "dcn_impl", "dcn_boundary_grad", "dcn_sat_frac"}
 
 
-def phase_train(dev):
-    """Four SGD steps of the full-width model on one synthetic batch of 2."""
+def compare_seg_with_pallas(model, cfg, anchors, batch, seg_shift, tag: str) -> None:
+    """``seg_logits`` of the ``dcn_impl: shift`` model against the same
+    weights under ``dcn_impl: pallas`` on the same request. The offset convs
+    have zero weights and biases within +-2 px, so neither route's clip acts
+    and both sample the same positions with f32 sums rounded once to bf16;
+    the one-matmul and the per-tap projections may round a bf16 value
+    differently, and two DCN layers, the upsampling and the score conv carry
+    that on: within 2^-5 of max |ref| (4 bf16 ulps of the largest logit)."""
+    dcns = [m for m in model.modules() if isinstance(m, layers.DeformConv)]
+    for m in dcns:
+        m.impl = "pallas"
+    try:
+        ref = forward_predict(model, cfg, anchors, batch)["seg_logits"]
+    finally:
+        for m in dcns:
+            m.impl = "shift"
+    err = float((seg_shift - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"[{tag}] seg_logits, dcn_impl shift vs pallas on the same weights: max abs diff "
+          f"{err:.3e}, max |ref| {scale:.3f} (tolerance 2^-5 * max |ref| = {scale / 32:.3e})")
+    if not err <= scale / 32:
+        raise AssertionError(f"seg_logits shift vs pallas: {err} > {scale / 32}")
+
+
+def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train"):
+    """``n_steps`` SGD steps of the full-width model with ``dcn_impl: impl``
+    on one synthetic batch of 2, through ``train_steps`` with a display
+    interval of one step. Returns (launches, a closure that takes one more
+    step, the per-step loss dicts)."""
     cfg = default_config()
-    cfg = cfg.replace(network=dataclasses.replace(
-        cfg.network, dcn_impl="pallas", dcn_boundary_grad="clip", roi_align_impl="window"))
+    cfg = cfg.replace(
+        output_path=os.path.join("output", f"chip_smoke_{tag}"),
+        # 'warn': from random weights at lr 0.02 one update drives most
+        # offsets beyond the window, and the watch's default would end the run
+        network=dataclasses.replace(cfg.network, dcn_impl=impl, dcn_boundary_grad="clip",
+                                    roi_align_impl="window", dcn_saturation_action="warn"),
+        train=dataclasses.replace(cfg.train, display_iter=1))
     net, tc = cfg.network, cfg.train
-    print(f"[train] {cfg.symbol}: {net.compute_dtype} from {net.param_dtype} parameters, "
+    print(f"[{tag}] {cfg.symbol}: {net.compute_dtype} from {net.param_dtype} parameters, "
           f"dcn_impl {net.dcn_impl}, dcn_boundary_grad {net.dcn_boundary_grad}, bucket "
           f"{BUCKET}, batch {BATCH}, batch_rois {tc.batch_rois}, rpn_batch_size "
           f"{tc.rpn_batch_size}, {tc.max_gt_instances} GT slots, lr {tc.lr}, grad_clip "
           f"{tc.grad_clip}")
+    # one interval is one step and, where the loop watches the clip
+    # ('pallas'), the watch's probe: a pass of the trunk without autograd
+    watched = impl in WATCHED_IMPLS
+    expect_n = expected_launches(cfg, grad=True)
+    if watched:
+        probe = expected_launches(cfg, grad=False, heads=False)
+        expect_n = {k: v + probe[k] for k, v in expect_n.items()}
+    metrics_path = os.path.join(cfg.output_path, cfg.symbol, "metrics.jsonl")
+    if os.path.exists(metrics_path):
+        os.remove(metrics_path)
     gen = torch.Generator().manual_seed(cfg.seed)
     model = build_model(cfg, device=dev, generator=gen)
     perturb_offset_biases(model, gen)
@@ -642,7 +883,7 @@ def phase_train(dev):
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if not p.requires_grad}
     trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
-    print(f"[train] {len(trainable)} trainable tensors "
+    print(f"[{tag}] {len(trainable)} trainable tensors "
           f"({sum(p.numel() for p in trainable.values()) / 1e6:.2f} M parameters), "
           f"{len(frozen)} frozen; {int(batch['gt_valid'].sum())} GT instances")
     optimizer = make_optimizer(cfg, model)
@@ -651,35 +892,39 @@ def phase_train(dev):
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
-    marks = [time.perf_counter()]
     per_step = []
 
-    def on_step(i, metrics):  # train_steps has read the losses: the step is done
-        marks.append(time.perf_counter())
+    def on_step(i, metrics):  # the interval's losses are read: the step is done
         per_step.append(read_launches())
         bad = [k for k in LOSS_KEYS if not math.isfinite(metrics[k])]
         if bad:
             raise AssertionError(f"step {i}: non-finite loss terms {bad}: {metrics}")
-        print(f"[train] step {i}: {(marks[-1] - marks[-2]) * 1e3:.1f} ms, "
+        print(f"[{tag}] step {i}: "
               + ", ".join(f"{k} {metrics[k]:.4f}" for k in (*LOSS_KEYS, "total")))
 
-    history = train_steps(model, cfg, anchors, [batch] * TRAIN_STEPS, optimizer=optimizer,
+    history = train_steps(model, cfg, anchors, [batch] * n_steps, optimizer=optimizer,
                           generator=noise_gen, on_step=on_step)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     prev = {k: 0 for k in launches}
     for i, now in enumerate(per_step):
         moved = {k: now[k] - prev[k] for k in now}
-        if moved != TRAIN_LAUNCHES:
-            raise AssertionError(f"step {i}: launches {moved}, expected {TRAIN_LAUNCHES}")
+        if moved != expect_n:
+            raise AssertionError(f"step {i}: launches {moved}, expected {expect_n}")
         prev = now
-    if len(history) != TRAIN_STEPS or set(history[0]) != {*LOSS_KEYS, "total"}:
+    if len(history) != n_steps or set(history[0]) != {*LOSS_KEYS, "total"}:
         raise AssertionError(f"train_steps returned {len(history)} dicts, keys {set(history[0])}")
+    with open(metrics_path) as f:
+        entries = [json.loads(line) for line in f]
+    fields = METRIC_FIELDS | (WATCH_FIELDS if watched else set())
+    if len(entries) != n_steps or any(set(e) != fields for e in entries):
+        raise AssertionError(f"{metrics_path}: {len(entries)} lines, fields "
+                             f"{[sorted(set(e) ^ fields) for e in entries]} off")
     for name, p in trainable.items():
         if p.grad is None or not torch.isfinite(p.grad).all():
             raise AssertionError(f"{name}: missing or non-finite gradient")
         if not torch.isfinite(p).all():
-            raise AssertionError(f"{name}: non-finite after {TRAIN_STEPS} steps")
+            raise AssertionError(f"{name}: non-finite after {n_steps} steps")
     offset_grads = {n: float(p.grad.abs().max()) for n, p in trainable.items()
                     if "offset_conv" in n}
     if not offset_grads or max(offset_grads.values()) == 0.0:
@@ -688,17 +933,38 @@ def phase_train(dev):
     for name, before in frozen.items():
         if not torch.equal(now[name], before):
             raise AssertionError(f"frozen parameter {name} changed")
-    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    # step_s of an interval: from the end of the last one to its losses read,
+    # without the probe and the write that follow
+    ms = [e["step_s"] * 1e3 for e in entries]
     steady = statistics.median(ms[1:])
-    print(f"[train] launches per step {TRAIN_LAUNCHES}; on this path {launches}")
-    print(f"[train] offset-conv max |grad| after the last step: "
+    print(f"[{tag}] launches per interval {nonzero(expect_n)}; on this path {nonzero(launches)}")
+    if watched:
+        print(f"[{tag}] saturation watch per interval, max |dy| / max |dx| / share at the "
+              f"window edge: " + ", ".join(
+                  f"{e['dcn_max_dy']:.2f} / {e['dcn_max_dx']:.2f} / {e['dcn_sat_frac']:.3f}"
+                  for e in entries))
+    print(f"[{tag}] offset-conv max |grad| after the last step: "
           + ", ".join(f"{n} {v:.3e}" for n, v in offset_grads.items()))
-    print(f"[train] step ms {[round(x, 1) for x in ms]}; step 0 {ms[0]:.1f} ms, steady "
-          f"(median of steps 1-3) {steady:.1f} ms = {BATCH * 1e3 / steady:.2f} img/s; "
-          f"peak memory allocated {peak / 2 ** 30:.2f} GiB; {len(frozen)} frozen tensors "
-          f"unchanged")
+    print(f"[{tag}] step ms {[round(x, 1) for x in ms]} (metrics.jsonl step_s); step 0 "
+          f"{ms[0]:.1f} ms, steady (median of steps 1-{n_steps - 1}) {steady:.1f} ms = "
+          f"{BATCH * 1e3 / steady:.2f} img/s; peak memory allocated {peak / 2 ** 30:.2f} GiB; "
+          f"{len(frozen)} frozen tensors unchanged")
     step = make_train_step(model, cfg, anchors, optimizer, generator=noise_gen)
-    return launches, (lambda: step(batch))
+    return launches, (lambda: step(batch)), history
+
+
+def compare_step0_losses(shift: dict, pallas: dict) -> None:
+    """Step 0 of the ``shift`` and the ``pallas`` train phase: the same
+    weights, batch and noise, offsets within +-2 px, so the loss terms
+    differ only through bf16 rounding inside the semantic head: within 2%
+    of each other (the other heads do not see the DCN route; ``seg`` and
+    ``pano`` do)."""
+    rel = {k: abs(shift[k] - pallas[k]) / max(abs(pallas[k]), 1e-6) for k in (*LOSS_KEYS, "total")}
+    print("[train_shift] step-0 losses, shift vs pallas, relative difference: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + " (tolerance 2e-2)")
+    bad = {k: v for k, v in rel.items() if not v <= 2e-2}
+    if bad:
+        raise AssertionError(f"step-0 losses of shift and pallas differ: {bad}")
 
 
 def phase_reference(dev) -> None:
@@ -747,22 +1013,40 @@ def phase_reference(dev) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one request and one train step with "
-                             "torch.profiler")
+                        help="also profile one request and one train step of each "
+                             "dcn_impl with torch.profiler")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = [check_k1(dev), *check_k2_k3(dev), check_k4(dev), check_k5(dev)]
-    launches = {k["name"]: 0 for k in kernels}
-    for name, phase in (("predict", phase_predict), ("train", phase_train)):
-        counts, run = phase(dev)  # counts every kernel from 0 over its own path
-        launches = {k: launches[k] + v for k, v in counts.items()}
+    kernels = [check_k1(dev), *check_k2_k3(dev), check_k4(dev), check_k5(dev), *check_k8(dev)]
+    launches = dict.fromkeys(COUNTERS, 0)
+
+    def finish(name, counts, run, prefix):
+        """Add a phase's launches (counted from 0 over its own path), profile
+        one more pass of it on request, and free its memory."""
+        for k, v in counts.items():
+            launches[k] += v
         if args.profile:
-            phase_profile(run, f"{name}.", name, other_thread=("train.backward",))
-        del run
+            phase_profile(run, prefix, name, other_thread=("train.backward",))
         torch.cuda.empty_cache()
+
+    counts, run, *_ = phase_predict(dev)
+    finish("predict", counts, run, "predict.")
+    counts, run, pallas_history = phase_train(dev)
+    finish("train", counts, run, "train.")
+    counts, run, model, batch, seg = phase_predict(dev, "shift", "predict_shift")
+    cfg = default_config()
+    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
+    compare_seg_with_pallas(model, cfg, anchors, batch, seg, "predict_shift")
+    finish("predict_shift", counts, run, "predict.")
+    del run, model, batch, seg
+    counts, run, shift_history = phase_train(dev, "shift", 3, "train_shift")
+    compare_step0_losses(shift_history[0], pallas_history[0])
+    finish("train_shift", counts, run, "train.")
+    del run
+    torch.cuda.empty_cache()
     phase_reference(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]

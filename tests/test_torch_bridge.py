@@ -126,13 +126,31 @@ def test_import_leaves_jax_out():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'upsnet_tpu'))\n"
-        "print(len([k for k in sys.modules if k.startswith('upsnet_torch.')]), bad)\n"
+        "print(' '.join(k for k in sys.modules if k.startswith('upsnet_torch.')))\n"
         "assert not bad, bad\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 20
+    loaded = set(out.stdout.split())
+    assert len(loaded) >= 20
+    assert {"upsnet_torch.ops.deform_shift", "upsnet_torch.utils.dcn_probe",
+            "upsnet_torch.train.trainer", "upsnet_torch.ops.cuda_build"} <= loaded
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    import ast
+    import pathlib
+
+    source = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    roots = set()
+    for node in ast.walk(ast.parse(source.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert "upsnet_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "upsnet_tpu"}
 
 
 def test_build_model_without_device_needs_cuda(monkeypatch):

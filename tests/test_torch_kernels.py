@@ -138,9 +138,11 @@ def test_sample9_wrapper_checks_and_cpu_counts_nothing(rng):
         deform_sample.deform_sample9(y9, sy.double(), sy)
     with pytest.raises(ValueError):
         deform_sample.deform_sample9(y9, sy[:, :, :3], sy)
+    args = (torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 18), torch.zeros(9, 8, 8))
     with pytest.raises(NotImplementedError):
-        deform_conv2d(torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 18),
-                      torch.zeros(9, 8, 8), impl="shift")
+        deform_conv2d(*args, impl="no_such_impl")
+    # 'shift' is ported: this shape is not eligible for it and runs as 'pallas'
+    assert deform_conv2d(*args, impl="shift").shape == (1, 4, 4, 8)
 
 
 # --------------------------------------------------------------------- K4

@@ -38,7 +38,11 @@ class NetworkConfig:
     fcn_shared_subnet: bool = True
     # 'auto' | 'gather': exact DCNv1 sampling at any offset.
     # 'pallas' | 'mxu': vertical offsets clamped to +-dcn_max_dy first (the
-    # JAX package's windowed routes); the same sampling kernel afterwards.
+    # JAX package's windowed routes); the same sampling kernels afterwards.
+    # 'shift': the fused 9-tap sampler with both axes clamped to
+    # +-dcn_max_dy, on the layers where the JAX package's TPU route takes it
+    # (fcn_head_dim a multiple of 128, level height a multiple of 8); the
+    # other layers run as under 'pallas'. dcn_impl_train "" inherits dcn_impl.
     dcn_impl: str = "auto"
     dcn_impl_train: str = ""
     dcn_max_dy: int = 6

@@ -8,7 +8,7 @@
 // upsnet_tpu/ops/deform_conv_pallas.py:_sample_pallas9 (_sample9_kernel), the
 // inference sampler; K2 replaces _sample_pallas (_sample_kernel), the
 // training forward, which is one tap of K1 (its backward is
-// deform_sample_bwd.cu). Both share sample_tap below.
+// deform_sample_bwd.cu). Both share sample_tap of sample_tap.cuh.
 //
 // One thread per (output pixel, group of 8 channels): each corner is one
 // 16-byte load (bf16) or two (f32) along contiguous channels, the taps x 4
@@ -22,35 +22,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sample_tap.cuh"
 #include "vec8.cuh"
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ void add_corner(const T* img, int yy, int xx, float wgt,
-                                           int H, int W, int C, float* acc) {
-  if (yy < 0 || yy >= H || xx < 0 || xx >= W) return;
-  float v[8];
-  load8(img + ((int64_t)yy * W + xx) * C, v);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = fmaf(wgt, v[k], acc[k]);
-}
-
-// Adds the bilinear sample of img (one image's (H, W, C) map, already offset
-// to the thread's channel group) at (sy, sx) to acc.
-template <typename T>
-__device__ __forceinline__ void sample_tap(const T* img, float sy, float sx,
-                                           int H, int W, int C, float* acc) {
-  if (!(sy > -1.f && sy < (float)H && sx > -1.f && sx < (float)W)) return;
-  const float fy = floorf(sy), fx = floorf(sx);
-  const int y0 = (int)fy, x0 = (int)fx;
-  const float ly = sy - fy, lx = sx - fx;
-  const float hy = 1.f - ly, hx = 1.f - lx;
-  add_corner(img, y0, x0, hy * hx, H, W, C, acc);
-  add_corner(img, y0, x0 + 1, hy * lx, H, W, C, acc);
-  add_corner(img, y0 + 1, x0, ly * hx, H, W, C, acc);
-  add_corner(img, y0 + 1, x0 + 1, ly * lx, H, W, C, acc);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(256)

@@ -104,9 +104,17 @@ class DeformConv(nn.Module):
 
     ``weight`` is (out, in, k, k) like a torch conv; ``impl`` is the JAX
     ``dcn_impl`` ('auto'/'gather' exact, 'pallas'/'mxu' dy clipped to
-    +-max_dy). ``impl_train`` (default: ``impl``) takes its place whenever
-    autograd records, as the JAX train step swaps in ``dcn_impl_train``;
-    ``boundary_grad`` is the gradient of that clip.
+    +-max_dy, 'shift' dy and dx clipped where the JAX package takes its
+    shift kernel and 'pallas' elsewhere). ``impl_train`` (default: ``impl``)
+    takes its place whenever autograd records, as the JAX train step swaps in
+    ``dcn_impl_train``; ``boundary_grad`` is the gradient of that clip.
+
+    Every call folds ``[max |dy|, max |dx|, share of offset components at
+    >= 0.9 * max_dy]`` of its raw offsets into ``offset_max`` (a detached
+    tensor on the offsets' device, the elementwise maximum over the calls
+    since it was last set to None; the JAX layer sows the same three numbers
+    per call). Nothing reads it during a step, so it costs no sync;
+    ``utils/dcn_probe.py`` resets and reads it.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3,
@@ -122,6 +130,7 @@ class DeformConv(nn.Module):
                                      padding=dilation * (k // 2))
         self.weight = nn.Parameter(torch.empty(features, cin, k, k))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+        self.offset_max: torch.Tensor | None = None
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -131,9 +140,18 @@ class DeformConv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def _record_offsets(self, offsets):  # (B, 2K, H, W), (dy, dx) interleaved
+        ody, odx = offsets[:, 0::2].abs(), offsets[:, 1::2].abs()
+        edge = 0.9 * float(self.max_dy)
+        stat = torch.stack([ody.max(), odx.max(),
+                            ((ody >= edge) | (odx >= edge)).float().mean()])
+        keep = self.offset_max is not None and self.offset_max.device == stat.device
+        self.offset_max = torch.maximum(self.offset_max, stat) if keep else stat
+
     def forward(self, x):  # (B, Cin, H, W)
         # offsets stay float32: sub-pixel positions must not lose bits
         offsets = self.offset_conv(x.float())
+        self._record_offsets(offsets.detach())
         o, i, k, _ = self.weight.shape
         w_taps = self.weight.reshape(o, i, k * k).permute(2, 1, 0)
         y = deform_conv2d(

@@ -9,7 +9,9 @@ K1. ``forward_train`` returns the 7-term loss dict: the same trunk with the
 per-tap sampler (K2, backward K3), anchor and RoI target assignment on the
 device, ROIAlign through ``FPNRoIAlign`` (K4, backward K5) for the box
 head, the fg mask head and the GT-box mask logits of the teacher-forced
-panoptic loss. Shapes stay static: proposals padded to
+panoptic loss. Under ``dcn_impl: shift`` the eligible levels sample through
+the fused K8a instead, with K8b + K8c in backward (``ops/deform_shift.py``).
+Shapes stay static: proposals padded to
 ``rpn_post_nms_top_n``, sampled RoIs to ``batch_rois``, detections to
 ``max_det``, GT to ``max_gt_instances``.
 

@@ -24,7 +24,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "upsnet_torch_kernels"
 SOURCES = ("deform_sample", "deform_sample_bwd", "roi_align_fpn",
-           "roi_align_fpn_bwd")
+           "roi_align_fpn_bwd", "deform_shift", "deform_shift_adjoint")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -14,12 +14,21 @@ launch. When gradients are recorded, each tap goes through ``DeformSample``
 (forward K2, backward K3) and the taps are added in ``x.dtype`` in tap
 order, which in bf16 is what the JAX package's training does.
 
+``deform_conv2d_shift`` is the port of ``deform_shift_pallas.py:
+deform_conv2d_pallas_shift``: one matmul gives all taps side by side, and
+``DeformSampleShift`` samples them in one launch (K8a) also when gradients
+are recorded (backward K8b + K8c), with the taps added in f32.
+
 Offsets are ``(..., 2K)`` ordered ``(dy_0, dx_0, dy_1, dx_1, ...)`` over the
 row-major taps, as in the reference. Routing on the card has no window:
 
   * ``auto`` / ``gather``: exact sampling at the offsets as given;
   * ``pallas`` / ``mxu``: dy clipped to +-max_dy first by ``clip_offsets``
-    (the JAX windowed routes), dx unrestricted, then the same kernels.
+    (the JAX windowed routes), dx unrestricted, then the same kernels;
+  * ``shift``: where ``shift_route_ok`` says the JAX package on a TPU takes
+    its shift kernel, ``deform_conv2d_shift`` (dy and dx both clipped to
+    +-max_dy); elsewhere the ``pallas`` route, as ``DeformConv`` falls back
+    in JAX. Each layer so computes what the JAX package computes for it.
 
 Any odd kernel size works; stride is 1 (the caffe ResNet keeps every 3x3
 at stride 1).
@@ -30,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops.deform_sample import DeformSample, deform_sample9
+from upsnet_torch.ops.deform_shift import DeformSampleShift, shift_route_ok
 
 CLIPPED_IMPLS = ("pallas", "mxu")
 EXACT_IMPLS = ("auto", "gather")
@@ -78,11 +88,12 @@ def clip_offsets(v: torch.Tensor, bound: float,
 
 
 def sample_coords(offsets: torch.Tensor, kernel_size: int, dilation: int,
-                  max_dy: int | None = None, boundary_grad: str = "clip"):
+                  max_dy: int | None = None, boundary_grad: str = "clip",
+                  max_dx: int | None = None):
     """Per-tap absolute f32 sample coordinates.
 
     offsets (B, H, W, 2K) -> sy9, sx9 (K, B, H, W); dy clipped to +-max_dy
-    by ``clip_offsets`` when max_dy is given.
+    and dx to +-max_dx by ``clip_offsets`` where the bound is given.
     """
     b, h, w, _ = offsets.shape
     k = kernel_size * kernel_size
@@ -92,6 +103,8 @@ def sample_coords(offsets: torch.Tensor, kernel_size: int, dilation: int,
     off_x = off[..., 1::2].permute(3, 0, 1, 2)
     if max_dy is not None:
         off_y = clip_offsets(off_y, float(max_dy), boundary_grad)
+    if max_dx is not None:
+        off_x = clip_offsets(off_x, float(max_dx), boundary_grad)
     dev = offsets.device
     iy = torch.arange(h, dtype=torch.float32, device=dev)[None, None, :, None]
     ix = torch.arange(w, dtype=torch.float32, device=dev)[None, None, None, :]
@@ -113,6 +126,34 @@ def tap_projections(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x2, weight.to(x.dtype)).view(k, b, h, w, cout)
 
 
+def deform_conv2d_shift(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor | None = None, kernel_size: int = 3,
+                        dilation: int = 1, max_dy: int = 6, max_dx: int = 6,
+                        boundary_grad: str = "clip") -> torch.Tensor:
+    """Deformable conv through one projection matmul and the fused K-tap
+    sampler (``ops/deform_shift.py``), the JAX ``deform_conv2d_pallas_shift``.
+
+    Arguments as ``deform_conv2d``. Exact for |dy| <= max_dy and
+    |dx| <= max_dx; offsets beyond are clipped to the window edge by
+    ``clip_offsets`` with ``boundary_grad`` on both axes. Differentiable in
+    x, offsets, weight and bias, with the fused forward also under autograd.
+    """
+    if kernel_size % 2 != 1:
+        raise ValueError(f"kernel_size must be odd, got {kernel_size}")
+    b, h, w, cin = x.shape
+    k, _, cout = weight.shape
+    # one matmul -> (B, H, W, K*Cout), tap t in channels t*Cout..(t+1)*Cout
+    wk = weight.permute(1, 0, 2).reshape(cin, k * cout).to(x.dtype)
+    y = torch.matmul(x.reshape(-1, cin), wk).view(b, h, w, k * cout)
+    sy, sx = sample_coords(offsets, kernel_size, dilation, max_dy, boundary_grad, max_dx)
+    half = (kernel_size - 1) // 2
+    out = DeformSampleShift.apply(y, sy, sx, max_dy + half * dilation,
+                                  max_dx + half * dilation)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None = None, kernel_size: int = 3,
                   dilation: int = 1, impl: str = "auto", max_dy: int = 6,
@@ -121,10 +162,14 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
 
     x (B, H, W, Cin); offsets (B, H, W, 2K); weight (K, Cin, Cout) tap-major;
     bias (Cout,). Returns (B, H, W, Cout) in x.dtype. Differentiable in x,
-    offsets, weight and bias; ``boundary_grad`` is the gradient of the dy
-    clip of the windowed impls.
+    offsets, weight and bias; ``boundary_grad`` is the gradient of the
+    offset clip of the windowed impls.
     """
-    if impl in CLIPPED_IMPLS:
+    if impl == "shift" and shift_route_ok(x.shape, weight.shape[-1], max_dy, max_dy,
+                                          dilation, weight.shape[0]):
+        return deform_conv2d_shift(x, offsets, weight, bias, kernel_size, dilation,
+                                   max_dy, max_dy, boundary_grad)
+    if impl in CLIPPED_IMPLS or impl == "shift":  # a layer shift does not take runs as pallas
         clip = max_dy
     elif impl in EXACT_IMPLS:
         clip = None
