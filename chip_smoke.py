@@ -9,11 +9,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. build: compile every CUDA kernel of ``upsnet_torch/csrc`` with nvcc, one
    process per source, all at once;
-2. kernels: each of the eight kernels against its plain PyTorch version on
-   the card, on the shapes the predict path and the train step give it at
-   batch 2, with errors, kernel / plain / library-call times (CUDA events,
-   median of 30) and the least time the card could take for the same work;
-   K8b (the gather adjoint) must also give the same bits on two runs;
+2. kernels: each of the eleven kernels against its plain PyTorch version on
+   the card, on the shapes the paths below give it (batch 2 at 832x1344; K6
+   at P2 of the wide canvas, batch 1), with errors, kernel / plain /
+   library-call times (CUDA events, median of 30) and the least time the
+   card could take for the same work; K8b (the gather adjoint) must also
+   give the same bits on two runs, and K3, K7b, K8c exact zeros at integer
+   coordinates;
 3. predict: ``resnet_50_upsnet`` at full width (COCO: 81 classes, 133 seg
    classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
    offset biases set to +-2 px, serving two batch-2 requests through
@@ -37,11 +39,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    and the step-0 losses are held against the ``pallas`` route's on the
    same weights: with offsets within +-2 px neither clip acts, so the two
    differ by rounding only;
-6. reference: a tiny float32 model on the card against the same model on
+6. predict_wide, train_wide: phases 3 and 4 with ``dcn_impl: pallas`` at
+   batch 1 on an 832x3328 canvas (two requests, two steps). Its P2 map,
+   208x832 at 128 channels, is wider than the TPU's untiled kernel holds,
+   so the port's ``pallas_route`` answers ``tiled`` for it and ``untiled``
+   for P3-P5, and the expected launches follow from that rule: per forward
+   18 K6 (2 layers x 9 taps at P2), 6 K1, 2 K4; per step 18 K6 + 18 K3 for
+   P2, 54 K2 + 54 K3 for P3-P5, 3 K4, 3 K5, plus the watch's probe.
+   ``seg_logits`` are held against ``auto`` on the same weights: equal
+   within the bf16 tap-sum tolerance at +-2 px, different once dx goes
+   beyond the +-6 window (the tiled form clips dx, ``auto`` does not);
+7. mt_tool: the sample-first form (K7a, one GEMM, K7b) through its caller,
+   ``upsnet_torch.tools.bench_deform_impls``, at batch 2 over the tool's
+   five shapes, forward and forward + backward, against the per-tap form;
+   launch counts equal the tool's call counts;
+8. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels).
 
 The line before the last two is a JSON object with every kernel's numbers
-(``launches`` sums the four predict and train phases, each counted from 0);
+(``launches`` sums the predict, train and tool phases, each counted from 0);
 then the card's name and power limit; the last line is the device record.
 """
 
@@ -69,8 +85,9 @@ from upsnet_torch.data.synthetic import synthetic_batch  # noqa: E402
 from upsnet_torch.models import layers  # noqa: E402
 from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
 from upsnet_torch.ops import (  # noqa: E402
-    cuda_build, deform_sample, deform_shift, nms, roi_align_fpn)
-from upsnet_torch.ops.deform_conv import clip_offsets  # noqa: E402
+    cuda_build, deform_sample, deform_sample_mt, deform_shift, nms, roi_align_fpn)
+from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt  # noqa: E402
+from upsnet_torch.tools import bench_deform_impls  # noqa: E402
 from upsnet_torch.train.optimizer import make_optimizer  # noqa: E402
 from upsnet_torch.train.step import make_train_step  # noqa: E402
 from upsnet_torch.train.trainer import WATCHED_IMPLS, train_steps  # noqa: E402
@@ -83,6 +100,11 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 BUCKET = (832, 1344)
 IM_HW = (800.0, 1333.0)
 BATCH = 2
+# a canvas whose P2 map (208 x 832 at 128 channels) is too wide for the TPU's
+# untiled DCN kernel, so that the routing rule itself picks the tiled form
+WIDE_BUCKET = (832, 3328)
+WIDE_IM_HW = (800.0, 3328.0)
+WIDE_BATCH = 1
 REPS = 30
 
 
@@ -615,6 +637,206 @@ def check_k8(dev) -> tuple[dict, dict, dict]:
     return k8a, k8b, k8c
 
 
+def _mark_integers(g, dev, sy, sx, h: int):
+    """5% of the samples onto exactly integer rows, another 5% onto integer
+    columns, and 1% pushed beyond the image edge (not counted)."""
+    shape = sy.shape
+    int_y = torch.rand(shape, generator=g, device=dev) < 0.05
+    int_x = torch.rand(shape, generator=g, device=dev) < 0.05
+    sy = torch.where(int_y, sy.round(), sy)
+    sx = torch.where(int_x, sx.round(), sx).contiguous()
+    edge = torch.rand(shape, generator=g, device=dev) < 0.01
+    sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy)
+    return sy.contiguous(), sx
+
+
+def check_k6(dev) -> dict:
+    """K6 at P2 of the wide canvas (1 x 208 x 832, C 128, bf16): tap 4 of the
+    nine-tap one-matmul projection (1, 208, 832, 9, 128), offsets as in
+    ``check_k1`` (+-2 px, 3% at 6-12 px) clipped to +-6 on both axes as the
+    tiled form clips them, 5% of the samples on integer rows, 5% on integer
+    columns, 1% beyond the image edge (not counted, so beyond the reach)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    taps, tap, c, max_d = 9, 4, 128, 6
+    reach = max_d + 1  # max_dy + dilation
+    b, (h, w) = WIDE_BATCH, (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4)
+    if deform_sample.pallas_route((b, h, w, c), c, max_d, 1) != ("tiled", max_d):
+        raise AssertionError(f"pallas_route does not tile a {h}x{w} map")
+    y = torch.randn((b, h, w, taps, c), generator=g, device=dev).to(torch.bfloat16)
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    sy = iy + clip_offsets(dcn_offsets(g, dev, (b, h, w)), float(max_d))
+    sx = ix + clip_offsets(dcn_offsets(g, dev, (b, h, w)), float(max_d))
+    sy, sx = _mark_integers(g, dev, sy, sx, h)
+    deform_sample.check_reach(sy, sx, reach, reach)
+
+    # the same four f32 products summed in another order, rounded once to
+    # bf16: at most one bf16 ulp (2^-7 relative) apart, plus slack near 0
+    rtol, atol = 2.0 ** -7, 1e-4
+    got = deform_sample.deform_sample_tiled(y, tap, sy, sx, reach, reach)
+    ref = deform_sample.deform_sample_tiled_plain(y, tap, sy, sx, reach, reach)
+    torch.cuda.synchronize()
+    err, rel = compare(got, ref, rtol, atol)
+    if float(got.float().abs().max()) == 0.0:
+        raise AssertionError("K6: output is all zero")
+    print(f"[K6 deform_sample_tiled] tap {tap} of y {tuple(y.shape)} bf16: max abs err "
+          f"{err:.3e}, max rel err {rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g})")
+
+    # library yardstick: one grid_sample call on a float32 copy of the tap's
+    # block, made outside the timed call (a bf16 grid cannot hold the
+    # coordinates)
+    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
+    y32 = y[:, :, :, tap].float().permute(0, 3, 1, 2).contiguous()
+
+    def library():
+        return F.grid_sample(y32, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    lib_err = float((library().permute(0, 2, 3, 1) - ref.float()).abs().max())
+    ms = time_ms(lambda: deform_sample.deform_sample_tiled(y, tap, sy, sx, reach, reach))
+    plain_ms = time_ms(
+        lambda: deform_sample.deform_sample_tiled_plain(y, tap, sy, sx, reach, reach), 10)
+    library_ms = time_ms(library)
+    # bytes: the rows of the tap's block the counted samples touch, the
+    # coordinates, the output; 4 corners x 2 flops per channel
+    n_rows, n_inside = touched_rows(sy, sx, h, w)
+    n_bytes = n_rows * c * 2 + 2 * sy.numel() * 4 + got.numel() * 2
+    bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c)
+    print(f"[K6 deform_sample_tiled] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
+          f"{library_ms:.4f} ms (max abs diff {lib_err:.3e}), bound {bound_ms:.4f} ms "
+          f"({bound_by}: {n_bytes / 1e6:.1f} MB)")
+    return {"name": "deform_sample_tiled", "route": "cuda",
+            "source": "upsnet_torch/csrc/deform_sample_tiled.cu",
+            "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:429",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def check_k7(dev) -> tuple[dict, dict]:
+    """K7a and K7b at P2 of the 832x1344 bucket (2 x 208 x 336, 9 taps,
+    bf16), at C 256 (the first subnet layer) and at C 128 (the second; its
+    numbers are the returned ones): offsets uniform in +-2 px around each
+    tap, the samples of the first 16 rows on exactly integer rows and those
+    of the first 16 columns on integer columns (zero coordinate derivative
+    there), 1% pushed beyond the image edge."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    taps, b = 9, BATCH
+    h, w = BUCKET[0] // 4, BUCKET[1] // 4
+    shape = (taps, b, h, w)
+    kk = torch.arange(taps, device=dev)
+    ky = (kk // 3 - 1).float()[:, None, None, None]
+    kx = (kk % 3 - 1).float()[:, None, None, None]
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+    sy = iy + ky + torch.rand(shape, generator=g, device=dev) * 4 - 2
+    sx = ix + kx + torch.rand(shape, generator=g, device=dev) * 4 - 2
+    sy[:, :, :16] = sy[:, :, :16].round()
+    sx[:, :, :, :16] = sx[:, :, :, :16].round()
+    edge = torch.rand(shape, generator=g, device=dev) < 0.01
+    sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy).contiguous()
+    sx = sx.contiguous()
+    at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
+    grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
+    # all taps read one x: distinct rows per image, over the taps
+    n_rows, n_inside = touched_rows(sy.transpose(0, 1).reshape(b, taps * h, w),
+                                    sx.transpose(0, 1).reshape(b, taps * h, w), h, w)
+    rows = []
+    for c in (256, 128):
+        x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+        grad = torch.randn((b, h, w, taps, c), generator=g, device=dev).to(torch.bfloat16)
+
+        # K7a: four f32 products in another order, rounded once to bf16: one
+        # bf16 ulp (2^-7 relative) plus slack near zero
+        rtol, atol = 2.0 ** -7, 1e-4
+        got_a = deform_sample_mt.deform_sample_mt(x, sy, sx)
+        ref_a = deform_sample_mt.deform_sample_mt_plain(x, sy, sx)
+        torch.cuda.synchronize()
+        a_err, a_rel = compare(got_a, ref_a, rtol, atol)
+        print(f"[K7a deform_sample_mt] x {tuple(x.shape)} bf16, {taps} taps -> cols "
+              f"{tuple(got_a.shape)}: max abs err {a_err:.3e}, max rel err {a_rel:.3e} "
+              f"(tolerance {rtol:.4g}*|ref| + {atol:g})")
+
+        # K7b. grad_x: f32 canvas sums of about 36 terms (atomics on the
+        # card, so their order changes from run to run) rounded once to
+        # bf16: one bf16 ulp plus 1e-3 where the terms cancel. gsy, gsx: f32
+        # sums of 4 x C products of O(1) values in another order: 1e-4
+        # relative plus 1e-3 absolute.
+        b_atol = 1e-3
+        got_b = deform_sample_mt.deform_sample_mt_bwd(x, sy, sx, grad)
+        ref_b = deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, grad)
+        torch.cuda.synchronize()
+        b_err, b_rel = compare(got_b[0], ref_b[0], rtol, b_atol)
+        c_rtol, c_atol = 1e-4, 1e-3
+        gsy_err, _ = compare(got_b[1], ref_b[1], c_rtol, c_atol)
+        gsx_err, _ = compare(got_b[2], ref_b[2], c_rtol, c_atol)
+        if (float(got_b[1][at_int_y].abs().max()) != 0.0
+                or float(got_b[2][at_int_x].abs().max()) != 0.0):
+            raise AssertionError("K7b: non-zero coordinate gradient at an integer coordinate")
+        if float(got_b[1].abs().max()) == 0.0 or float(got_b[2].abs().max()) == 0.0:
+            raise AssertionError("K7b: coordinate gradients are all zero")
+        print(f"[K7b deform_sample_mt_bwd] C {c}: grad_x max abs err {b_err:.3e}, max rel err "
+              f"{b_rel:.3e} (tolerance {rtol:.4g}*|ref| + {b_atol:g}); gsy / gsx max abs err "
+              f"{gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); "
+              f"exactly 0 at the {int(at_int_y.sum())} integer rows and "
+              f"{int(at_int_x.sum())} integer columns")
+        del ref_a, ref_b
+
+        # library yardsticks on float32 copies made outside the timed calls:
+        # 9 grid_sample calls on x for K7a, 9 calls of its backward op for
+        # K7b (one-sided at integer coordinates and in normalised
+        # coordinates, so a yardstick of speed only)
+        x32 = x.float().permute(0, 3, 1, 2).contiguous()
+        g32 = [grad[:, :, :, t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+
+        def lib_fwd():
+            return [F.grid_sample(x32, grids[t], mode="bilinear", padding_mode="zeros",
+                                  align_corners=True) for t in range(taps)]
+
+        def lib_bwd():
+            return [torch.ops.aten.grid_sampler_2d_backward(
+                g32[t], x32, grids[t], 0, 0, True, [True, True]) for t in range(taps)]
+
+        lib_err = float((torch.stack(lib_fwd(), 1).permute(0, 3, 4, 1, 2)
+                         - got_a.float()).abs().max())
+        a_ms = time_ms(lambda: deform_sample_mt.deform_sample_mt(x, sy, sx))
+        a_plain = time_ms(lambda: deform_sample_mt.deform_sample_mt_plain(x, sy, sx), 10)
+        a_lib = time_ms(lib_fwd, 10)
+        b_ms = time_ms(lambda: deform_sample_mt.deform_sample_mt_bwd(x, sy, sx, grad))
+        b_plain = time_ms(
+            lambda: deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, grad), 10)
+        b_lib = time_ms(lib_bwd, 10)
+
+        # bytes this run needs. K7a: the rows of x its counted samples touch
+        # (once, whichever tap reads them), the coordinates, the columns
+        # written. K7b: those rows, g, the coordinates, grad_x (bf16, every
+        # element written) and the two coordinate gradients. 4 corners x 2
+        # (K7a) or 6 (K7b) flops per channel.
+        coords = 2 * sy.numel() * 4
+        a_bytes = n_rows * c * 2 + coords + got_a.numel() * 2
+        a_bound, a_by = bound(a_bytes, n_inside * 4 * 2 * c)
+        b_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + x.numel() * 2
+        b_bound, b_by = bound(b_bytes, n_inside * 4 * 6 * c)
+        print(f"[K7a deform_sample_mt] C {c}: kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms, 9x "
+              f"grid_sample {a_lib:.4f} ms (max abs diff {lib_err:.3e}), bound {a_bound:.4f} "
+              f"ms ({a_by}: {a_bytes / 1e6:.1f} MB)")
+        print(f"[K7b deform_sample_mt_bwd] C {c}: kernel {b_ms:.4f} ms (zeroed canvas, kernel, "
+              f"cast), plain {b_plain:.4f} ms, 9x grid_sampler_2d_backward {b_lib:.4f} ms, "
+              f"bound {b_bound:.4f} ms ({b_by}: {b_bytes / 1e6:.1f} MB)")
+        line = "upsnet_tpu/ops/deform_conv_pallas.py"
+        rows = [{"name": "deform_sample_mt", "route": "cuda",
+                 "source": "upsnet_torch/csrc/deform_sample_mt.cu", "replaces": f"{line}:1135",
+                 "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
+                 "bound_by": a_by, "library_ms": a_lib},
+                {"name": "deform_sample_mt_bwd", "route": "cuda",
+                 "source": "upsnet_torch/csrc/deform_sample_mt_bwd.cu",
+                 "replaces": f"{line}:1267", "max_abs_err": max(b_err, gsy_err, gsx_err),
+                 "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
+                 "library_ms": b_lib}]
+        del x, grad, got_a, got_b, x32, g32
+        torch.cuda.empty_cache()
+    return rows[0], rows[1]
+
+
 COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample": (deform_sample, "launches_fwd"),
             "deform_sample_bwd": (deform_sample, "launches_bwd"),
@@ -622,28 +844,39 @@ COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "fpn_roi_align_bwd": (roi_align_fpn, "launches_bwd"),
             "shift_fwd": (deform_shift, "launches_fwd"),
             "shift_adjoint": (deform_shift, "launches_adjoint"),
-            "shift_offset_grads": (deform_shift, "launches_offset_grads")}
+            "shift_offset_grads": (deform_shift, "launches_offset_grads"),
+            "deform_sample_tiled": (deform_sample, "launches_tiled"),
+            "deform_sample_mt": (deform_sample_mt, "launches_fwd"),
+            "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd")}
 
 
-def expected_launches(cfg, grad: bool, heads: bool = True) -> dict:
+def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
+                      batch: int = BATCH) -> dict:
     """The launches of one ``forward_predict`` (grad False) or one train step
-    (grad True) of ``cfg`` at BUCKET, from the routing rule: a DCN layer
-    that ``dcn_impl: shift`` sends to the shift route launches K8a (and K8b
-    + K8c in backward); any other launches K1 without autograd and 9 x (K2 +
-    K3) with it. ``heads`` False leaves out the ROIAlign calls (a pass of
-    the trunk alone)."""
+    (grad True) of ``cfg`` at ``bucket``, from the port's routing rules. A
+    DCN layer that ``dcn_impl: shift`` sends to the shift route launches K8a
+    (and K8b + K8c in backward); one that ``pallas`` or the fallback of
+    ``shift`` sends to the tiled form launches 9 K6 (and 9 K3 in backward);
+    any other launches K1 without autograd and 9 x (K2 + K3) with it.
+    ``heads`` False leaves out the ROIAlign calls (a pass of the trunk
+    alone)."""
     net = cfg.network
     impl = (net.dcn_impl_train or net.dcn_impl) if grad else net.dcn_impl
     n = dict.fromkeys(COUNTERS, 0)
     for stride in (4, 8, 16, 32):
-        h, w = -(-BUCKET[0] // stride), -(-BUCKET[1] // stride)
+        h, w = -(-bucket[0] // stride), -(-bucket[1] // stride)
         for layer in range(net.fcn_num_layers):
             cin = net.fpn_feature_dim if layer == 0 else net.fcn_head_dim
+            shape = (batch, h, w, cin)
             if impl == "shift" and deform_shift.shift_route_ok(
-                    (BATCH, h, w, cin), net.fcn_head_dim, net.dcn_max_dy, net.dcn_max_dy, 1):
+                    shape, net.fcn_head_dim, net.dcn_max_dy, net.dcn_max_dy, 1):
                 n["shift_fwd"] += 1
                 n["shift_adjoint"] += grad
                 n["shift_offset_grads"] += grad
+            elif impl in ("pallas", "shift") and deform_sample.pallas_route(
+                    shape, net.fcn_head_dim, net.dcn_max_dy, 1)[0] == "tiled":
+                n["deform_sample_tiled"] += 9
+                n["deform_sample_bwd"] += 9 * grad
             elif grad:
                 n["deform_sample"] += 9
                 n["deform_sample_bwd"] += 9
@@ -679,40 +912,45 @@ def shrink_bn_scales(model, generator) -> None:
                 m.scale.copy_(scale)
 
 
-def perturb_offset_biases(model, generator) -> None:
-    """Offset-conv biases uniform in [-2, 2] px, so that K1 samples at
-    fractional positions as a trained checkpoint would."""
+def perturb_offset_biases(model, generator, dy_px: float = 2.0, dx_px: float = 2.0) -> None:
+    """Offset-conv biases uniform in +-dy_px (the dy components) and +-dx_px
+    (the dx components), so that the samplers work at fractional positions
+    as a trained checkpoint would."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, layers.DeformConv):
-                bias = torch.empty(m.offset_conv.bias.shape).uniform_(-2.0, 2.0,
+                bias = torch.empty(m.offset_conv.bias.shape).uniform_(-1.0, 1.0,
                                                                        generator=generator)
+                bias[0::2] *= dy_px
+                bias[1::2] *= dx_px
                 m.offset_conv.bias.copy_(bias)
 
 
-def phase_predict(dev, impl: str = "auto", tag: str = "predict"):
-    """Two full-width batch-2 requests through ``forward_predict`` with
-    ``dcn_impl: impl``. Returns (launches, a closure that serves one more
-    request, the model, the last batch and its seg_logits)."""
+def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
+                  im_hw=IM_HW, batch_size: int = BATCH):
+    """Two full-width requests of ``batch_size`` images on the ``bucket``
+    canvas through ``forward_predict`` with ``dcn_impl: impl``. Returns
+    (launches, a closure that serves one more request, the model, the last
+    batch and its seg_logits)."""
     cfg = default_config()
     cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl=impl))
     net, ds = cfg.network, cfg.dataset
-    expect_n = expected_launches(cfg, grad=False)
+    expect_n = expected_launches(cfg, grad=False, bucket=bucket, batch=batch_size)
     print(f"[{tag}] {cfg.symbol}: {ds.num_classes} classes, {ds.num_seg_classes} seg "
           f"classes, fpn {net.fpn_feature_dim}, fcn {net.fcn_head_dim}, fc "
           f"{net.rcnn_fc_dim}, {net.compute_dtype}, dcn_impl {net.dcn_impl}, "
-          f"bucket {BUCKET}, batch {BATCH}")
+          f"bucket {bucket}, batch {batch_size}")
     gen = torch.Generator().manual_seed(cfg.seed)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, generator=gen)
     perturb_offset_biases(model, gen)
-    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
+    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(bucket))
     print(f"[{tag}] model built in {time.perf_counter() - t0:.2f} s")
     g = torch.Generator(device=dev).manual_seed(3)
     batches = [{
-        "images": torch.empty((BATCH, *BUCKET, 3), device=dev).uniform_(-110.0, 140.0,
+        "images": torch.empty((batch_size, *bucket, 3), device=dev).uniform_(-110.0, 140.0,
                                                                         generator=g),
-        "im_hw": torch.tensor([IM_HW] * BATCH, device=dev),
+        "im_hw": torch.tensor([im_hw] * batch_size, device=dev),
     } for _ in range(2)]
     torch.cuda.synchronize()
 
@@ -727,11 +965,11 @@ def phase_predict(dev, impl: str = "auto", tag: str = "predict"):
         lat.append((time.perf_counter() - t0) * 1e3)
         per_request.append({k: v - before[k] for k, v in read_launches().items()})
         d = cfg.test.max_det
-        hq, wq = BUCKET[0] // 4, BUCKET[1] // 4
-        expect = {"boxes": (BATCH, d, 4), "scores": (BATCH, d), "classes": (BATCH, d),
-                  "det_valid": (BATCH, d), "mask_logits": (BATCH, d, 28, 28),
-                  "seg_logits": (BATCH, hq, wq, ds.num_seg_classes),
-                  "pan_map": (BATCH, hq, wq), "pan_keep": (BATCH, d)}
+        hq, wq = bucket[0] // 4, bucket[1] // 4
+        expect = {"boxes": (batch_size, d, 4), "scores": (batch_size, d), "classes": (batch_size, d),
+                  "det_valid": (batch_size, d), "mask_logits": (batch_size, d, 28, 28),
+                  "seg_logits": (batch_size, hq, wq, ds.num_seg_classes),
+                  "pan_map": (batch_size, hq, wq), "pan_keep": (batch_size, d)}
         for k, shape in expect.items():
             if tuple(out[k].shape) != shape:
                 raise AssertionError(f"{k}: shape {tuple(out[k].shape)} != {shape}")
@@ -750,8 +988,8 @@ def phase_predict(dev, impl: str = "auto", tag: str = "predict"):
         if moved != expect_n:
             raise AssertionError(f"launches per forward {moved}, expected {expect_n}")
     print(f"[{tag}] launches on this path: {launches}")
-    print(f"[{tag}] latency per batch-2 request {[round(x, 2) for x in lat]} ms; "
-          f"steady (request 1) {lat[1]:.2f} ms = {BATCH * 1e3 / lat[1]:.2f} img/s")
+    print(f"[{tag}] latency per batch-{batch_size} request {[round(x, 2) for x in lat]} ms; "
+          f"steady (request 1) {lat[1]:.2f} ms = {batch_size * 1e3 / lat[1]:.2f} img/s")
     run = lambda: forward_predict(model, cfg, anchors, batches[-1])  # noqa: E731
     return launches, run, model, batches[-1], out["seg_logits"]
 
@@ -820,6 +1058,20 @@ METRIC_FIELDS = {*LOSS_KEYS, "total", "iter", "images_per_sec", "step_s", "loade
 WATCH_FIELDS = {"dcn_max_dy", "dcn_max_dx", "dcn_impl", "dcn_boundary_grad", "dcn_sat_frac"}
 
 
+def seg_under(model, cfg, anchors, batch, impl: str) -> torch.Tensor:
+    """``seg_logits`` of one request with every deformable layer of ``model``
+    switched to ``dcn_impl: impl`` for the call."""
+    dcns = [m for m in model.modules() if isinstance(m, layers.DeformConv)]
+    before = [m.impl for m in dcns]
+    for m in dcns:
+        m.impl = impl
+    try:
+        return forward_predict(model, cfg, anchors, batch)["seg_logits"]
+    finally:
+        for m, was in zip(dcns, before):
+            m.impl = was
+
+
 def compare_seg_with_pallas(model, cfg, anchors, batch, seg_shift, tag: str) -> None:
     """``seg_logits`` of the ``dcn_impl: shift`` model against the same
     weights under ``dcn_impl: pallas`` on the same request. The offset convs
@@ -828,14 +1080,7 @@ def compare_seg_with_pallas(model, cfg, anchors, batch, seg_shift, tag: str) -> 
     the one-matmul and the per-tap projections may round a bf16 value
     differently, and two DCN layers, the upsampling and the score conv carry
     that on: within 2^-5 of max |ref| (4 bf16 ulps of the largest logit)."""
-    dcns = [m for m in model.modules() if isinstance(m, layers.DeformConv)]
-    for m in dcns:
-        m.impl = "pallas"
-    try:
-        ref = forward_predict(model, cfg, anchors, batch)["seg_logits"]
-    finally:
-        for m in dcns:
-            m.impl = "shift"
+    ref = seg_under(model, cfg, anchors, batch, "pallas")
     err = float((seg_shift - ref).abs().max())
     scale = float(ref.abs().max())
     print(f"[{tag}] seg_logits, dcn_impl shift vs pallas on the same weights: max abs diff "
@@ -844,10 +1089,43 @@ def compare_seg_with_pallas(model, cfg, anchors, batch, seg_shift, tag: str) -> 
         raise AssertionError(f"seg_logits shift vs pallas: {err} > {scale / 32}")
 
 
-def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train"):
+def compare_wide_with_auto(model, cfg, anchors, batch, seg_pallas) -> None:
+    """The wide ``dcn_impl: pallas`` model against the same weights under
+    ``auto`` (exact sampling, K1 at every level).
+
+    With offset biases within +-2 px no clip acts and both sample the same
+    positions. They differ by rounding: at P2 the tiled form adds its nine
+    taps in bf16 (eight roundings of partial sums, each up to 2^-9 of the
+    partial sum, so at worst 2^-6 of a layer's output) where K1 adds them in
+    f32 and rounds once; two such layers, the upsampling and the score conv
+    carry that on: within 2^-5 of max |ref|. With the dx biases redrawn in +-8 px and dy left within
+    +-2 px, the untiled levels still compute what ``auto`` computes (they
+    clip dy only), and P2 clips dx at +-6: the two must then differ by more
+    than that tolerance."""
+    ref = seg_under(model, cfg, anchors, batch, "auto")
+    err = float((seg_pallas - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"[predict_wide] seg_logits, pallas (P2 tiled) vs auto, offsets within +-2 px: max "
+          f"abs diff {err:.3e}, max |ref| {scale:.3f} (tolerance 2^-5 * max |ref| = "
+          f"{scale / 32:.3e})")
+    if not err <= scale / 32:
+        raise AssertionError(f"seg_logits pallas vs auto: {err} > {scale / 32}")
+    perturb_offset_biases(model, torch.Generator().manual_seed(17), dy_px=2.0, dx_px=8.0)
+    far_pallas = seg_under(model, cfg, anchors, batch, "pallas")
+    far_auto = seg_under(model, cfg, anchors, batch, "auto")
+    far = float((far_pallas - far_auto).abs().max())
+    far_scale = float(far_auto.abs().max())
+    print(f"[predict_wide] the same with dx biases in +-8 px (beyond the +-6 window): max abs "
+          f"diff {far:.3e}, max |ref| {far_scale:.3f}: P2 clips dx, auto does not")
+    if not far > far_scale / 32:
+        raise AssertionError(f"dx beyond the window: pallas and auto differ by only {far}")
+
+
+def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train",
+                bucket=BUCKET, im_hw=IM_HW, batch_size: int = BATCH):
     """``n_steps`` SGD steps of the full-width model with ``dcn_impl: impl``
-    on one synthetic batch of 2, through ``train_steps`` with a display
-    interval of one step. Returns (launches, a closure that takes one more
+    on one synthetic batch of ``batch_size`` images on the ``bucket`` canvas,
+    through ``train_steps`` with a display interval of one step. Returns (launches, a closure that takes one more
     step, the per-step loss dicts)."""
     cfg = default_config()
     cfg = cfg.replace(
@@ -860,15 +1138,16 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train")
     net, tc = cfg.network, cfg.train
     print(f"[{tag}] {cfg.symbol}: {net.compute_dtype} from {net.param_dtype} parameters, "
           f"dcn_impl {net.dcn_impl}, dcn_boundary_grad {net.dcn_boundary_grad}, bucket "
-          f"{BUCKET}, batch {BATCH}, batch_rois {tc.batch_rois}, rpn_batch_size "
+          f"{bucket}, batch {batch_size}, batch_rois {tc.batch_rois}, rpn_batch_size "
           f"{tc.rpn_batch_size}, {tc.max_gt_instances} GT slots, lr {tc.lr}, grad_clip "
           f"{tc.grad_clip}")
     # one interval is one step and, where the loop watches the clip
     # ('pallas'), the watch's probe: a pass of the trunk without autograd
     watched = impl in WATCHED_IMPLS
-    expect_n = expected_launches(cfg, grad=True)
+    expect_n = expected_launches(cfg, grad=True, bucket=bucket, batch=batch_size)
     if watched:
-        probe = expected_launches(cfg, grad=False, heads=False)
+        probe = expected_launches(cfg, grad=False, heads=False, bucket=bucket,
+                                  batch=batch_size)
         expect_n = {k: v + probe[k] for k, v in expect_n.items()}
     metrics_path = os.path.join(cfg.output_path, cfg.symbol, "metrics.jsonl")
     if os.path.exists(metrics_path):
@@ -877,9 +1156,9 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train")
     model = build_model(cfg, device=dev, generator=gen)
     perturb_offset_biases(model, gen)
     shrink_bn_scales(model, gen)  # losses of a sane order, so the steps mean something
-    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
+    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(bucket))
     batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
-        cfg, BUCKET, BATCH, seed=7, image_hw=tuple(int(x) for x in IM_HW)).items()}
+        cfg, bucket, batch_size, seed=7, image_hw=tuple(int(x) for x in im_hw)).items()}
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if not p.requires_grad}
     trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
@@ -947,7 +1226,7 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train")
           + ", ".join(f"{n} {v:.3e}" for n, v in offset_grads.items()))
     print(f"[{tag}] step ms {[round(x, 1) for x in ms]} (metrics.jsonl step_s); step 0 "
           f"{ms[0]:.1f} ms, steady (median of steps 1-{n_steps - 1}) {steady:.1f} ms = "
-          f"{BATCH * 1e3 / steady:.2f} img/s; peak memory allocated {peak / 2 ** 30:.2f} GiB; "
+          f"{batch_size * 1e3 / steady:.2f} img/s; peak memory allocated {peak / 2 ** 30:.2f} GiB; "
           f"{len(frozen)} frozen tensors unchanged")
     step = make_train_step(model, cfg, anchors, optimizer, generator=noise_gen)
     return launches, (lambda: step(batch)), history
@@ -1010,6 +1289,75 @@ def phase_reference(dev) -> None:
           f"err {box_err}")
 
 
+def phase_mt_tool(dev) -> dict:
+    """The sample-first form through its one caller, the tool
+    ``upsnet_torch.tools.bench_deform_impls``: first one ``deform_conv2d_mt``
+    call with gradients at the tool's largest shape (exactly one K7a and one
+    K7b launch, finite gradients), then the tool itself at batch 2 over its
+    five shapes. The launch counters must equal the tool's call counts, and
+    at the constant-offset field (|dy| <= 2, so no clamp acts) ``mt`` must
+    agree with ``pertap``: both round to bf16 at other places (nine
+    projections against nine sampled inputs, then the sums), within 2^-6 of
+    max |pertap| (two bf16 ulps of the largest output)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    (h, w), cin = bench_deform_impls.SHAPES[0]
+    x = torch.randn((BATCH, h, w, cin), generator=g, device=dev).to(torch.bfloat16)
+    off = torch.rand((BATCH, h, w, 18), generator=g, device=dev) * 4 - 2
+    weight = torch.randn((9, cin, bench_deform_impls.COUT), generator=g, device=dev) * 0.05
+    leaves = [t.requires_grad_() for t in (x, off, weight)]
+    reset_launches()
+    deform_conv2d_mt(*leaves).float().square().sum().backward()
+    torch.cuda.synchronize()
+    one = nonzero(read_launches())
+    if one != {"deform_sample_mt": 1, "deform_sample_mt_bwd": 1}:
+        raise AssertionError(f"one mt call with gradients launched {one}")
+    for name, t in zip(("x", "offsets", "weight"), leaves):
+        if not torch.isfinite(t.grad).all() or float(t.grad.abs().max()) == 0.0:
+            raise AssertionError(f"mt: gradient to {name} is zero or not finite")
+    del x, off, weight, leaves
+    torch.cuda.empty_cache()
+
+    reps = 10
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    rows = bench_deform_impls.main(device=dev, batch=BATCH, reps=reps)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # per shape and field the tool calls a form once to compare outputs,
+    # 1 + reps times forward and 1 + reps times forward + backward
+    calls = len(bench_deform_impls.SHAPES) * 2
+    expect = dict.fromkeys(COUNTERS, 0)
+    expect["deform_sample_mt"] = calls * (1 + 2 * (1 + reps))
+    expect["deform_sample_mt_bwd"] = calls * (1 + reps)
+    for (h, w), cin in bench_deform_impls.SHAPES:
+        route, _ = deform_sample.pallas_route((BATCH, h, w, cin), bench_deform_impls.COUT,
+                                              bench_deform_impls.MAX_DY, 1)
+        if route == "tiled":
+            raise AssertionError(f"the tool's shape {h}x{w} is routed to the tiled form")
+        expect["deform_sample9"] += 2 * (2 + reps)
+        expect["deform_sample"] += 2 * 9 * (1 + reps)
+        expect["deform_sample_bwd"] += 2 * 9 * (1 + reps)
+    if launches != expect:
+        raise AssertionError(f"mt_tool launches {nonzero(launches)}, expected {nonzero(expect)}")
+    for row in rows:
+        times = {k: v for k, v in row.items() if k.endswith("_ms")}
+        if len(times) != 4 or not all(math.isfinite(v) and v > 0 for v in times.values()):
+            raise AssertionError(f"mt_tool row without finite times: {row}")
+    for row in (r for r in rows if r["impl"] == "mt"):
+        out_std = 0.05 * math.sqrt(9 * row["cin"])  # unit inputs, weights of std 0.05
+        tol = 2.0 ** -6 * 5 * out_std
+        print(f"[mt_tool] {row['h']}x{row['w']} cin {row['cin']}: mt vs pertap max abs diff "
+              f"const2 {row['const2_max_abs_diff']:.3e}, rand2 {row['rand2_max_abs_diff']:.3e} "
+              f"(tolerance 2^-6 * 5 sigma = {tol:.3e})")
+        if not max(row["const2_max_abs_diff"], row["rand2_max_abs_diff"]) <= tol:
+            raise AssertionError(f"mt and pertap disagree: {row}")
+    print("[mt_tool] rows: " + json.dumps(rows))
+    print(f"[mt_tool] launches {nonzero(launches)}; peak memory allocated "
+          f"{peak / 2 ** 30:.2f} GiB")
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1020,7 +1368,8 @@ def main() -> None:
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = [check_k1(dev), *check_k2_k3(dev), check_k4(dev), check_k5(dev), *check_k8(dev)]
+    kernels = [check_k1(dev), *check_k2_k3(dev), check_k4(dev), check_k5(dev), check_k6(dev),
+               *check_k7(dev), *check_k8(dev)]
     launches = dict.fromkeys(COUNTERS, 0)
 
     def finish(name, counts, run, prefix):
@@ -1028,7 +1377,7 @@ def main() -> None:
         one more pass of it on request, and free its memory."""
         for k, v in counts.items():
             launches[k] += v
-        if args.profile:
+        if args.profile and run is not None:
             phase_profile(run, prefix, name, other_thread=("train.backward",))
         torch.cuda.empty_cache()
 
@@ -1046,7 +1395,18 @@ def main() -> None:
     compare_step0_losses(shift_history[0], pallas_history[0])
     finish("train_shift", counts, run, "train.")
     del run
+    wide = dict(bucket=WIDE_BUCKET, im_hw=WIDE_IM_HW, batch_size=WIDE_BATCH)
+    counts, run, model, batch, seg = phase_predict(dev, "pallas", "predict_wide", **wide)
+    cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl="pallas"))
+    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(WIDE_BUCKET))
+    finish("predict_wide", counts, run, "predict.")  # profiled before the biases move
+    compare_wide_with_auto(model, cfg, anchors, batch, seg)
+    del run, model, batch, seg
+    counts, run, _ = phase_train(dev, "pallas", 2, "train_wide", **wide)
+    finish("train_wide", counts, run, "train.")
+    del run
     torch.cuda.empty_cache()
+    finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -135,7 +135,9 @@ def test_import_leaves_jax_out():
     loaded = set(out.stdout.split())
     assert len(loaded) >= 20
     assert {"upsnet_torch.ops.deform_shift", "upsnet_torch.utils.dcn_probe",
-            "upsnet_torch.train.trainer", "upsnet_torch.ops.cuda_build"} <= loaded
+            "upsnet_torch.train.trainer", "upsnet_torch.ops.cuda_build",
+            "upsnet_torch.ops.deform_sample_mt",
+            "upsnet_torch.tools.bench_deform_impls"} <= loaded
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -13,6 +13,7 @@ Layout mirrors ``upsnet_tpu`` module for module:
             kernel, ROIAlign + its FPN kernel, mask paste, panoptic fusion
   models/   ResNet, FPN, RPN, box/mask heads, FCN head, UPSNet assembly
   convert/  JAX parameter tree -> state_dict bridge
+  tools/    timing tools (``python3 -m upsnet_torch.tools.<name>``)
   csrc/     CUDA sources of the kernels
 
 The package never imports ``jax`` or ``upsnet_tpu``.

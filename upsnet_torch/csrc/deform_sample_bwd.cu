@@ -22,7 +22,8 @@
 // corners, so the adds collide and their order is not fixed), and the
 // sub-warp reduces the two coordinate gradients with shuffles in f32: no
 // atomics for those. The work is bound by bytes: y and g read once, the
-// canvas written.
+// canvas written. The per-sample arithmetic is sample_bwd of sample_bwd.cuh,
+// shared with K7b (deform_sample_mt_bwd.cu).
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -30,31 +31,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sample_bwd.cuh"
 #include "vec8.cuh"
 
 namespace {
-
-// One corner (yy, xx) with weight w = vy * vx and derivative weights
-// wy = dvy * vx, wx = vy * dvx: scatter w * g, and add this lane's share of
-// the coordinate gradients.
-template <typename T>
-__device__ __forceinline__ void corner_bwd(const T* img, float* canvas, int yy, int xx,
-                                           float w, float wy, float wx, const float* g,
-                                           int H, int W, int C, float& gy, float& gx) {
-  if (yy < 0 || yy >= H || xx < 0 || xx >= W) return;
-  const int64_t off = ((int64_t)yy * W + xx) * C;
-  float v[8], add[8];
-  load8(img + off, v);
-  float dot = 0.f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    dot = fmaf(g[k], v[k], dot);
-    add[k] = w * g[k];
-  }
-  gy = fmaf(wy, dot, gy);
-  gx = fmaf(wx, dot, gx);
-  if (w != 0.f) atomic_add8(canvas + off, add);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -62,7 +42,6 @@ deform_sample_bwd_kernel(const T* __restrict__ y, const float* __restrict__ sy,
                          const float* __restrict__ sx, const T* __restrict__ g,
                          float* __restrict__ canvas, float* __restrict__ gsy,
                          float* __restrict__ gsx, int B, int H, int W, int C, int width) {
-  const int groups = C / 8;
   const int64_t pixels = (int64_t)B * H * W;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t pix = tid / width;  // (b * H + i) * W + j
@@ -70,29 +49,9 @@ deform_sample_bwd_kernel(const T* __restrict__ y, const float* __restrict__ sy,
   float gy = 0.f, gx = 0.f;
   // every lane of the warp reaches the shuffles below, so no early return
   if (pix < pixels) {
-    const float py = __ldg(sy + pix), px = __ldg(sx + pix);
-    if (py > -1.f && py < (float)H && px > -1.f && px < (float)W) {
-      const int b = (int)(pix / ((int64_t)H * W));
-      const float fy = floorf(py), fx = floorf(px);
-      const int y0 = (int)fy, x0 = (int)fx;
-      const float ly = py - fy, lx = px - fx;
-      const float hy = 1.f - ly, hx = 1.f - lx;
-      // -sign(d) on |d| < 1: -1 at the low node, +1 at the high one, and 0
-      // at both when the coordinate is an integer
-      const float dy0 = ly > 0.f ? -1.f : 0.f, dy1 = -dy0;
-      const float dx0 = lx > 0.f ? -1.f : 0.f, dx1 = -dx0;
-      for (int grp = lane; grp < groups; grp += width) {
-        const int64_t img_off = (int64_t)b * H * W * C + grp * 8;
-        float gv[8];
-        load8(g + pix * C + grp * 8, gv);
-        const T* img = y + img_off;
-        float* cv = canvas + img_off;
-        corner_bwd(img, cv, y0, x0, hy * hx, dy0 * hx, hy * dx0, gv, H, W, C, gy, gx);
-        corner_bwd(img, cv, y0, x0 + 1, hy * lx, dy0 * lx, hy * dx1, gv, H, W, C, gy, gx);
-        corner_bwd(img, cv, y0 + 1, x0, ly * hx, dy1 * hx, ly * dx0, gv, H, W, C, gy, gx);
-        corner_bwd(img, cv, y0 + 1, x0 + 1, ly * lx, dy1 * lx, ly * dx1, gv, H, W, C, gy, gx);
-      }
-    }
+    const int64_t img_off = pix / ((int64_t)H * W) * H * W * C;
+    sample_bwd(y + img_off, canvas + img_off, g + pix * C, __ldg(sy + pix),
+               __ldg(sx + pix), H, W, C, lane, width, gy, gx);
   }
   for (int off = width / 2; off > 0; off /= 2) {
     gy += __shfl_xor_sync(0xffffffffu, gy, off);
@@ -107,9 +66,7 @@ deform_sample_bwd_kernel(const T* __restrict__ y, const float* __restrict__ sy,
 template <typename T>
 void launch(const void* y, const void* sy, const void* sx, const void* g, void* canvas,
             void* gsy, void* gsx, int B, int H, int W, int C, cudaStream_t s) {
-  const int groups = C / 8;
-  int width = 1;
-  while (width < groups && width < 32) width *= 2;
+  const int width = sub_warp_width(C);
   const int block = 256;  // a multiple of every width
   const int64_t threads = (int64_t)B * H * W * width;
   const unsigned grid = (unsigned)((threads + block - 1) / block);

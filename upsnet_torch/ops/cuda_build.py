@@ -24,7 +24,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "upsnet_torch_kernels"
 SOURCES = ("deform_sample", "deform_sample_bwd", "roi_align_fpn",
-           "roi_align_fpn_bwd", "deform_shift", "deform_shift_adjoint")
+           "roi_align_fpn_bwd", "deform_shift", "deform_shift_adjoint",
+           "deform_sample_tiled", "deform_sample_mt", "deform_sample_mt_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -97,3 +98,19 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
         lib.error_string.argtypes = [ctypes.c_int]
         msg = lib.error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+def call(lib_name: str, fn_name: str, tensor, pointers, ints) -> None:
+    """Launch C entry point ``fn_name(pointers..., ints..., dtype, stream)``
+    of library ``lib_name`` on ``tensor``'s device and current stream, with
+    ``tensor``'s element type code; raise on a CUDA error."""
+    lib = load(lib_name)
+    fn = getattr(lib, fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * (len(ints) + 1)
+                   + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(tensor.device).cuda_stream
+    with torch.cuda.device(tensor.device):
+        status = fn(*(p.data_ptr() for p in pointers), *ints, DTYPE_CODES[tensor.dtype],
+                    stream)
+    check(lib, status, fn_name)

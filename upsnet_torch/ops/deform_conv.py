@@ -1,34 +1,50 @@
-"""Deformable convolution (DCNv1), project-then-sample.
+"""Deformable convolution (DCNv1), project-then-sample and sample-first.
 
-Port of ``upsnet_tpu/ops/deform_conv.py`` and of the two untiled forms of
-``deform_conv_pallas.py``: ``_fused_untiled`` (inference) and
-``_pertap_untiled`` (training), chosen as ``_untiled_dispatch`` chooses:
+Port of ``upsnet_tpu/ops/deform_conv.py`` and of the forms of
+``deform_conv_pallas.py`` and ``deform_shift_pallas.py``:
 
     y(p) = sum_k W_k . x(p + p_k * dilation + dp_k(p))
          = sum_k (x @ W_k)(p + p_k * dilation + dp_k(p))
 
-Bilinear interpolation is linear, so each tap's weight is applied first (one
-plain matmul per tap into a tap-major stack). Without gradients the K1
-kernel (``ops/deform_sample.py``) samples and sums the projections in one
-launch. When gradients are recorded, each tap goes through ``DeformSample``
-(forward K2, backward K3) and the taps are added in ``x.dtype`` in tap
-order, which in bf16 is what the JAX package's training does.
+Bilinear interpolation is linear, so the project-first forms apply each
+tap's weight first and sample the projections:
 
-``deform_conv2d_shift`` is the port of ``deform_shift_pallas.py:
-deform_conv2d_pallas_shift``: one matmul gives all taps side by side, and
-``DeformSampleShift`` samples them in one launch (K8a) also when gradients
-are recorded (backward K8b + K8c), with the taps added in f32.
+  * untiled (``_fused_untiled`` / ``_pertap_untiled``, chosen as
+    ``_untiled_dispatch`` chooses): one matmul per tap into a tap-major
+    stack. Without gradients K1 (``ops/deform_sample.py``) samples and sums
+    the projections in one launch, in f32. When gradients are recorded each
+    tap goes through ``DeformSample`` (forward K2, backward K3) and the taps
+    are added in ``x.dtype`` in tap order, as the JAX package's training does.
+  * tiled (``_deform_conv2d_tiled``, after ``_deform_conv2d_pallas_tiled``):
+    one matmul gives all taps side by side, dy **and dx** are clipped, and
+    ``DeformSampleTiled`` samples tap by tap (K6, backward K3) and adds the
+    taps in ``x.dtype``, with or without gradients: the JAX package has no
+    fused tiled forward.
+  * shift (``deform_conv2d_shift``, after ``deform_conv2d_pallas_shift``):
+    the same one matmul and clips, and ``DeformSampleShift`` samples all taps
+    in one launch (K8a) also when gradients are recorded (backward K8b +
+    K8c), with the taps added in f32.
+
+``deform_conv2d_mt`` (after ``deform_conv2d_pallas_mt``) samples first:
+``DeformSampleMT`` (K7a, backward K7b) gathers the input at all taps and one
+GEMM applies the weights. No configuration value reaches it, as in the JAX
+package; ``tools/bench_deform_impls.py`` drives it.
 
 Offsets are ``(..., 2K)`` ordered ``(dy_0, dx_0, dy_1, dx_1, ...)`` over the
-row-major taps, as in the reference. Routing on the card has no window:
+row-major taps, as in the reference. The card's kernels read any address,
+but each layer computes what the JAX package computes for it on a TPU, so
+``deform_conv2d`` routes by the TPU's rules as arithmetic:
 
-  * ``auto`` / ``gather``: exact sampling at the offsets as given;
-  * ``pallas`` / ``mxu``: dy clipped to +-max_dy first by ``clip_offsets``
-    (the JAX windowed routes), dx unrestricted, then the same kernels;
-  * ``shift``: where ``shift_route_ok`` says the JAX package on a TPU takes
-    its shift kernel, ``deform_conv2d_shift`` (dy and dx both clipped to
-    +-max_dy); elsewhere the ``pallas`` route, as ``DeformConv`` falls back
-    in JAX. Each layer so computes what the JAX package computes for it.
+  * ``auto`` / ``gather``: exact sampling at the offsets as given (untiled
+    kernels, no clip);
+  * ``pallas`` / ``mxu``: where ``pallas_route`` answers ``untiled`` or
+    ``mxu``, dy clipped to +-max_dy by ``clip_offsets``, dx unrestricted,
+    untiled kernels; where ``pallas`` gets ``tiled`` (a map too wide for the
+    TPU's untiled kernel, such as 208 x 800 at 128 channels), the tiled form
+    with dx clipped to +-max_dy as well;
+  * ``shift``: where ``shift_route_ok`` says the JAX package takes its shift
+    kernel, ``deform_conv2d_shift``; elsewhere the ``pallas`` route, as
+    ``DeformConv`` falls back in JAX.
 
 Any odd kernel size works; stride is 1 (the caffe ResNet keeps every 3x3
 at stride 1).
@@ -38,10 +54,11 @@ from __future__ import annotations
 
 import torch
 
-from upsnet_torch.ops.deform_sample import DeformSample, deform_sample9
+from upsnet_torch.ops.deform_sample import (
+    DeformSample, DeformSampleTiled, deform_sample9, pallas_route)
+from upsnet_torch.ops.deform_sample_mt import DeformSampleMT
 from upsnet_torch.ops.deform_shift import DeformSampleShift, shift_route_ok
 
-CLIPPED_IMPLS = ("pallas", "mxu")
 EXACT_IMPLS = ("auto", "gather")
 
 
@@ -126,6 +143,57 @@ def tap_projections(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x2, weight.to(x.dtype)).view(k, b, h, w, cout)
 
 
+def side_by_side_projections(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, Cin) @ all taps' weights (K, Cin, Cout) in one matmul ->
+    (B, H, W, K, Cout) in x.dtype, tap t in ``[..., t, :]``."""
+    b, h, w, cin = x.shape
+    k, _, cout = weight.shape
+    wk = weight.permute(1, 0, 2).reshape(cin, k * cout).to(x.dtype)
+    return torch.matmul(x.reshape(-1, cin), wk).view(b, h, w, k, cout)
+
+
+def _deform_conv2d_tiled(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
+                         bias: torch.Tensor | None, kernel_size: int, dilation: int,
+                         max_dy: int, max_dx: int, boundary_grad: str = "clip") -> torch.Tensor:
+    """The column-tiled form of the ``pallas`` route (the JAX
+    ``_deform_conv2d_pallas_tiled``): one projection matmul, dy clipped to
+    +-max_dy and dx to +-max_dx by ``clip_offsets`` with ``boundary_grad``,
+    the K taps sampled one by one and added in ``x.dtype`` in tap order (also
+    without gradients), bias last. Arguments as ``deform_conv2d``."""
+    y = side_by_side_projections(x, weight)
+    sy, sx = sample_coords(offsets, kernel_size, dilation, max_dy, boundary_grad, max_dx)
+    half = (kernel_size - 1) // 2
+    out = DeformSampleTiled.apply(y, sy, sx, max_dy + half * dilation,
+                                  max_dx + half * dilation)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
+def deform_conv2d_mt(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor | None = None, kernel_size: int = 3,
+                     dilation: int = 1, max_dy: int = 6) -> torch.Tensor:
+    """Deformable conv, sample-first (the JAX ``deform_conv2d_pallas_mt``):
+    one multi-tap sampling of the input itself (``DeformSampleMT``), then one
+    (B*H*W, K*Cin) x (K*Cin, Cout) matmul rounded to ``x.dtype``, then bias.
+
+    Arguments as ``deform_conv2d``. dy is clamped to +-max_dy (a plain clamp
+    with its true gradient: this form has no ``boundary_grad``), dx is
+    unrestricted; any H and W. Differentiable in x, offsets, weight and bias.
+    """
+    if kernel_size % 2 != 1:
+        raise ValueError(f"kernel_size must be odd, got {kernel_size}")
+    b, h, w, cin = x.shape
+    k, _, cout = weight.shape
+    sy, sx = sample_coords(offsets, kernel_size, dilation, max_dy, "clip")
+    cols = DeformSampleMT.apply(x.contiguous(), sy, sx)  # (B, H, W, K, Cin)
+    out = torch.matmul(cols.reshape(b * h * w, k * cin),
+                       weight.reshape(k * cin, cout).to(x.dtype)).view(b, h, w, cout)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out
+
+
 def deform_conv2d_shift(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                         bias: torch.Tensor | None = None, kernel_size: int = 3,
                         dilation: int = 1, max_dy: int = 6, max_dx: int = 6,
@@ -140,11 +208,7 @@ def deform_conv2d_shift(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Te
     """
     if kernel_size % 2 != 1:
         raise ValueError(f"kernel_size must be odd, got {kernel_size}")
-    b, h, w, cin = x.shape
-    k, _, cout = weight.shape
-    # one matmul -> (B, H, W, K*Cout), tap t in channels t*Cout..(t+1)*Cout
-    wk = weight.permute(1, 0, 2).reshape(cin, k * cout).to(x.dtype)
-    y = torch.matmul(x.reshape(-1, cin), wk).view(b, h, w, k * cout)
+    y = side_by_side_projections(x, weight).flatten(3)  # (B, H, W, K*Cout)
     sy, sx = sample_coords(offsets, kernel_size, dilation, max_dy, boundary_grad, max_dx)
     half = (kernel_size - 1) // 2
     out = DeformSampleShift.apply(y, sy, sx, max_dy + half * dilation,
@@ -169,14 +233,20 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                                           dilation, weight.shape[0]):
         return deform_conv2d_shift(x, offsets, weight, bias, kernel_size, dilation,
                                    max_dy, max_dy, boundary_grad)
-    if impl in CLIPPED_IMPLS or impl == "shift":  # a layer shift does not take runs as pallas
+    if kernel_size % 2 != 1:
+        raise ValueError(f"kernel_size must be odd, got {kernel_size}")
+    if impl in ("pallas", "shift"):  # a layer shift does not take runs as pallas
+        route, max_dx = pallas_route(x.shape, weight.shape[-1], max_dy, dilation)
+        if route == "tiled":
+            return _deform_conv2d_tiled(x, offsets, weight, bias, kernel_size, dilation,
+                                        max_dy, max_dx, boundary_grad)
+        clip = max_dy
+    elif impl == "mxu":
         clip = max_dy
     elif impl in EXACT_IMPLS:
         clip = None
     else:
         raise NotImplementedError(f"dcn_impl {impl!r} is not ported")
-    if kernel_size % 2 != 1:
-        raise ValueError(f"kernel_size must be odd, got {kernel_size}")
     y9 = tap_projections(x, weight)
     sy9, sx9 = sample_coords(offsets, kernel_size, dilation, clip, boundary_grad)
     if torch.is_grad_enabled() and any(

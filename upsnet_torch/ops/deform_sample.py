@@ -1,10 +1,13 @@
-"""K1, K2, K3: deformable bilinear sampling of tap projections and its
-backward.
+"""K1, K2, K3, K6: deformable bilinear sampling of tap projections and its
+backward, and the routing rule of the ``pallas`` route.
 
 K1 (``deform_sample9``), the inference sampler, sums all taps in one launch.
 K2 (``deform_sample``) is one tap of it and K3 (``deform_sample_bwd``) its
-backward; ``DeformSample`` ties the two into autograd for training. K2 and
-K3 are described above their wrappers below.
+backward; ``DeformSample`` ties the two into autograd for training. K6
+(``deform_sample_tiled``) is the one-tap sampler of the column-tiled form
+that the JAX package takes on wide maps, where ``pallas_route`` answers
+``tiled``; ``DeformSampleTiled`` runs it for all taps with K3 as backward.
+K2, K3 and K6 are described above their wrappers below.
 
 K1 replaces the TPU kernel ``upsnet_tpu/ops/deform_conv_pallas.py:
 _sample_pallas9`` (kernel body ``_sample9_kernel``), the inference DCN
@@ -34,8 +37,8 @@ and its plain version add in f32 and round once, so they differ from the
 TPU result by bf16 rounding of the partial sums, and from each other only
 by f32 summation order before that one rounding.
 
-``launches`` counts K1's kernel launches, ``launches_fwd`` K2's and
-``launches_bwd`` K3's (CPU calls do not count).
+``launches`` counts K1's kernel launches, ``launches_fwd`` K2's,
+``launches_bwd`` K3's and ``launches_tiled`` K6's (CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from upsnet_torch.ops import cuda_build
 launches = 0
 launches_fwd = 0
 launches_bwd = 0
+launches_tiled = 0
 
 
 def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None, acc=torch.float32):
@@ -225,9 +229,11 @@ def deform_sample_bwd_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
             gsy.reshape(b, h, w).to(sy.dtype), gsx.reshape(b, h, w).to(sx.dtype))
 
 
-def _check_tap(y, sy, sx, g=None):
+def _check_tap(y, sy, sx, g=None, contiguous=True):
     """Shapes, dtypes and devices of one tap's tensors; on CUDA also the
-    kernel's layout needs. float64 passes on the CPU only."""
+    kernel's layout needs (``contiguous`` False: the caller checks
+    contiguity itself, y being a tap's view of a whole projection). float64
+    passes on the CPU only."""
     if y.dim() != 4:
         raise ValueError(f"y must be (B, H, W, C), got {tuple(y.shape)}")
     cpu = y.device.type == "cpu"
@@ -259,7 +265,7 @@ def _check_tap(y, sy, sx, g=None):
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
     for name, s in named:
-        if not s.is_contiguous():
+        if contiguous and not s.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if y.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
         raise ValueError("y and g must be 16-byte aligned")
@@ -337,3 +343,170 @@ class DeformSample(torch.autograd.Function):
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
         return deform_sample_bwd(y, sy, sx, g.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the routing rule of the ``pallas`` route
+# ---------------------------------------------------------------------------
+
+RB = 8  # output rows per program of the TPU kernels
+VMEM_LIMIT = 13 * 1024 * 1024  # above it the TPU's untiled kernel does not fit
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _col_tile(w: int, max_dx: int, dilation: int) -> tuple[int, int] | None:
+    """(ct, ctw) of the TPU's column-tiled kernel for a map ``w`` wide, or
+    None: ct is the largest multiple of 8 in [128, 256] that divides w (and
+    is smaller than w), ctw its source-column window."""
+    halo = 2 * (max_dx + dilation + 2)
+    best = None
+    for ct in range(128, min(w, 257), 8):
+        if w % ct == 0:
+            best = ct
+    if best is None:
+        return None
+    return best, _round_up(best + halo, 8)
+
+
+def pallas_route(shape, cout: int, max_dy: int, dilation: int,
+                 vmem_limit: int = VMEM_LIMIT):
+    """Which form the JAX package on a TPU takes for ``dcn_impl: pallas`` on
+    an input of ``shape`` (B, H, W, Cin): the arithmetic of its
+    ``pallas_route`` without the backend test. Returns (route, max_dx):
+
+      * ``("untiled", None)`` and ``("mxu", None)``: dy clipped to +-max_dy,
+        dx unrestricted (the two compute the same function);
+      * ``("tiled", max_dx)``: the untiled kernel's VMEM estimate exceeds
+        ``vmem_limit`` and a column tile exists; dx is clipped to +-max_dx as
+        well and the taps are sampled one by one also at inference.
+
+    The card's kernels have no such limits; ``deform_conv2d(impl="pallas")``
+    asks so that each layer computes what the JAX package computes for it.
+    """
+    _, _, w, _ = shape
+    if cout % 128 != 0:
+        return "mxu", None
+    wp = _round_up(w + 2, 128)
+    max_dx = max_dy  # the same clip on both axes
+    tile = _col_tile(w, max_dx, dilation)
+    # the untiled TPU kernel's VMEM: halo window, per-row hat matrix (f32 and
+    # a bf16 operand), f32 accumulator, output block
+    vmem_est = ((RB + 2 * (max_dy + dilation) + 2) * wp * cout * 2 + wp * w * 6
+                + w * cout * 4 + RB * w * cout * 4)
+    if vmem_est > vmem_limit:
+        return ("tiled", max_dx) if tile is not None else ("mxu", None)
+    return "untiled", None
+
+
+# ---------------------------------------------------------------------------
+# K6: the one-tap sampler of the column-tiled form
+# ---------------------------------------------------------------------------
+#
+# K6 replaces the TPU kernel ``deform_conv_pallas.py:_sample_pallas_tiled``
+# (``_sample_kernel_tiled``). There each program holds a window of
+# ``8 + 2 r + 2`` rows and ``ct + 2 (max_dx + 2)`` columns of one tap's padded
+# projection in VMEM, which is why the tiled form clips dx as well as dy. On
+# the card the kernel reads tap t's block of the one-matmul projection
+# ``(B, H, W, K*C)`` in place (pixel stride K*C); what stays of the window is
+# its contract: a counted sample of pixel (i, j) lies within ``reach_y`` rows
+# and ``reach_x`` columns of it. The kernel gives zero to a sample beyond
+# (it cannot raise); the CPU path raises instead. ``inside`` is tested on the
+# true H and W. Its backward is K3 on a contiguous copy of the tap's block.
+
+
+def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int, reach_x: int) -> None:
+    """Raise unless every counted sample of coordinates (..., H, W) lies
+    within ``reach_y`` rows and ``reach_x`` columns of its output pixel: the
+    kernels with a window (K6, K8b) look no further. One pass over the
+    coordinates; the CPU paths run it."""
+    h, w = sy.shape[-2:]
+    inside = (sy > -1.0) & (sy < h) & (sx > -1.0) & (sx < w)
+    iy = torch.arange(h, dtype=sy.dtype, device=sy.device)[:, None]
+    ix = torch.arange(w, dtype=sx.dtype, device=sx.device)[None, :]
+    far = inside & (((sy - iy).abs() > reach_y) | ((sx - ix).abs() > reach_x))
+    if bool(far.any()):
+        raise ValueError(
+            f"{int(far.sum())} counted samples lie beyond reach ({reach_y}, {reach_x}) "
+            "of their pixel: clip the offsets first")
+
+
+def deform_sample_tiled_plain(y: torch.Tensor, t: int, sy: torch.Tensor, sx: torch.Tensor,
+                              reach_y: int, reach_x: int) -> torch.Tensor:
+    """Plain PyTorch version of K6: the reach check, then
+    ``deform_sample_plain`` on tap t's block of y (B, H, W, K, C)."""
+    check_reach(sy, sx, reach_y, reach_x)
+    return deform_sample_plain(y[:, :, :, t], sy, sx)
+
+
+def deform_sample_tiled(y: torch.Tensor, t: int, sy: torch.Tensor, sx: torch.Tensor,
+                        reach_y: int, reach_x: int) -> torch.Tensor:
+    """K6: bilinear(y[:, :, :, t]; sy, sx) with DCNv1 zero padding.
+
+    y (B, H, W, K, C) bf16/f32, the one-matmul projection with the K taps
+    side by side (a view of the matmul's (B*H*W, K*C) output); 0 <= t < K;
+    sy, sx (B, H, W) f32 absolute sample coordinates with
+    ``|sy - i| <= reach_y`` and ``|sx - j| <= reach_x`` at every counted
+    sample of pixel (i, j). All three contiguous. Returns (B, H, W, C) in
+    ``y.dtype``, summed in f32 and rounded once. CPU tensors take the plain
+    version, which raises on a sample beyond the reach; CUDA tensors launch
+    the kernel (C % 8 == 0, 16-byte aligned, B <= 65535), which gives zero
+    there. Not
+    differentiable by itself: ``DeformSampleTiled`` is.
+    """
+    global launches_tiled
+    if y.dim() != 5:
+        raise ValueError(f"y must be (B, H, W, K, C), got {tuple(y.shape)}")
+    b, h, w, k, c = y.shape
+    if not 0 <= t < k:
+        raise ValueError(f"tap {t} not in [0, {k})")
+    if reach_y < 0 or reach_x < 0:
+        raise ValueError(f"reach must be >= 0, got ({reach_y}, {reach_x})")
+    # the shape, dtype and device rules of one tap; y itself must be whole
+    _check_tap(y[:, :, :, t], sy, sx, contiguous=False)
+    for name, s in (("y", y), ("sy", sy), ("sx", sx)):
+        if not s.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if y.device.type == "cpu":
+        return deform_sample_tiled_plain(y, t, sy, sx, reach_y, reach_x)
+    if b > 65535:
+        raise ValueError(f"B={b} exceeds the grid's 65535")
+    out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
+    cuda_build.call("deform_sample_tiled", "deform_sample_tiled", y, (y, sy, sx, out),
+                    (b, h, w, c, k, t, reach_y, reach_x))
+    launches_tiled += 1
+    return out
+
+
+class DeformSampleTiled(torch.autograd.Function):
+    """The K taps of the column-tiled form: K launches of K6 whose results
+    are added in ``y.dtype`` in tap order (the JAX package has no fused tiled
+    forward, so this is also the inference form), with gradients to y, sy and
+    sx by K launches of K3, each on a contiguous copy of its tap's block.
+
+    y (B, H, W, K, C); sy, sx (K, B, H, W) f32 within ``reach_y``,
+    ``reach_x`` of their pixels. Returns (B, H, W, C) in ``y.dtype``. Every
+    tap's upstream gradient is the output's, as in a chain of additions.
+    """
+
+    @staticmethod
+    def forward(ctx, y, sy, sx, reach_y: int, reach_x: int):
+        ctx.save_for_backward(y, sy, sx)
+        out = None
+        for t in range(y.shape[3]):
+            tap = deform_sample_tiled(y, t, sy[t], sx[t], reach_y, reach_x)
+            out = tap if out is None else out + tap
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, sy, sx = ctx.saved_tensors
+        g = g.contiguous()
+        gy = torch.empty_like(y)
+        gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
+        for t in range(y.shape[3]):
+            gy[:, :, :, t], gsy[t], gsx[t] = deform_sample_bwd(
+                y[:, :, :, t].contiguous(), sy[t], sx[t], g)
+        return gy, gsy, gsx, None, None

@@ -47,12 +47,11 @@ the kernel launches (CPU calls do not count).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from upsnet_torch.ops import cuda_build
-from upsnet_torch.ops.deform_sample import _accum_dtype, _bilinear_zero_pad, _hat_nodes
+from upsnet_torch.ops.deform_sample import (
+    _accum_dtype, _bilinear_zero_pad, _hat_nodes, _round_up, check_reach)
 
 launches_fwd = 0
 launches_adjoint = 0
@@ -62,10 +61,6 @@ launches_offset_grads = 0
 # ---------------------------------------------------------------------------
 # eligibility of the TPU route
 # ---------------------------------------------------------------------------
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
 
 
 def _pick_rb(h: int) -> int | None:
@@ -141,21 +136,6 @@ def _tap_nodes(sy_t, sx_t, b: int, h: int, w: int, acc_t):
             ok = (inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)).to(acc_t)
             idx = base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
             yield idx, ok, vy, dvy, vx, dvx
-
-
-def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int, reach_x: int) -> None:
-    """Raise unless every counted sample lies within ``reach_y`` rows and
-    ``reach_x`` columns of its output pixel: K8b's kernel searches no
-    further. One pass over the coordinates; the CPU path runs it."""
-    _, _, h, w = sy.shape
-    inside = (sy > -1.0) & (sy < h) & (sx > -1.0) & (sx < w)
-    iy = torch.arange(h, dtype=sy.dtype, device=sy.device)[:, None]
-    ix = torch.arange(w, dtype=sx.dtype, device=sx.device)[None, :]
-    far = inside & (((sy - iy).abs() > reach_y) | ((sx - ix).abs() > reach_x))
-    if bool(far.any()):
-        raise ValueError(
-            f"{int(far.sum())} counted samples lie beyond reach ({reach_y}, {reach_x}) "
-            "of their pixel: clip the offsets first")
 
 
 def shift_adjoint_plain(g: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
@@ -248,21 +228,6 @@ def _check(sy, sx, y=None, g=None):
     return k, b, h, w, c
 
 
-def _call(lib_name: str, fn_name: str, tensor, pointers, ints):
-    """Launch C entry point ``fn_name(pointers..., ints..., dtype, stream)``
-    on ``tensor``'s device and current stream; raise on a CUDA error."""
-    lib = cuda_build.load(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * (len(ints) + 1)
-                   + [ctypes.c_void_p])
-    stream = torch.cuda.current_stream(tensor.device).cuda_stream
-    with torch.cuda.device(tensor.device):
-        status = fn(*(p.data_ptr() for p in pointers), *ints,
-                    cuda_build.DTYPE_CODES[tensor.dtype], stream)
-    cuda_build.check(lib, status, fn_name)
-
-
 def shift_fwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
     """K8a: sum over the K taps of the bilinear samples of each tap's block
     of ``y``, DCNv1 zero padding.
@@ -278,7 +243,7 @@ def shift_fwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tens
     if y.device.type == "cpu":
         return shift_fwd_plain(y, sy, sx)
     out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
-    _call("deform_shift", "shift_fwd", y, (y, sy, sx, out), (k, b, h, w, c))
+    cuda_build.call("deform_shift", "shift_fwd", y, (y, sy, sx, out), (k, b, h, w, c))
     launches_fwd += 1
     return out
 
@@ -307,8 +272,8 @@ def shift_adjoint(g: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
         check_reach(sy, sx, reach_y, reach_x)
         return shift_adjoint_plain(g, sy, sx)
     gy = torch.empty((b, h, w, k * c), dtype=g.dtype, device=g.device)
-    _call("deform_shift_adjoint", "shift_adjoint", g, (g, sy, sx, gy),
-          (k, b, h, w, c, reach_y, reach_x))
+    cuda_build.call("deform_shift_adjoint", "shift_adjoint", g, (g, sy, sx, gy),
+                    (k, b, h, w, c, reach_y, reach_x))
     launches_adjoint += 1
     return gy
 
@@ -325,8 +290,8 @@ def shift_offset_grads(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
         return shift_offset_grads_plain(y, sy, sx, g)
     gsy = torch.empty((k, b, h, w), dtype=torch.float32, device=y.device)
     gsx = torch.empty_like(gsy)
-    _call("deform_shift", "shift_offset_grads", y, (y, sy, sx, g, gsy, gsx),
-          (k, b, h, w, c))
+    cuda_build.call("deform_shift", "shift_offset_grads", y, (y, sy, sx, g, gsy, gsx),
+                    (k, b, h, w, c))
     launches_offset_grads += 1
     return gsy, gsx
 
