@@ -9,13 +9,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. build: compile every CUDA kernel of ``upsnet_torch/csrc`` with nvcc, one
    process per source, all at once;
-2. kernels: each of the eleven kernels against its plain PyTorch version on
-   the card, on the shapes the paths below give it (batch 2 at 832x1344; K6
-   at P2 of the wide canvas, batch 1), with errors, kernel / plain /
-   library-call times (CUDA events, median of 30) and the least time the
-   card could take for the same work; K8b (the gather adjoint) must also
-   give the same bits on two runs, and K3, K7b, K8c exact zeros at integer
-   coordinates;
+2. kernels: each of the twelve kernels (K3 in its one-tap and its all-tap
+   form) against its plain PyTorch version on the card, on the shapes the
+   paths below give it (batch 2 at 832x1344; K6 and the all-tap K3's
+   side-by-side layout at P2 of the wide canvas, batch 1), with errors,
+   kernel / plain / library-call times (CUDA events, median of 30) and the
+   least time the card could take for the same work; K5 and K8b (the
+   gathers) must also give the same bits on two runs, K5 also on RoIs
+   clustered as training samples them, and both K3 forms, K7b and K8c exact
+   zeros at integer coordinates;
 3. predict: ``resnet_50_upsnet`` at full width (COCO: 81 classes, 133 seg
    classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
    offset biases set to +-2 px, serving two batch-2 requests through
@@ -26,16 +28,19 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    ``dcn_boundary_grad: clip``) takes four SGD steps through
    ``train_steps`` on a synthetic batch of 2 (512 RoIs, 256 anchors, 100 GT
    slots) with a display interval of one step; every interval must launch
-   exactly 72 K2, 72 K3, 3 K4, 3 K5 for its step and 8 K1 for the
-   saturation watch's probe of the trunk, give 7 finite loss terms, finite
-   gradients everywhere, non-zero offset-conv gradients, leave the frozen
-   parameters untouched and append one line to ``metrics.jsonl``; with
-   ``--profile``, one more step under torch.profiler;
+   exactly 72 K2, 16 all-tap K3 (its two passes for each of the 8 DCN
+   layers), 3 K4, 3 K5 for its step and 8 K1 for the saturation watch's
+   probe of the trunk, give 7 finite loss terms, finite gradients
+   everywhere, non-zero offset-conv gradients, leave the frozen parameters
+   untouched and append one line to ``metrics.jsonl``; with ``--profile``,
+   one more step under torch.profiler (also each kernel's summed device time
+   in the step);
 5. predict_shift, train_shift: phases 3 and 4 again with
    ``dcn_impl: shift`` (three train steps). The launch counts follow from
    the port's ``shift_route_ok``: the levels it accepts (P2, P3) run K8a,
-   and K8b + K8c in backward, the others K1, or K2 + K3 under autograd; the
-   JAX loop does not watch ``shift``, so there is no probe. ``seg_logits``
+   and K8b + K8c in backward, the others K1, or K2 + the all-tap K3 under
+   autograd; the JAX loop does not watch ``shift``, so there is no probe.
+   ``seg_logits``
    and the step-0 losses are held against the ``pallas`` route's on the
    same weights: with offsets within +-2 px neither clip acts, so the two
    differ by rounding only;
@@ -44,16 +49,19 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    208x832 at 128 channels, is wider than the TPU's untiled kernel holds,
    so the port's ``pallas_route`` answers ``tiled`` for it and ``untiled``
    for P3-P5, and the expected launches follow from that rule: per forward
-   18 K6 (2 layers x 9 taps at P2), 6 K1, 2 K4; per step 18 K6 + 18 K3 for
-   P2, 54 K2 + 54 K3 for P3-P5, 3 K4, 3 K5, plus the watch's probe.
-   ``seg_logits`` are held against ``auto`` on the same weights: equal
+   18 K6 (2 layers x 9 taps at P2), 6 K1, 2 K4; per step 18 K6 for P2,
+   54 K2 for P3-P5, 16 all-tap K3 (8 layers), 3 K4, 3 K5, plus the watch's
+   probe. ``seg_logits`` are held against ``auto`` on the same weights: equal
    within the bf16 tap-sum tolerance at +-2 px, different once dx goes
    beyond the +-6 window (the tiled form clips dx, ``auto`` does not);
-7. mt_tool: the sample-first form (K7a, one GEMM, K7b) through its caller,
+7. train_auto: phase 4 with ``dcn_impl: auto`` (two steps), the unclipped
+   route that still takes the one-tap K3: 72 K2, 72 one-tap K3, 3 K4, 3 K5
+   per step, no probe (the loop watches only ``pallas`` and ``mxu``);
+8. mt_tool: the sample-first form (K7a, one GEMM, K7b) through its caller,
    ``upsnet_torch.tools.bench_deform_impls``, at batch 2 over the tool's
    five shapes, forward and forward + backward, against the per-tap form;
    launch counts equal the tool's call counts;
-8. reference: a tiny float32 model on the card against the same model on
+9. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels).
 
 The line before the last two is a JSON object with every kernel's numbers
@@ -441,55 +449,90 @@ def check_k2_k3(dev) -> tuple[dict, dict]:
     return k2, k3
 
 
+def _clustered_rois(g, dev, n: int) -> torch.Tensor:
+    """n RoIs per image the way training samples them: jittered copies of
+    three ground-truth boxes of 60-400 px (centres moved by up to 15% of
+    the side, sides scaled by 0.8-1.25), so that most of them overlap."""
+    hh, ww = BUCKET
+    side = torch.empty((BATCH, 3, 2), device=dev).uniform_(60.0, 400.0, generator=g)
+    centre = torch.stack([torch.empty((BATCH, 3), device=dev).uniform_(0.0, ww, generator=g),
+                          torch.empty((BATCH, 3), device=dev).uniform_(0.0, hh, generator=g)],
+                         -1)
+    pick = torch.randint(0, 3, (BATCH, n), generator=g, device=dev)
+    side = torch.gather(side, 1, pick[..., None].expand(BATCH, n, 2))
+    centre = torch.gather(centre, 1, pick[..., None].expand(BATCH, n, 2))
+    centre = centre + side * torch.empty((BATCH, n, 2), device=dev).uniform_(
+        -0.15, 0.15, generator=g)
+    side = side * torch.empty((BATCH, n, 2), device=dev).uniform_(0.8, 1.25, generator=g)
+    return torch.cat([centre - side / 2, centre + side / 2], -1).contiguous()
+
+
 def check_k5(dev) -> dict:
     """K5 into a bf16 832x1344 pyramid (C=256), batch 2, for the three calls
     of one train step: 512 RoIs at 7x7 (box head), 128 at 14x14 (fg masks)
-    and 100 at 14x14 (GT boxes of the panoptic loss). The returned times and
-    bounds are the sums over the three; the error is the largest."""
+    and the 100 GT slots at 14x14 of the panoptic loss, of which 3 hold a
+    box and the other 97 are padding as the loader pads them (the zero box,
+    zero gradient), then once more for 512 RoIs at 7x7 clustered the way
+    training samples them. Each call must give the same bits on two runs.
+    The returned times and bounds are the sums over the three calls of a
+    step; the error is the largest of all four."""
     g = torch.Generator(device=dev).manual_seed(5)
     c = 256
     shapes = [(BATCH, -(-BUCKET[0] // s), -(-BUCKET[1] // s), c) for s in (4, 8, 16, 32)]
     dtypes = [torch.bfloat16] * 4
-    # overlapping RoIs add up to thousands of f32 terms per canvas element in
-    # an order that atomics change from run to run, then round once to bf16:
-    # one bf16 ulp, plus 1e-3 where the terms cancel
+    # overlapping RoIs add up to thousands of f32 terms per element, in
+    # another order than the plain version's, then round once to bf16: one
+    # bf16 ulp, plus 1e-3 where the terms cancel
     rtol, atol = 2.0 ** -7, 1e-3
     out = {"name": "fpn_roi_align_bwd", "route": "cuda",
            "source": "upsnet_torch/csrc/roi_align_fpn_bwd.cu",
            "replaces": "upsnet_tpu/ops/roi_align_pallas.py:465",
            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "bound_by": "bytes", "library_ms": None}
-    for n_rois, pooled in ((512, 7), (128, 14), (100, 14)):
-        rois = _random_rois(g, dev, n_rois)
-        levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
+    for n_rois, pooled, kind in ((512, 7, "step"), (128, 14, "step"), (100, 14, "GT slot"),
+                                 (512, 7, "clustered")):
+        rois = (_clustered_rois if kind == "clustered" else _random_rois)(g, dev, n_rois)
         grad = torch.randn((BATCH, n_rois, pooled, pooled, c), generator=g,
                            device=dev).to(torch.bfloat16)
+        if kind == "GT slot":
+            rois[:, 3:] = 0.0
+            grad[:, 3:] = 0.0
+        levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
         got = roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes, dtypes)
+        again = roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes, dtypes)
         ref = roi_align_fpn.fpn_roi_align_bwd_plain(grad, rois, levels, shapes, dtypes)
         torch.cuda.synchronize()
         errs = [compare(a, r, rtol, atol) for a, r in zip(got, ref)]
         max_abs = max(e[0] for e in errs)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("K5: two runs on the same inputs differ")
         if not any(float(a.abs().max()) > 0 for a in got):
             raise AssertionError("K5: all level gradients are zero")
+        del again, ref
         ms = time_ms(lambda: roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes,
                                                              dtypes))
         plain_ms = time_ms(lambda: roi_align_fpn.fpn_roi_align_bwd_plain(
             grad, rois, levels, shapes, dtypes), 10)
         # bytes: the gradient, RoIs and levels read, the four level gradients
         # (bf16) written in full; flops: 4 samples x 4 corners x 2 per element
+        # of the RoIs with a gradient
         n_bytes = (grad.numel() * 2 + rois.numel() * 4 + levels.numel() * 4
                    + sum(math.prod(sh) for sh in shapes) * 2)
-        n_flops = grad.numel() * (4 * 4 * 2 + 1)
+        live = int((grad.flatten(2).abs().amax(-1) > 0).sum())
+        n_flops = live * pooled * pooled * c * (4 * 4 * 2 + 1)
         bound_ms, bound_by = bound(n_bytes, n_flops)
-        print(f"[K5 fpn_roi_align_bwd] {n_rois} RoIs x2 at {pooled}x{pooled}: max abs err "
-              f"{max_abs:.3e}, max rel err {max(e[1] for e in errs):.3e} (tolerance "
-              f"{rtol:.4g}*|ref| + {atol:g}); kernel {ms:.4f} ms (zeroed canvases, kernel, "
-              f"casts), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        print(f"[K5 fpn_roi_align_bwd] {n_rois} {kind} RoIs x2 at {pooled}x{pooled}: max abs "
+              f"err {max_abs:.3e}, max rel err {max(e[1] for e in errs):.3e} (tolerance "
+              f"{rtol:.4g}*|ref| + {atol:g}); two runs bit-identical; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP)")
         out["max_abs_err"] = max(out["max_abs_err"], max_abs)
-        out["ms"] += ms
-        out["plain_ms"] += plain_ms
-        out["bound_ms"] += bound_ms
+        if kind != "clustered":
+            out["ms"] += ms
+            out["plain_ms"] += plain_ms
+            out["bound_ms"] += bound_ms
+    print(f"[K5 fpn_roi_align_bwd] the three calls of a step: kernel {out['ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms, {100 * out['bound_ms'] / out['ms']:.1f}% of it")
     return out
 
 
@@ -648,6 +691,112 @@ def _mark_integers(g, dev, sy, sx, h: int):
     edge = torch.rand(shape, generator=g, device=dev) < 0.01
     sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy)
     return sy.contiguous(), sx
+
+
+def check_k3_taps(dev) -> dict:
+    """The all-tap K3 on a nine-tap layer with dy and dx clipped to +-6
+    (reach 7), C 128, bf16: tap-major at P2 of the 832x1344 bucket
+    (9 x 2 x 208 x 336, the untiled ``pallas`` route; its numbers are the
+    returned ones) and side by side at P2 of the wide canvas
+    (1 x 208 x 832 x 9, the tiled form). Offsets as in ``check_k1`` (+-2 px,
+    3% at 6-12 px) before the clip, 5% of the samples on integer rows, 5% on
+    integer columns (zero coordinate derivative there), 1% beyond the image
+    edge. Timed beside it in the same run: the one-tap K3 nine times on the
+    same tap-major layer plus the stack that autograd made of its results,
+    which is what the layer cost before."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    taps, c, max_d = 9, 128, 6
+    reach = max_d + 1  # max_dy + half * dilation
+    kk = torch.arange(taps, device=dev)
+    ky = (kk // 3 - 1).float()[:, None, None, None]
+    kx = (kk % 3 - 1).float()[:, None, None, None]
+    row = {}
+    for tag, b, (h, w) in (("P2 tap-major", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
+                           ("wide P2 side by side", WIDE_BATCH,
+                            (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4))):
+        tap_axis = 0 if tag.endswith("tap-major") else 3
+        shape = (taps, b, h, w)
+        y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+        if tap_axis == 3:
+            y = y.permute(1, 2, 3, 0, 4).contiguous()
+        grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+        iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+        ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+        sy = iy + ky + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
+        sx = ix + kx + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
+        sy, sx = _mark_integers(g, dev, sy, sx, h)
+        deform_sample.check_reach(sy, sx, reach, None)
+
+        # grad_y: f32 sums (shared-memory atomics, so their order changes
+        # from run to run) rounded once to bf16: one bf16 ulp plus slack.
+        # gsy, gsx: f32 sums of 4 x 128 products of O(1) values in another
+        # order: 1e-4 relative plus 1e-3 absolute.
+        rtol, atol, c_rtol, c_atol = 2.0 ** -7, 1e-4, 1e-4, 1e-3
+        got = deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach, tap_axis)
+        ref = deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, tap_axis)
+        torch.cuda.synchronize()
+        gy_err, gy_rel = compare(got[0], ref[0], rtol, atol)
+        gsy_err, _ = compare(got[1], ref[1], c_rtol, c_atol)
+        gsx_err, _ = compare(got[2], ref[2], c_rtol, c_atol)
+        del ref
+        at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
+        if (float(got[1][at_int_y].abs().max()) != 0.0
+                or float(got[2][at_int_x].abs().max()) != 0.0):
+            raise AssertionError("K3 taps: non-zero coordinate gradient at an integer coordinate")
+        if float(got[1].abs().max()) == 0.0 or float(got[0].float().abs().max()) == 0.0:
+            raise AssertionError("K3 taps: gradients are all zero")
+        print(f"[K3 deform_sample_bwd_taps] {tag}, y {tuple(y.shape)} bf16: grad_y max abs err "
+              f"{gy_err:.3e}, max rel err {gy_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); "
+              f"gsy / gsx max abs err {gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| "
+              f"+ {c_atol:g}); exactly 0 at the {int(at_int_y.sum())} integer rows and "
+              f"{int(at_int_x.sum())} integer columns")
+        del got
+        ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach,
+                                                                  tap_axis))
+        plain_ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps_plain(
+            y, sy, sx, grad, reach, tap_axis), 3)
+
+        # library yardstick: 9 calls of grid_sample's backward op on float32
+        # copies made outside the timed call (one-sided at integer
+        # coordinates and in normalised coordinates: speed only)
+        grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
+        planes = [y.select(tap_axis, t).float().permute(0, 3, 1, 2).contiguous()
+                  for t in range(taps)]
+        g32 = grad.float().permute(0, 3, 1, 2).contiguous()
+        library_ms = time_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
+            g32, planes[t], grids[t], 0, 0, True, [True, True]) for t in range(taps)], 10)
+        del planes, g32, grids
+
+        # bytes this run needs: the rows of each tap's projection its counted
+        # samples touch, g once for all taps, the coordinates, grad_y (bf16,
+        # every element written once) and the coordinate gradients; 4 corners
+        # x 6 flops per channel
+        n_rows, n_inside = touched_rows(sy, sx, h, w)
+        coords = 2 * sy.numel() * 4
+        n_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + y.numel() * 2
+        bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 6 * c)
+        line = (f"[K3 deform_sample_bwd_taps] {tag}: kernel {ms:.4f} ms (2 launches), plain "
+                f"{plain_ms:.4f} ms, 9x grid_sampler_2d_backward {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
+                f"{100 * bound_ms / ms:.1f}% of it")
+        if tap_axis == 0:
+            # the layer as the one-tap K3 did it: nine zeroed canvases, nine
+            # launches, nine casts, and autograd's stack of the nine results
+            def pertap():
+                return torch.stack([deform_sample.deform_sample_bwd(y[t], sy[t], sx[t], grad)[0]
+                                    for t in range(taps)])
+            pertap_ms = time_ms(pertap, 10)
+            line += f"; the same layer by 9 one-tap K3 and the stack: {pertap_ms:.4f} ms"
+            row = {"name": "deform_sample_bwd_taps", "route": "cuda",
+                   "source": "upsnet_torch/csrc/deform_sample_bwd.cu",
+                   "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:637",
+                   "max_abs_err": max(gy_err, gsy_err, gsx_err), "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms}
+        print(line)
+        del y, grad, sy, sx
+        torch.cuda.empty_cache()
+    return row
 
 
 def check_k6(dev) -> dict:
@@ -840,6 +989,7 @@ def check_k7(dev) -> tuple[dict, dict]:
 COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample": (deform_sample, "launches_fwd"),
             "deform_sample_bwd": (deform_sample, "launches_bwd"),
+            "deform_sample_bwd_taps": (deform_sample, "launches_bwd_taps"),
             "fpn_roi_align": (roi_align_fpn, "launches"),
             "fpn_roi_align_bwd": (roi_align_fpn, "launches_bwd"),
             "shift_fwd": (deform_shift, "launches_fwd"),
@@ -856,10 +1006,12 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
     (grad True) of ``cfg`` at ``bucket``, from the port's routing rules. A
     DCN layer that ``dcn_impl: shift`` sends to the shift route launches K8a
     (and K8b + K8c in backward); one that ``pallas`` or the fallback of
-    ``shift`` sends to the tiled form launches 9 K6 (and 9 K3 in backward);
-    any other launches K1 without autograd and 9 x (K2 + K3) with it.
-    ``heads`` False leaves out the ROIAlign calls (a pass of the trunk
-    alone)."""
+    ``shift`` sends to the tiled form launches 9 K6 (and the all-tap K3's two
+    passes in backward); any other launches K1 without autograd, and with it
+    9 K2 and, where dy is clipped (``pallas``, ``mxu``, ``shift``'s
+    fallback), the all-tap K3's two passes, else (``auto``, ``gather``) 9
+    one-tap K3. ``heads`` False leaves out the ROIAlign calls (a pass of the
+    trunk alone)."""
     net = cfg.network
     impl = (net.dcn_impl_train or net.dcn_impl) if grad else net.dcn_impl
     n = dict.fromkeys(COUNTERS, 0)
@@ -876,10 +1028,13 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
             elif impl in ("pallas", "shift") and deform_sample.pallas_route(
                     shape, net.fcn_head_dim, net.dcn_max_dy, 1)[0] == "tiled":
                 n["deform_sample_tiled"] += 9
-                n["deform_sample_bwd"] += 9 * grad
+                n["deform_sample_bwd_taps"] += 2 * grad
             elif grad:
                 n["deform_sample"] += 9
-                n["deform_sample_bwd"] += 9
+                if impl in ("pallas", "mxu", "shift"):
+                    n["deform_sample_bwd_taps"] += 2
+                else:
+                    n["deform_sample_bwd"] += 9
             else:
                 n["deform_sample9"] += 1
     if heads:
@@ -1050,8 +1205,26 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
         for k in host))
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:14]
     print(f"{tag} top device ops (ms): " + "; ".join(f"{n[:70]} {v:.3f}" for n, v in top))
+    ours = {}
+    for k in kernels:
+        for symbol, label in KERNEL_SYMBOLS.items():
+            if f"{symbol}<" in k.name:
+                ms, n = ours.get(label, (0.0, 0))
+                ours[label] = (ms + k.time_range.elapsed_us() / 1e3, n + 1)
+    print(f"{tag} the port's kernels, summed device ms (launches): " + "; ".join(
+        f"{label} {ms:.3f} ({n})" for label, (ms, n) in ours.items()))
 
 
+# the port's kernel functions as the profiler names them; offset_grads_kernel
+# is both K8c and the all-tap K3's coordinate pass
+KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_kernel": "K2",
+                  "deform_sample_bwd_kernel": "K3 one tap",
+                  "grad_y_gather_kernel": "K3 taps grad_y",
+                  "offset_grads_kernel": "K3 taps coords / K8c",
+                  "fpn_roi_align_kernel": "K4", "fpn_roi_align_bwd_kernel": "K5",
+                  "deform_sample_tiled_kernel": "K6", "deform_sample_mt_kernel": "K7a",
+                  "deform_sample_mt_bwd_kernel": "K7b", "shift_fwd_kernel": "K8a",
+                  "shift_adjoint_kernel": "K8b"}
 LOSS_KEYS = ("rpn_cls", "rpn_bbox", "cls", "bbox", "mask", "seg", "pano")
 METRIC_FIELDS = {*LOSS_KEYS, "total", "iter", "images_per_sec", "step_s", "loader_wait_s",
                  "platform"}
@@ -1337,7 +1510,7 @@ def phase_mt_tool(dev) -> dict:
             raise AssertionError(f"the tool's shape {h}x{w} is routed to the tiled form")
         expect["deform_sample9"] += 2 * (2 + reps)
         expect["deform_sample"] += 2 * 9 * (1 + reps)
-        expect["deform_sample_bwd"] += 2 * 9 * (1 + reps)
+        expect["deform_sample_bwd_taps"] += 2 * 2 * (1 + reps)
     if launches != expect:
         raise AssertionError(f"mt_tool launches {nonzero(launches)}, expected {nonzero(expect)}")
     for row in rows:
@@ -1368,8 +1541,8 @@ def main() -> None:
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    kernels = [check_k1(dev), *check_k2_k3(dev), check_k4(dev), check_k5(dev), check_k6(dev),
-               *check_k7(dev), *check_k8(dev)]
+    kernels = [check_k1(dev), *check_k2_k3(dev), check_k3_taps(dev), check_k4(dev),
+               check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev)]
     launches = dict.fromkeys(COUNTERS, 0)
 
     def finish(name, counts, run, prefix):
@@ -1404,6 +1577,9 @@ def main() -> None:
     del run, model, batch, seg
     counts, run, _ = phase_train(dev, "pallas", 2, "train_wide", **wide)
     finish("train_wide", counts, run, "train.")
+    del run
+    counts, run, _ = phase_train(dev, "auto", 2, "train_auto")
+    finish("train_auto", counts, run, "train.")
     del run
     torch.cuda.empty_cache()
     finish("mt_tool", phase_mt_tool(dev), None, "")

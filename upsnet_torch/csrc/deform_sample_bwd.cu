@@ -1,13 +1,15 @@
-// K3: backward of the one-tap deformable bilinear sampler (K2).
+// K3: backward of the deformable bilinear sampler: the all-tap form that
+// the clipped training routes take, and the one-tap form (backward of K2)
+// that the unclipped ones take.
 //
-// For out[b, i, j, :] = sum_{r, q} vy_r * vx_q * y[b, r, q, :] with the hat
-// weights vy_r = max(0, 1 - |sy - r|), vx_q = max(0, 1 - |sx - q|) and DCNv1
-// zero padding (a sample counts iff it lies in (-1, H) x (-1, W); rows and
-// columns outside the map read zero), given g = d loss / d out:
+// For out[b, i, j, :] = sum_t sum_{r, q} vy_r * vx_q * y_t[b, r, q, :] with
+// the hat weights vy_r = max(0, 1 - |sy_t - r|), vx_q = max(0, 1 - |sx_t - q|)
+// and DCNv1 zero padding (a sample counts iff it lies in (-1, H) x (-1, W);
+// rows and columns outside the map read zero), given g = d loss / d out:
 //
-//   grad_y[b, r, q, :] += vy_r * vx_q * g[b, i, j, :]            (f32 canvas)
-//   gsy[b, i, j] = sum_c g_c * sum_{r, q} dvy_r *  vx_q * y[b, r, q, c]
-//   gsx[b, i, j] = sum_c g_c * sum_{r, q}  vy_r * dvx_q * y[b, r, q, c]
+//   grad_y_t[b, r, q, :] = sum_{i, j} vy_r * vx_q * g[b, i, j, :]
+//   gsy[t, b, i, j] = sum_c g_c * sum_{r, q} dvy_r *  vx_q * y_t[b, r, q, c]
+//   gsx[t, b, i, j] = sum_c g_c * sum_{r, q}  vy_r * dvx_q * y_t[b, r, q, c]
 //
 // with the derivative of the TPU kernel it replaces,
 // upsnet_tpu/ops/deform_conv_pallas.py:_sample_pallas_bwd
@@ -15,15 +17,36 @@
 // coordinate d = 0 at the peak and |d| = 1 at its neighbours, so every
 // derivative there is 0.
 //
-// A sub-warp of `width` lanes (a power of two <= 32, at least C / 8 when
-// that fits) owns one pixel; a lane takes groups of 8 channels. It reads g
-// and the four corners of y with 16-byte loads, scatters the weighted g into
-// the zeroed f32 canvas with vector atomics (neighbouring pixels share
-// corners, so the adds collide and their order is not fixed), and the
-// sub-warp reduces the two coordinate gradients with shuffles in f32: no
-// atomics for those. The work is bound by bytes: y and g read once, the
-// canvas written. The per-sample arithmetic is sample_bwd of sample_bwd.cuh,
-// shared with K7b (deform_sample_mt_bwd.cu).
+// All taps (deform_sample_bwd_taps_grad_y, deform_sample_bwd_taps_coords):
+// the routes that reach it clip dy, so every counted sample of pixel (i, j)
+// lies within `reach` rows of i, and canvas row r receives only from the
+// output rows [r - reach - 1, r + reach]; dx is free. The TPU kernel's
+// sequential read-modify-write of a window of an f32 canvas becomes a
+// gather by row bands: a block owns 2 full-width rows of one tap's grad_y
+// of one image for 128 channels. It buckets the samples of the rows that
+// can reach the band by their low corner column, then a thread per (column,
+// 8 channels) sums the two buckets that reach its column in f32 registers
+// and writes the band once in y's dtype straight into grad_y, in y's layout
+// (tap-major (K, B, H, W, C) or side by side (B, H, W, K, C)): a warp writes
+// whole runs of channels. No global canvas, no zero fill, no cast, no float
+// atomics (shared-memory float atomics are compare-and-swap loops on this
+// card; the buckets take integer ones). The taps are a grid dimension, not
+// a loop in the block, so that blocks of different taps overlap their
+// phases. The order of a bucket's entries is not fixed, so grad_y differs
+// between runs by f32 rounding before its one rounding to y's dtype. A
+// counted sample beyond the reach gets no gradient to y (the callers' clip
+// rules it out). The coordinate
+// pass is offset_grads_kernel (offset_grads.cuh, shared with K8c). Bound by
+// bytes: y, g and the coordinates read once, grad_y and the coordinate
+// gradients written once; the gather reads g once per corner, from L1/L2.
+//
+// One tap (deform_sample_bwd): a sub-warp of `width` lanes (a power of two
+// <= 32, at least C / 8 when that fits) owns one pixel; a lane takes groups
+// of 8 channels. It reads g and the four corners of y with 16-byte loads,
+// scatters the weighted g into a zeroed f32 canvas with vector atomics, and
+// the sub-warp reduces the two coordinate gradients with shuffles in f32.
+// The per-sample arithmetic is sample_bwd of sample_bwd.cuh, shared with K7b
+// (deform_sample_mt_bwd.cu).
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -31,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "offset_grads.cuh"
 #include "sample_bwd.cuh"
 #include "vec8.cuh"
 
@@ -77,12 +101,195 @@ void launch(const void* y, const void* sy, const void* sx, const void* g, void* 
       B, H, W, C, width);
 }
 
+
+constexpr int kBandRows = 2;      // grad_y rows a block owns
+constexpr int kSliceGroups = 16;  // 8-channel groups a block owns (128 channels)
+
+// The low corner column of pixel p's sample if it counts, lies within
+// `reach` rows of the pixel's row and one of its two corner rows falls in
+// [r0, r0 + rows); else -2.
+__device__ __forceinline__ int band_column(const float* sy, const float* sx, int p, int H,
+                                           int W, int r0, int rows, float reach) {
+  const float py = __ldg(sy + p), px = __ldg(sx + p);
+  if (!(py > -1.f && py < (float)H && px > -1.f && px < (float)W)) return -2;
+  if (fabsf(py - (float)(p / W)) > reach) return -2;  // beyond the reach: no gradient
+  const int y0 = (int)floorf(py);
+  if (y0 + 1 < r0 || y0 >= r0 + rows) return -2;
+  return (int)floorf(px);
+}
+
+// out[0..n] = the exclusive prefix sums of in[0..n), out[n] the total.
+__device__ void exclusive_scan(const int* in, int* out, int n, int* warp_sums) {
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int sum = 0;
+  for (int k = lo; k < hi; ++k) sum += in[k];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = sum;
+  for (int off = 1; off < 32; off *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int run = incl - sum;
+  for (int w = 0; w < warp; ++w) run += warp_sums[w];
+  for (int k = lo; k < hi; ++k) {
+    out[k] = run;
+    run += in[k];
+  }
+  if (threadIdx.x == blockDim.x - 1) out[n] = run;
+}
+
+// One block: grad_y rows [kBandRows * blockIdx.y, + kBandRows) of tap
+// blockIdx.z % K of image blockIdx.z / K for channel groups
+// [kSliceGroups * blockIdx.x, + kSliceGroups). The samples of the output rows that can reach the band and
+// do are bucketed by their low corner column (a histogram that also keeps
+// each pixel's column, a prefix sum and a placement, with integer
+// shared-memory atomics); then a thread per (column q, channel group)
+// gathers buckets q (corner x0, weight hx) and q - 1 (corner x0 + 1, weight
+// lx) into f32 registers for the band's rows and writes them once. The
+// order of a bucket's entries follows the placement's atomics and changes
+// from run to run.
+template <typename T>
+__global__ void __launch_bounds__(256)
+grad_y_gather_kernel(const T* __restrict__ g, const float* __restrict__ sy,
+                     const float* __restrict__ sx, T* __restrict__ gy, int K, int B, int H,
+                     int W, int C, int reach, int64_t img_stride, int64_t tap_stride,
+                     int64_t pix_stride) {
+  extern __shared__ int smem[];
+  int* start = smem;            // [W + 2]: bucket x0 + 1 holds [start[x0 + 1], start[x0 + 2])
+  int* cursor = start + W + 2;  // [W + 1]: counts, then placement cursors
+  // per scanned pixel: its column x0 (or -2), and the entries by bucket
+  // (pixels as offsets from the first scanned one)
+  short* column = reinterpret_cast<short*>(cursor + W + 1);
+  __shared__ int warp_sums[32];
+  const int g0 = blockIdx.x * kSliceGroups;
+  const int r0 = blockIdx.y * kBandRows;
+  const int b = blockIdx.z / K, t = blockIdx.z % K;
+  const int rows = min(kBandRows, H - r0);
+  const int ng = min(kSliceGroups, C / 8 - g0);
+  // the output rows whose samples can reach a row of the band
+  const int i_lo = max(0, r0 - reach - 1), i_hi = min(H - 1, r0 + rows - 1 + reach);
+  const int p_lo = i_lo * W, n_scan = (i_hi + 1) * W - p_lo;
+  unsigned short* entries = reinterpret_cast<unsigned short*>(column + n_scan);
+  const int64_t plane = (int64_t)B * H * W;
+  const int64_t img_pix = (int64_t)b * H * W;
+  const T* g_b = g + img_pix * C;
+  const float fr = (float)reach;
+  {
+    const float* sy_t = sy + t * plane + img_pix;
+    const float* sx_t = sx + t * plane + img_pix;
+    for (int k = threadIdx.x; k <= W; k += blockDim.x) cursor[k] = 0;
+    __syncthreads();
+    for (int k = threadIdx.x; k < n_scan; k += blockDim.x) {
+      const int x0 = band_column(sy_t, sx_t, p_lo + k, H, W, r0, rows, fr);
+      column[k] = (short)x0;
+      if (x0 >= -1) atomicAdd(cursor + x0 + 1, 1);
+    }
+    __syncthreads();
+    exclusive_scan(cursor, start, W + 1, warp_sums);
+    __syncthreads();
+    for (int k = threadIdx.x; k <= W; k += blockDim.x) cursor[k] = start[k];
+    __syncthreads();
+    for (int k = threadIdx.x; k < n_scan; k += blockDim.x) {
+      const int x0 = column[k];
+      if (x0 >= -1) entries[atomicAdd(cursor + x0 + 1, 1)] = (unsigned short)k;
+    }
+    __syncthreads();
+    T* out = gy + (int64_t)b * img_stride + t * tap_stride;
+    for (int it = threadIdx.x; it < W * ng; it += blockDim.x) {
+      const int q = it / ng, grp = g0 + it % ng;
+      float acc[kBandRows][8];
+#pragma unroll
+      for (int rr = 0; rr < kBandRows; ++rr) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[rr][k] = 0.f;
+      }
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {  // x0 == q, then x0 == q - 1
+        const int bucket = q + 1 - side;
+        for (int e = start[bucket]; e < start[bucket + 1]; ++e) {
+          const int p = p_lo + entries[e];
+          const float py = __ldg(sy_t + p), px = __ldg(sx_t + p);
+          const float fy = floorf(py), fx = floorf(px);
+          const float ly = py - fy, lx = px - fx;
+          const float vx = side ? lx : 1.f - lx;
+          const int y0 = (int)fy - r0;
+          float gv[8];
+          load8(g_b + (int64_t)p * C + grp * 8, gv);
+#pragma unroll
+          for (int rr = 0; rr < kBandRows; ++rr) {
+            const float vy = y0 == rr ? 1.f - ly : (y0 + 1 == rr ? ly : 0.f);
+            const float w = vy * vx;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) acc[rr][k] = fmaf(w, gv[k], acc[rr][k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kBandRows; ++rr) {
+        if (rr < rows) {
+          store8(out + ((int64_t)(r0 + rr) * W + q) * pix_stride + grp * 8, acc[rr]);
+        }
+      }
+    }
+  }
+}
+
+// The strides of tap t of image b in y's layout: tap-major (K, B, H, W, C)
+// or side by side (B, H, W, K, C).
+void layout_strides(int tap_major, int K, int B, int H, int W, int C, int64_t& img,
+                    int64_t& tap, int64_t& pix) {
+  if (tap_major) {
+    img = (int64_t)H * W * C;
+    tap = (int64_t)B * H * W * C;
+    pix = C;
+  } else {
+    img = (int64_t)H * W * K * C;
+    tap = C;
+    pix = (int64_t)K * C;
+  }
+}
+
+// Shared memory of grad_y_gather_kernel: the bucket bounds and cursors, and
+// a column and an entry for each pixel of the rows a band scans.
+size_t gather_bytes(int W, int reach) {
+  return (size_t)(2 * W + 3) * sizeof(int)
+         + (size_t)(kBandRows + 2 * reach + 1) * W * (sizeof(short) + sizeof(unsigned short));
+}
+
+template <typename T>
+int launch_grad_y(const void* g, const void* sy, const void* sx, void* gy, int K, int B,
+                  int H, int W, int C, int reach, int tap_major, cudaStream_t s) {
+  int64_t img, tap, pix;
+  layout_strides(tap_major, K, B, H, W, C, img, tap, pix);
+  // the limit is raised only when a launch needs more than the last one
+  // raised it to: a cudaFuncSetAttribute call on every launch leaves the card idle
+  static size_t raised = 0;
+  const size_t bytes = gather_bytes(W, reach);
+  if (bytes > raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grad_y_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    raised = bytes;
+  }
+  const dim3 grid((C / 8 + kSliceGroups - 1) / kSliceGroups, (H + kBandRows - 1) / kBandRows,
+                  B * K);
+  grad_y_gather_kernel<T><<<grid, 256, bytes, s>>>(
+      static_cast<const T*>(g), static_cast<const float*>(sy),
+      static_cast<const float*>(sx), static_cast<T*>(gy), K, B, H, W, C, reach, img, tap,
+      pix);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (of y and g). y, g (B, H, W, C); sy, sx,
-// gsy, gsx (B, H, W) f32; canvas (B, H, W, C) f32, zeroed by the caller.
+// One tap. dtype: 0 = float32, 1 = bfloat16 (of y and g). y, g (B, H, W, C);
+// sy, sx, gsy, gsx (B, H, W) f32; canvas (B, H, W, C) f32, zeroed by the
+// caller.
 int deform_sample_bwd(const void* y, const void* sy, const void* sx, const void* g,
                       void* canvas, void* gsy, void* gsx, int B, int H, int W, int C,
                       int dtype, void* stream) {
@@ -92,6 +299,44 @@ int deform_sample_bwd(const void* y, const void* sy, const void* sx, const void*
       launch<__nv_bfloat16>(y, sy, sx, g, canvas, gsy, gsx, B, H, W, C, s);
     } else {
       launch<float>(y, sy, sx, g, canvas, gsy, gsx, B, H, W, C, s);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// All taps, pass 1. dtype: 0 = float32, 1 = bfloat16 (of g and gy). g
+// (B, H, W, C); sy, sx (K, B, H, W) f32 with |sy - i| <= reach at every
+// counted sample of pixel (i, j); gy in y's layout (tap_major 1:
+// (K, B, H, W, C), 0: (B, H, W, K, C)), every element written. B * K <=
+// 65535 and gather_bytes(W, reach) within the 232448 bytes of shared memory
+// a block can use (so a band's scanned pixels fit their 16-bit numbers).
+int deform_sample_bwd_taps_grad_y(const void* g, const void* sy, const void* sx, void* gy,
+                                  int K, int B, int H, int W, int C, int reach,
+                                  int tap_major, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
+    const int err = dtype == 1
+        ? launch_grad_y<__nv_bfloat16>(g, sy, sx, gy, K, B, H, W, C, reach, tap_major, s)
+        : launch_grad_y<float>(g, sy, sx, gy, K, B, H, W, C, reach, tap_major, s);
+    if (err != 0) return err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// All taps, pass 2: gsy, gsx (K, B, H, W) f32, every element written; y in
+// the layout named by tap_major, g (B, H, W, C).
+int deform_sample_bwd_taps_coords(const void* y, const void* sy, const void* sx,
+                                  const void* g, void* gsy, void* gsx, int K, int B, int H,
+                                  int W, int C, int tap_major, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
+    int64_t img, tap, pix;
+    layout_strides(tap_major, K, B, H, W, C, img, tap, pix);
+    if (dtype == 1) {
+      launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
+                                         pix, s);
+    } else {
+      launch_offset_grads<float>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap, pix, s);
     }
   }
   return (int)cudaGetLastError();

@@ -25,10 +25,12 @@
 // loop. K8a: one thread per (output pixel, 8 channels), one launch for all
 // taps, an f32 accumulator over all taps and corners, rounded once (K1 adds
 // the same way but reads a tap-major stack; the TPU's K1 adds taps in bf16).
-// K8c: a sub-warp of `width` lanes owns a pixel, a lane takes groups of 8
-// channels, and the sub-warp reduces each tap's two gradients with shuffles
-// in f32: no atomics. Both are bound by the bytes of y: a pixel's record is
-// K * C contiguous values, read with 16-byte loads along C.
+// K8c: offset_grads_kernel of offset_grads.cuh (shared with the coordinate
+// pass of K3) at pixel stride K * C: a sub-warp of `width` lanes owns a
+// pixel, a lane takes groups of 8 channels, and the sub-warp reduces each
+// tap's two gradients with shuffles in f32: no atomics. Both are bound by
+// the bytes of y: a pixel's record is K * C contiguous values, read with
+// 16-byte loads along C.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -36,6 +38,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "offset_grads.cuh"
 #include "sample_tap.cuh"
 #include "vec8.cuh"
 
@@ -67,73 +70,6 @@ shift_fwd_kernel(const T* __restrict__ y, const float* __restrict__ sy,
   store8(out + pix * C + g * 8, acc);
 }
 
-// One corner (yy, xx) of one tap with derivative weights wy = dvy * vx and
-// wx = vy * dvx: this lane's share of the two coordinate gradients.
-template <typename T>
-__device__ __forceinline__ void corner_grad(const T* img, int yy, int xx, float wy,
-                                            float wx, const float* g, int H, int W,
-                                            int stride, float& gy, float& gx) {
-  if (yy < 0 || yy >= H || xx < 0 || xx >= W) return;
-  float v[8];
-  load8(img + ((int64_t)yy * W + xx) * stride, v);
-  float dot = 0.f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) dot = fmaf(g[k], v[k], dot);
-  gy = fmaf(wy, dot, gy);
-  gx = fmaf(wx, dot, gx);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-shift_offset_grads_kernel(const T* __restrict__ y, const float* __restrict__ sy,
-                          const float* __restrict__ sx, const T* __restrict__ g,
-                          float* __restrict__ gsy, float* __restrict__ gsx,
-                          int K, int B, int H, int W, int C, int width) {
-  const int groups = C / 8;
-  const int KC = K * C;
-  const int64_t plane = (int64_t)B * H * W;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t pix = tid / width;  // (b * H + i) * W + j
-  const int lane = (int)(tid % width);
-  const bool live = pix < plane;
-  const int b = live ? (int)(pix / ((int64_t)H * W)) : 0;
-  const T* img = y + (int64_t)b * H * W * KC;
-  // every lane of the warp reaches the shuffles below, so no early return
-  for (int t = 0; t < K; ++t) {
-    float gy = 0.f, gx = 0.f;
-    if (live) {
-      const float py = __ldg(sy + t * plane + pix), px = __ldg(sx + t * plane + pix);
-      if (py > -1.f && py < (float)H && px > -1.f && px < (float)W) {
-        const float fy = floorf(py), fx = floorf(px);
-        const int y0 = (int)fy, x0 = (int)fx;
-        const float ly = py - fy, lx = px - fx;
-        const float hy = 1.f - ly, hx = 1.f - lx;
-        // -sign(d) on |d| < 1: -1 at the low node, +1 at the high one, and
-        // 0 at both when the coordinate is an integer
-        const float dy0 = ly > 0.f ? -1.f : 0.f, dy1 = -dy0;
-        const float dx0 = lx > 0.f ? -1.f : 0.f, dx1 = -dx0;
-        for (int grp = lane; grp < groups; grp += width) {
-          float gv[8];
-          load8(g + pix * C + grp * 8, gv);
-          const T* tap = img + t * C + grp * 8;
-          corner_grad(tap, y0, x0, dy0 * hx, hy * dx0, gv, H, W, KC, gy, gx);
-          corner_grad(tap, y0, x0 + 1, dy0 * lx, hy * dx1, gv, H, W, KC, gy, gx);
-          corner_grad(tap, y0 + 1, x0, dy1 * hx, ly * dx0, gv, H, W, KC, gy, gx);
-          corner_grad(tap, y0 + 1, x0 + 1, dy1 * lx, ly * dx1, gv, H, W, KC, gy, gx);
-        }
-      }
-    }
-    for (int off = width / 2; off > 0; off /= 2) {
-      gy += __shfl_xor_sync(0xffffffffu, gy, off);
-      gx += __shfl_xor_sync(0xffffffffu, gx, off);
-    }
-    if (lane == 0 && live) {
-      gsy[t * plane + pix] = gy;
-      gsx[t * plane + pix] = gx;
-    }
-  }
-}
-
 template <typename T>
 void launch_fwd(const void* y, const void* sy, const void* sx, void* out, int K, int B,
                 int H, int W, int C, cudaStream_t s) {
@@ -142,20 +78,6 @@ void launch_fwd(const void* y, const void* sy, const void* sx, void* out, int K,
   shift_fwd_kernel<T><<<grid, kBlock, 0, s>>>(
       static_cast<const T*>(y), static_cast<const float*>(sy),
       static_cast<const float*>(sx), static_cast<T*>(out), K, B, H, W, C);
-}
-
-template <typename T>
-void launch_grads(const void* y, const void* sy, const void* sx, const void* g, void* gsy,
-                  void* gsx, int K, int B, int H, int W, int C, cudaStream_t s) {
-  const int groups = C / 8;
-  int width = 1;
-  while (width < groups && width < 32) width *= 2;
-  const int64_t threads = (int64_t)B * H * W * width;  // kBlock is a multiple of every width
-  const unsigned grid = (unsigned)((threads + kBlock - 1) / kBlock);
-  shift_offset_grads_kernel<T><<<grid, kBlock, 0, s>>>(
-      static_cast<const T*>(y), static_cast<const float*>(sy),
-      static_cast<const float*>(sx), static_cast<const T*>(g), static_cast<float*>(gsy),
-      static_cast<float*>(gsx), K, B, H, W, C, width);
 }
 
 }  // namespace
@@ -181,8 +103,14 @@ int shift_offset_grads(const void* y, const void* sy, const void* sx, const void
                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
-    if (dtype == 1) launch_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, s);
-    else launch_grads<float>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, s);
+    // tap t of pixel (r, q) at ((b * H + r) * W + q) * K * C + t * C
+    const int64_t img = (int64_t)H * W * K * C, tap = C, pix = (int64_t)K * C;
+    if (dtype == 1) {
+      launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
+                                         pix, s);
+    } else {
+      launch_offset_grads<float>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap, pix, s);
+    }
   }
   return (int)cudaGetLastError();
 }

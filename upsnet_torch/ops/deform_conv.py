@@ -12,14 +12,17 @@ tap's weight first and sample the projections:
   * untiled (``_fused_untiled`` / ``_pertap_untiled``, chosen as
     ``_untiled_dispatch`` chooses): one matmul per tap into a tap-major
     stack. Without gradients K1 (``ops/deform_sample.py``) samples and sums
-    the projections in one launch, in f32. When gradients are recorded each
-    tap goes through ``DeformSample`` (forward K2, backward K3) and the taps
-    are added in ``x.dtype`` in tap order, as the JAX package's training does.
+    the projections in one launch, in f32. When gradients are recorded the
+    taps are sampled one by one (K2) and added in ``x.dtype`` in tap order,
+    as the JAX package's training does: where dy is clipped, all taps in one
+    ``DeformSampleTaps`` whose backward is the all-tap K3 (two launches per
+    layer); where it is not (``auto``, ``gather``), each tap through
+    ``DeformSample`` (backward the one-tap K3).
   * tiled (``_deform_conv2d_tiled``, after ``_deform_conv2d_pallas_tiled``):
     one matmul gives all taps side by side, dy **and dx** are clipped, and
-    ``DeformSampleTiled`` samples tap by tap (K6, backward K3) and adds the
-    taps in ``x.dtype``, with or without gradients: the JAX package has no
-    fused tiled forward.
+    ``DeformSampleTiled`` samples tap by tap (K6, backward the all-tap K3)
+    and adds the taps in ``x.dtype``, with or without gradients: the JAX
+    package has no fused tiled forward.
   * shift (``deform_conv2d_shift``, after ``deform_conv2d_pallas_shift``):
     the same one matmul and clips, and ``DeformSampleShift`` samples all taps
     in one launch (K8a) also when gradients are recorded (backward K8b +
@@ -55,7 +58,7 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops.deform_sample import (
-    DeformSample, DeformSampleTiled, deform_sample9, pallas_route)
+    DeformSample, DeformSampleTaps, DeformSampleTiled, deform_sample9, pallas_route)
 from upsnet_torch.ops.deform_sample_mt import DeformSampleMT
 from upsnet_torch.ops.deform_shift import DeformSampleShift, shift_route_ok
 
@@ -249,14 +252,16 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
         raise NotImplementedError(f"dcn_impl {impl!r} is not ported")
     y9 = tap_projections(x, weight)
     sy9, sx9 = sample_coords(offsets, kernel_size, dilation, clip, boundary_grad)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, offsets, weight)):
+    if not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, offsets, weight))):
+        out = deform_sample9(y9, sy9, sx9)
+    elif clip is not None:
+        out = DeformSampleTaps.apply(y9, sy9, sx9, clip + (kernel_size - 1) // 2 * dilation)
+    else:
         out = None
         for y, sy, sx in zip(y9.unbind(0), sy9.unbind(0), sx9.unbind(0)):
             tap = DeformSample.apply(y, sy, sx)
             out = tap if out is None else out + tap
-    else:
-        out = deform_sample9(y9, sy9, sx9)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -2,12 +2,15 @@
 backward, and the routing rule of the ``pallas`` route.
 
 K1 (``deform_sample9``), the inference sampler, sums all taps in one launch.
-K2 (``deform_sample``) is one tap of it and K3 (``deform_sample_bwd``) its
-backward; ``DeformSample`` ties the two into autograd for training. K6
-(``deform_sample_tiled``) is the one-tap sampler of the column-tiled form
-that the JAX package takes on wide maps, where ``pallas_route`` answers
-``tiled``; ``DeformSampleTiled`` runs it for all taps with K3 as backward.
-K2, K3 and K6 are described above their wrappers below.
+K2 (``deform_sample``) is one tap of it. K3 is its backward in two forms:
+``deform_sample_bwd_taps``, all taps of a layer at once, which the clipped
+training routes take (``DeformSampleTaps``: forward K2 per tap), and
+``deform_sample_bwd``, one tap, which the unclipped ones take
+(``DeformSample``). K6 (``deform_sample_tiled``) is the one-tap sampler of
+the column-tiled form that the JAX package takes on wide maps, where
+``pallas_route`` answers ``tiled``; ``DeformSampleTiled`` runs it for all
+taps with the all-tap K3 as backward. K2, K3 and K6 are described above
+their wrappers below.
 
 K1 replaces the TPU kernel ``upsnet_tpu/ops/deform_conv_pallas.py:
 _sample_pallas9`` (kernel body ``_sample9_kernel``), the inference DCN
@@ -38,7 +41,9 @@ TPU result by bf16 rounding of the partial sums, and from each other only
 by f32 summation order before that one rounding.
 
 ``launches`` counts K1's kernel launches, ``launches_fwd`` K2's,
-``launches_bwd`` K3's and ``launches_tiled`` K6's (CPU calls do not count).
+``launches_bwd`` the one-tap K3's, ``launches_bwd_taps`` the all-tap K3's
+(two per call: one per pass) and ``launches_tiled`` K6's (CPU calls do not
+count).
 """
 
 from __future__ import annotations
@@ -52,7 +57,10 @@ from upsnet_torch.ops import cuda_build
 launches = 0
 launches_fwd = 0
 launches_bwd = 0
+launches_bwd_taps = 0
 launches_tiled = 0
+
+SHARED_BYTES = 232448  # shared memory a block can use on the H100
 
 
 def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None, acc=torch.float32):
@@ -155,18 +163,30 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor,
 #
 # K2 replaces the TPU kernel ``deform_conv_pallas.py:_sample_pallas``
 # (``_sample_kernel``) and K3 ``_sample_pallas_bwd`` (``_sample_bwd_kernel``).
-# Training samples tap by tap (``ops/deform_conv.py``), because each tap's
-# backward needs its own projection and coordinates. On the TPU both kernels
-# work on zero-padded rows inside a +-max_dy window and K3 read-modify-writes
-# a window of an f32 canvas per sequential grid step; on the card a thread
-# reads any coordinate of the unpadded map, and K3 scatters into a zeroed f32
-# canvas with atomics because blocks run in no order
-# (``csrc/deform_sample_bwd.cu``). The wrapper casts the canvas to
-# ``y.dtype``, as the TPU wrapper does.
+# Training samples tap by tap (``ops/deform_conv.py``), each tap's output
+# added in ``y.dtype``, as the JAX package does. On the TPU both kernels work
+# on zero-padded rows inside a +-max_dy window and K3 read-modify-writes a
+# window of an f32 canvas per sequential grid step. On the card a thread
+# reads any coordinate of the unpadded map, and K3 takes two forms
+# (``csrc/deform_sample_bwd.cu``):
+#
+#   * all taps (``deform_sample_bwd_taps``), where dy is clipped (``pallas``,
+#     ``mxu``, the tiled form, ``shift``'s fallback levels): every counted
+#     sample lies within ``reach_y`` rows of its pixel, so a block owns a
+#     band of grad_y rows, buckets the samples of the output rows that can
+#     reach it by column, gathers each column's buckets in f32 registers and
+#     writes each tap's band once in ``y.dtype``: no canvas, no zero fill,
+#     no cast, no float atomics, no copy of the taps. A second
+#     launch computes the coordinate gradients of all taps (K8c's kernel at
+#     the layout's strides). A sample beyond the reach gets no gradient to y
+#     there; the plain version raises on one, as K6's does.
+#   * one tap (``deform_sample_bwd``), where dx and dy are free (``auto``,
+#     ``gather``): a scatter into a zeroed f32 canvas with atomics, cast by
+#     the wrapper to ``y.dtype``, as the TPU wrapper casts.
 #
 # What bounds them: bytes. K2 reads y and the coordinates and writes the
-# output; K3 reads y, g and the coordinates and writes the canvas and the
-# two coordinate gradients. About 9 flops per element and corner.
+# output; K3 reads y, g and the coordinates and writes grad_y and the two
+# coordinate gradients. About 9 flops per element and corner.
 #
 # The coordinate derivative follows the TPU kernel: with the hat weight
 # v(d) = max(0, 1 - |d|) of a node at distance d, dv/dd = -sign(d) where
@@ -332,7 +352,7 @@ def deform_sample_bwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
 
 class DeformSample(torch.autograd.Function):
     """``deform_sample`` with gradients to y, sy and sx: forward K2,
-    backward K3 (their plain versions on CPU tensors)."""
+    backward the one-tap K3 (their plain versions on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, y, sy, sx):
@@ -343,6 +363,102 @@ class DeformSample(torch.autograd.Function):
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
         return deform_sample_bwd(y, sy, sx, g.contiguous())
+
+
+def deform_sample_bwd_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                                 g: torch.Tensor, reach_y: int, tap_axis: int = 0):
+    """Plain PyTorch version of the all-tap K3: the reach check, then
+    ``deform_sample_bwd_plain`` on each tap of y. Returns (grad_y in y's
+    layout and dtype, gsy, gsx (K, B, H, W))."""
+    check_reach(sy, sx, reach_y, None)
+    gy = torch.empty_like(y)
+    gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
+    for t in range(y.shape[tap_axis]):
+        gy.select(tap_axis, t)[...], gsy[t], gsx[t] = deform_sample_bwd_plain(
+            y.select(tap_axis, t), sy[t], sx[t], g)
+    return gy, gsy, gsx
+
+
+def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                           g: torch.Tensor, reach_y: int, tap_axis: int = 0):
+    """K3 for all K taps of a layer whose outputs were summed: the backward
+    of ``sum_t deform_sample(y_t, sy[t], sx[t])`` for upstream gradient g.
+
+    y holds the K tap projections, tap-major (K, B, H, W, C) with
+    ``tap_axis`` 0 (``tap_projections``) or side by side (B, H, W, K, C)
+    with ``tap_axis`` 3 (``side_by_side_projections``); sy, sx (K, B, H, W)
+    f32 with ``|sy - i| <= reach_y`` at every counted sample of pixel
+    (i, j); g (B, H, W, C) in y's dtype. Returns (grad_y in y's layout and
+    dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum
+    rounded once; on the card its terms are added in an order that changes
+    from run to run. CPU tensors take the plain version,
+    which raises on a sample beyond the reach; CUDA tensors launch the two
+    kernels (C % 8 == 0, all contiguous, 16-byte aligned, B * K <= 65535, a
+    band's scanned rows within shared memory: W <= 3058 at reach 7), which
+    give such a sample no gradient to y.
+    """
+    global launches_bwd_taps
+    if y.dim() != 5 or tap_axis not in (0, 3):
+        raise ValueError(f"y must be (K, B, H, W, C) with tap_axis 0 or (B, H, W, K, C) "
+                         f"with tap_axis 3, got {tuple(y.shape)} and {tap_axis}")
+    k = y.shape[tap_axis]
+    if sy.dim() != 4 or sy.shape[0] != k:
+        raise ValueError(f"sy must be (K={k}, B, H, W), got {tuple(sy.shape)}")
+    if reach_y < 0:
+        raise ValueError(f"reach_y must be >= 0, got {reach_y}")
+    # the shape, dtype and device rules of one tap; y itself must be whole
+    _check_tap(y.select(tap_axis, 0), sy[0], sx[0], g, contiguous=False)
+    if sx.shape != sy.shape:
+        raise ValueError(f"sx must be {tuple(sy.shape)}, got {tuple(sx.shape)}")
+    if y.device.type == "cpu":
+        return deform_sample_bwd_taps_plain(y, sy, sx, g, reach_y, tap_axis)
+    for name, s in (("y", y), ("sy", sy), ("sx", sx), ("g", g)):
+        if not s.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, h, w, c = g.shape
+    if b * k > 65535:
+        raise ValueError(f"B*K={b * k} exceeds the grid's 65535")
+    if (2 * w + 3) * 4 + (2 * reach_y + 3) * w * 4 > SHARED_BYTES:
+        raise ValueError(f"a band of W={w} at reach {reach_y} does not fit shared memory")
+    gy = torch.empty_like(y)
+    gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
+    tap_major = int(tap_axis == 0)
+    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_grad_y", y, (g, sy, sx, gy),
+                    (k, b, h, w, c, reach_y, tap_major))
+    launches_bwd_taps += 1
+    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
+                    (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, tap_major))
+    launches_bwd_taps += 1
+    return gy, gsy, gsx
+
+
+class DeformSampleTaps(torch.autograd.Function):
+    """The K taps of the untiled form where dy is clipped (``pallas``,
+    ``mxu``): forward K launches of K2 whose results are added in
+    ``y.dtype`` in tap order, as the JAX package's training form adds them;
+    gradients to y, sy and sx by the all-tap K3 (their plain versions on CPU
+    tensors).
+
+    y (K, B, H, W, C) tap-major; sy, sx (K, B, H, W) f32 within ``reach_y``
+    rows of their pixels. Returns (B, H, W, C) in ``y.dtype``. Every tap's
+    upstream gradient is the output's, as in a chain of additions.
+    """
+
+    @staticmethod
+    def forward(ctx, y, sy, sx, reach_y: int):
+        ctx.save_for_backward(y, sy, sx)
+        ctx.reach_y = reach_y
+        out = None
+        for t in range(y.shape[0]):
+            tap = deform_sample(y[t], sy[t], sx[t])
+            out = tap if out is None else out + tap
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, sy, sx = ctx.saved_tensors
+        gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 0)
+        return gy, gsy, gsx, None
 
 
 # ---------------------------------------------------------------------------
@@ -414,19 +530,24 @@ def pallas_route(shape, cout: int, max_dy: int, dilation: int,
 # its contract: a counted sample of pixel (i, j) lies within ``reach_y`` rows
 # and ``reach_x`` columns of it. The kernel gives zero to a sample beyond
 # (it cannot raise); the CPU path raises instead. ``inside`` is tested on the
-# true H and W. Its backward is K3 on a contiguous copy of the tap's block.
+# true H and W. Its backward is the all-tap K3 on the side-by-side layout.
 
 
-def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int, reach_x: int) -> None:
+def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int,
+                reach_x: int | None) -> None:
     """Raise unless every counted sample of coordinates (..., H, W) lies
-    within ``reach_y`` rows and ``reach_x`` columns of its output pixel: the
-    kernels with a window (K6, K8b) look no further. One pass over the
-    coordinates; the CPU paths run it."""
+    within ``reach_y`` rows and ``reach_x`` columns (any column for None) of
+    its output pixel: the kernels with a window or a row band (K6, K8b, the
+    all-tap K3) look no further. One pass over the coordinates; the CPU
+    paths run it."""
     h, w = sy.shape[-2:]
     inside = (sy > -1.0) & (sy < h) & (sx > -1.0) & (sx < w)
     iy = torch.arange(h, dtype=sy.dtype, device=sy.device)[:, None]
-    ix = torch.arange(w, dtype=sx.dtype, device=sx.device)[None, :]
-    far = inside & (((sy - iy).abs() > reach_y) | ((sx - ix).abs() > reach_x))
+    far = (sy - iy).abs() > reach_y
+    if reach_x is not None:
+        ix = torch.arange(w, dtype=sx.dtype, device=sx.device)[None, :]
+        far = far | ((sx - ix).abs() > reach_x)
+    far = inside & far
     if bool(far.any()):
         raise ValueError(
             f"{int(far.sum())} counted samples lie beyond reach ({reach_y}, {reach_x}) "
@@ -484,7 +605,8 @@ class DeformSampleTiled(torch.autograd.Function):
     """The K taps of the column-tiled form: K launches of K6 whose results
     are added in ``y.dtype`` in tap order (the JAX package has no fused tiled
     forward, so this is also the inference form), with gradients to y, sy and
-    sx by K launches of K3, each on a contiguous copy of its tap's block.
+    sx by the all-tap K3, which reads and writes the side-by-side layout in
+    place.
 
     y (B, H, W, K, C); sy, sx (K, B, H, W) f32 within ``reach_y``,
     ``reach_x`` of their pixels. Returns (B, H, W, C) in ``y.dtype``. Every
@@ -494,6 +616,7 @@ class DeformSampleTiled(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, sy, sx, reach_y: int, reach_x: int):
         ctx.save_for_backward(y, sy, sx)
+        ctx.reach_y = reach_y
         out = None
         for t in range(y.shape[3]):
             tap = deform_sample_tiled(y, t, sy[t], sx[t], reach_y, reach_x)
@@ -503,10 +626,5 @@ class DeformSampleTiled(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
-        g = g.contiguous()
-        gy = torch.empty_like(y)
-        gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
-        for t in range(y.shape[3]):
-            gy[:, :, :, t], gsy[t], gsx[t] = deform_sample_bwd(
-                y[:, :, :, t].contiguous(), sy[t], sx[t], g)
+        gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 3)
         return gy, gsy, gsx, None, None

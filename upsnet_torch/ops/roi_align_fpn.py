@@ -168,33 +168,71 @@ def fpn_roi_align(features, rois: torch.Tensor, levels: torch.Tensor,
 #
 # K5 replaces the TPU kernel ``roi_align_pallas.py:fpn_roi_align_window_bwd``
 # (``_window_bwd_kernel``). There a per-RoI window of an f32 canvas is
-# read-modify-written per strip by sequential grid steps; on the card one
-# block per RoI scatters each bin's gradient (divided by S*S) to its samples'
-# corners with atomics into four zeroed f32 canvases
-# (``csrc/roi_align_fpn_bwd.cu``), and the wrapper casts each canvas to its
-# level's dtype, as the JAX backward casts its f32 accumulator. What bounds
-# it: bytes, the gradient read once and the canvases (the whole pyramid in
-# f32, 190 MB at 832x1344, batch 2, C=256) written.
+# read-modify-written per strip by sequential grid steps. On the card the
+# scatter becomes a gather (``csrc/roi_align_fpn_bwd.cu``): one launch for
+# all levels and images, a block per 8 x 8 tile of a level and 128 channels,
+# which keeps the RoIs of its image and level that meet the tile and have a
+# non-zero gradient (padded slots pile up on one tile), tabulates
+# each bin's separable weight on the tile's rows and columns, and sums
+# By[r, ph] * Bx[q, pw] * g[ph, pw] over them in f32 registers; each element
+# is written once in its level's dtype, in a fixed order (bit-identical
+# runs). No canvas, zero fill, cast or atomics. What bounds it: bytes, the
+# gradient read and the pyramid's gradient written once (95 MB in bf16 at
+# 832x1344, batch 2, C=256).
+
+
+def _bin_weights(coords, n: int):
+    """The weight of each bin on each cell of an axis of ``n`` cells.
+
+    coords (N, P, S): the RoIs' sample coordinates along the axis, bin by
+    bin. Returns (N, P, n) f32: for every sample, h at its low cell and l at
+    its high one with the Detectron clamp below at 0 and snap at n - 1, zero
+    for a sample outside [-1, n], summed over the bin's S samples."""
+    inside = (coords >= -1.0) & (coords <= n)
+    v = coords.clamp(min=0.0)
+    lo = torch.floor(v)
+    snap = lo >= n - 1
+    lo = torch.where(snap, float(n - 1), lo)
+    v = torch.where(snap, lo, v)
+    hi = torch.where(snap, lo, lo + 1)
+    frac = v - lo
+    zero = torch.zeros_like(frac)
+    out = torch.zeros((*coords.shape[:2], n), dtype=torch.float32, device=coords.device)
+    out.scatter_add_(2, lo.long(), torch.where(inside, 1.0 - frac, zero))
+    out.scatter_add_(2, hi.long(), torch.where(inside, frac, zero))
+    return out
 
 
 def fpn_roi_align_bwd_plain(g, rois, levels, shapes, dtypes,
                             sampling_ratio: int = 2,
-                            strides=FPN_STRIDES[:4]):
-    """Plain PyTorch version of K5. g (B, R, P, P, C); shapes the four
-    (B, H_l, W_l, C) level shapes and dtypes their dtypes. Returns the four
-    level gradients, summed in f32 and cast once."""
+                            strides=FPN_STRIDES[:4], chunk: int = 16):
+    """Plain PyTorch version of K5, in the kernel's separable form. g
+    (B, R, P, P, C); shapes the four (B, H_l, W_l, C) level shapes and
+    dtypes their dtypes. For each image and level, the RoIs assigned to it
+    (levels clamped to [0, 3]) give their bins' row weights By (P, H_l) and
+    column weights Bx (P, W_l), and the level's gradient is
+    ``sum_r By_r^T (g_r Bx_r) / S^2``, summed in f32 over ``chunk`` RoIs at
+    a time and cast once. Returns the four level gradients."""
     b, r, pooled = g.shape[:3]
     c = g.shape[-1]
     s = sampling_ratio
-    hw = [tuple(sh[1:3]) for sh in shapes]
-    per_img, corners = _corner_table(hw, b, rois, levels, pooled, s, strides)
-    canvas = torch.zeros((b * per_img, c), dtype=torch.float32, device=g.device)
-    gs = (g.float() / float(s * s)).reshape(b * r, pooled, pooled, 1, 1, c)
-    for idx, wgt in corners:
-        canvas.index_add_(0, idx.reshape(-1), (gs * wgt[..., None]).reshape(-1, c))
-    parts = canvas.reshape(b, per_img, c).split([h * w for h, w in hw], dim=1)
-    return tuple(p.reshape(b, h, w, c).to(dt)
-                 for p, (h, w), dt in zip(parts, hw, dtypes))
+    lev = levels.long().clamp(0, 3)
+    grads = []
+    for li, (sh, dt) in enumerate(zip(shapes, dtypes)):
+        h, w = sh[1], sh[2]
+        scale = torch.tensor(1.0 / strides[li], dtype=torch.float32, device=g.device)
+        acc = torch.zeros((b, h, w * c), dtype=torch.float32, device=g.device)
+        for bi in range(b):
+            idx = torch.nonzero(lev[bi] == li).flatten()
+            for part in idx.split(chunk):
+                y, x = _sample_coords(rois[bi, part] * scale, 1.0, pooled, s)
+                by = _bin_weights(y[:, :, 0, :, 0], h)
+                bx = _bin_weights(x[:, 0, :, 0, :], w)
+                # (n, P, P, C) x (n, P, W) -> (n, P, W, C), then the rows
+                cols = torch.einsum("npqc,nqw->npwc", g[bi, part].float(), bx)
+                acc[bi] += by.permute(2, 0, 1).reshape(h, -1) @ cols.reshape(-1, w * c)
+        grads.append((acc / float(s * s)).reshape(b, h, w, c).to(dt))
+    return tuple(grads)
 
 
 def fpn_roi_align_bwd(g: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
@@ -204,10 +242,11 @@ def fpn_roi_align_bwd(g: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
 
     g (B, R, P, P, C) bf16/f32 upstream gradient; rois (B, R, 4) f32; levels
     (B, R) int32; shapes / dtypes of the four levels. Returns four
-    (B, H_l, W_l, C) tensors in the levels' dtypes, summed in f32 canvases.
-    On the card the canvases are filled with atomics, so the sums differ
-    between runs by f32 rounding. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (C % 8 == 0, contiguous, 16-byte aligned g).
+    (B, H_l, W_l, C) tensors in the levels' dtypes, each element an f32 sum
+    rounded once; the kernel's sums run in a fixed order, so its runs are
+    bit-identical. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (C % 8 == 0, P <= 32, R <= 8192, every level in g's dtype,
+    contiguous, 16-byte aligned g).
     """
     global launches_bwd
     if g.dim() != 5 or g.shape[2] != g.shape[3]:
@@ -235,29 +274,32 @@ def fpn_roi_align_bwd(g: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
         raise ValueError(f"unsupported device {g.device}")
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
+    if pooled > 32 or r > 8192:
+        raise ValueError(f"P={pooled} must be <= 32 and R={r} <= 8192")
+    if any(dt != g.dtype for dt in dtypes):
+        raise TypeError(f"level dtypes {list(dtypes)} must all be g's {g.dtype}")
     for name, t in (("g", g), ("rois", rois), ("levels", levels)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if g.data_ptr() % 16:
         raise ValueError("g must be 16-byte aligned")
-    canvases = [torch.zeros(tuple(sh), dtype=torch.float32, device=g.device)
-                for sh in shapes]
+    grads = tuple(torch.empty(tuple(sh), dtype=g.dtype, device=g.device) for sh in shapes)
+    dims = tuple(d for sh in shapes for d in (sh[1], sh[2]))
     lib = cuda_build.load("roi_align_fpn_bwd")
     fn = lib.fpn_roi_align_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
                    + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
-    dims = [d for sh in shapes for d in (sh[1], sh[2])]
     scales = [1.0 / st for st in strides]
     stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
-        status = fn(*(cv.data_ptr() for cv in canvases), rois.data_ptr(),
+        status = fn(*(t.data_ptr() for t in grads), rois.data_ptr(),
                     levels.data_ptr(), g.data_ptr(), b, r, c, pooled,
                     sampling_ratio, *dims, *scales,
                     cuda_build.DTYPE_CODES[g.dtype], stream)
     cuda_build.check(lib, status, "fpn_roi_align_bwd")
     launches_bwd += 1
-    return tuple(cv.to(dt) for cv, dt in zip(canvases, dtypes))
+    return grads
 
 
 class FPNRoIAlign(torch.autograd.Function):
