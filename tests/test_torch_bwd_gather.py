@@ -236,7 +236,7 @@ def test_deform_conv2d_pallas_gradients_match_the_jax_layer(monkeypatch, route,
     ref_grads = vjp(jnp.asarray(cot))
     targs = [_t(a).requires_grad_(True) for a in (x, offsets, weight, bias)]
     taps = mock.Mock(side_effect=tsample.DeformSampleTaps.apply)
-    with mock.patch.object(tdc.DeformSample, "apply", side_effect=AssertionError("per tap")), \
+    with mock.patch.object(tsample.DeformSample, "apply", side_effect=AssertionError("per tap")), \
             mock.patch.object(tdc.DeformSampleTaps, "apply", taps):
         got = tdc.deform_conv2d(*targs, impl="pallas", max_dy=6, boundary_grad=boundary_grad)
     assert taps.call_count == (route == "untiled")

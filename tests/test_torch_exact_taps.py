@@ -1,0 +1,244 @@
+"""The unclipped DCN routes (``dcn_impl`` ``auto`` and ``gather``) of the port
+against the JAX package on the CPU.
+
+Under autograd these routes sample the K taps one by one (K2) in one
+``DeformSampleTaps`` node whose backward is the unclipped all-tap K3
+(``deform_sample_bwd_unclipped``; on the CPU its plain version). Held here:
+the gradients of ``deform_conv2d`` against ``jax.grad`` of the exact gather
+form ``deform_conv2d_batched``, offsets near and far beyond any window; the
+plain backward against nine ``DeformSample`` backwards; that no per-tap node
+is built any more; and ``deform_conv2d(impl="auto")`` against the JAX
+``deform_conv2d_auto`` on a map that the JAX routing rule, lowered as
+``test_torch_tiled_mt.py`` lowers it, sends to the column-tiled Pallas
+kernel, run in interpret mode.
+
+Inputs come from numpy seeds. Every tolerance is stated where it is used.
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from upsnet_tpu.ops import deform_conv as jdc
+from upsnet_tpu.ops import deform_conv_pallas as dcp
+from upsnet_torch.ops import deform_conv as tdc
+from upsnet_torch.ops import deform_sample as tsample
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    """Run pallas_call in interpreter mode (no TPU in the test env)."""
+    real = pl.pallas_call
+
+    def patched(*args, **kw):
+        kw["interpret"] = True
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))  # an owned, writable, contiguous copy
+
+
+def _conv_inputs(seed, off_scale, b=2, h=10, w=14, cin=8, cout=16):
+    """Offsets are odd multiples of 1/16 in +-off_scale px: never an integer
+    coordinate, where the JAX gather form differentiates one-sidedly."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    n = int(off_scale * 8)
+    offsets = ((2 * rng.randint(-n, n, (b, h, w, 18)) + 1) / 16.0).astype(np.float32)
+    weight = (rng.randn(9, cin, cout) * 0.1).astype(np.float32)
+    bias = rng.randn(cout).astype(np.float32)
+    return x, offsets, weight, bias
+
+
+# ------------------------------------------------- gradients against jax.grad
+
+FIELDS = {"near": 3.0, "far": 20.0}
+
+
+@pytest.mark.parametrize("field", list(FIELDS))
+@pytest.mark.parametrize("impl", ["gather", "auto"])
+def test_exact_route_gradients_match_jax_grad(impl, field):
+    """Forward and the gradients to x, offsets, weight and bias of
+    ``deform_conv2d(impl)`` against ``jax.value_and_grad`` of
+    ``deform_conv2d_batched`` (MXNet ``deformable_im2col`` semantics at any
+    offset) on a 10x14 map: offsets in +-3 px, and in +-20 px, where most
+    samples of the map lie beyond it and many outside it. Forward atol 1e-4;
+    per gradient |got - ref| <= 1e-3 |ref| + 1e-4 max|ref| (f32, sums over 9
+    taps and 4 corners in another order), as the port's other gradient
+    parity tests hold."""
+    x, offsets, weight, bias = _conv_inputs(1, FIELDS[field])
+    cot = np.random.RandomState(2).randn(2, 10, 14, 16).astype(np.float32)
+
+    def jloss(*a):
+        out = jdc.deform_conv2d_batched(*a)
+        return jnp.sum(out * cot), out
+
+    (_, ref_out), ref_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a) for a in (x, offsets, weight, bias)))
+    targs = [_t(a).requires_grad_() for a in (x, offsets, weight, bias)]
+    out = tdc.deform_conv2d(*targs, impl=impl)
+    (out * _t(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), atol=1e-4)
+    iy = np.arange(10)[None, :, None, None]
+    ix = np.arange(14)[None, None, :, None]
+    outside = ((iy + offsets[..., 0::2] <= -2) | (iy + offsets[..., 0::2] >= 11)
+               | (ix + offsets[..., 1::2] <= -2) | (ix + offsets[..., 1::2] >= 15))
+    if field == "far":
+        assert outside.mean() > 0.5 and (np.abs(offsets) > 6).mean() > 0.6
+    for name, t, ref in zip(("x", "offsets", "weight", "bias"), targs, ref_grads):
+        ref = np.asarray(ref)
+        scale = np.abs(ref).max()
+        assert scale > 0, name
+        np.testing.assert_allclose(t.grad.numpy(), ref, rtol=1e-3, atol=1e-4 * scale,
+                                   err_msg=name)
+
+
+# ----------------------------------------------- the node and its plain backward
+
+
+def _taps(rng, k=9, b=2, h=6, w=7, c=8, reach=12.0):
+    """y (K, B, H, W, C), g, and coordinates anywhere within +-reach px of
+    each pixel, a quarter of them on integer rows or columns."""
+    y = _t(rng.randn(k, b, h, w, c))
+    g = _t(rng.randn(b, h, w, c))
+    sy = np.arange(h)[None, None, :, None] + rng.uniform(-reach, reach, (k, b, h, w))
+    sx = np.arange(w)[None, None, None, :] + rng.uniform(-reach, reach, (k, b, h, w))
+    sy = np.where(rng.rand(k, b, h, w) < 0.25, np.round(sy), sy)
+    sx = np.where(rng.rand(k, b, h, w) < 0.25, np.round(sx), sx)
+    return y, g, _t(sy), _t(sx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_unclipped_backward_is_nine_deform_sample_backwards(dtype):
+    """``DeformSampleTaps`` with no reach against the chain of nine
+    ``DeformSample`` nodes it replaces: forward, and gradients to y, sy and
+    sx for one upstream gradient, exactly equal (the same plain arithmetic,
+    tap by tap, with the same tap adds); ``deform_sample_bwd_unclipped``
+    equals the one-tap K3 on each tap exactly, counts no launch on the CPU
+    and takes coordinates far beyond any window and outside the map."""
+    y, g, sy, sx = (a.to(dtype) for a in _taps(np.random.RandomState(3)))
+    a = [v.clone().requires_grad_() for v in (y, sy, sx)]
+    b = [v.clone().requires_grad_() for v in (y, sy, sx)]
+    out = tsample.DeformSampleTaps.apply(*a, None)
+    chain = None
+    for yt, syt, sxt in zip(b[0].unbind(0), b[1].unbind(0), b[2].unbind(0)):
+        tap = tsample.DeformSample.apply(yt, syt, sxt)
+        chain = tap if chain is None else chain + tap
+    assert torch.equal(out, chain)
+    out.backward(g)
+    chain.backward(g)
+    for u, v in zip(a, b):
+        assert torch.equal(u.grad, v.grad)
+    before = tsample.launches_bwd_unclipped
+    gy, gsy, gsx = tsample.deform_sample_bwd_unclipped(y, sy, sx, g)
+    assert tsample.launches_bwd_unclipped == before
+    for t in range(y.shape[0]):
+        ref = tsample.deform_sample_bwd(y[t], sy[t], sx[t], g)
+        assert torch.equal(gy[t], ref[0])
+        assert torch.equal(gsy[t], ref[1]) and torch.equal(gsx[t], ref[2])
+    assert float(gy.abs().max()) > 0 and float(gsy.abs().max()) > 0
+
+
+@pytest.mark.parametrize("what", ["rank", "taps", "g_dtype", "g_shape", "sx_shape"])
+def test_unclipped_wrapper_checks(what):
+    y = torch.zeros((3, 1, 4, 5, 8))
+    s = torch.full((3, 1, 4, 5), 40.0)  # far beyond the map: no reach check here
+    g = torch.zeros((1, 4, 5, 8))
+    tsample.deform_sample_bwd_unclipped(y, s, s, g)
+    bad = {"rank": lambda: tsample.deform_sample_bwd_unclipped(y[0], s, s, g),
+           "taps": lambda: tsample.deform_sample_bwd_unclipped(y, s[:2], s[:2], g),
+           "g_dtype": lambda: tsample.deform_sample_bwd_unclipped(y, s, s, g.bfloat16()),
+           "g_shape": lambda: tsample.deform_sample_bwd_unclipped(y, s, s, g[..., :4]),
+           "sx_shape": lambda: tsample.deform_sample_bwd_unclipped(y, s, s[..., :4], g)}[what]
+    with pytest.raises(TypeError if what == "g_dtype" else ValueError):
+        bad()
+
+
+@pytest.mark.parametrize("impl", ["gather", "auto"])
+def test_exact_routes_build_one_all_tap_node(impl):
+    """Under autograd ``auto`` and ``gather`` build one ``DeformSampleTaps``
+    with no reach per layer and never a per-tap ``DeformSample`` (which
+    raises here); the backward runs through it. Without autograd they take
+    the fused sampler and build no node."""
+    targs = [_t(a).requires_grad_() for a in _conv_inputs(4, 9.0)]
+    taps = mock.Mock(side_effect=tsample.DeformSampleTaps.apply)
+    with mock.patch.object(tsample.DeformSample, "apply",
+                           side_effect=AssertionError("per-tap node")), \
+            mock.patch.object(tsample.DeformSampleTaps, "apply", taps):
+        out = tdc.deform_conv2d(*targs, impl=impl)
+        out.square().sum().backward()
+        with torch.no_grad():
+            fused = tdc.deform_conv2d(*targs, impl=impl)
+    assert taps.call_count == 1 and taps.call_args.args[3] is None
+    assert fused.grad_fn is None
+    np.testing.assert_allclose(fused.numpy(), out.detach().numpy(), rtol=0, atol=1e-5)
+    assert all(float(t.grad.abs().max()) > 0 for t in targs)
+
+
+# ----------------------------------------- auto against the JAX auto, tiling map
+
+TILE_FROM = 256  # the rule of test_torch_tiled_mt.py: maps this wide are tiled
+PORT_VMEM_LIMIT = 5 * 2 ** 19
+
+
+def _jax_route(shape, cout, max_dy, dilation):
+    return ("tiled", max_dy) if shape[2] >= TILE_FROM else ("untiled", None)
+
+
+# field, dtype: max |dy|, |dx| of the offsets, and the tolerance as a
+# fraction of max |ref|
+AUTO_CASES = {
+    # both sample exactly; the JAX tiled kernel adds its nine taps in f32
+    # (x.dtype), K1's plain version sums in f32 and rounds once: f32
+    # rounding only (measured 1.0e-7)
+    "in_window-float32": (5.5, torch.float32, 2e-6),
+    # the JAX cond takes the exact gather form, as the port does: f32
+    # rounding only (measured 1.2e-7)
+    "beyond-float32": (9.0, torch.float32, 2e-6),
+    # bf16: the JAX tiled kernel rounds each tap's sample and each of eight
+    # partial sums to bf16, K1 sums in f32 and rounds once; up to 2^-6 of a
+    # layer's output at worst (measured 6.8e-3)
+    "in_window-bfloat16": (5.5, torch.bfloat16, 2.0 ** -6),
+}
+
+
+@pytest.mark.parametrize("case", list(AUTO_CASES))
+def test_auto_matches_jax_auto_on_a_tiling_map(monkeypatch, case):
+    """``deform_conv2d(impl="auto")`` against ``deform_conv2d_auto`` on a
+    2x8x256 map (128 channels out) with the routing limits of both packages lowered so that
+    they tile it. With every offset inside the +-6 window the JAX cond takes
+    the column-tiled Pallas kernel (its output equals
+    ``_deform_conv2d_pallas_tiled`` bit for bit); with offsets beyond it,
+    the gather form. The port's ``auto`` samples exactly in both cases and
+    asks no routing rule; the two differ by rounding only, within the
+    tolerance of each case."""
+    field, dtype, rtol = AUTO_CASES[case]
+    x, offsets, weight, bias = _conv_inputs(5, field, h=8, w=256, cout=128)
+    monkeypatch.setattr(dcp, "pallas_route", _jax_route)
+    port_route = tsample.pallas_route(x.shape, 128, 6, 1, vmem_limit=PORT_VMEM_LIMIT)
+    assert port_route == _jax_route(x.shape, 128, 6, 1) == ("tiled", 6)
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jx = jnp.asarray(x).astype(jdtype)
+    jargs = (jx, *(jnp.asarray(a) for a in (offsets, weight, bias)))
+    ref = jdc.deform_conv2d_auto.__wrapped__(*jargs, 3, 1, 6)
+    in_window = bool(np.abs(offsets).max() <= 6)
+    assert in_window == case.startswith("in_window")
+    form = (dcp._deform_conv2d_pallas_tiled(*jargs, 3, 1, 6, 6) if in_window
+            else jdc.deform_conv2d_batched(*jargs))
+    assert np.array_equal(np.asarray(ref.astype(jnp.float32)),
+                          np.asarray(form.astype(jnp.float32)))
+    got = tdc.deform_conv2d(_t(x).to(dtype), *(_t(a) for a in (offsets, weight, bias)),
+                            impl="auto")
+    ref = np.asarray(ref.astype(jnp.float32))
+    scale = np.abs(ref).max()
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=rtol * scale)

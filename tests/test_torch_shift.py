@@ -37,6 +37,7 @@ from upsnet_torch.convert.from_jax import load_jax_params
 from upsnet_torch.models import upsnet as tup
 from upsnet_torch.models.layers import DeformConv
 from upsnet_torch.ops import deform_conv as tdc
+from upsnet_torch.ops import deform_sample as tsample
 from upsnet_torch.ops import deform_shift as tshift
 from upsnet_torch.train.trainer import train_steps
 from upsnet_torch.utils import dcn_probe as tprobe
@@ -164,7 +165,7 @@ def test_impl_shift_routes_as_the_jax_layer(monkeypatch, grad):
     real = tshift.shift_fwd
     monkeypatch.setattr(tshift, "shift_fwd", lambda *a: (calls.append(1), real(*a))[1])
     with torch.set_grad_enabled(grad), mock.patch.object(
-            tdc.DeformSample, "apply", side_effect=AssertionError("per-tap route")):
+            tsample.DeformSample, "apply", side_effect=AssertionError("per-tap route")):
         got = tdc.deform_conv2d(*args, impl="shift", max_dy=MAX_D)
     assert calls == [1] and got.requires_grad == grad
     want = tdc.deform_conv2d_shift(*args, max_dy=MAX_D, max_dx=MAX_D)

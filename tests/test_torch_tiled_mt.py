@@ -185,7 +185,7 @@ def test_impl_pallas_on_a_map_the_tpu_would_tile_is_the_tiled_form():
     assert tsample.pallas_route(targs[0].shape, 128, 6, 1) == ("tiled", 6)
     tall = [_t(a) for a in _conv_inputs(4, h=16, w=832)]
     assert not tdc.shift_route_ok(tall[0].shape, 128, 6, 6, 1)
-    with mock.patch.object(tdc.DeformSample, "apply", side_effect=AssertionError("untiled")):
+    with mock.patch.object(tsample.DeformSample, "apply", side_effect=AssertionError("untiled")):
         got = tdc.deform_conv2d(*targs, impl="pallas")
         np.testing.assert_allclose(got.numpy(), ref, atol=2e-3)
         assert torch.equal(tdc.deform_conv2d(*tall, impl="shift"),

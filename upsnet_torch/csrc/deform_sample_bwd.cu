@@ -1,6 +1,7 @@
-// K3: backward of the deformable bilinear sampler: the all-tap form that
-// the clipped training routes take, and the one-tap form (backward of K2)
-// that the unclipped ones take.
+// K3: backward of the deformable bilinear sampler, in three forms: all taps
+// where dy is clipped (the row-band gather), all taps where nothing is
+// clipped (a counting sort and a gather), and one tap (backward of K2, a
+// scatter).
 //
 // For out[b, i, j, :] = sum_t sum_{r, q} vy_r * vx_q * y_t[b, r, q, :] with
 // the hat weights vy_r = max(0, 1 - |sy_t - r|), vx_q = max(0, 1 - |sx_t - q|)
@@ -17,36 +18,53 @@
 // coordinate d = 0 at the peak and |d| = 1 at its neighbours, so every
 // derivative there is 0.
 //
-// All taps (deform_sample_bwd_taps_grad_y, deform_sample_bwd_taps_coords):
-// the routes that reach it clip dy, so every counted sample of pixel (i, j)
-// lies within `reach` rows of i, and canvas row r receives only from the
-// output rows [r - reach - 1, r + reach]; dx is free. The TPU kernel's
-// sequential read-modify-write of a window of an f32 canvas becomes a
-// gather by row bands: a block owns 2 full-width rows of one tap's grad_y
-// of one image for 128 channels. It buckets the samples of the rows that
-// can reach the band by their low corner column, then a thread per (column,
-// 8 channels) sums the two buckets that reach its column in f32 registers
-// and writes the band once in y's dtype straight into grad_y, in y's layout
-// (tap-major (K, B, H, W, C) or side by side (B, H, W, K, C)): a warp writes
-// whole runs of channels. No global canvas, no zero fill, no cast, no float
-// atomics (shared-memory float atomics are compare-and-swap loops on this
-// card; the buckets take integer ones). The taps are a grid dimension, not
-// a loop in the block, so that blocks of different taps overlap their
-// phases. The order of a bucket's entries is not fixed, so grad_y differs
-// between runs by f32 rounding before its one rounding to y's dtype. A
-// counted sample beyond the reach gets no gradient to y (the callers' clip
-// rules it out). The coordinate
-// pass is offset_grads_kernel (offset_grads.cuh, shared with K8c). Bound by
-// bytes: y, g and the coordinates read once, grad_y and the coordinate
-// gradients written once; the gather reads g once per corner, from L1/L2.
+// The TPU kernel read-modify-writes a window of an f32 canvas in a fixed
+// sequence of grid steps, so its sums come out the same on every run. Blocks
+// here run in no order, so both all-tap forms gather instead: each grad_y
+// element is summed in f32 registers over its contributing samples in a
+// fixed order (ascending output pixel within each low-corner bucket) and
+// written once in y's dtype. No canvas, no zero fill, no cast, no float
+// atomics, and the same bits on every run. Their coordinate pass is
+// offset_grads_kernel (offset_grads.cuh, shared with K8c), which needs no
+// reach. Both are bound by bytes: y, g and the coordinates read once,
+// grad_y and the coordinate gradients written once; the gathers read g once
+// per corner, from L1/L2.
+//
+// All taps, dy clipped (deform_sample_bwd_taps_grad_y; also K8b, the shift
+// route's gradient to its projections): every counted sample of pixel
+// (i, j) lies within `reach` rows of i, so canvas row r receives only from
+// the output rows [r - reach - 1, r + reach]; dx is free. A block owns 2
+// full-width rows of one tap's grad_y of one image for 128 channels. It
+// buckets the samples of the rows that can reach the band by their low
+// corner column (integer shared-memory atomics: shared-memory float atomics
+// are compare-and-swap loops on this card), orders each bucket by output
+// pixel, then a thread per (column, 8 channels) sums the two buckets that
+// reach its column and writes the band once, in y's layout (tap-major
+// (K, B, H, W, C) or side by side (B, H, W, K, C)): a warp writes whole runs
+// of channels. The taps are a grid dimension, not a loop in the block, so
+// that blocks of different taps overlap their phases. A counted sample
+// beyond the reach gets no gradient to y (the callers' clip rules it out).
+//
+// All taps, nothing clipped (deform_sample_bwd_unclipped_grad_y: `auto`,
+// `gather`): a sample may lie anywhere, so there is no band. A counting sort
+// of all samples by their low corner (y0, x0) in [-1, H - 1] x [-1, W - 1],
+// per tap and image, in device memory: an integer histogram (atomics, so the
+// counts are exact), an exclusive scan (per tile of bins, then over the
+// tiles), a placement, and a rank pass that orders each bin by output pixel.
+// The rank pass writes each sample as a record (output pixel, fractional
+// coordinates), so that a thread per (source pixel, 16 channels) sums the
+// 2 x 2 bins whose samples reach it with one record load and one g load a
+// sample, and writes grad_y once, tap-major. Scratch: about 4 bytes per bin
+// and 24 per sample.
 //
 // One tap (deform_sample_bwd): a sub-warp of `width` lanes (a power of two
 // <= 32, at least C / 8 when that fits) owns one pixel; a lane takes groups
 // of 8 channels. It reads g and the four corners of y with 16-byte loads,
-// scatters the weighted g into a zeroed f32 canvas with vector atomics, and
-// the sub-warp reduces the two coordinate gradients with shuffles in f32.
-// The per-sample arithmetic is sample_bwd of sample_bwd.cuh, shared with K7b
-// (deform_sample_mt_bwd.cu).
+// scatters the weighted g into a zeroed f32 canvas with vector atomics (so
+// its sums differ between runs by f32 rounding), and the sub-warp reduces
+// the two coordinate gradients with shuffles in f32. The per-sample
+// arithmetic is sample_bwd of sample_bwd.cuh, shared with K7b
+// (deform_sample_mt_bwd.cu). No route takes it any more.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -143,14 +161,14 @@ __device__ void exclusive_scan(const int* in, int* out, int n, int* warp_sums) {
 
 // One block: grad_y rows [kBandRows * blockIdx.y, + kBandRows) of tap
 // blockIdx.z % K of image blockIdx.z / K for channel groups
-// [kSliceGroups * blockIdx.x, + kSliceGroups). The samples of the output rows that can reach the band and
-// do are bucketed by their low corner column (a histogram that also keeps
-// each pixel's column, a prefix sum and a placement, with integer
-// shared-memory atomics); then a thread per (column q, channel group)
-// gathers buckets q (corner x0, weight hx) and q - 1 (corner x0 + 1, weight
-// lx) into f32 registers for the band's rows and writes them once. The
-// order of a bucket's entries follows the placement's atomics and changes
-// from run to run.
+// [kSliceGroups * blockIdx.x, + kSliceGroups). The samples of the output
+// rows that can reach the band and do are bucketed by their low corner
+// column (a histogram that also keeps each pixel's column, a prefix sum and
+// a placement, with integer shared-memory atomics). The placement's order
+// follows the atomics, so a rank pass then copies each bucket in ascending
+// scanned-pixel order. A thread per (column q, channel group) gathers
+// buckets q (corner x0, weight hx) and q - 1 (corner x0 + 1, weight lx) in
+// that order into f32 registers for the band's rows and writes them once.
 template <typename T>
 __global__ void __launch_bounds__(256)
 grad_y_gather_kernel(const T* __restrict__ g, const float* __restrict__ sy,
@@ -197,6 +215,20 @@ grad_y_gather_kernel(const T* __restrict__ g, const float* __restrict__ sy,
       if (x0 >= -1) entries[atomicAdd(cursor + x0 + 1, 1)] = (unsigned short)k;
     }
     __syncthreads();
+    // the columns are read: their space takes each bucket's entries in order
+    unsigned short* sorted = reinterpret_cast<unsigned short*>(column);
+    for (int e = threadIdx.x; e < start[W + 1]; e += blockDim.x) {
+      int lo = 0, hi = W + 1;  // start[lo] <= e < start[hi]: find e's bucket
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (start[mid] <= e) lo = mid; else hi = mid;
+      }
+      const unsigned short k = entries[e];
+      int rank = 0;
+      for (int f = start[lo]; f < start[lo + 1]; ++f) rank += entries[f] < k;
+      sorted[start[lo] + rank] = k;
+    }
+    __syncthreads();
     T* out = gy + (int64_t)b * img_stride + t * tap_stride;
     for (int it = threadIdx.x; it < W * ng; it += blockDim.x) {
       const int q = it / ng, grp = g0 + it % ng;
@@ -210,7 +242,7 @@ grad_y_gather_kernel(const T* __restrict__ g, const float* __restrict__ sy,
       for (int side = 0; side < 2; ++side) {  // x0 == q, then x0 == q - 1
         const int bucket = q + 1 - side;
         for (int e = start[bucket]; e < start[bucket + 1]; ++e) {
-          const int p = p_lo + entries[e];
+          const int p = p_lo + sorted[e];
           const float py = __ldg(sy_t + p), px = __ldg(sx_t + p);
           const float fy = floorf(py), fx = floorf(px);
           const float ly = py - fy, lx = px - fx;
@@ -283,6 +315,234 @@ int launch_grad_y(const void* g, const void* sy, const void* sx, void* gy, int K
   return (int)cudaGetLastError();
 }
 
+
+// ---- all taps, nothing clipped: a counting sort of the samples, a gather ----
+
+constexpr int kScanTile = 2048;  // bins a block of the scan owns: 256 threads x 8
+
+// The bin of a sample of plane `plane` (tap t, image b: t * B + b), keyed by
+// its low corner (y0, x0) in [-1, H - 1] x [-1, W - 1], or -1 if it does
+// not count.
+__device__ __forceinline__ int sample_bin(float py, float px, int H, int W, int plane) {
+  if (!(py > -1.f && py < (float)H && px > -1.f && px < (float)W)) return -1;
+  const int y0 = (int)floorf(py), x0 = (int)floorf(px);
+  return (plane * (H + 1) + y0 + 1) * (W + 1) + x0 + 1;
+}
+
+// Where bin n's samples start in the placed order: its offset within its
+// tile plus the tiles before it.
+__device__ __forceinline__ int bin_start(const int* offsets, const int* tile_start, int n) {
+  return offsets[n] + tile_start[n / kScanTile];
+}
+
+// Histogram: counts[bin] += 1 per counted sample, and the sample's slot in
+// its bin (the order of the atomics: not yet the final order).
+__global__ void __launch_bounds__(256)
+bin_count_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
+                 int* __restrict__ counts, int* __restrict__ slot, int64_t n_samples, int H,
+                 int W) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_samples) return;
+  const int bin = sample_bin(__ldg(sy + n), __ldg(sx + n), H, W, (int)(n / ((int64_t)H * W)));
+  if (bin >= 0) slot[n] = atomicAdd(counts + bin, 1);
+}
+
+// Exclusive scan of each tile of kScanTile bins in place; the tile's total
+// goes to tile_start[tile].
+__global__ void __launch_bounds__(256)
+scan_tiles_kernel(int* __restrict__ counts, int* __restrict__ tile_start, int n_bins) {
+  constexpr int kPer = kScanTile / 256;
+  __shared__ int warp_sums[8];
+  const int base = blockIdx.x * kScanTile + threadIdx.x * kPer;
+  int v[kPer], sum = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    v[k] = base + k < n_bins ? counts[base + k] : 0;
+    sum += v[k];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = sum;
+  for (int off = 1; off < 32; off *= 2) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int run = incl - sum;
+  for (int w = 0; w < warp; ++w) run += warp_sums[w];
+  if (threadIdx.x == 255) tile_start[blockIdx.x] = run + sum;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    if (base + k < n_bins) counts[base + k] = run;
+    run += v[k];
+  }
+}
+
+// Exclusive scan of the n_tiles tile totals in place, by one block.
+__global__ void __launch_bounds__(1024) scan_totals_kernel(int* __restrict__ tile_start,
+                                                           int n_tiles) {
+  __shared__ int warp_sums[32];
+  __shared__ int carry;
+  if (threadIdx.x == 0) carry = 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int base = 0; base < n_tiles; base += 1024) {
+    const int k = base + threadIdx.x;
+    const int v = k < n_tiles ? tile_start[k] : 0;
+    int incl = v;
+    for (int off = 1; off < 32; off *= 2) {
+      const int u = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += u;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();  // warp_sums written, carry of the last chunk settled
+    int run = carry + incl - v;
+    for (int w = 0; w < warp; ++w) run += warp_sums[w];
+    if (k < n_tiles) tile_start[k] = run;
+    __syncthreads();  // every thread has read carry and warp_sums
+    if (threadIdx.x == 1023) carry = run + v;
+  }
+}
+
+// Placement: each counted sample's pixel into its bin at its slot.
+__global__ void __launch_bounds__(256)
+place_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
+             const int* __restrict__ offsets, const int* __restrict__ tile_start,
+             const int* __restrict__ slot, int* __restrict__ placed, int64_t n_samples, int H,
+             int W) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_samples) return;
+  const int64_t hw = (int64_t)H * W;
+  const int bin = sample_bin(__ldg(sy + n), __ldg(sx + n), H, W, (int)(n / hw));
+  if (bin >= 0) placed[bin_start(offsets, tile_start, bin) + slot[n]] = (int)(n % hw);
+}
+
+// Rank: each counted sample into its bin at its rank among the bin's
+// pixels, so that every bin lists its samples in ascending output pixel,
+// as a record of what the gather needs: the pixel and the fractional parts
+// ly, lx of its coordinates.
+__global__ void __launch_bounds__(256)
+rank_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
+            const int* __restrict__ offsets, const int* __restrict__ tile_start,
+            const int* __restrict__ placed, int4* __restrict__ records, int64_t n_samples,
+            int H, int W) {
+  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= n_samples) return;
+  const int64_t hw = (int64_t)H * W;
+  const float py = __ldg(sy + n), px = __ldg(sx + n);
+  const int bin = sample_bin(py, px, H, W, (int)(n / hw));
+  if (bin < 0) return;
+  const int s0 = bin_start(offsets, tile_start, bin);
+  const int s1 = bin_start(offsets, tile_start, bin + 1);
+  const int p = (int)(n % hw);
+  int rank = 0;
+  for (int e = s0; e < s1; ++e) rank += placed[e] < p;
+  records[s0 + rank] = make_int4(p, __float_as_int(py - floorf(py)),
+                                 __float_as_int(px - floorf(px)), 0);
+}
+
+// Gather: a thread per (tap t, image b, source pixel (r, q), 8 * NG
+// channels) sums the samples whose low corner is (r, q), (r, q - 1),
+// (r - 1, q) or (r - 1, q - 1): bins (r + 1, q .. q + 1) and (r, q .. q + 1)
+// in the (y0 + 1, x0 + 1) numbering, each pair contiguous in the sorted
+// order. Row y0 = r first, then r - 1; within a row x0 = q - 1 first, then
+// q; within a bin ascending output pixel. One 16-byte record load per
+// sample, then its g. grad_y tap-major (K, B, H, W, C).
+template <typename T, int NG>
+__global__ void __launch_bounds__(256)
+grad_y_sorted_kernel(const T* __restrict__ g, const int* __restrict__ offsets,
+                     const int* __restrict__ tile_start, const int4* __restrict__ records,
+                     T* __restrict__ gy, int K, int B, int H, int W, int C) {
+  const int slices = C / (8 * NG);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t hw = (int64_t)H * W;
+  if (tid >= (int64_t)K * B * hw * slices) return;
+  const int c0 = (int)(tid % slices) * 8 * NG;
+  const int64_t pix = tid / slices;  // ((t * B + b) * H + r) * W + q
+  const int plane = (int)(pix / hw);
+  const int r = (int)(pix % hw / W), q = (int)(pix % W);
+  const T* g_b = g + (plane % B) * hw * C + c0;
+  float acc[NG][8];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
+  }
+#pragma unroll
+  for (int dr = 0; dr < 2; ++dr) {
+    const int first = (plane * (H + 1) + r + 1 - dr) * (W + 1) + q;  // bin (r - dr, q - 1)
+    // [e0, e1) holds bin (r - dr, q - 1), [e1, e2) bin (r - dr, q)
+    const int e1 = bin_start(offsets, tile_start, first + 1);
+    const int e2 = bin_start(offsets, tile_start, first + 2);
+    for (int e = bin_start(offsets, tile_start, first); e < e2; ++e) {
+      const int4 rec = __ldg(records + e);
+      const float ly = __int_as_float(rec.y), lx = __int_as_float(rec.z);
+      const float w = (dr ? ly : 1.f - ly) * (e >= e1 ? 1.f - lx : lx);
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        float gv[8];
+        load8(g_b + (int64_t)rec.x * C + j * 8, gv);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(w, gv[k], acc[j][k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NG; ++j) store8(gy + pix * C + c0 + j * 8, acc[j]);
+}
+
+// The int32 scratch of the unclipped grad_y pass, in this order: bin
+// offsets (n_bins + 1, the last one the total), tile starts, one slot per
+// sample, the placed order, then from a multiple of 4 one 4-int record per
+// sample.
+int64_t records_at(int K, int B, int H, int W) {
+  const int64_t bins = (int64_t)K * B * (H + 1) * (W + 1) + 1;
+  const int64_t head = bins + (bins + kScanTile - 1) / kScanTile + 2 * (int64_t)K * B * H * W;
+  return (head + 3) / 4 * 4;
+}
+
+int64_t unclipped_work(int K, int B, int H, int W) {
+  return records_at(K, B, H, W) + 4 * (int64_t)K * B * H * W;
+}
+
+template <typename T>
+int launch_grad_y_unclipped(const void* g, const void* sy, const void* sx, void* gy,
+                            void* work, int K, int B, int H, int W, int C, cudaStream_t s) {
+  const int n_bins = (int)((int64_t)K * B * (H + 1) * (W + 1) + 1);
+  const int n_tiles = (n_bins + kScanTile - 1) / kScanTile;
+  const int64_t n_samples = (int64_t)K * B * H * W;
+  int* offsets = static_cast<int*>(work);
+  int* tile_start = offsets + n_bins;
+  int* slot = tile_start + n_tiles;
+  int* placed = slot + n_samples;
+  int4* records = reinterpret_cast<int4*>(offsets + records_at(K, B, H, W));
+  const float* fy = static_cast<const float*>(sy);
+  const float* fx = static_cast<const float*>(sx);
+  cudaError_t err = cudaMemsetAsync(offsets, 0, (size_t)n_bins * sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((n_samples + 255) / 256);
+  bin_count_kernel<<<grid, 256, 0, s>>>(fy, fx, offsets, slot, n_samples, H, W);
+  scan_tiles_kernel<<<n_tiles, 256, 0, s>>>(offsets, tile_start, n_bins);
+  scan_totals_kernel<<<1, 1024, 0, s>>>(tile_start, n_tiles);
+  place_kernel<<<grid, 256, 0, s>>>(fy, fx, offsets, tile_start, slot, placed, n_samples, H,
+                                    W);
+  rank_kernel<<<grid, 256, 0, s>>>(fy, fx, offsets, tile_start, placed, records, n_samples,
+                                   H, W);
+  // 16 channels a thread where C allows: one record load serves both groups
+  const int ng = C % 16 == 0 ? 2 : 1;
+  const int64_t threads = n_samples * (C / (8 * ng));
+  const unsigned blocks = (unsigned)((threads + 255) / 256);
+  if (ng == 2) {
+    grad_y_sorted_kernel<T, 2><<<blocks, 256, 0, s>>>(static_cast<const T*>(g), offsets,
+                                                       tile_start, records,
+                                                       static_cast<T*>(gy), K, B, H, W, C);
+  } else {
+    grad_y_sorted_kernel<T, 1><<<blocks, 256, 0, s>>>(static_cast<const T*>(g), offsets,
+                                                       tile_start, records,
+                                                       static_cast<T*>(gy), K, B, H, W, C);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -323,7 +583,26 @@ int deform_sample_bwd_taps_grad_y(const void* g, const void* sy, const void* sx,
   return (int)cudaGetLastError();
 }
 
-// All taps, pass 2: gsy, gsx (K, B, H, W) f32, every element written; y in
+// All taps, nothing clipped, pass 1. dtype: 0 = float32, 1 = bfloat16 (of g
+// and gy). g (B, H, W, C); sy, sx (K, B, H, W) f32, any values; gy
+// (K, B, H, W, C), every element written; work int32 scratch of `work_len`
+// elements, at least unclipped_work(K, B, H, W) (else
+// cudaErrorInvalidValue), with K * B * (H + 1) * (W + 1) < 2^31.
+int deform_sample_bwd_unclipped_grad_y(const void* g, const void* sy, const void* sx,
+                                       void* gy, void* work, int K, int B, int H, int W,
+                                       int C, int work_len, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
+    if (work_len < unclipped_work(K, B, H, W)) return (int)cudaErrorInvalidValue;
+    const int err = dtype == 1
+        ? launch_grad_y_unclipped<__nv_bfloat16>(g, sy, sx, gy, work, K, B, H, W, C, s)
+        : launch_grad_y_unclipped<float>(g, sy, sx, gy, work, K, B, H, W, C, s);
+    if (err != 0) return err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// All taps, pass 2 (both forms): gsy, gsx (K, B, H, W) f32, every element written; y in
 // the layout named by tap_major, g (B, H, W, C).
 int deform_sample_bwd_taps_coords(const void* y, const void* sy, const void* sx,
                                   const void* g, void* gsy, void* gsx, int K, int B, int H,

@@ -16,7 +16,8 @@
 // an integer coordinate (d = 0 at the peak, |d| = 1 at its neighbours). They
 // replace the TPU kernels upsnet_tpu/ops/deform_shift_pallas.py:_shift_fwd
 // (_shift_fwd_kernel) and _shift_offset_grads (_shift_off_kernel). The
-// gradient to y is deform_shift_adjoint.cu.
+// gradient to y (K8b) is the all-tap K3's row-band gather
+// (deform_sample_bwd.cu) on this layout.
 //
 // The TPU kernels hold a halo window of padded rows in VMEM and loop over
 // static (row candidate, column shift) pairs, because a VMEM slab can only be

@@ -24,8 +24,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "upsnet_torch_kernels"
 SOURCES = ("deform_sample", "deform_sample_bwd", "roi_align_fpn",
-           "roi_align_fpn_bwd", "deform_shift", "deform_shift_adjoint",
-           "deform_sample_tiled", "deform_sample_mt", "deform_sample_mt_bwd")
+           "roi_align_fpn_bwd", "deform_shift", "deform_sample_tiled",
+           "deform_sample_mt", "deform_sample_mt_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -14,10 +14,10 @@ tap's weight first and sample the projections:
     stack. Without gradients K1 (``ops/deform_sample.py``) samples and sums
     the projections in one launch, in f32. When gradients are recorded the
     taps are sampled one by one (K2) and added in ``x.dtype`` in tap order,
-    as the JAX package's training does: where dy is clipped, all taps in one
-    ``DeformSampleTaps`` whose backward is the all-tap K3 (two launches per
-    layer); where it is not (``auto``, ``gather``), each tap through
-    ``DeformSample`` (backward the one-tap K3).
+    as the JAX package's training does, all in one ``DeformSampleTaps``
+    whose backward is the all-tap K3 (two launches per layer): the row-band
+    form where dy is clipped, the unclipped form where it is not (``auto``,
+    ``gather``).
   * tiled (``_deform_conv2d_tiled``, after ``_deform_conv2d_pallas_tiled``):
     one matmul gives all taps side by side, dy **and dx** are clipped, and
     ``DeformSampleTiled`` samples tap by tap (K6, backward the all-tap K3)
@@ -58,7 +58,7 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops.deform_sample import (
-    DeformSample, DeformSampleTaps, DeformSampleTiled, deform_sample9, pallas_route)
+    DeformSampleTaps, DeformSampleTiled, deform_sample9, pallas_route)
 from upsnet_torch.ops.deform_sample_mt import DeformSampleMT
 from upsnet_torch.ops.deform_shift import DeformSampleShift, shift_route_ok
 
@@ -255,13 +255,9 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, offsets, weight))):
         out = deform_sample9(y9, sy9, sx9)
-    elif clip is not None:
-        out = DeformSampleTaps.apply(y9, sy9, sx9, clip + (kernel_size - 1) // 2 * dilation)
     else:
-        out = None
-        for y, sy, sx in zip(y9.unbind(0), sy9.unbind(0), sx9.unbind(0)):
-            tap = DeformSample.apply(y, sy, sx)
-            out = tap if out is None else out + tap
+        reach = None if clip is None else clip + (kernel_size - 1) // 2 * dilation
+        out = DeformSampleTaps.apply(y9, sy9, sx9, reach)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -2,12 +2,13 @@
 backward, and the routing rule of the ``pallas`` route.
 
 K1 (``deform_sample9``), the inference sampler, sums all taps in one launch.
-K2 (``deform_sample``) is one tap of it. K3 is its backward in two forms:
-``deform_sample_bwd_taps``, all taps of a layer at once, which the clipped
-training routes take (``DeformSampleTaps``: forward K2 per tap), and
-``deform_sample_bwd``, one tap, which the unclipped ones take
-(``DeformSample``). K6 (``deform_sample_tiled``) is the one-tap sampler of
-the column-tiled form that the JAX package takes on wide maps, where
+K2 (``deform_sample``) is one tap of it. K3 is its backward in three forms:
+all taps of a layer at once, ``deform_sample_bwd_taps`` where dy is clipped
+and ``deform_sample_bwd_unclipped`` where nothing is (``DeformSampleTaps``:
+forward K2 per tap, backward the one or the other), and
+``deform_sample_bwd``, one tap (``DeformSample``), which no route takes any
+more. K6 (``deform_sample_tiled``) is the one-tap sampler of the
+column-tiled form that the JAX package takes on wide maps, where
 ``pallas_route`` answers ``tiled``; ``DeformSampleTiled`` runs it for all
 taps with the all-tap K3 as backward. K2, K3 and K6 are described above
 their wrappers below.
@@ -41,9 +42,9 @@ TPU result by bf16 rounding of the partial sums, and from each other only
 by f32 summation order before that one rounding.
 
 ``launches`` counts K1's kernel launches, ``launches_fwd`` K2's,
-``launches_bwd`` the one-tap K3's, ``launches_bwd_taps`` the all-tap K3's
-(two per call: one per pass) and ``launches_tiled`` K6's (CPU calls do not
-count).
+``launches_bwd`` the one-tap K3's, ``launches_bwd_taps`` and
+``launches_bwd_unclipped`` the all-tap K3's, clipped and not (two per call:
+one per pass) and ``launches_tiled`` K6's (CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ launches = 0
 launches_fwd = 0
 launches_bwd = 0
 launches_bwd_taps = 0
+launches_bwd_unclipped = 0
 launches_tiled = 0
 
 SHARED_BYTES = 232448  # shared memory a block can use on the H100
@@ -167,22 +169,29 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor,
 # added in ``y.dtype``, as the JAX package does. On the TPU both kernels work
 # on zero-padded rows inside a +-max_dy window and K3 read-modify-writes a
 # window of an f32 canvas per sequential grid step. On the card a thread
-# reads any coordinate of the unpadded map, and K3 takes two forms
-# (``csrc/deform_sample_bwd.cu``):
+# reads any coordinate of the unpadded map, and K3 takes three forms
+# (``csrc/deform_sample_bwd.cu``). The two all-tap forms gather: each grad_y
+# element is an f32 sum over its samples in a fixed order, written once in
+# ``y.dtype``, so two runs give the same bits, as the TPU kernel's
+# sequential read-modify-write does; no canvas, no zero fill, no cast, no
+# float atomics, no copy of the taps. A second launch computes the
+# coordinate gradients of all taps (K8c's kernel at the layout's strides).
 #
-#   * all taps (``deform_sample_bwd_taps``), where dy is clipped (``pallas``,
-#     ``mxu``, the tiled form, ``shift``'s fallback levels): every counted
+#   * all taps, dy clipped (``deform_sample_bwd_taps``: ``pallas``, ``mxu``,
+#     the tiled form, ``shift``'s fallback levels, and K8b): every counted
 #     sample lies within ``reach_y`` rows of its pixel, so a block owns a
 #     band of grad_y rows, buckets the samples of the output rows that can
-#     reach it by column, gathers each column's buckets in f32 registers and
-#     writes each tap's band once in ``y.dtype``: no canvas, no zero fill,
-#     no cast, no float atomics, no copy of the taps. A second
-#     launch computes the coordinate gradients of all taps (K8c's kernel at
-#     the layout's strides). A sample beyond the reach gets no gradient to y
-#     there; the plain version raises on one, as K6's does.
-#   * one tap (``deform_sample_bwd``), where dx and dy are free (``auto``,
-#     ``gather``): a scatter into a zeroed f32 canvas with atomics, cast by
-#     the wrapper to ``y.dtype``, as the TPU wrapper casts.
+#     reach it by column and gathers each column's buckets. A sample beyond
+#     the reach gets no gradient to y there; the plain version raises on
+#     one, as K6's does.
+#   * all taps, nothing clipped (``deform_sample_bwd_unclipped``: ``auto``,
+#     ``gather``): samples may lie anywhere, so a counting sort of all
+#     samples by their low corner pixel, per tap and image, in device memory
+#     (integer histogram, scan, placement, a rank pass that orders each bin),
+#     then a thread per (source pixel, 16 channels) gathers its 2 x 2 bins.
+#   * one tap (``deform_sample_bwd``): a scatter into a zeroed f32 canvas
+#     with atomics, cast by the wrapper to ``y.dtype``, as the TPU wrapper
+#     casts; sums differ between runs by f32 rounding. No route takes it.
 #
 # What bounds them: bytes. K2 reads y and the coordinates and writes the
 # output; K3 reads y, g and the coordinates and writes grad_y and the two
@@ -366,11 +375,13 @@ class DeformSample(torch.autograd.Function):
 
 
 def deform_sample_bwd_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                                 g: torch.Tensor, reach_y: int, tap_axis: int = 0):
-    """Plain PyTorch version of the all-tap K3: the reach check, then
+                                 g: torch.Tensor, reach_y: int | None, tap_axis: int = 0):
+    """Plain PyTorch version of both all-tap K3 forms: the reach check
+    (none for ``reach_y`` None, the unclipped form), then
     ``deform_sample_bwd_plain`` on each tap of y. Returns (grad_y in y's
     layout and dtype, gsy, gsx (K, B, H, W))."""
-    check_reach(sy, sx, reach_y, None)
+    if reach_y is not None:
+        check_reach(sy, sx, reach_y, None)
     gy = torch.empty_like(y)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
     for t in range(y.shape[tap_axis]):
@@ -389,42 +400,27 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     with ``tap_axis`` 3 (``side_by_side_projections``); sy, sx (K, B, H, W)
     f32 with ``|sy - i| <= reach_y`` at every counted sample of pixel
     (i, j); g (B, H, W, C) in y's dtype. Returns (grad_y in y's layout and
-    dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum
-    rounded once; on the card its terms are added in an order that changes
-    from run to run. CPU tensors take the plain version,
-    which raises on a sample beyond the reach; CUDA tensors launch the two
-    kernels (C % 8 == 0, all contiguous, 16-byte aligned, B * K <= 65535, a
-    band's scanned rows within shared memory: W <= 3058 at reach 7), which
-    give such a sample no gradient to y.
+    dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum in
+    a fixed order, rounded once: two runs give the same bits. CPU tensors
+    take the plain version, which raises on a sample beyond the reach; CUDA
+    tensors launch the two kernels (C % 8 == 0, all contiguous, 16-byte
+    aligned, B * K <= 65535, a band's scanned rows within shared memory:
+    W <= 3058 at reach 7), which give such a sample no gradient to y.
     """
     global launches_bwd_taps
-    if y.dim() != 5 or tap_axis not in (0, 3):
-        raise ValueError(f"y must be (K, B, H, W, C) with tap_axis 0 or (B, H, W, K, C) "
-                         f"with tap_axis 3, got {tuple(y.shape)} and {tap_axis}")
-    k = y.shape[tap_axis]
-    if sy.dim() != 4 or sy.shape[0] != k:
-        raise ValueError(f"sy must be (K={k}, B, H, W), got {tuple(sy.shape)}")
+    if tap_axis not in (0, 3):
+        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
     if reach_y < 0:
         raise ValueError(f"reach_y must be >= 0, got {reach_y}")
-    # the shape, dtype and device rules of one tap; y itself must be whole
-    _check_tap(y.select(tap_axis, 0), sy[0], sx[0], g, contiguous=False)
-    if sx.shape != sy.shape:
-        raise ValueError(f"sx must be {tuple(sy.shape)}, got {tuple(sx.shape)}")
+    k = _check_taps(y, sy, sx, g, tap_axis)
     if y.device.type == "cpu":
         return deform_sample_bwd_taps_plain(y, sy, sx, g, reach_y, tap_axis)
-    for name, s in (("y", y), ("sy", sy), ("sx", sx), ("g", g)):
-        if not s.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     b, h, w, c = g.shape
-    if b * k > 65535:
-        raise ValueError(f"B*K={b * k} exceeds the grid's 65535")
-    if (2 * w + 3) * 4 + (2 * reach_y + 3) * w * 4 > SHARED_BYTES:
-        raise ValueError(f"a band of W={w} at reach {reach_y} does not fit shared memory")
+    check_band(b * k, w, reach_y)
     gy = torch.empty_like(y)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
     tap_major = int(tap_axis == 0)
-    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_grad_y", y, (g, sy, sx, gy),
-                    (k, b, h, w, c, reach_y, tap_major))
+    band_gather(g, sy, sx, gy, k, reach_y, tap_major)
     launches_bwd_taps += 1
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
                     (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, tap_major))
@@ -432,20 +428,102 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     return gy, gsy, gsx
 
 
+def _check_taps(y, sy, sx, g, tap_axis: int) -> int:
+    """Shapes, dtypes and devices of an all-tap call: y with its K taps on
+    ``tap_axis`` (0: (K, B, H, W, C), 3: (B, H, W, K, C)), sy and sx
+    (K, B, H, W), g (B, H, W, C); on CUDA all contiguous. Returns K."""
+    if y.dim() != 5:
+        raise ValueError(f"y must be (K, B, H, W, C) or (B, H, W, K, C), got {tuple(y.shape)}")
+    k = y.shape[tap_axis]
+    if sy.dim() != 4 or sy.shape[0] != k:
+        raise ValueError(f"sy must be (K={k}, B, H, W), got {tuple(sy.shape)}")
+    # the shape, dtype and device rules of one tap; y itself must be whole
+    _check_tap(y.select(tap_axis, 0), sy[0], sx[0], g, contiguous=False)
+    if sx.shape != sy.shape:
+        raise ValueError(f"sx must be {tuple(sy.shape)}, got {tuple(sx.shape)}")
+    if y.device.type != "cpu":
+        for name, s in (("y", y), ("sy", sy), ("sx", sx), ("g", g)):
+            if not s.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+    return k
+
+
+def check_band(planes: int, w: int, reach_y: int) -> None:
+    """Raise unless the row-band gather takes ``planes`` (B * K) tap maps
+    ``w`` wide at ``reach_y``: a grid dimension of at most 65535, and a
+    band's bucket bounds and scanned rows within a block's shared memory."""
+    if planes > 65535:
+        raise ValueError(f"B*K={planes} exceeds the grid's 65535")
+    if (2 * w + 3) * 4 + (2 * reach_y + 3) * w * 4 > SHARED_BYTES:
+        raise ValueError(f"a band of W={w} at reach {reach_y} does not fit shared memory")
+
+
+def band_gather(g, sy, sx, gy, k: int, reach_y: int, tap_major: int) -> None:
+    """Launch the row-band gather: grad_y of all K taps into ``gy``
+    (tap-major for ``tap_major`` 1, side by side for 0) from CUDA tensors
+    that ``_check_taps`` and ``check_band`` passed."""
+    b, h, w, c = g.shape
+    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_grad_y", g, (g, sy, sx, gy),
+                    (k, b, h, w, c, reach_y, tap_major))
+
+
+SCAN_TILE = 2048  # bins a block of the unclipped pass's scan owns (kScanTile)
+
+
+def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                                g: torch.Tensor):
+    """K3 for all K taps of a layer whose offsets are not clipped (``auto``,
+    ``gather``): the backward of ``sum_t deform_sample(y_t, sy[t], sx[t])``
+    for upstream gradient g, samples anywhere.
+
+    y (K, B, H, W, C) tap-major; sy, sx (K, B, H, W) f32, any values; g
+    (B, H, W, C) in y's dtype. Returns (grad_y (K, B, H, W, C) in y's dtype,
+    gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum in a fixed
+    order, rounded once: two runs give the same bits. CPU tensors take the
+    plain version; CUDA tensors launch the counting-sort gather and the
+    coordinate pass (C % 8 == 0, all contiguous, 16-byte aligned,
+    K * B * (H + 1) * (W + 1) < 2^31) with int32 scratch of about 4 bytes a
+    bin and 24 a sample.
+    """
+    global launches_bwd_unclipped
+    k = _check_taps(y, sy, sx, g, 0)
+    if y.device.type == "cpu":
+        return deform_sample_bwd_taps_plain(y, sy, sx, g, None)
+    b, h, w, c = g.shape
+    n_bins, n = k * b * (h + 1) * (w + 1) + 1, k * b * h * w
+    # bin offsets, tile starts, a slot and a place per sample, then from a
+    # multiple of 4 a 4-int record per sample (unclipped_work in csrc)
+    n_work = _round_up(n_bins + -(-n_bins // SCAN_TILE) + 2 * n, 4) + 4 * n
+    if n_work >= 2 ** 31:
+        raise ValueError(f"{k} taps of a {b}x{h}x{w} map exceed the int32 scratch")
+    work = torch.empty(n_work, dtype=torch.int32, device=y.device)
+    gy = torch.empty_like(y)
+    gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
+    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_unclipped_grad_y", y,
+                    (g, sy, sx, gy, work), (k, b, h, w, c, n_work))
+    launches_bwd_unclipped += 1
+    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
+                    (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, 1))
+    launches_bwd_unclipped += 1
+    return gy, gsy, gsx
+
+
 class DeformSampleTaps(torch.autograd.Function):
-    """The K taps of the untiled form where dy is clipped (``pallas``,
-    ``mxu``): forward K launches of K2 whose results are added in
-    ``y.dtype`` in tap order, as the JAX package's training form adds them;
-    gradients to y, sy and sx by the all-tap K3 (their plain versions on CPU
-    tensors).
+    """The K taps of the untiled form: forward K launches of K2 whose results
+    are added in ``y.dtype`` in tap order, as the JAX package's training form
+    adds them; gradients to y, sy and sx by the all-tap K3 (their plain
+    versions on CPU tensors), the row-band form where dy is clipped
+    (``pallas``, ``mxu``) and the unclipped form for ``reach_y`` None
+    (``auto``, ``gather``).
 
     y (K, B, H, W, C) tap-major; sy, sx (K, B, H, W) f32 within ``reach_y``
-    rows of their pixels. Returns (B, H, W, C) in ``y.dtype``. Every tap's
-    upstream gradient is the output's, as in a chain of additions.
+    rows of their pixels, or anywhere for None. Returns (B, H, W, C) in
+    ``y.dtype``. Every tap's upstream gradient is the output's, as in a chain
+    of additions.
     """
 
     @staticmethod
-    def forward(ctx, y, sy, sx, reach_y: int):
+    def forward(ctx, y, sy, sx, reach_y: int | None):
         ctx.save_for_backward(y, sy, sx)
         ctx.reach_y = reach_y
         out = None
@@ -457,7 +535,10 @@ class DeformSampleTaps(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
-        gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 0)
+        if ctx.reach_y is None:
+            gy, gsy, gsx = deform_sample_bwd_unclipped(y, sy, sx, g.contiguous())
+        else:
+            gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 0)
         return gy, gsy, gsx, None
 
 

@@ -21,8 +21,10 @@ outside the map read zero):
     by rounding on the TPU, by design.)
   * K8b: the gradient to ``y`` as a gather. Each source element sums, in f32
     and in a fixed order, over the output pixels whose hats reach it, and is
-    written once in ``g.dtype``: no atomics, no f32 canvas, the same bits on
-    every run (K3, its per-tap relative, scatters with atomics).
+    written once in ``g.dtype``: no float atomics, no f32 canvas, the same
+    bits on every run. ``y``'s layout is the all-tap K3's side-by-side one,
+    and the shift route clips dy, so on the card K8b is the all-tap K3's
+    row-band gather (``deform_sample.band_gather``).
   * K8c: ``gsy, gsx (K, B, H, W)`` f32 with ``dv/dd = -sign(d)`` on
     ``|d| < 1`` and 0 elsewhere, so both are exactly 0 at an integer
     coordinate, as in K3.
@@ -31,12 +33,12 @@ On the TPU all three hold a halo window of zero-padded rows and 128-padded
 columns in VMEM and loop over static (row candidate, column shift) pairs;
 on the card a thread reads any address, so the port takes the unpadded
 ``y``, and K8b returns the gradient to the unpadded ``y``. What is left of
-the window is K8b's search box: it looks for contributing output pixels
-within ``reach_y`` rows and ``reach_x`` columns of a source element, so its
-callers must pass coordinates with ``|sy - i| <= reach_y`` and
-``|sx - j| <= reach_x`` at every counted sample (the TPU kernels give zero
-beyond their window instead). ``ops.deform_conv.deform_conv2d_shift`` clips
-the offsets first, so on the model's path the two agree.
+the window is K8b's reach: the row-band gather looks for contributing
+output pixels within ``reach_y`` rows of a source element, so its callers
+must pass coordinates with ``|sy - i| <= reach_y`` and ``|sx - j| <=
+reach_x`` at every counted sample (the TPU kernels give zero beyond their
+window instead). ``ops.deform_conv.deform_conv2d_shift`` clips the offsets
+first, so on the model's path the two agree.
 
 What bounds them: bytes. ``y`` is K*C values per pixel (2304 B in bf16 at
 K 9, C 128), read once by K8a and K8c and written once by K8b.
@@ -51,7 +53,8 @@ import torch
 
 from upsnet_torch.ops import cuda_build
 from upsnet_torch.ops.deform_sample import (
-    _accum_dtype, _bilinear_zero_pad, _hat_nodes, _round_up, check_reach)
+    _accum_dtype, _bilinear_zero_pad, _hat_nodes, _round_up, band_gather, check_band,
+    check_reach)
 
 launches_fwd = 0
 launches_adjoint = 0
@@ -257,12 +260,12 @@ def shift_adjoint(g: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     two calls give the same bits. Callers must pass coordinates with
     ``|sy - i| <= reach_y`` and ``|sx - j| <= reach_x`` at every counted
     sample of pixel (i, j) (``max_dy + dilation`` / ``max_dx + dilation``
-    after ``deform_conv2d_shift``'s clip): the kernel looks no further, and
-    contributions from beyond would be dropped without notice. CPU tensors
-    take the plain version, which checks that bound; CUDA tensors launch the
-    kernel, which refuses (RuntimeError, invalid argument) a reach whose
-    halo of coordinates exceeds 48 KB of shared memory (beyond about 30 px)
-    and K or B above 65535.
+    after ``deform_conv2d_shift``'s clip). CPU tensors take the plain
+    version, which checks that bound; CUDA tensors launch the all-tap K3's
+    row-band gather on the side-by-side layout, which looks no further than
+    ``reach_y`` rows (a contribution from beyond would be dropped without
+    notice) and refuses (ValueError) B * K above 65535 or a band that does
+    not fit shared memory (W > 3058 at reach 7).
     """
     global launches_adjoint
     k, b, h, w, c = _check(sy, sx, g=g)
@@ -271,9 +274,9 @@ def shift_adjoint(g: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     if g.device.type == "cpu":
         check_reach(sy, sx, reach_y, reach_x)
         return shift_adjoint_plain(g, sy, sx)
+    check_band(b * k, w, reach_y)
     gy = torch.empty((b, h, w, k * c), dtype=g.dtype, device=g.device)
-    cuda_build.call("deform_shift_adjoint", "shift_adjoint", g, (g, sy, sx, gy),
-                    (k, b, h, w, c, reach_y, reach_x))
+    band_gather(g, sy, sx, gy, k, reach_y, 0)
     launches_adjoint += 1
     return gy
 
