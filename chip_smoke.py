@@ -9,18 +9,23 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 
 1. build: compile every CUDA kernel of ``upsnet_torch/csrc`` with nvcc, one
    process per source, all at once;
-2. kernels: each of the twelve kernels (K3 in its all-tap forms, clipped
-   and unclipped) against its plain PyTorch version on the card, on the
-   shapes the paths below give it (batch 2 at 832x1344; K6 and the clipped
-   K3's side-by-side layout at P2 of the wide canvas, batch 1), with errors,
-   kernel / plain / library-call times (CUDA events, median of 30) and the
-   least time the card could take for the same work; the gathers (both
-   all-tap K3 forms, K5, K8b) must also give the same bits on two runs, K5
-   also on RoIs clustered as training samples them, the unclipped K3 also
-   at offsets of +-40 px, and every K3 form, K7b and K8c exact zeros at
-   integer coordinates. The one-tap K3, which no route takes any more, is
-   checked and timed as the yardstick of the layer it used to serve, and is
-   not in the kernels line;
+2. kernels: each of the twelve kernels (K2 and K6 in their all-tap forms,
+   K3 in its all-tap forms, clipped and unclipped) against its plain
+   PyTorch version on the card, on the shapes the paths below give it
+   (batch 2 at 832x1344; K6 and the clipped K3's side-by-side layout at P2
+   of the wide canvas, batch 1), with errors, kernel / plain / library-call
+   times (CUDA events, median of 30 single calls; the all-tap K2 and K6
+   also per call of 20 queued back to back) and the least time the card
+   could take for the same work; the all-tap K2 and K6 must also equal
+   (values) the one-tap kernel launched per tap with the adds in y's dtype,
+   in the same run, in bf16 and, at P3, in float32;
+   the gathers (both all-tap K3 forms, K5, K8b) must give the same bits on
+   two runs, K5 also on RoIs clustered as training samples them, the
+   all-tap K2 and the unclipped K3 also at offsets of +-40 px, and every K3
+   form, K7b and K8c exact zeros at integer coordinates. The one-tap K2, K3
+   and K6, which no route takes any more, are checked and timed as the
+   yardsticks of the layers they used to serve, and are not in the kernels
+   line;
 3. predict: ``resnet_50_upsnet`` at full width (COCO: 81 classes, 133 seg
    classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
    offset biases set to +-2 px, serving two batch-2 requests through
@@ -31,18 +36,21 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    ``dcn_boundary_grad: clip``) takes four SGD steps through
    ``train_steps`` on a synthetic batch of 2 (512 RoIs, 256 anchors, 100 GT
    slots) with a display interval of one step; every interval must launch
-   exactly 72 K2, 16 all-tap K3 (its two passes for each of the 8 DCN
-   layers), 3 K4, 3 K5 for its step and 8 K1 for the saturation watch's
-   probe of the trunk, give 7 finite loss terms, finite gradients
+   exactly 8 all-tap K2 and 16 all-tap K3 (one K2 and the K3's two passes
+   for each of the 8 DCN layers), 3 K4, 3 K5 for its step and 8 K1 for the
+   saturation watch's probe of the trunk, and no one-tap K2 or K6; give 7
+   finite loss terms, finite gradients
    everywhere, non-zero offset-conv gradients, leave the frozen parameters
    untouched and append one line to ``metrics.jsonl``; with ``--profile``,
    one more step under torch.profiler (also each kernel's summed device time
-   in the step);
+   in the step, and for the largest device ops that are not the port's the
+   stage and the aten op, with its input shapes, that launched them);
 5. predict_shift, train_shift: phases 3 and 4 again with
    ``dcn_impl: shift`` (three train steps). The launch counts follow from
    the port's ``shift_route_ok``: the levels it accepts (P2, P3) run K8a,
-   and K8b + K8c in backward, the others K1, or K2 + the clipped all-tap K3
-   under autograd; the JAX loop does not watch ``shift``, so there is no probe.
+   and K8b + K8c in backward, the others K1, or the all-tap K2 + the clipped
+   all-tap K3 under autograd; the JAX loop does not watch ``shift``, so there
+   is no probe.
    ``seg_logits``
    and the step-0 losses are held against the ``pallas`` route's on the
    same weights: with offsets within +-2 px neither clip acts, so the two
@@ -52,15 +60,15 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    208x832 at 128 channels, is wider than the TPU's untiled kernel holds,
    so the port's ``pallas_route`` answers ``tiled`` for it and ``untiled``
    for P3-P5, and the expected launches follow from that rule: per forward
-   18 K6 (2 layers x 9 taps at P2), 6 K1, 2 K4; per step 18 K6 for P2,
-   54 K2 for P3-P5, 16 all-tap K3 (8 layers), 3 K4, 3 K5, plus the watch's
-   probe. ``seg_logits`` are held against ``auto`` on the same weights: equal
+   2 all-tap K6 (the 2 layers at P2), 6 K1, 2 K4; per step 2 all-tap K6 for
+   P2, 6 all-tap K2 for P3-P5, 16 all-tap K3 (8 layers), 3 K4, 3 K5, plus
+   the watch's probe. ``seg_logits`` are held against ``auto`` on the same weights: equal
    within the bf16 tap-sum tolerance at +-2 px, different once dx goes
    beyond the +-6 window (the tiled form clips dx, ``auto`` does not);
 7. train_auto: phase 4 with ``dcn_impl: auto`` (two steps), the unclipped
-   route: 72 K2, 16 unclipped all-tap K3 (its two passes for each of the 8
-   DCN layers), no one-tap K3, 3 K4, 3 K5 per step, no probe (the loop
-   watches only ``pallas`` and ``mxu``);
+   route: 8 all-tap K2, 16 unclipped all-tap K3 (its two passes for each of
+   the 8 DCN layers), no one-tap K2 or K3, 3 K4, 3 K5 per step, no probe
+   (the loop watches only ``pallas`` and ``mxu``);
 8. mt_tool: the sample-first form (K7a, one GEMM, K7b) through its caller,
    ``upsnet_torch.tools.bench_deform_impls``, at batch 2 over the tool's
    five shapes, forward and forward + backward, against the per-tap form;
@@ -135,6 +143,24 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_queued_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Median over ``reps`` of ``n`` calls queued back to back, per call:
+    the host's share of each call hides behind the device's, so this reads
+    close to one call's device time (``time_ms`` includes the host's)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -346,12 +372,154 @@ def check_k4(dev) -> dict:
     return out
 
 
-def check_k2_k3(dev) -> tuple[dict, dict]:
+def _check_forward_taps(what: str, got, chain, ref, plain_tap, taps: int):
+    """An all-tap forward kernel's output ``got`` on one input against
+    ``chain``, the one-tap kernel launched per tap with the results added in
+    y's dtype in tap order in the same run, and ``ref``, its plain version.
+
+    ``got`` must equal ``chain`` (``torch.equal``, which compares values: a
+    first tap of -0.0 may come out as +0.0). Against the plain version: the
+    two chains round at the same 2K - 1 places (K taps, K - 1 adds), and
+    their tap sums differ only in f32 order (one FMA per corner against a
+    product and an add), so a rounding may land one bf16 ulp (2^-7
+    relative) apart and carry on: |got - ref| <= 2^-7 * (sum_t |tap_t| +
+    sum_{t>0} |partial_t|) + 1e-4, taps and partial sums from the plain
+    chain (``plain_tap(t)``), the 1e-4 for f32 order near zero. In float32
+    the tap sums' order moves a rounding by a few f32 ulps: 2^-20 * the same
+    sum + 1e-5. Returns the max abs and rel error against ``ref``."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all() or float(got.float().abs().max()) == 0.0:
+        raise AssertionError(f"{what}: output not finite or all zero")
+    if not torch.equal(got, chain):
+        raise AssertionError(f"{what}: {int((got != chain).sum())} elements differ from the "
+                             "one-tap chain")
+    part, scale = None, torch.zeros(got.shape, dtype=torch.float32, device=got.device)
+    for t in range(taps):
+        tap = plain_tap(t)
+        part = tap if part is None else part + tap
+        scale += tap.float().abs() + (part.float().abs() if t else 0.0)
+    if not torch.equal(part, ref):
+        raise AssertionError(f"{what}: the plain version is not its own chain")
+    err = (got.float() - ref.float()).abs()
+    ulp, atol = (2.0 ** -7, 1e-4) if got.dtype == torch.bfloat16 else (2.0 ** -20, 1e-5)
+    bad = err > ulp * scale + atol
+    if bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements outside tolerance; max abs "
+                             f"{float(err.max())}")
+    return float(err.max()), float((err / ref.float().abs().clamp(min=1e-3)).max())
+
+
+def check_k2_taps(dev) -> dict:
+    """The all-tap K2 on a nine-tap layer at P2 of the 832x1344 bucket
+    (9 x 2 x 208 x 336 x 128, bf16, tap-major), at two offset fields: +-2 px
+    as in ``check_k1`` (3% at 6-12 px; its numbers are the returned ones) and
+    uniform in +-40 px (the unclipped route's offsets after one update),
+    each with 5% of the samples on integer rows, 5% on integer columns and
+    1% beyond the image edge. Held against the one-tap K2 launched per tap
+    with the adds (equal), and against the plain version; timed beside the
+    one-tap chain, the plain version, and nine ``grid_sample`` calls and the
+    adds. Then the float32 form of the kernel on the P3 layer (9 x 2 x 104 x
+    168 x 128) at +-2 px, held the same way (the equality and the plain
+    version's tolerance; not timed)."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    taps, b, c = 9, BATCH, 128
+    kk = torch.arange(taps, device=dev)
+    ky = (kk // 3 - 1).float()[:, None, None, None]
+    kx = (kk % 3 - 1).float()[:, None, None, None]
+
+    def layer(h, w, dtype, field):
+        """y, sy, sx of a nine-tap layer on an h x w map."""
+        shape = (taps, b, h, w)
+        iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+        ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+        y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(dtype)
+        if field == "+-40 px":
+            off_y = torch.rand(shape, generator=g, device=dev) * 80 - 40
+            off_x = torch.rand(shape, generator=g, device=dev) * 80 - 40
+        else:
+            off_y, off_x = dcn_offsets(g, dev, shape), dcn_offsets(g, dev, shape)
+        return (y, *_mark_integers(g, dev, iy + ky + off_y, ix + kx + off_x, h))
+
+    def chain(y, sy, sx):  # the layer as the one-tap K2 did it: 9 launches, 8 adds
+        out = deform_sample.deform_sample(y[0], sy[0], sx[0])
+        for t in range(1, taps):
+            out = out + deform_sample.deform_sample(y[t], sy[t], sx[t])
+        return out
+
+    def check(what, y, sy, sx):
+        return _check_forward_taps(
+            what, deform_sample.deform_sample_taps(y, sy, sx), chain(y, sy, sx),
+            deform_sample.deform_sample_taps_plain(y, sy, sx),
+            lambda t: deform_sample.deform_sample_plain(y[t], sy[t], sx[t]), taps)
+
+    h, w = BUCKET[0] // 4, BUCKET[1] // 4
+    row = {}
+    for field in ("+-2 px", "+-40 px"):
+        y, sy, sx = layer(h, w, torch.bfloat16, field)
+        planes = [y[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+        err, rel = check("K2 taps", y, sy, sx)
+        grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
+
+        def run():
+            return deform_sample.deform_sample_taps(y, sy, sx)
+
+        def library():  # on float32 copies (a bf16 grid cannot hold the coordinates)
+            acc = F.grid_sample(planes[0], grids[0], mode="bilinear", padding_mode="zeros",
+                                align_corners=True)
+            for t in range(1, taps):
+                acc = acc + F.grid_sample(planes[t], grids[t], mode="bilinear",
+                                          padding_mode="zeros", align_corners=True)
+            return acc
+
+        ms = time_ms(run)
+        queued = [time_queued_ms(f) for f in (run, lambda: chain(y, sy, sx))]
+        chain_ms = time_ms(lambda: chain(y, sy, sx))
+        plain_ms = time_ms(lambda: deform_sample.deform_sample_taps_plain(y, sy, sx), 3)
+        library_ms = time_ms(library, 10)
+        del grids, planes
+        # bytes this run needs: the rows of each tap's projection its counted
+        # samples touch, the coordinates, one output; 4 corners x 2 flops per
+        # channel and sample, and the K - 1 adds
+        n_rows, n_inside = touched_rows(sy, sx, h, w)
+        n_out = b * h * w * c
+        n_bytes = n_rows * c * 2 + 2 * sy.numel() * 4 + n_out * 2
+        bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c + (taps - 1) * n_out)
+        print(f"[K2 deform_sample_taps] {field}, y {tuple(y.shape)} bf16: equal to 9 one-tap K2 "
+              f"and 8 adds; against the plain version max abs err {err:.3e}, max rel err "
+              f"{rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} "
+              f"ms, the one-tap chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, 9x grid_sample "
+              f"and adds {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{n_bytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of it; {n_inside} counted "
+              f"samples; 20 calls queued, per call: kernel {queued[0]:.4f} ms "
+              f"({100 * bound_ms / queued[0]:.1f}% of the bound), the one-tap chain "
+              f"{queued[1]:.4f} ms")
+        if field == "+-2 px":
+            row = {"name": "deform_sample_taps", "route": "cuda",
+                   "source": "upsnet_torch/csrc/deform_sample.cu",
+                   "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:132",
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        del y, sy, sx
+    y, sy, sx = layer(h // 2, w // 2, torch.float32, "+-2 px")
+    err, rel = check("K2 taps float32", y, sy, sx)
+    print(f"[K2 deform_sample_taps] +-2 px, y {tuple(y.shape)} float32: equal to 9 one-tap K2 "
+          f"and 8 adds; against the plain version max abs err {err:.3e}, max rel err "
+          f"{rel:.3e} (tolerance 2^-20 * (sum |tap| + sum |partial|) + 1e-5)")
+    del y, sy, sx
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_k2_k3(dev) -> None:
     """K2 and K3 on one tap at P2 of the 832x1344 bucket (2x208x336, C=128,
     bf16), which is the largest of the four shapes a train step gives them:
     offsets as in ``check_k1`` (+-2 px, 3% far, 1% beyond the edge) with 5%
     of the samples on exactly integer rows and another 5% on integer
-    columns, where the coordinate derivative must be zero."""
+    columns, where the coordinate derivative must be zero. No route takes
+    either one-tap form any more: they are checked and timed as the
+    yardsticks of the all-tap forms."""
     g = torch.Generator(device=dev).manual_seed(4)
     b, c = BATCH, 128
     h, w = BUCKET[0] // 4, BUCKET[1] // 4
@@ -442,17 +610,6 @@ def check_k2_k3(dev) -> tuple[dict, dict]:
     print(f"[K3 deform_sample_bwd] kernel {k3_ms:.4f} ms (zeroed canvas, kernel, cast), "
           f"plain {k3_plain:.4f} ms, grid_sampler_2d_backward {k3_lib:.4f} ms, bound "
           f"{k3_bound:.4f} ms ({k3_by}: {k3_bytes / 1e6:.1f} MB, {k3_flops / 1e9:.3f} GFLOP)")
-    k2 = {"name": "deform_sample", "route": "cuda",
-          "source": "upsnet_torch/csrc/deform_sample.cu",
-          "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:132",
-          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-          "bound_by": k2_by, "library_ms": k2_lib}
-    k3 = {"name": "deform_sample_bwd", "route": "cuda",
-          "source": "upsnet_torch/csrc/deform_sample_bwd.cu",
-          "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:637",
-          "max_abs_err": max(k3_err, gsy_err, gsx_err), "ms": k3_ms, "plain_ms": k3_plain,
-          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib}
-    return k2, k3
 
 
 def _clustered_rois(g, dev, n: int) -> torch.Tensor:
@@ -895,61 +1052,122 @@ def check_k3_unclipped(dev) -> dict:
 
 
 def check_k6(dev) -> dict:
-    """K6 at P2 of the wide canvas (1 x 208 x 832, C 128, bf16): tap 4 of the
-    nine-tap one-matmul projection (1, 208, 832, 9, 128), offsets as in
+    """K6 at P2 of the wide canvas (1 x 208 x 832, C 128, bf16) on the
+    nine-tap one-matmul projection (1, 208, 832, 9, 128): offsets as in
     ``check_k1`` (+-2 px, 3% at 6-12 px) clipped to +-6 on both axes as the
     tiled form clips them, 5% of the samples on integer rows, 5% on integer
-    columns, 1% beyond the image edge (not counted, so beyond the reach)."""
+    columns, 1% beyond the image edge (not counted, so beyond the reach).
+    The all-tap K6 (its numbers are the returned ones) is held against nine
+    one-tap K6 launches with the adds (equal) and its plain version, and
+    timed beside them and nine ``grid_sample`` calls and the adds; then its
+    float32 form, held the same way on the wide P3 layer (1 x 104 x 416 x 9
+    x 128, not timed). The one-tap K6, on no route since the all-tap form
+    took the layer, is held against its plain version on tap 4 and timed as
+    the yardstick of one launch."""
     g = torch.Generator(device=dev).manual_seed(6)
     taps, tap, c, max_d = 9, 4, 128, 6
     reach = max_d + 1  # max_dy + dilation
     b, (h, w) = WIDE_BATCH, (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4)
     if deform_sample.pallas_route((b, h, w, c), c, max_d, 1) != ("tiled", max_d):
         raise AssertionError(f"pallas_route does not tile a {h}x{w} map")
+    shape = (taps, b, h, w)
     y = torch.randn((b, h, w, taps, c), generator=g, device=dev).to(torch.bfloat16)
-    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
-    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
-    sy = iy + clip_offsets(dcn_offsets(g, dev, (b, h, w)), float(max_d))
-    sx = ix + clip_offsets(dcn_offsets(g, dev, (b, h, w)), float(max_d))
+    kk = torch.arange(taps, device=dev)
+    ky = (kk // 3 - 1).float()[:, None, None, None]
+    kx = (kk % 3 - 1).float()[:, None, None, None]
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+    sy = iy + ky + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
+    sx = ix + kx + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
     sy, sx = _mark_integers(g, dev, sy, sx, h)
     deform_sample.check_reach(sy, sx, reach, reach)
 
-    # the same four f32 products summed in another order, rounded once to
-    # bf16: at most one bf16 ulp (2^-7 relative) apart, plus slack near 0
+    # the one-tap K6 on tap 4: the same four f32 products summed in another
+    # order, rounded once to bf16: at most one bf16 ulp (2^-7 relative)
+    # apart, plus slack near 0
     rtol, atol = 2.0 ** -7, 1e-4
-    got = deform_sample.deform_sample_tiled(y, tap, sy, sx, reach, reach)
-    ref = deform_sample.deform_sample_tiled_plain(y, tap, sy, sx, reach, reach)
+    sy4, sx4 = sy[tap], sx[tap]
+    one = deform_sample.deform_sample_tiled(y, tap, sy4, sx4, reach, reach)
+    one_ref = deform_sample.deform_sample_tiled_plain(y, tap, sy4, sx4, reach, reach)
     torch.cuda.synchronize()
-    err, rel = compare(got, ref, rtol, atol)
-    if float(got.float().abs().max()) == 0.0:
+    one_err, one_rel = compare(one, one_ref, rtol, atol)
+    if float(one.float().abs().max()) == 0.0:
         raise AssertionError("K6: output is all zero")
-    print(f"[K6 deform_sample_tiled] tap {tap} of y {tuple(y.shape)} bf16: max abs err "
-          f"{err:.3e}, max rel err {rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g})")
+    one_ms = time_ms(lambda: deform_sample.deform_sample_tiled(y, tap, sy4, sx4, reach, reach))
+    del one, one_ref
+    print(f"[K6 deform_sample_tiled] one tap ({tap}) of y {tuple(y.shape)} bf16: max abs err "
+          f"{one_err:.3e}, max rel err {one_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); "
+          f"kernel {one_ms:.4f} ms")
 
-    # library yardstick: one grid_sample call on a float32 copy of the tap's
-    # block, made outside the timed call (a bf16 grid cannot hold the
-    # coordinates)
-    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
-    y32 = y[:, :, :, tap].float().permute(0, 3, 1, 2).contiguous()
+    def run():
+        return deform_sample.deform_sample_tiled_taps(y, sy, sx, reach, reach)
+
+    def chain():  # the layer as the one-tap K6 did it: 9 launches, 8 adds
+        out = deform_sample.deform_sample_tiled(y, 0, sy[0], sx[0], reach, reach)
+        for t in range(1, taps):
+            out = out + deform_sample.deform_sample_tiled(y, t, sy[t], sx[t], reach, reach)
+        return out
+
+    got = run()
+    err, rel = _check_forward_taps(
+        "K6 taps", got, chain(),
+        deform_sample.deform_sample_tiled_taps_plain(y, sy, sx, reach, reach),
+        lambda t: deform_sample.deform_sample_plain(y[:, :, :, t], sy[t], sx[t]), taps)
+
+    # library yardstick: 9 grid_sample calls on float32 copies of the taps'
+    # blocks, made outside the timed call (a bf16 grid cannot hold the
+    # coordinates), and the adds
+    grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
+    planes = [y[:, :, :, t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
 
     def library():
-        return F.grid_sample(y32, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
+        acc = F.grid_sample(planes[0], grids[0], mode="bilinear", padding_mode="zeros",
+                            align_corners=True)
+        for t in range(1, taps):
+            acc = acc + F.grid_sample(planes[t], grids[t], mode="bilinear",
+                                      padding_mode="zeros", align_corners=True)
+        return acc
 
-    lib_err = float((library().permute(0, 2, 3, 1) - ref.float()).abs().max())
-    ms = time_ms(lambda: deform_sample.deform_sample_tiled(y, tap, sy, sx, reach, reach))
+    ms = time_ms(run)
+    queued = [time_queued_ms(f) for f in (run, chain)]
+    chain_ms = time_ms(chain)
     plain_ms = time_ms(
-        lambda: deform_sample.deform_sample_tiled_plain(y, tap, sy, sx, reach, reach), 10)
-    library_ms = time_ms(library)
-    # bytes: the rows of the tap's block the counted samples touch, the
-    # coordinates, the output; 4 corners x 2 flops per channel
+        lambda: deform_sample.deform_sample_tiled_taps_plain(y, sy, sx, reach, reach), 3)
+    library_ms = time_ms(library, 10)
+    # bytes: the rows of each tap's block the counted samples touch, the
+    # coordinates, one output; 4 corners x 2 flops per channel and sample,
+    # and the K - 1 adds
     n_rows, n_inside = touched_rows(sy, sx, h, w)
     n_bytes = n_rows * c * 2 + 2 * sy.numel() * 4 + got.numel() * 2
-    bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c)
-    print(f"[K6 deform_sample_tiled] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
-          f"{library_ms:.4f} ms (max abs diff {lib_err:.3e}), bound {bound_ms:.4f} ms "
-          f"({bound_by}: {n_bytes / 1e6:.1f} MB)")
-    return {"name": "deform_sample_tiled", "route": "cuda",
+    bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c + (taps - 1) * got.numel())
+    print(f"[K6 deform_sample_tiled_taps] y {tuple(y.shape)} bf16: equal to 9 one-tap K6 and 8 "
+          f"adds; against the plain version max abs err {err:.3e}, max rel err {rel:.3e} "
+          f"(tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} ms, the "
+          f"one-tap chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, 9x grid_sample and adds "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
+          f"{100 * bound_ms / ms:.1f}% of it; 20 calls queued, per call: kernel "
+          f"{queued[0]:.4f} ms ({100 * bound_ms / queued[0]:.1f}% of the bound), the one-tap "
+          f"chain {queued[1]:.4f} ms")
+    del y, sy, sx, planes, grids, got
+
+    # float32 at the wide P3 layer
+    h, w = h // 2, w // 2
+    y = torch.randn((b, h, w, taps, c), generator=g, device=dev)
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+    sy = iy + ky + clip_offsets(dcn_offsets(g, dev, (taps, b, h, w)), float(max_d))
+    sx = ix + kx + clip_offsets(dcn_offsets(g, dev, (taps, b, h, w)), float(max_d))
+    sy, sx = _mark_integers(g, dev, sy, sx, h)
+    f32_err, f32_rel = _check_forward_taps(
+        "K6 taps float32", run(), chain(),
+        deform_sample.deform_sample_tiled_taps_plain(y, sy, sx, reach, reach),
+        lambda t: deform_sample.deform_sample_plain(y[:, :, :, t], sy[t], sx[t]), taps)
+    print(f"[K6 deform_sample_tiled_taps] y {tuple(y.shape)} float32: equal to 9 one-tap K6 "
+          f"and 8 adds; against the plain version max abs err {f32_err:.3e}, max rel err "
+          f"{f32_rel:.3e} (tolerance 2^-20 * (sum |tap| + sum |partial|) + 1e-5)")
+    del y, sy, sx
+    torch.cuda.empty_cache()
+    return {"name": "deform_sample_tiled_taps", "route": "cuda",
             "source": "upsnet_torch/csrc/deform_sample_tiled.cu",
             "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:429",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1082,6 +1300,7 @@ def check_k7(dev) -> tuple[dict, dict]:
 
 
 COUNTERS = {"deform_sample9": (deform_sample, "launches"),
+            "deform_sample_taps": (deform_sample, "launches_taps"),
             "deform_sample": (deform_sample, "launches_fwd"),
             "deform_sample_bwd": (deform_sample, "launches_bwd"),
             "deform_sample_bwd_taps": (deform_sample, "launches_bwd_taps"),
@@ -1091,6 +1310,7 @@ COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "shift_fwd": (deform_shift, "launches_fwd"),
             "shift_adjoint": (deform_shift, "launches_adjoint"),
             "shift_offset_grads": (deform_shift, "launches_offset_grads"),
+            "deform_sample_tiled_taps": (deform_sample, "launches_tiled_taps"),
             "deform_sample_tiled": (deform_sample, "launches_tiled"),
             "deform_sample_mt": (deform_sample_mt, "launches_fwd"),
             "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd")}
@@ -1102,12 +1322,13 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
     (grad True) of ``cfg`` at ``bucket``, from the port's routing rules. A
     DCN layer that ``dcn_impl: shift`` sends to the shift route launches K8a
     (and K8b + K8c in backward); one that ``pallas`` or the fallback of
-    ``shift`` sends to the tiled form launches 9 K6 (and the all-tap K3's two
-    passes in backward); any other launches K1 without autograd, and with it
-    9 K2 and the two passes of the all-tap K3, clipped where dy is
-    (``pallas``, ``mxu``, ``shift``'s fallback), else (``auto``, ``gather``)
-    unclipped. ``heads`` False leaves out the ROIAlign calls (a pass of the
-    trunk alone)."""
+    ``shift`` sends to the tiled form launches the all-tap K6 (and the
+    all-tap K3's two passes in backward); any other launches K1 without
+    autograd, and with it the all-tap K2 and the two passes of the all-tap
+    K3, clipped where dy is (``pallas``, ``mxu``, ``shift``'s fallback), else
+    (``auto``, ``gather``) unclipped. The one-tap K2 and K6 run on no path.
+    ``heads`` False leaves out the ROIAlign calls (a pass of the trunk
+    alone)."""
     net = cfg.network
     impl = (net.dcn_impl_train or net.dcn_impl) if grad else net.dcn_impl
     n = dict.fromkeys(COUNTERS, 0)
@@ -1123,10 +1344,10 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
                 n["shift_offset_grads"] += grad
             elif impl in ("pallas", "shift") and deform_sample.pallas_route(
                     shape, net.fcn_head_dim, net.dcn_max_dy, 1)[0] == "tiled":
-                n["deform_sample_tiled"] += 9
+                n["deform_sample_tiled_taps"] += 1
                 n["deform_sample_bwd_taps"] += 2 * grad
             elif grad:
-                n["deform_sample"] += 9
+                n["deform_sample_taps"] += 1
                 if impl in ("pallas", "mxu", "shift"):
                     n["deform_sample_bwd_taps"] += 2
                 else:
@@ -1253,22 +1474,27 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
     ``other_thread`` launches its kernels from another thread (the backward
     pass runs on autograd's), so the profiler's device range for it is
     empty or covers a stray kernel: it gets the device time between its
-    neighbours' device ranges instead."""
+    neighbours' device ranges instead. The largest device ops that are not
+    the port's are named by the stage whose host range holds the aten op
+    that launched them (kernel linked to op by correlation), that op, the
+    autograd node it ran under, and its input shapes."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    host, host_start, span, spans, kernels = {}, {}, {}, [], []
+    host, host_start, host_end, span, spans, kernels = {}, {}, {}, {}, [], []
     for e in prof.events():
         if e.name.startswith(prefix):
             ms = e.time_range.elapsed_us() / 1e3
             if e.device_type != DeviceType.CUDA:
                 host[e.name] = ms
                 host_start[e.name] = e.time_range.start
+                host_end[e.name] = e.time_range.end
             elif e.name not in other_thread:
                 span[e.name] = ms
                 spans.append((e.time_range.start, e.time_range.end, e.name))
@@ -1309,13 +1535,37 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
                 ours[label] = (ms + k.time_range.elapsed_us() / 1e3, n + 1)
     print(f"{tag} the port's kernels, summed device ms (launches): " + "; ".join(
         f"{label} {ms:.3f} ({n})" for label, (ms, n) in ours.items()))
+    # who launched the largest others: kernel name -> {(stage, op, shapes): (ms, n)}
+    launched: dict[str, dict] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA or not e.kernels:
+            continue
+        stage = next((n[len(prefix):] for n in order
+                      if host_start[n] <= e.time_range.start <= host_end[n]), "no stage")
+        node, up = "", e.cpu_parent
+        while up is not None and not node:
+            node = up.name.split(": ")[-1] if "Backward" in up.name else ""
+            up = up.cpu_parent
+        op = f"{e.name} under {node}" if node else e.name
+        for kk in e.kernels:
+            site = launched.setdefault(kk.name, {})
+            ms, n = site.get((stage, op, str(e.input_shapes)), (0.0, 0))
+            site[(stage, op, str(e.input_shapes))] = (ms + kk.duration / 1e3, n + 1)
+    others = [(n, v) for n, v in top
+              if not any(re.search(rf"\b{symbol}[<(]", n) for symbol in KERNEL_SYMBOLS)][:4]
+    for name, total in others:
+        sites = sorted(launched.get(name, {}).items(), key=lambda kv: -kv[1][0])[:2]
+        print(f"{tag} largest not the port's: {name[:90]} {total:.3f} ms; launched by "
+              + ("; ".join(f"{ms:.3f} ms ({n}) in {stage}: {op}, shapes {shapes[:160]}"
+                           for (stage, op, shapes), (ms, n) in sites) or "no linked op"))
 
 
 # the port's kernel functions as the profiler names them; offset_grads_kernel
 # is both K8c and the all-tap K3's coordinate pass, grad_y_gather_kernel both
 # K8b and the clipped K3's grad_y pass; the unclipped K3's grad_y pass is six
 # kernels
-KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_kernel": "K2",
+KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_taps_kernel": "K2 taps",
+                  "deform_sample_kernel": "K2 one tap",
                   "deform_sample_bwd_kernel": "K3 one tap",
                   "grad_y_gather_kernel": "K3 taps grad_y / K8b",
                   "offset_grads_kernel": "K3 coords / K8c",
@@ -1323,7 +1573,8 @@ KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_kernel": "K2",
                                    "scan_totals_kernel", "place_kernel", "rank_kernel",
                                    "grad_y_sorted_kernel"), "K3 unclipped grad_y"),
                   "fpn_roi_align_kernel": "K4", "fpn_roi_align_bwd_kernel": "K5",
-                  "deform_sample_tiled_kernel": "K6", "deform_sample_mt_kernel": "K7a",
+                  "deform_sample_tiled_taps_kernel": "K6 taps",
+                  "deform_sample_tiled_kernel": "K6 one tap", "deform_sample_mt_kernel": "K7a",
                   "deform_sample_mt_bwd_kernel": "K7b", "shift_fwd_kernel": "K8a"}
 LOSS_KEYS = ("rpn_cls", "rpn_bbox", "cls", "bbox", "mask", "seg", "pano")
 METRIC_FIELDS = {*LOSS_KEYS, "total", "iter", "images_per_sec", "step_s", "loader_wait_s",
@@ -1609,7 +1860,7 @@ def phase_mt_tool(dev) -> dict:
         if route == "tiled":
             raise AssertionError(f"the tool's shape {h}x{w} is routed to the tiled form")
         expect["deform_sample9"] += 2 * (2 + reps)
-        expect["deform_sample"] += 2 * 9 * (1 + reps)
+        expect["deform_sample_taps"] += 2 * (1 + reps)
         expect["deform_sample_bwd_taps"] += 2 * 2 * (1 + reps)
     if launches != expect:
         raise AssertionError(f"mt_tool launches {nonzero(launches)}, expected {nonzero(expect)}")
@@ -1641,11 +1892,12 @@ def main() -> None:
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    # the one-tap K3 is held against its plain version and timed, but no
-    # route takes it any more: it is not in the kernels line
-    k2, _ = check_k2_k3(dev)
-    kernels = [check_k1(dev), k2, check_k3_taps(dev), check_k3_unclipped(dev), check_k4(dev),
-               check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev)]
+    # the one-tap K2, K3 and K6 are held against their plain versions and
+    # timed, but no route takes them any more: they are not in the kernels
+    # line
+    check_k2_k3(dev)
+    kernels = [check_k1(dev), check_k2_taps(dev), check_k3_taps(dev), check_k3_unclipped(dev),
+               check_k4(dev), check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev)]
     launches = dict.fromkeys(COUNTERS, 0)
 
     def finish(name, counts, run, prefix):

@@ -6,7 +6,7 @@ batch: dense trunk -> proposals + NMS -> box ROIAlign (K4) -> box head ->
 joint class-offset detection NMS -> mask ROIAlign (K4) -> mask head ->
 panoptic fusion; the FCN head's deformable convs run the sampling kernel
 K1. ``forward_train`` returns the 7-term loss dict: the same trunk with the
-per-tap sampler (K2, backward K3), anchor and RoI target assignment on the
+all-tap sampler (K2, backward K3), anchor and RoI target assignment on the
 device, ROIAlign through ``FPNRoIAlign`` (K4, backward K5) for the box
 head, the fg mask head and the GT-box mask logits of the teacher-forced
 panoptic loss. Under ``dcn_impl: shift`` the eligible levels sample through

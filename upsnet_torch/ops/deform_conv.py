@@ -12,17 +12,18 @@ tap's weight first and sample the projections:
   * untiled (``_fused_untiled`` / ``_pertap_untiled``, chosen as
     ``_untiled_dispatch`` chooses): one matmul per tap into a tap-major
     stack. Without gradients K1 (``ops/deform_sample.py``) samples and sums
-    the projections in one launch, in f32. When gradients are recorded the
-    taps are sampled one by one (K2) and added in ``x.dtype`` in tap order,
-    as the JAX package's training does, all in one ``DeformSampleTaps``
-    whose backward is the all-tap K3 (two launches per layer): the row-band
+    the projections in one launch, in f32. When gradients are recorded one
+    ``DeformSampleTaps`` samples all taps in one launch of the all-tap K2,
+    which rounds each tap and adds it in ``x.dtype`` in tap order, as the
+    JAX package's training does; its backward is the all-tap K3 (two
+    launches per layer): the row-band
     form where dy is clipped, the unclipped form where it is not (``auto``,
     ``gather``).
   * tiled (``_deform_conv2d_tiled``, after ``_deform_conv2d_pallas_tiled``):
     one matmul gives all taps side by side, dy **and dx** are clipped, and
-    ``DeformSampleTiled`` samples tap by tap (K6, backward the all-tap K3)
-    and adds the taps in ``x.dtype``, with or without gradients: the JAX
-    package has no fused tiled forward.
+    ``DeformSampleTiled`` samples all taps in one launch (the all-tap K6,
+    backward the all-tap K3) and adds them in ``x.dtype`` in tap order, with
+    or without gradients: the JAX package has no fused tiled forward.
   * shift (``deform_conv2d_shift``, after ``deform_conv2d_pallas_shift``):
     the same one matmul and clips, and ``DeformSampleShift`` samples all taps
     in one launch (K8a) also when gradients are recorded (backward K8b +
@@ -161,7 +162,7 @@ def _deform_conv2d_tiled(x: torch.Tensor, offsets: torch.Tensor, weight: torch.T
     """The column-tiled form of the ``pallas`` route (the JAX
     ``_deform_conv2d_pallas_tiled``): one projection matmul, dy clipped to
     +-max_dy and dx to +-max_dx by ``clip_offsets`` with ``boundary_grad``,
-    the K taps sampled one by one and added in ``x.dtype`` in tap order (also
+    the K taps sampled and added in ``x.dtype`` in tap order (also
     without gradients), bias last. Arguments as ``deform_conv2d``."""
     y = side_by_side_projections(x, weight)
     sy, sx = sample_coords(offsets, kernel_size, dilation, max_dy, boundary_grad, max_dx)

@@ -2,16 +2,20 @@
 backward, and the routing rule of the ``pallas`` route.
 
 K1 (``deform_sample9``), the inference sampler, sums all taps in one launch.
-K2 (``deform_sample``) is one tap of it. K3 is its backward in three forms:
-all taps of a layer at once, ``deform_sample_bwd_taps`` where dy is clipped
-and ``deform_sample_bwd_unclipped`` where nothing is (``DeformSampleTaps``:
-forward K2 per tap, backward the one or the other), and
-``deform_sample_bwd``, one tap (``DeformSample``), which no route takes any
-more. K6 (``deform_sample_tiled``) is the one-tap sampler of the
-column-tiled form that the JAX package takes on wide maps, where
-``pallas_route`` answers ``tiled``; ``DeformSampleTiled`` runs it for all
-taps with the all-tap K3 as backward. K2, K3 and K6 are described above
-their wrappers below.
+K2 is the training forward in two forms: all taps of a layer in one launch,
+``deform_sample_taps``, which rounds each tap and adds it in the projection's
+dtype in tap order as the JAX training form does, and ``deform_sample``, one
+tap (``DeformSample``), which no route takes any more. K3 is its backward in
+three forms: all taps of a layer at once, ``deform_sample_bwd_taps`` where dy
+is clipped and ``deform_sample_bwd_unclipped`` where nothing is
+(``DeformSampleTaps``: forward the all-tap K2, backward the one or the
+other), and ``deform_sample_bwd``, one tap (``DeformSample``), on no route.
+K6 is the sampler of the column-tiled form that the JAX package takes on
+wide maps, where ``pallas_route`` answers ``tiled``, in the same two forms:
+``deform_sample_tiled_taps`` for all taps (``DeformSampleTiled``, with the
+all-tap K3 as backward) and ``deform_sample_tiled``, one tap, on no route.
+The one-tap forms stay as the yardsticks of the all-tap ones. K2, K3 and K6
+are described above their wrappers below.
 
 K1 replaces the TPU kernel ``upsnet_tpu/ops/deform_conv_pallas.py:
 _sample_pallas9`` (kernel body ``_sample9_kernel``), the inference DCN
@@ -41,10 +45,12 @@ and its plain version add in f32 and round once, so they differ from the
 TPU result by bf16 rounding of the partial sums, and from each other only
 by f32 summation order before that one rounding.
 
-``launches`` counts K1's kernel launches, ``launches_fwd`` K2's,
-``launches_bwd`` the one-tap K3's, ``launches_bwd_taps`` and
-``launches_bwd_unclipped`` the all-tap K3's, clipped and not (two per call:
-one per pass) and ``launches_tiled`` K6's (CPU calls do not count).
+``launches`` counts K1's kernel launches, ``launches_taps`` the all-tap
+K2's, ``launches_fwd`` the one-tap K2's, ``launches_bwd`` the one-tap K3's,
+``launches_bwd_taps`` and ``launches_bwd_unclipped`` the all-tap K3's,
+clipped and not (two per call: one per pass), ``launches_tiled_taps`` the
+all-tap K6's and ``launches_tiled`` the one-tap K6's (CPU calls do not
+count).
 """
 
 from __future__ import annotations
@@ -56,10 +62,12 @@ import torch
 from upsnet_torch.ops import cuda_build
 
 launches = 0
+launches_taps = 0
 launches_fwd = 0
 launches_bwd = 0
 launches_bwd_taps = 0
 launches_bwd_unclipped = 0
+launches_tiled_taps = 0
 launches_tiled = 0
 
 SHARED_BYTES = 232448  # shared memory a block can use on the H100
@@ -165,11 +173,16 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor,
 #
 # K2 replaces the TPU kernel ``deform_conv_pallas.py:_sample_pallas``
 # (``_sample_kernel``) and K3 ``_sample_pallas_bwd`` (``_sample_bwd_kernel``).
-# Training samples tap by tap (``ops/deform_conv.py``), each tap's output
-# added in ``y.dtype``, as the JAX package does. On the TPU both kernels work
-# on zero-padded rows inside a +-max_dy window and K3 read-modify-writes a
-# window of an f32 canvas per sequential grid step. On the card a thread
-# reads any coordinate of the unpadded map, and K3 takes three forms
+# The JAX training form samples tap by tap and adds each tap's output in
+# ``y.dtype`` in tap order. On the TPU both kernels work on zero-padded rows
+# inside a +-max_dy window and K3 read-modify-writes a window of an f32
+# canvas per sequential grid step. On the card a thread reads any coordinate
+# of the unpadded map. The all-tap K2 (``csrc/deform_sample.cu``) runs the
+# whole chain in one launch: a thread owns (pixel, 8 channels), rounds each
+# tap's f32 sum to ``y.dtype`` and adds it to the running value in f32 with
+# one more rounding, which is what a bf16 add on the card computes, so its
+# output equals the nine one-tap launches and eight adds that it replaces;
+# the nine tap outputs and the eight adds' traffic go. K3 takes three forms
 # (``csrc/deform_sample_bwd.cu``). The two all-tap forms gather: each grad_y
 # element is an f32 sum over its samples in a fixed order, written once in
 # ``y.dtype``, so two runs give the same bits, as the TPU kernel's
@@ -193,9 +206,10 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor,
 #     with atomics, cast by the wrapper to ``y.dtype``, as the TPU wrapper
 #     casts; sums differ between runs by f32 rounding. No route takes it.
 #
-# What bounds them: bytes. K2 reads y and the coordinates and writes the
-# output; K3 reads y, g and the coordinates and writes grad_y and the two
-# coordinate gradients. About 9 flops per element and corner.
+# What bounds them: bytes. K2 reads the touched rows of y and the
+# coordinates and writes the output (all taps: once a layer); K3 reads y, g
+# and the coordinates and writes grad_y and the two coordinate gradients.
+# About 9 flops per element and corner.
 #
 # The coordinate derivative follows the TPU kernel: with the hat weight
 # v(d) = max(0, 1 - |d|) of a node at distance d, dv/dd = -sign(d) where
@@ -259,10 +273,10 @@ def deform_sample_bwd_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
 
 
 def _check_tap(y, sy, sx, g=None, contiguous=True):
-    """Shapes, dtypes and devices of one tap's tensors; on CUDA also the
+    """Shapes, dtypes and devices of one tap's tensors; off the CPU also the
     kernel's layout needs (``contiguous`` False: the caller checks
-    contiguity itself, y being a tap's view of a whole projection). float64
-    passes on the CPU only."""
+    contiguity itself, y being a tap's view of a whole projection), then
+    the device, which must be CUDA. float64 passes on the CPU only."""
     if y.dim() != 4:
         raise ValueError(f"y must be (B, H, W, C), got {tuple(y.shape)}")
     cpu = y.device.type == "cpu"
@@ -289,8 +303,6 @@ def _check_tap(y, sy, sx, g=None, contiguous=True):
             raise ValueError(f"{name} on {s.device}, y on {y.device}")
     if cpu:
         return
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
     for name, s in named:
@@ -298,6 +310,8 @@ def _check_tap(y, sy, sx, g=None, contiguous=True):
             raise ValueError(f"{name} must be contiguous")
     if y.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
         raise ValueError("y and g must be 16-byte aligned")
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
 
 
 def deform_sample(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
@@ -357,6 +371,43 @@ def deform_sample_bwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     cuda_build.check(lib, status, "deform_sample_bwd")
     launches_bwd += 1
     return canvas.to(y.dtype), gsy, gsx
+
+
+def deform_sample_taps_plain(y: torch.Tensor, sy: torch.Tensor,
+                             sx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the all-tap K2: ``deform_sample_plain`` on
+    each tap of y (K, B, H, W, C), the results added in ``y.dtype`` in tap
+    order."""
+    out = None
+    for t in range(y.shape[0]):
+        tap = deform_sample_plain(y[t], sy[t], sx[t])
+        out = tap if out is None else out + tap
+    return out
+
+
+def deform_sample_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """K2 for all K taps of a layer: ``sum_t deform_sample(y[t], sy[t],
+    sx[t])`` with each tap rounded to ``y.dtype`` and added in it in tap
+    order, as the JAX package's training form adds them.
+
+    y (K, B, H, W, C) bf16/f32 tap-major projections; sy, sx (K, B, H, W)
+    f32 absolute sample coordinates, any values; all three contiguous.
+    Returns (B, H, W, C) in ``y.dtype``, the values of
+    ``deform_sample_taps_plain``'s chain up to the f32 summation order
+    inside a tap. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (C % 8 == 0, y 16-byte aligned). Not differentiable by
+    itself: ``DeformSampleTaps`` is.
+    """
+    global launches_taps
+    k = _check_taps(y, sy, sx, None, 0, contiguous_on_cpu=True)
+    if y.device.type == "cpu":
+        return deform_sample_taps_plain(y, sy, sx)
+    _, b, h, w, c = y.shape
+    out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
+    cuda_build.call("deform_sample", "deform_sample_taps", y, (y, sy, sx, out),
+                    (k, b, h, w, c))
+    launches_taps += 1
+    return out
 
 
 class DeformSample(torch.autograd.Function):
@@ -428,22 +479,25 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     return gy, gsy, gsx
 
 
-def _check_taps(y, sy, sx, g, tap_axis: int) -> int:
-    """Shapes, dtypes and devices of an all-tap call: y with its K taps on
-    ``tap_axis`` (0: (K, B, H, W, C), 3: (B, H, W, K, C)), sy and sx
-    (K, B, H, W), g (B, H, W, C); on CUDA all contiguous. Returns K."""
+def _check_taps(y, sy, sx, g, tap_axis: int, contiguous_on_cpu: bool = False) -> int:
+    """Shapes, dtypes and devices of an all-tap call: y with its K >= 1 taps
+    on ``tap_axis`` (0: (K, B, H, W, C), 3: (B, H, W, K, C)), sy and sx
+    (K, B, H, W), g (B, H, W, C) or None (a forward); on CUDA, and with
+    ``contiguous_on_cpu`` on every device, all contiguous. Returns K."""
     if y.dim() != 5:
         raise ValueError(f"y must be (K, B, H, W, C) or (B, H, W, K, C), got {tuple(y.shape)}")
     k = y.shape[tap_axis]
+    if k < 1:
+        raise ValueError(f"y has no taps: {tuple(y.shape)}")
     if sy.dim() != 4 or sy.shape[0] != k:
         raise ValueError(f"sy must be (K={k}, B, H, W), got {tuple(sy.shape)}")
     # the shape, dtype and device rules of one tap; y itself must be whole
     _check_tap(y.select(tap_axis, 0), sy[0], sx[0], g, contiguous=False)
     if sx.shape != sy.shape:
         raise ValueError(f"sx must be {tuple(sy.shape)}, got {tuple(sx.shape)}")
-    if y.device.type != "cpu":
+    if contiguous_on_cpu or y.device.type != "cpu":
         for name, s in (("y", y), ("sy", sy), ("sx", sx), ("g", g)):
-            if not s.is_contiguous():
+            if s is not None and not s.is_contiguous():
                 raise ValueError(f"{name} must be contiguous")
     return k
 
@@ -509,8 +563,8 @@ def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Ten
 
 
 class DeformSampleTaps(torch.autograd.Function):
-    """The K taps of the untiled form: forward K launches of K2 whose results
-    are added in ``y.dtype`` in tap order, as the JAX package's training form
+    """The K taps of the untiled form: forward the all-tap K2, which adds the
+    taps in ``y.dtype`` in tap order, as the JAX package's training form
     adds them; gradients to y, sy and sx by the all-tap K3 (their plain
     versions on CPU tensors), the row-band form where dy is clipped
     (``pallas``, ``mxu``) and the unclipped form for ``reach_y`` None
@@ -526,11 +580,7 @@ class DeformSampleTaps(torch.autograd.Function):
     def forward(ctx, y, sy, sx, reach_y: int | None):
         ctx.save_for_backward(y, sy, sx)
         ctx.reach_y = reach_y
-        out = None
-        for t in range(y.shape[0]):
-            tap = deform_sample(y[t], sy[t], sx[t])
-            out = tap if out is None else out + tap
-        return out
+        return deform_sample_taps(y, sy, sx)
 
     @staticmethod
     def backward(ctx, g):
@@ -599,19 +649,23 @@ def pallas_route(shape, cout: int, max_dy: int, dilation: int,
 
 
 # ---------------------------------------------------------------------------
-# K6: the one-tap sampler of the column-tiled form
+# K6: the sampler of the column-tiled form
 # ---------------------------------------------------------------------------
 #
 # K6 replaces the TPU kernel ``deform_conv_pallas.py:_sample_pallas_tiled``
-# (``_sample_kernel_tiled``). There each program holds a window of
+# (``_sample_kernel_tiled``), which ``_deform_conv2d_pallas_tiled`` calls once
+# per tap and adds in bf16. There each program holds a window of
 # ``8 + 2 r + 2`` rows and ``ct + 2 (max_dx + 2)`` columns of one tap's padded
 # projection in VMEM, which is why the tiled form clips dx as well as dy. On
-# the card the kernel reads tap t's block of the one-matmul projection
+# the card the kernels read the taps' blocks of the one-matmul projection
 # ``(B, H, W, K*C)`` in place (pixel stride K*C); what stays of the window is
 # its contract: a counted sample of pixel (i, j) lies within ``reach_y`` rows
-# and ``reach_x`` columns of it. The kernel gives zero to a sample beyond
-# (it cannot raise); the CPU path raises instead. ``inside`` is tested on the
-# true H and W. Its backward is the all-tap K3 on the side-by-side layout.
+# and ``reach_x`` columns of it. The kernels give zero to a sample beyond
+# (they cannot raise); the CPU paths raise instead. ``inside`` is tested on
+# the true H and W. The all-tap form stages a block's coordinates of all taps
+# in shared memory once and runs the chain of the all-tap K2, so its output
+# equals the one-tap K6 launched per tap and added in ``y.dtype``. Its
+# backward is the all-tap K3 on the side-by-side layout.
 
 
 def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int,
@@ -645,7 +699,7 @@ def deform_sample_tiled_plain(y: torch.Tensor, t: int, sy: torch.Tensor, sx: tor
 
 def deform_sample_tiled(y: torch.Tensor, t: int, sy: torch.Tensor, sx: torch.Tensor,
                         reach_y: int, reach_x: int) -> torch.Tensor:
-    """K6: bilinear(y[:, :, :, t]; sy, sx) with DCNv1 zero padding.
+    """K6, one tap: bilinear(y[:, :, :, t]; sy, sx) with DCNv1 zero padding.
 
     y (B, H, W, K, C) bf16/f32, the one-matmul projection with the K taps
     side by side (a view of the matmul's (B*H*W, K*C) output); 0 <= t < K;
@@ -682,9 +736,54 @@ def deform_sample_tiled(y: torch.Tensor, t: int, sy: torch.Tensor, sx: torch.Ten
     return out
 
 
+def deform_sample_tiled_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                                   reach_y: int, reach_x: int) -> torch.Tensor:
+    """Plain PyTorch version of the all-tap K6: the reach check, then
+    ``deform_sample_plain`` on each tap's block of y (B, H, W, K, C), the
+    results added in ``y.dtype`` in tap order."""
+    check_reach(sy, sx, reach_y, reach_x)
+    out = None
+    for t in range(y.shape[3]):
+        tap = deform_sample_plain(y[:, :, :, t], sy[t], sx[t])
+        out = tap if out is None else out + tap
+    return out
+
+
+def deform_sample_tiled_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                             reach_y: int, reach_x: int) -> torch.Tensor:
+    """K6 for all K taps of a layer: ``sum_t deform_sample_tiled(y, t, sy[t],
+    sx[t])`` with each tap rounded to ``y.dtype`` and added in it in tap
+    order, as the JAX package's tiled form adds them.
+
+    y (B, H, W, K, C) bf16/f32, the one-matmul projection with the K taps
+    side by side; sy, sx (K, B, H, W) f32 absolute sample coordinates with
+    ``|sy - i| <= reach_y`` and ``|sx - j| <= reach_x`` at every counted
+    sample of pixel (i, j); all three contiguous. Returns (B, H, W, C) in
+    ``y.dtype``. CPU tensors take the plain version, which raises on a
+    sample beyond the reach; CUDA tensors launch the kernel (C % 8 == 0,
+    y 16-byte aligned, B and H <= 65535, K <= 192: a block's coordinates
+    within 48 KB of shared memory), which gives zero there. Not
+    differentiable by itself: ``DeformSampleTiled`` is.
+    """
+    global launches_tiled_taps
+    if reach_y < 0 or reach_x < 0:
+        raise ValueError(f"reach must be >= 0, got ({reach_y}, {reach_x})")
+    k = _check_taps(y, sy, sx, None, 3, contiguous_on_cpu=True)
+    if y.device.type == "cpu":
+        return deform_sample_tiled_taps_plain(y, sy, sx, reach_y, reach_x)
+    b, h, w, _, c = y.shape
+    if b > 65535 or h > 65535:
+        raise ValueError(f"B={b} or H={h} exceeds the grid's 65535")
+    out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
+    cuda_build.call("deform_sample_tiled", "deform_sample_tiled_taps", y, (y, sy, sx, out),
+                    (b, h, w, c, k, reach_y, reach_x))
+    launches_tiled_taps += 1
+    return out
+
+
 class DeformSampleTiled(torch.autograd.Function):
-    """The K taps of the column-tiled form: K launches of K6 whose results
-    are added in ``y.dtype`` in tap order (the JAX package has no fused tiled
+    """The K taps of the column-tiled form: the all-tap K6, which adds the
+    taps in ``y.dtype`` in tap order (the JAX package has no fused tiled
     forward, so this is also the inference form), with gradients to y, sy and
     sx by the all-tap K3, which reads and writes the side-by-side layout in
     place.
@@ -698,11 +797,7 @@ class DeformSampleTiled(torch.autograd.Function):
     def forward(ctx, y, sy, sx, reach_y: int, reach_x: int):
         ctx.save_for_backward(y, sy, sx)
         ctx.reach_y = reach_y
-        out = None
-        for t in range(y.shape[3]):
-            tap = deform_sample_tiled(y, t, sy[t], sx[t], reach_y, reach_x)
-            out = tap if out is None else out + tap
-        return out
+        return deform_sample_tiled_taps(y, sy, sx, reach_y, reach_x)
 
     @staticmethod
     def backward(ctx, g):

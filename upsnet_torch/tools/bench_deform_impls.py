@@ -5,7 +5,7 @@ flagship FCN-head shapes, both subnet layers at P2 (256 -> 128 and
 128 -> 128) and the smaller levels, it runs
 
   * ``pertap``: ``deform_conv2d(impl="pallas")``, project-first (K1 without
-    gradients, 9 x K2 + K3 with them), and
+    gradients, the all-tap K2 + K3 with them), and
   * ``mt``: ``deform_conv2d_mt``, sample-first (K7a, one GEMM, K7b),
 
 at two offset fields: ``const2``, constant per-tap offsets in +-2 px (what
