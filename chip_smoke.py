@@ -22,7 +22,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    the gathers (both all-tap K3 forms, K5, K8b) must give the same bits on
    two runs, K5 also on RoIs clustered as training samples them, the
    all-tap K2 and the unclipped K3 also at offsets of +-40 px, and every K3
-   form, K7b and K8c exact zeros at integer coordinates. The one-tap K2, K3
+   form, K7b and K8c exact zeros at integer coordinates. K1 is checked and
+   timed in both layouts it takes, side by side (the no-grad routes') and
+   tap-major, which must give the same bits as each other and as K8a; the
+   coordinate pass that both all-tap K3 forms share with K8c is checked and
+   timed alone on the P2 layers at +-2, +-40 and clipped +-6 px (and on its
+   25-tap, C 384 path). The one-tap K2, K3
    and K6, which no route takes any more, are checked and timed as the
    yardsticks of the layers they used to serve, and are not in the kernels
    line;
@@ -30,8 +35,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
    offset biases set to +-2 px, serving two batch-2 requests through
    ``forward_predict``; the kernel launch counters must move by exactly 8
-   (K1) and 2 (K4) per request; with ``--profile``, one more request under
-   torch.profiler (device time per stage and kernel, idle share);
+   (K1) and 2 (K4) per request; peak memory allocated; with ``--profile``,
+   one more request under torch.profiler (device time per stage and kernel,
+   idle share, and whether any ``aten::copy_`` of a ``[9, N, C]`` tensor,
+   the nine-fold copy of x that a tap-major projection makes, remains);
 4. train: the same model in its train configuration (``dcn_impl: pallas``,
    ``dcn_boundary_grad: clip``) takes four SGD steps through
    ``train_steps`` on a synthetic batch of 2 (512 RoIs, 256 anchors, 100 GT
@@ -107,7 +114,7 @@ from upsnet_torch.data.synthetic import synthetic_batch  # noqa: E402
 from upsnet_torch.models import layers  # noqa: E402
 from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
 from upsnet_torch.ops import (  # noqa: E402
-    cuda_build, deform_sample, deform_sample_mt, deform_shift, nms, roi_align_fpn)
+    cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, nms, roi_align_fpn)
 from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt  # noqa: E402
 from upsnet_torch.tools import bench_deform_impls  # noqa: E402
 from upsnet_torch.train.optimizer import make_optimizer  # noqa: E402
@@ -223,8 +230,13 @@ def dcn_offsets(g, dev, shape) -> torch.Tensor:
 def check_k1(dev) -> dict:
     """K1 at the four FCN levels of the path (P2 208x336 .. P5 26x42), C=128
     bf16, 9 taps: +-2 px offsets with 3% of the samples moved 6-12 px and 1%
-    pushed beyond the image edge. Every level is checked against the plain
-    version; times, the bound and the library yardstick are for P2."""
+    pushed beyond the image edge, in both layouts: side by side
+    (B, H, W, 9, C), the output of the one matmul that the no-grad routes
+    build (its numbers are the returned ones), and tap-major (9, B, H, W, C).
+    At every level the two layouts and K8a (``shift_fwd``) on the same
+    side-by-side data must give the same bits, and lie within one bf16 ulp
+    of the plain version. Times, the bound and the library yardstick are for
+    P2; the tap-major time is printed beside the side-by-side one."""
     g = torch.Generator(device=dev).manual_seed(1)
     taps, b, c = 9, BATCH, 128
     kk = torch.arange(taps, device=dev)
@@ -250,13 +262,20 @@ def check_k1(dev) -> dict:
     for stride in (32, 16, 8, 4):  # P2 last: its tensors are timed below
         h, w = BUCKET[0] // stride, BUCKET[1] // stride
         y9, sy9, sx9 = inputs(h, w)
-        got = deform_sample.deform_sample9(y9, sy9, sx9)
+        y_sbs = y9.permute(1, 2, 3, 0, 4).contiguous()
+        got = deform_sample.deform_sample9(y_sbs, sy9, sx9, tap_axis=3)
+        got_tm = deform_sample.deform_sample9(y9, sy9, sx9)
+        got_k8a = deform_shift.shift_fwd(y_sbs.flatten(3), sy9, sx9)
         ref = deform_sample.deform_sample9_plain(y9, sy9, sx9)
         torch.cuda.synchronize()
+        if not (torch.equal(got, got_tm) and torch.equal(got, got_k8a)):
+            raise AssertionError(f"K1 at {h}x{w}: the side-by-side, tap-major and K8a "
+                                 f"results differ")
         err, rel = compare(got, ref, rtol, atol)
         max_abs = max(max_abs, err)
-        print(f"[K1 deform_sample9] y9 {tuple(y9.shape)} bf16: max abs err {err:.3e}, "
-              f"max rel err {rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g})")
+        print(f"[K1 deform_sample9] y {tuple(y_sbs.shape)} side by side bf16: max abs err "
+              f"{err:.3e}, max rel err {rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); "
+              f"equal to tap-major K1 and to K8a")
 
     # the library yardstick: 9 grid_sample calls (zeros padding, corner-
     # aligned grid = DCN's zero-padded bilinear sampling) and a sum.
@@ -275,8 +294,11 @@ def check_k1(dev) -> dict:
         return acc
 
     lib_err = float((library().permute(0, 2, 3, 1) - ref.float()).abs().max())
-    ms = time_ms(lambda: deform_sample.deform_sample9(y9, sy9, sx9))
-    plain_ms = time_ms(lambda: deform_sample.deform_sample9_plain(y9, sy9, sx9), 10)
+    side = lambda: deform_sample.deform_sample9(y_sbs, sy9, sx9, tap_axis=3)  # noqa: E731
+    major = lambda: deform_sample.deform_sample9(y9, sy9, sx9)  # noqa: E731
+    ms, ms_tm = time_ms(side), time_ms(major)
+    queued, queued_tm = time_queued_ms(side), time_queued_ms(major)
+    plain_ms = time_ms(lambda: deform_sample.deform_sample9_plain(y_sbs, sy9, sx9, 3), 10)
     library_ms = time_ms(library)
 
     # bytes this run needs: every projection row a counted sample touches
@@ -285,10 +307,11 @@ def check_k1(dev) -> dict:
     n_bytes = n_rows * c * 2 + 2 * sy9.numel() * 4 + got.numel() * 2
     n_flops = n_inside * 4 * 2 * c
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    print(f"[K1 deform_sample9] P2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"9x grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP); "
-          f"grid_sample yardstick max abs diff {lib_err:.3e}")
+    print(f"[K1 deform_sample9] P2: kernel side by side {ms:.4f} ms ({100 * bound_ms / ms:.1f}% "
+          f"of the bound; per call of 20 queued {queued:.4f}), tap-major {ms_tm:.4f} ms "
+          f"(queued {queued_tm:.4f}), plain {plain_ms:.4f} ms, 9x grid_sample "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_flops / 1e9:.3f} GFLOP); grid_sample yardstick max abs diff {lib_err:.3e}")
     return {
         "name": "deform_sample9", "route": "cuda",
         "source": "upsnet_torch/csrc/deform_sample.cu",
@@ -296,6 +319,107 @@ def check_k1(dev) -> dict:
         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+def check_coords(dev) -> None:
+    """The coordinate pass of both all-tap K3 forms alone (``coord_pass``:
+    ``offset_grads.cuh``, K8c's kernel) on the nine-tap P2 layer of the
+    832x1344 bucket, tap-major (9 x 2 x 208 x 336 x 128), and on the wide
+    P2 layer, side by side (1 x 208 x 832 x 9 x 128), bf16, at three offset
+    fields: +-2 px (``dcn_offsets``), uniform +-40 px, and +-2 px clipped to
+    +-6 (as ``check_k8`` draws K8c's); each with 5% of the samples on
+    integer rows, 5% on integer columns and 1% beyond the image edge. Each
+    against the coordinate half of the all-tap K3's plain version (f32 sums
+    of 4 x 128 products of O(1) values in another order: 1e-4 relative plus
+    1e-3 absolute), two runs bit-identical, exactly 0 at integer
+    coordinates; timed as single calls and queued. Its time is part of the
+    K3 and K8c rows, so it has no row of its own."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    taps, c, max_d = 9, 128, 6
+    c_rtol, c_atol = 1e-4, 1e-3
+    kk = torch.arange(taps, device=dev)
+    ky = (kk // 3 - 1).float()[:, None, None, None]
+    kx = (kk % 3 - 1).float()[:, None, None, None]
+    for tag, b, (h, w), tap_axis in (
+            ("P2 tap-major", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4), 0),
+            ("wide P2 side by side", WIDE_BATCH, (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4), 3)):
+        shape = (taps, b, h, w)
+        y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+        if tap_axis == 3:
+            y = y.permute(1, 2, 3, 0, 4).contiguous()
+        grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+        iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+        ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+        for field in ("+-2 px", "+-40 px", "clipped +-6 px"):
+            if field == "+-40 px":
+                off_y = torch.rand(shape, generator=g, device=dev) * 80 - 40
+                off_x = torch.rand(shape, generator=g, device=dev) * 80 - 40
+            else:
+                off_y, off_x = dcn_offsets(g, dev, shape), dcn_offsets(g, dev, shape)
+                if field.startswith("clipped"):
+                    off_y = clip_offsets(off_y, float(max_d))
+                    off_x = clip_offsets(off_x, float(max_d))
+            sy, sx = _mark_integers(g, dev, iy + ky + off_y, ix + kx + off_x, h)
+
+            def run():
+                gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
+                deform_sample.coord_pass(y, sy, sx, grad, gsy, gsx, taps, int(tap_axis == 0))
+                return gsy, gsx
+
+            got, again = run(), run()
+            ref = deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, tap_axis)
+            torch.cuda.synchronize()
+            gsy_err, _ = compare(got[0], ref[1], c_rtol, c_atol)
+            gsx_err, _ = compare(got[1], ref[2], c_rtol, c_atol)
+            del ref
+            if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                raise AssertionError(f"coordinate pass, {tag}, {field}: two runs differ")
+            at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
+            if (float(got[0][at_int_y].abs().max()) != 0.0
+                    or float(got[1][at_int_x].abs().max()) != 0.0):
+                raise AssertionError(f"coordinate pass, {tag}, {field}: non-zero gradient at "
+                                     f"an integer coordinate")
+            if float(got[0].abs().max()) == 0.0 or float(got[1].abs().max()) == 0.0:
+                raise AssertionError(f"coordinate pass, {tag}, {field}: all zero")
+            ms, queued = time_ms(run), time_queued_ms(run)
+            n_rows, n_inside = touched_rows(sy, sx, h, w)
+            n_bytes = n_rows * c * 2 + grad.numel() * 2 + 4 * sy.numel() * 4
+            bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c)
+            print(f"[coord pass] {tag} y {tuple(y.shape)} bf16, {field}: gsy / gsx max abs err "
+                  f"{gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); "
+                  f"two runs bit-identical; exactly 0 at the {int(at_int_y.sum())} integer rows "
+                  f"and {int(at_int_x.sum())} integer columns; kernel {ms:.4f} ms (queued "
+                  f"{queued:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
+                  f"{100 * bound_ms / ms:.1f}% of it")
+            del got, again, sy, sx
+        del y, grad
+        torch.cuda.empty_cache()
+
+    # the kernel's other paths, on no route of the model: 25 taps (a 5 x 5
+    # layer: a chunk of 9 taps, then 9, then 7) and C 384 (a lane takes two
+    # groups), in float32 at +-3 px, side by side
+    taps, b, h, w, c = 25, 2, 24, 40, 384
+    y = torch.randn((b, h, w, taps, c), generator=g, device=dev)
+    grad = torch.randn((b, h, w, c), generator=g, device=dev)
+    sy = (torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+          + torch.rand((taps, b, h, w), generator=g, device=dev) * 6 - 3)
+    sx = (torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+          + torch.rand((taps, b, h, w), generator=g, device=dev) * 6 - 3)
+    sy, sx = _mark_integers(g, dev, sy, sx, h)
+    gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
+    deform_sample.coord_pass(y, sy, sx, grad, gsy, gsx, taps, 0)
+    ref = deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3)
+    torch.cuda.synchronize()
+    # f32 sums of 4 x 384 products: 1e-4 relative plus 2e-3 absolute
+    gsy_err, _ = compare(gsy, ref[1], c_rtol, 2e-3)
+    gsx_err, _ = compare(gsx, ref[2], c_rtol, 2e-3)
+    if (float(gsy[sy == sy.round()].abs().max()) != 0.0
+            or float(gsx[sx == sx.round()].abs().max()) != 0.0):
+        raise AssertionError("coordinate pass, 25 taps: non-zero gradient at an integer "
+                             "coordinate")
+    print(f"[coord pass] y {tuple(y.shape)} f32 (25 taps, C 384): gsy / gsx max abs err "
+          f"{gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + 2e-3); exactly 0 at "
+          f"integer coordinates")
 
 
 def _random_rois(g, dev, n: int) -> torch.Tensor:
@@ -1425,6 +1549,7 @@ def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
         "im_hw": torch.tensor([im_hw] * batch_size, device=dev),
     } for _ in range(2)]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
     lat, per_request = [], []
@@ -1461,7 +1586,9 @@ def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
             raise AssertionError(f"launches per forward {moved}, expected {expect_n}")
     print(f"[{tag}] launches on this path: {launches}")
     print(f"[{tag}] latency per batch-{batch_size} request {[round(x, 2) for x in lat]} ms; "
-          f"steady (request 1) {lat[1]:.2f} ms = {batch_size * 1e3 / lat[1]:.2f} img/s")
+          f"steady (request 1) {lat[1]:.2f} ms = {batch_size * 1e3 / lat[1]:.2f} img/s; peak "
+          f"memory allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (weights "
+          f"included)")
     run = lambda: forward_predict(model, cfg, anchors, batches[-1])  # noqa: E731
     return launches, run, model, batches[-1], out["seg_logits"]
 
@@ -1535,6 +1662,16 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
                 ours[label] = (ms + k.time_range.elapsed_us() / 1e3, n + 1)
     print(f"{tag} the port's kernels, summed device ms (launches): " + "; ".join(
         f"{label} {ms:.3f} ({n})" for label, (ms, n) in ours.items()))
+    # the nine-fold copy of x (or of its gradient) that a tap-major batched
+    # projection makes: a (9, N, C) or (9, C, N) tensor; the (9, B, H, W)
+    # coordinates are not counted
+    copies = [(str(e.input_shapes[0]), sum(k.duration for k in e.kernels) / 1e3)
+              for e in prof.events()
+              if e.name == "aten::copy_" and e.device_type != DeviceType.CUDA
+              and e.input_shapes and len(e.input_shapes[0]) == 3 and e.input_shapes[0][0] == 9]
+    print(f"{tag} aten::copy_ of a [9, ...] tensor: " + (
+        f"{len(copies)} calls, {sum(ms for _, ms in copies):.3f} device ms, shapes "
+        f"{sorted({shape for shape, _ in copies})[:4]}" if copies else "none"))
     # who launched the largest others: kernel name -> {(stage, op, shapes): (ms, n)}
     launched: dict[str, dict] = {}
     for e in prof.events():
@@ -1611,6 +1748,32 @@ def compare_seg_with_pallas(model, cfg, anchors, batch, seg_shift, tag: str) -> 
           f"{err:.3e}, max |ref| {scale:.3f} (tolerance 2^-5 * max |ref| = {scale / 32:.3e})")
     if not err <= scale / 32:
         raise AssertionError(f"seg_logits shift vs pallas: {err} > {scale / 32}")
+
+
+def compare_seg_with_tap_major(model, cfg, anchors, batch, seg) -> None:
+    """``seg_logits`` of the ``auto`` model, whose no-grad DCN layers read the
+    one-matmul projection side by side, against one more request on the
+    same weights with every such layer switched to the tap-major stack of
+    ``tap_projections`` and K1 reading that: both K1 forms give the same
+    bits on the same projections, so the two differ only where the
+    (N, Cin) x (Cin, 9 C) GEMM rounds a bf16 value otherwise than the batched
+    one; expected 0.0, held within 2^-5 of max |ref| as ``shift`` against
+    ``pallas`` is."""
+    real_projections, real_k1 = deform_conv.side_by_side_projections, deform_conv.deform_sample9
+    deform_conv.side_by_side_projections = deform_conv.tap_projections
+    deform_conv.deform_sample9 = lambda y, sy, sx, tap_axis: real_k1(y, sy, sx)
+    try:
+        ref = forward_predict(model, cfg, anchors, batch)["seg_logits"]
+    finally:
+        deform_conv.side_by_side_projections = real_projections
+        deform_conv.deform_sample9 = real_k1
+    err = float((seg - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"[predict] seg_logits, side-by-side vs tap-major projections on the same weights: "
+          f"max abs diff {err:.3e}, max |ref| {scale:.3f} (tolerance 2^-5 * max |ref| = "
+          f"{scale / 32:.3e})")
+    if not err <= scale / 32:
+        raise AssertionError(f"seg_logits side by side vs tap-major: {err} > {scale / 32}")
 
 
 def compare_wide_with_auto(model, cfg, anchors, batch, seg_pallas) -> None:
@@ -1896,6 +2059,7 @@ def main() -> None:
     # timed, but no route takes them any more: they are not in the kernels
     # line
     check_k2_k3(dev)
+    check_coords(dev)
     kernels = [check_k1(dev), check_k2_taps(dev), check_k3_taps(dev), check_k3_unclipped(dev),
                check_k4(dev), check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev)]
     launches = dict.fromkeys(COUNTERS, 0)
@@ -1909,13 +2073,15 @@ def main() -> None:
             phase_profile(run, prefix, name, other_thread=("train.backward",))
         torch.cuda.empty_cache()
 
-    counts, run, *_ = phase_predict(dev)
+    counts, run, model, batch, seg = phase_predict(dev)
+    cfg = default_config()
+    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
+    compare_seg_with_tap_major(model, cfg, anchors, batch, seg)
     finish("predict", counts, run, "predict.")
+    del run, model, batch, seg
     counts, run, pallas_history = phase_train(dev)
     finish("train", counts, run, "train.")
     counts, run, model, batch, seg = phase_predict(dev, "shift", "predict_shift")
-    cfg = default_config()
-    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
     compare_seg_with_pallas(model, cfg, anchors, batch, seg, "predict_shift")
     finish("predict_shift", counts, run, "predict.")
     del run, model, batch, seg

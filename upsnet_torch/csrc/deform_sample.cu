@@ -1,6 +1,6 @@
 // K1 and K2: deformable bilinear sampling of tap projections.
 //
-// K1        out[b, i, j, :] = sum_t bilinear(y9[t, b], sy9[t, b, i, j], sx9[t, b, i, j])
+// K1        out[b, i, j, :] = sum_t bilinear(y_t[b], sy9[t, b, i, j], sx9[t, b, i, j])
 // K2 taps   the same sum, each tap rounded to y's dtype and added in it in
 //           tap order: out = tap_0, out = out + tap_1, ...
 // K2        out[b, i, j, :] =       bilinear(y[b],     sy[b, i, j],     sx[b, i, j])
@@ -18,10 +18,16 @@
 // All three: one thread per (output pixel, group of 8 channels): each corner
 // is one 16-byte load (bf16) or two (f32) along contiguous channels, and the
 // output is stored once. K1 and the one-tap K2 accumulate the taps x 4
-// corners in f32 and round once. The all-tap K2 loads a tap's four corners
-// before its first FMA and the next tap's coordinates while it is summed,
-// and keeps the taps' partial sums in registers. All are bound by the bytes
-// of the projections; none needs a halo window or padding.
+// corners in f32 and round once. K1 and the all-tap K2 load a tap's four
+// corners before its first FMA (sample_tap_hoisted) and the next tap's
+// coordinates while it is summed; the all-tap K2 keeps the taps' partial
+// sums in registers. K1 reads the projections in either layout through
+// strides: side by side (B, H, W, K, C), the output of one (N, Cin) x
+// (Cin, K * C) matmul that every no-grad route builds, or tap-major
+// (K, B, H, W, C). It adds the taps in tap order and the corners in corner
+// order, as sample_tap does, so both layouts, and K8a (deform_shift.cu) on
+// the side-by-side one, give the same bits. All are bound by the bytes of
+// the projections; none needs a halo window or padding.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -35,11 +41,14 @@
 
 namespace {
 
+// K1: y in either layout through its strides (tap t of image b's pixel p at
+// y + b * img_stride + t * tap_stride + p * pix_stride).
 template <typename T>
 __global__ void __launch_bounds__(256)
-deform_sample9_kernel(const T* __restrict__ y9, const float* __restrict__ sy9,
+deform_sample9_kernel(const T* __restrict__ y, const float* __restrict__ sy9,
                       const float* __restrict__ sx9, T* __restrict__ out,
-                      int taps, int B, int H, int W, int C) {
+                      int taps, int B, int H, int W, int C, int64_t img_stride,
+                      int64_t tap_stride, int pix_stride) {
   const int groups = C / 8;
   const int64_t plane = (int64_t)B * H * W;  // pixels per tap
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -47,12 +56,18 @@ deform_sample9_kernel(const T* __restrict__ y9, const float* __restrict__ sy9,
   const int g = (int)(tid % groups);
   const int64_t pix = tid / groups;  // (b * H + i) * W + j
   const int b = (int)(pix / ((int64_t)H * W));
+  const T* img = y + (int64_t)b * img_stride + g * 8;
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  float py = __ldg(sy9 + pix), px = __ldg(sx9 + pix);
   for (int t = 0; t < taps; ++t) {
-    sample_tap(y9 + ((int64_t)t * B + b) * H * W * C + g * 8,
-               __ldg(sy9 + t * plane + pix), __ldg(sx9 + t * plane + pix), H, W, C, acc);
+    const float cy = py, cx = px;
+    if (t + 1 < taps) {  // in flight while this tap is summed
+      py = __ldg(sy9 + (t + 1) * plane + pix);
+      px = __ldg(sx9 + (t + 1) * plane + pix);
+    }
+    sample_tap_hoisted(img + t * tap_stride, cy, cx, H, W, pix_stride, acc);
   }
   store8(out + pix * C + g * 8, acc);
 }
@@ -117,11 +132,14 @@ unsigned grid_for(int B, int H, int W, int C) {
 }
 
 template <typename T>
-void launch9(const void* y9, const void* sy9, const void* sx9, void* out, int taps,
-             int B, int H, int W, int C, cudaStream_t s) {
+void launch9(const void* y, const void* sy9, const void* sx9, void* out, int taps, int B,
+             int H, int W, int C, int tap_major, cudaStream_t s) {
+  int64_t img, tap, pix;
+  layout_strides(tap_major, taps, B, H, W, C, img, tap, pix);
   deform_sample9_kernel<T><<<grid_for(B, H, W, C), kBlock, 0, s>>>(
-      static_cast<const T*>(y9), static_cast<const float*>(sy9),
-      static_cast<const float*>(sx9), static_cast<T*>(out), taps, B, H, W, C);
+      static_cast<const T*>(y), static_cast<const float*>(sy9),
+      static_cast<const float*>(sx9), static_cast<T*>(out), taps, B, H, W, C, img, tap,
+      (int)pix);
 }
 
 template <typename T>
@@ -145,13 +163,14 @@ void launch_taps(const void* y, const void* sy, const void* sx, void* out, int t
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers.
-// K1: y9 (taps, B, H, W, C), sy9/sx9 (taps, B, H, W) f32, out (B, H, W, C).
-int deform_sample9(const void* y9, const void* sy9, const void* sx9, void* out,
-                   int taps, int B, int H, int W, int C, int dtype, void* stream) {
+// K1: y (taps, B, H, W, C) for tap_major 1, (B, H, W, taps, C) for 0;
+// sy9/sx9 (taps, B, H, W) f32, out (B, H, W, C).
+int deform_sample9(const void* y, const void* sy9, const void* sx9, void* out, int taps,
+                   int B, int H, int W, int C, int tap_major, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (grid_for(B, H, W, C) > 0) {
-    if (dtype == 1) launch9<__nv_bfloat16>(y9, sy9, sx9, out, taps, B, H, W, C, s);
-    else launch9<float>(y9, sy9, sx9, out, taps, B, H, W, C, s);
+  if (grid_for(B, H, W, C) > 0 && taps > 0) {
+    if (dtype == 1) launch9<__nv_bfloat16>(y, sy9, sx9, out, taps, B, H, W, C, tap_major, s);
+    else launch9<float>(y, sy9, sx9, out, taps, B, H, W, C, tap_major, s);
   }
   return (int)cudaGetLastError();
 }

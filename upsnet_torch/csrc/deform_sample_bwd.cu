@@ -74,6 +74,7 @@
 
 #include "offset_grads.cuh"
 #include "sample_bwd.cuh"
+#include "sample_tap.cuh"
 #include "vec8.cuh"
 
 namespace {
@@ -266,21 +267,6 @@ grad_y_gather_kernel(const T* __restrict__ g, const float* __restrict__ sy,
         }
       }
     }
-  }
-}
-
-// The strides of tap t of image b in y's layout: tap-major (K, B, H, W, C)
-// or side by side (B, H, W, K, C).
-void layout_strides(int tap_major, int K, int B, int H, int W, int C, int64_t& img,
-                    int64_t& tap, int64_t& pix) {
-  if (tap_major) {
-    img = (int64_t)H * W * C;
-    tap = (int64_t)B * H * W * C;
-    pix = C;
-  } else {
-    img = (int64_t)H * W * K * C;
-    tap = C;
-    pix = (int64_t)K * C;
   }
 }
 

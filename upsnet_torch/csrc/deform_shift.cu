@@ -25,13 +25,14 @@
 // from the unpadded map, so there is no window, no padding and no candidate
 // loop. K8a: one thread per (output pixel, 8 channels), one launch for all
 // taps, an f32 accumulator over all taps and corners, rounded once (K1 adds
-// the same way but reads a tap-major stack; the TPU's K1 adds taps in bf16).
-// K8c: offset_grads_kernel of offset_grads.cuh (shared with the coordinate
-// pass of K3) at pixel stride K * C: a sub-warp of `width` lanes owns a
-// pixel, a lane takes groups of 8 channels, and the sub-warp reduces each
-// tap's two gradients with shuffles in f32: no atomics. Both are bound by
-// the bytes of y: a pixel's record is K * C contiguous values, read with
-// 16-byte loads along C.
+// the same way and reads this layout on its no-grad routes; the TPU's K1
+// adds taps in bf16). K8c: offset_grads_kernel of offset_grads.cuh (shared
+// with the coordinate pass of K3) at pixel stride K * C: a sub-warp of lanes
+// owns a pixel, a lane a group of 8 channels and its g, a tap's four corner
+// loads are issued before any is used, and the lanes' partial sums of each
+// tap go through shared memory to one sum in lane order: no atomics. Both
+// are bound by the bytes of y: a pixel's record is K * C contiguous values,
+// read with 16-byte loads along C.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 

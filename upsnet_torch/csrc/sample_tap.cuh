@@ -1,13 +1,31 @@
 // One bilinear sample with DCNv1 zero padding, shared by the forward
 // samplers (K1, K2 in deform_sample.cu; K6 in deform_sample_tiled.cu; K8a in
-// deform_shift.cu): a sample counts iff it lies in (-1, H) x (-1, W), and a
-// corner outside [0, H) x [0, W) reads zero.
+// deform_shift.cu) and, for its corners, the coordinate gradients
+// (offset_grads.cuh): a sample counts iff it lies in (-1, H) x (-1, W), and
+// a corner outside [0, H) x [0, W) reads zero.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "vec8.cuh"
+
+// The strides of the K tap projections of a layer in their two layouts,
+// tap t of image b's pixel p at y + b * img + t * tap + p * pix: tap-major
+// (K, B, H, W, C) or side by side (B, H, W, K, C), the output of one
+// (N, Cin) x (Cin, K * C) matmul.
+inline void layout_strides(int tap_major, int K, int B, int H, int W, int C, int64_t& img,
+                           int64_t& tap, int64_t& pix) {
+  if (tap_major) {
+    img = (int64_t)H * W * C;
+    tap = (int64_t)B * H * W * C;
+    pix = C;
+  } else {
+    img = (int64_t)H * W * K * C;
+    tap = C;
+    pix = (int64_t)K * C;
+  }
+}
 
 // acc[0..8) += wgt * v[0..8), one fmaf a channel: how every sampler adds a
 // corner.
@@ -28,16 +46,26 @@ __device__ __forceinline__ void add_corner(const T* img, int yy, int xx, float w
   fma8(wgt, v, acc);
 }
 
+// The top-left corner (y0, x0) of a sample at (sy, sx) and its distances
+// (ly, lx) from it along each axis. False if the sample does not count.
+__device__ __forceinline__ bool tap_frac(float sy, float sx, int H, int W, int* y0, int* x0,
+                                         float* ly, float* lx) {
+  if (!(sy > -1.f && sy < (float)H && sx > -1.f && sx < (float)W)) return false;
+  const float fy = floorf(sy), fx = floorf(sx);
+  *y0 = (int)fy;
+  *x0 = (int)fx;
+  *ly = sy - fy;
+  *lx = sx - fx;
+  return true;
+}
+
 // The corners of a sample at (sy, sx): the top-left one (y0, x0) and the
 // weights of (y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1), the
 // order in which the samplers add them. False if the sample does not count.
 __device__ __forceinline__ bool tap_corners(float sy, float sx, int H, int W,
                                             int* y0, int* x0, float* wgt) {
-  if (!(sy > -1.f && sy < (float)H && sx > -1.f && sx < (float)W)) return false;
-  const float fy = floorf(sy), fx = floorf(sx);
-  *y0 = (int)fy;
-  *x0 = (int)fx;
-  const float ly = sy - fy, lx = sx - fx;
+  float ly, lx;
+  if (!tap_frac(sy, sx, H, W, y0, x0, &ly, &lx)) return false;
   const float hy = 1.f - ly, hx = 1.f - lx;
   wgt[0] = hy * hx;
   wgt[1] = hy * lx;

@@ -10,9 +10,10 @@ Bilinear interpolation is linear, so the project-first forms apply each
 tap's weight first and sample the projections:
 
   * untiled (``_fused_untiled`` / ``_pertap_untiled``, chosen as
-    ``_untiled_dispatch`` chooses): one matmul per tap into a tap-major
-    stack. Without gradients K1 (``ops/deform_sample.py``) samples and sums
-    the projections in one launch, in f32. When gradients are recorded one
+    ``_untiled_dispatch`` chooses): without gradients one matmul gives all
+    taps side by side and K1 (``ops/deform_sample.py``) samples and sums
+    them in one launch, in f32. When gradients are recorded one matmul per
+    tap gives a tap-major stack, and one
     ``DeformSampleTaps`` samples all taps in one launch of the all-tap K2,
     which rounds each tap and adds it in ``x.dtype`` in tap order, as the
     JAX package's training does; its backward is the all-tap K3 (two
@@ -140,7 +141,8 @@ def sample_coords(offsets: torch.Tensor, kernel_size: int, dilation: int,
 def tap_projections(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """x (B, H, W, Cin) @ each tap's weight (K, Cin, Cout) -> the tap-major
     stack (K, B, H, W, Cout) in x.dtype: one batched matmul whose batch is
-    the tap, so no transpose follows it."""
+    the tap, so no transpose follows it, but which broadcasts x over the
+    taps and so copies it K times first (forward and backward)."""
     b, h, w, cin = x.shape
     k, _, cout = weight.shape
     x2 = x.reshape(1, b * h * w, cin)
@@ -251,14 +253,13 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
         clip = None
     else:
         raise NotImplementedError(f"dcn_impl {impl!r} is not ported")
-    y9 = tap_projections(x, weight)
     sy9, sx9 = sample_coords(offsets, kernel_size, dilation, clip, boundary_grad)
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, offsets, weight))):
-        out = deform_sample9(y9, sy9, sx9)
+        out = deform_sample9(side_by_side_projections(x, weight), sy9, sx9, tap_axis=3)
     else:
         reach = None if clip is None else clip + (kernel_size - 1) // 2 * dilation
-        out = DeformSampleTaps.apply(y9, sy9, sx9, reach)
+        out = DeformSampleTaps.apply(tap_projections(x, weight), sy9, sx9, reach)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -30,8 +30,14 @@ gathers are slow there; it therefore needs a +-max_dy window, 128-column
 padding and 9 tap steps with bf16 adds. On the H100 none of that applies:
 a thread reads any coordinate directly. ``csrc/deform_sample.cu`` runs one
 thread per (output pixel, 8-channel group), makes one 16-byte load per
-corner along contiguous channels, loops over the taps and the 4 corners
-with an f32 accumulator and rounds once at the end.
+corner along contiguous channels, issues a tap's four corner loads before
+it adds any and loads the next tap's coordinates meanwhile, loops over the
+taps and the 4 corners with an f32 accumulator and rounds once at the end.
+It reads the projections in place in either layout: tap-major, as
+``tap_projections`` gives them, or side by side, the output of the one
+(N, Cin) x (Cin, T·C) matmul of ``side_by_side_projections``, which the
+no-grad routes build because the tap-major batched matmul materialises x
+once per tap first.
 
 What bounds it: the bytes of ``y9`` (T·B·H·W·C elements, read once in the
 ideal; neighbouring pixels share corners through L1/L2), plus the f32
@@ -101,25 +107,33 @@ def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None, acc=torch.float32)
     return out
 
 
-def deform_sample9_plain(y9: torch.Tensor, sy9: torch.Tensor,
-                         sx9: torch.Tensor) -> torch.Tensor:
+def deform_sample9_plain(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
+                         tap_axis: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same math, f32 accumulation
-    over taps and corners, one rounding to ``y9.dtype`` at the end."""
-    t_n, b, h, w, c = y9.shape
+    over taps and corners in tap and corner order, one rounding to
+    ``y9.dtype`` at the end; the taps on ``tap_axis`` of y9 (0: (T, B, H,
+    W, C), 3: (B, H, W, T, C))."""
+    t_n = y9.shape[tap_axis]
+    b, h, w = sy9.shape[1:]
+    c = y9.shape[-1]
     base = (torch.arange(b, device=y9.device) * (h * w))[:, None, None]
     acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=y9.device)
     for t in range(t_n):
-        acc += _bilinear_zero_pad(y9[t].reshape(b * h * w, c), sy9[t], sx9[t],
-                                  h, w, base)
+        acc += _bilinear_zero_pad(y9.select(tap_axis, t).reshape(b * h * w, c), sy9[t],
+                                  sx9[t], h, w, base)
     return acc.to(y9.dtype)
 
 
-def _check(y9, sy9, sx9):
+def _check(y9, sy9, sx9, tap_axis):
+    if tap_axis not in (0, 3):
+        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
     if y9.dim() != 5:
-        raise ValueError(f"y9 must be (T, B, H, W, C), got {tuple(y9.shape)}")
+        raise ValueError(f"y9 must be (T, B, H, W, C) or (B, H, W, T, C), "
+                         f"got {tuple(y9.shape)}")
     if y9.dtype not in cuda_build.DTYPE_CODES:
         raise TypeError(f"y9 dtype {y9.dtype} not in {list(cuda_build.DTYPE_CODES)}")
-    t_n, b, h, w, c = y9.shape
+    t_n = y9.shape[tap_axis]
+    b, h, w = (y9.shape[1:4] if tap_axis == 0 else y9.shape[:3])
     for name, s in (("sy9", sy9), ("sx9", sx9)):
         if s.shape != (t_n, b, h, w):
             raise ValueError(f"{name} must be {(t_n, b, h, w)}, got {tuple(s.shape)}")
@@ -129,22 +143,26 @@ def _check(y9, sy9, sx9):
             raise ValueError(f"{name} on {s.device}, y9 on {y9.device}")
 
 
-def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor,
-                   sx9: torch.Tensor) -> torch.Tensor:
-    """Σ_t bilinear(y9[t]; sy9[t], sx9[t]) with DCNv1 zero padding.
+def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
+                   tap_axis: int = 0) -> torch.Tensor:
+    """Σ_t bilinear(y_t; sy9[t], sx9[t]) with DCNv1 zero padding.
 
-    y9 (T, B, H, W, C) bf16/f32 unpadded tap projections; sy9, sx9
-    (T, B, H, W) f32 absolute sample coordinates. Returns (B, H, W, C) in
-    ``y9.dtype``. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (C % 8 == 0, contiguous, 16-byte aligned).
+    y9 bf16/f32 unpadded tap projections with their T taps on ``tap_axis``:
+    tap-major (T, B, H, W, C) for 0 (``tap_projections``), side by side
+    (B, H, W, T, C) for 3 (``side_by_side_projections``, the layout of the
+    no-grad routes); sy9, sx9 (T, B, H, W) f32 absolute sample coordinates.
+    Returns (B, H, W, C) in ``y9.dtype``, the same bits in both layouts. CPU
+    tensors take the plain version; CUDA tensors launch the kernel
+    (C % 8 == 0, contiguous, 16-byte aligned).
     """
     global launches
-    _check(y9, sy9, sx9)
+    _check(y9, sy9, sx9, tap_axis)
     if y9.device.type == "cpu":
-        return deform_sample9_plain(y9, sy9, sx9)
+        return deform_sample9_plain(y9, sy9, sx9, tap_axis)
     if y9.device.type != "cuda":
         raise ValueError(f"unsupported device {y9.device}")
-    t_n, b, h, w, c = y9.shape
+    t_n, b, h, w = sy9.shape
+    c = y9.shape[-1]
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
     for name, s in (("y9", y9), ("sy9", sy9), ("sx9", sx9)):
@@ -153,16 +171,8 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor,
     if y9.data_ptr() % 16:
         raise ValueError("y9 must be 16-byte aligned")
     out = torch.empty((b, h, w, c), dtype=y9.dtype, device=y9.device)
-    lib = cuda_build.load("deform_sample")
-    fn = lib.deform_sample9
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(y9.device).cuda_stream
-    with torch.cuda.device(y9.device):
-        status = fn(y9.data_ptr(), sy9.data_ptr(), sx9.data_ptr(),
-                    out.data_ptr(), t_n, b, h, w, c,
-                    cuda_build.DTYPE_CODES[y9.dtype], stream)
-    cuda_build.check(lib, status, "deform_sample9")
+    cuda_build.call("deform_sample", "deform_sample9", y9, (y9, sy9, sx9, out),
+                    (t_n, b, h, w, c, int(tap_axis == 0)))
     launches += 1
     return out
 
@@ -473,8 +483,7 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     tap_major = int(tap_axis == 0)
     band_gather(g, sy, sx, gy, k, reach_y, tap_major)
     launches_bwd_taps += 1
-    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
-                    (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, tap_major))
+    coord_pass(y, sy, sx, g, gsy, gsx, k, tap_major)
     launches_bwd_taps += 1
     return gy, gsy, gsx
 
@@ -521,6 +530,16 @@ def band_gather(g, sy, sx, gy, k: int, reach_y: int, tap_major: int) -> None:
                     (k, b, h, w, c, reach_y, tap_major))
 
 
+def coord_pass(y, sy, sx, g, gsy, gsx, k: int, tap_major: int) -> None:
+    """Launch the coordinate pass of both all-tap K3 forms (``offset_grads.cuh``,
+    also K8c's kernel): gsy, gsx (K, B, H, W) f32, every element written,
+    from y in the layout ``tap_major`` names and CUDA tensors that
+    ``_check_taps`` passed. The K3 form that calls it counts the launch."""
+    b, h, w, c = g.shape
+    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
+                    (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, tap_major))
+
+
 SCAN_TILE = 2048  # bins a block of the unclipped pass's scan owns (kScanTile)
 
 
@@ -556,8 +575,7 @@ def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Ten
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_unclipped_grad_y", y,
                     (g, sy, sx, gy, work), (k, b, h, w, c, n_work))
     launches_bwd_unclipped += 1
-    cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
-                    (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, 1))
+    coord_pass(y, sy, sx, g, gsy, gsx, k, 1)
     launches_bwd_unclipped += 1
     return gy, gsy, gsx
 
