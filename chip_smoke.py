@@ -22,9 +22,14 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    the gathers (both all-tap K3 forms, K5, K8b) must give the same bits on
    two runs, K5 also on RoIs clustered as training samples them, the
    all-tap K2 and the unclipped K3 also at offsets of +-40 px, and every K3
-   form, K7b and K8c exact zeros at integer coordinates. K1 is checked and
+   form, K7b and K8c exact zeros at integer coordinates. K4 is checked at
+   the five calls of a predict forward and a train step (the GT call with 97
+   all-zero padded boxes an image), in bf16 and float32, two runs
+   bit-identical, with its registers from ptxas and its device time under
+   the profiler. K1 is checked and
    timed in both layouts it takes, side by side (the no-grad routes') and
-   tap-major, which must give the same bits as each other and as K8a; the
+   tap-major, which must give the same bits as each other and as K8a, which
+   runs its body (K8a is timed beside K1 on the same data); the
    coordinate pass that both all-tap K3 forms share with K8c is checked and
    timed alone on the P2 layers at +-2, +-40 and clipped +-6 px (and on its
    25-tap, C 384 path). The one-tap K2, K3
@@ -168,6 +173,28 @@ def time_queued_ms(fn, n: int = 20, reps: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def device_ms(fn, symbol: str, n: int = 20) -> float:
+    """Median device time of the kernels whose name holds ``symbol`` over
+    ``n`` calls of ``fn`` under torch.profiler: the kernel alone, where
+    ``time_queued_ms`` reads the wrapper's host time instead once a call's
+    host time exceeds its device time. The profiler may drop a kernel
+    record now and then; the median is of those it kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and symbol in e.name]
+    if not times:
+        raise AssertionError(f"no kernel named {symbol} in {n} profiled calls")
     return statistics.median(times)
 
 
@@ -437,62 +464,144 @@ def _random_rois(g, dev, n: int) -> torch.Tensor:
                         cx + side[..., 0] / 2, cy + side[..., 1] / 2], -1).contiguous()
 
 
+def ptxas_registers(lib: str, symbol: str) -> str:
+    """The registers, spill stores and stack frame that ptxas reported for
+    each instance of kernel ``symbol`` when library ``lib`` was built
+    (``cuda_build.build_log``), as one printable string."""
+    try:
+        log = cuda_build.build_log(lib)
+    except FileNotFoundError:
+        return "no build log"
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            name = m.group(1) if symbol in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        info = found.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m:
+            info["stack"], info["spill"] = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info["regs"] = m.group(1)
+    parts = []
+    for name, info in found.items():
+        s_arg = re.search(r"Li(\d+)E", name)
+        label = ("bf16" if "bfloat16" in name else "f32") + (
+            f" S={s_arg.group(1)}" if s_arg else "")
+        parts.append(f"{label} {info.get('regs', '?')} registers, {info.get('spill', '?')} B "
+                     f"spill stores, {info.get('stack', '?')} B stack")
+    return "; ".join(sorted(parts)) or "not in the build log"
+
+
+def _k4_bound(feats, rois, levels, pooled: int, c: int) -> tuple[float, str, float]:
+    """The bound of one bf16 K4 call: bytes of the distinct feature rows its
+    counted samples touch, the RoIs, levels and output; flops 4 samples x 4
+    corners x 2 + 1 per output element. Returns (ms, what bounds it, bytes)."""
+    n_rois = rois.shape[1]
+    n = BATCH * n_rois
+    dev = rois.device
+    lev = levels.reshape(n).long()
+    strides = torch.tensor([4.0, 8.0, 16.0, 32.0], device=dev)
+    y, x = _sample_coords(rois.reshape(n, 4) / strides[lev][:, None], 1.0, pooled, 2)
+    hs = torch.tensor([f.shape[1] for f in feats], device=dev, dtype=torch.float32)
+    ws = torch.tensor([f.shape[2] for f in feats], device=dev, dtype=torch.float32)
+    ext = (slice(None),) + (None,) * 4
+    yl, xl, yh, xh, *wts = _bilinear_corners(y, x, hs[lev][ext], ws[lev][ext])
+    inside = sum(wts) > 0
+    img = torch.arange(BATCH, device=dev).repeat_interleave(n_rois)
+    base = ((lev * BATCH + img) * 4096)[ext]
+    cells = torch.cat([((base + yy) * 4096 + xx)[inside]
+                       for yy in (yl, yh) for xx in (xl, xh)])
+    n_rows = int(torch.unique(cells).numel())
+    n_out = n * pooled * pooled * c
+    n_bytes = n_rows * c * 2 + rois.numel() * 4 + levels.numel() * 4 + n_out * 2
+    ms, by = bound(n_bytes, n_out * (4 * 4 * 2 + 1))
+    return ms, by, n_bytes
+
+
 def check_k4(dev) -> dict:
-    """K4 over a bf16 832x1344 pyramid (C=256), batch 2: 1000 RoIs at 7x7
-    (the box call) and 100 at 14x14 (the mask call). The returned times and
-    bounds are the sums over the two calls one forward makes; the error is
-    the larger of the two."""
+    """K4 over an 832x1344 pyramid (C=256), batch 2, at the calls of a
+    predict forward (1000 RoIs an image at 7x7, the box call; 100 at 14x14,
+    the mask call) and of a train step (512 at 7x7; 128 at 14x14; the 100 GT
+    slots at 14x14: 3 boxes and 97 all-zero padded ones), in bf16 and in
+    float32. At each: within tolerance of the plain version, two runs
+    bit-identical, card ms and per call of 20 queued; in bf16 also the
+    kernel's device time under the profiler (the small calls' queued time is
+    the wrapper's host time), the plain time and the bound. The returned
+    times and bounds are the sums over the two calls of a forward; the error
+    is the largest bf16 one."""
     g = torch.Generator(device=dev).manual_seed(2)
     c = 256
     feats = tuple(
         torch.randn((BATCH, -(-BUCKET[0] // s), -(-BUCKET[1] // s), c), generator=g,
                     device=dev).to(torch.bfloat16)
         for s in (4, 8, 16, 32))
+    feats32 = tuple(f.float() for f in feats)
+    # the predict RoIs come first from the generator, so their inputs and bound
+    # do not depend on the train shapes
+    calls = [("predict box", _random_rois(g, dev, 1000), 7),
+             ("predict mask", _random_rois(g, dev, 100), 14),
+             ("train box", _random_rois(g, dev, 512), 7),
+             ("train mask", _random_rois(g, dev, 128), 14)]
+    gt = torch.cat([_random_rois(g, dev, 3), torch.zeros((BATCH, 97, 4), device=dev)], 1)
+    calls.append(("train GT", gt.contiguous(), 14))
+    regs = ptxas_registers("roi_align_fpn", "fpn_roi_align_kernel")
+    print(f"[K4 fpn_roi_align] ptxas: {regs}")
+    # bf16: f32 sums in another order than the plain version's, each rounded
+    # once to bf16: at most one bf16 ulp apart, plus f32 slack near zero.
+    # f32: the same sums in another order, 1e-5 of max|ref|
     rtol, atol = 2.0 ** -7, 1e-4
     out = {"name": "fpn_roi_align", "route": "cuda",
            "source": "upsnet_torch/csrc/roi_align_fpn.cu",
            "replaces": "upsnet_tpu/ops/roi_align_pallas.py:265",
            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "bound_by": "bytes", "library_ms": None}
-    for n_rois, pooled in ((1000, 7), (100, 14)):
-        rois = _random_rois(g, dev, n_rois)
+    sums = {"predict": [0.0] * 4, "train": [0.0] * 4}  # card, queued, device, bound
+    for what, rois, pooled in calls:
         levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
-        got = roi_align_fpn.fpn_roi_align(feats, rois, levels, pooled)
-        ref = roi_align_fpn.fpn_roi_align_plain(feats, rois, levels, pooled)
-        torch.cuda.synchronize()
-        max_abs, max_rel = compare(got, ref, rtol, atol)
-        ms = time_ms(lambda: roi_align_fpn.fpn_roi_align(feats, rois, levels, pooled))
-        plain_ms = time_ms(
-            lambda: roi_align_fpn.fpn_roi_align_plain(feats, rois, levels, pooled), 10)
-
-        # bytes: distinct feature rows the counted samples touch, the RoIs,
-        # levels and output; flops: 4 samples x 4 corners x 2 + 1 per output
-        n = BATCH * n_rois
-        lev = levels.reshape(n).long()
-        strides = torch.tensor([4.0, 8.0, 16.0, 32.0], device=dev)
-        y, x = _sample_coords(rois.reshape(n, 4) / strides[lev][:, None], 1.0, pooled, 2)
-        hs = torch.tensor([f.shape[1] for f in feats], device=dev, dtype=torch.float32)
-        ws = torch.tensor([f.shape[2] for f in feats], device=dev, dtype=torch.float32)
-        ext = (slice(None),) + (None,) * 4
-        yl, xl, yh, xh, *wts = _bilinear_corners(y, x, hs[lev][ext], ws[lev][ext])
-        inside = sum(wts) > 0
-        img = torch.arange(BATCH, device=dev).repeat_interleave(n_rois)
-        base = ((lev * BATCH + img) * 4096)[ext]
-        cells = torch.cat([((base + yy) * 4096 + xx)[inside]
-                           for yy in (yl, yh) for xx in (xl, xh)])
-        n_rows = int(torch.unique(cells).numel())
-        n_bytes = n_rows * c * 2 + rois.numel() * 4 + levels.numel() * 4 + got.numel() * 2
-        n_flops = got.numel() * (4 * 4 * 2 + 1)
-        bound_ms, bound_by = bound(n_bytes, n_flops)
-        print(f"[K4 fpn_roi_align] {n_rois} RoIs x2 at {pooled}x{pooled}: max abs err "
-              f"{max_abs:.3e}, max rel err {max_rel:.3e} (tolerance {rtol:.4g}*|ref| + "
-              f"{atol:g}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
-              f"{n_flops / 1e9:.3f} GFLOP)")
-        out["max_abs_err"] = max(out["max_abs_err"], max_abs)
-        out["ms"] += ms
-        out["plain_ms"] += plain_ms
-        out["bound_ms"] += bound_ms
+        for dtype, fs in (("bf16", feats), ("f32", feats32)):
+            run = lambda: roi_align_fpn.fpn_roi_align(fs, rois, levels, pooled)  # noqa: E731
+            got, again = run(), run()
+            ref = roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K4 {what} {dtype}: two runs on the same inputs differ")
+            if dtype == "f32":
+                tol = 1e-5 * float(ref.abs().max())
+                max_abs, _ = compare(got, ref, 0.0, tol)
+                print(f"[K4 fpn_roi_align] {what}, {rois.shape[1]} RoIs x2 at {pooled}x{pooled} "
+                      f"f32: max abs err {max_abs:.3e} (tolerance {tol:.3e} = 1e-5 max|ref|); "
+                      f"two runs bit-identical; kernel {time_ms(run):.4f} ms (queued "
+                      f"{time_queued_ms(run):.4f})")
+                continue
+            max_abs, max_rel = compare(got, ref, rtol, atol)
+            ms, queued = time_ms(run), time_queued_ms(run)
+            dev_ms = device_ms(run, "fpn_roi_align_kernel")
+            plain_ms = time_ms(
+                lambda: roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled), 10)
+            bound_ms, bound_by, n_bytes = _k4_bound(fs, rois, levels, pooled, c)
+            print(f"[K4 fpn_roi_align] {what}, {rois.shape[1]} RoIs x2 at {pooled}x{pooled} "
+                  f"bf16: max abs err {max_abs:.3e}, max rel err {max_rel:.3e} (tolerance "
+                  f"{rtol:.4g}*|ref| + {atol:g}); two runs bit-identical; kernel {ms:.4f} ms "
+                  f"(queued {queued:.4f}, device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB)")
+            out["max_abs_err"] = max(out["max_abs_err"], max_abs)
+            phase = sums[what.split()[0]]
+            for i, v in enumerate((ms, queued, dev_ms, bound_ms)):
+                phase[i] += v
+            if what.startswith("predict"):
+                out["ms"] += ms
+                out["plain_ms"] += plain_ms
+                out["bound_ms"] += bound_ms
+    for phase, (ms, queued, dev_ms, bound_ms) in sums.items():
+        unit = "forward" if phase == "predict" else "step"
+        print(f"[K4 fpn_roi_align] the calls of a {phase} {unit}, bf16: kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the bound), queued "
+              f"{queued:.4f} ms ({100 * bound_ms / queued:.1f}%), device {dev_ms:.4f} ms "
+              f"({100 * bound_ms / dev_ms:.1f}%), bound {bound_ms:.4f} ms")
     return out
 
 
@@ -918,7 +1027,16 @@ def check_k8(dev) -> tuple[dict, dict, dict]:
                                                         mask) for t in range(taps)]
 
     lib_err = float((lib_fwd().permute(0, 2, 3, 1) - ref_a.float()).abs().max())
+    # K8a runs K1's body: K1 on the same side-by-side data, for its bits and
+    # its time beside K8a's
+    k1 = lambda: deform_sample.deform_sample9(y_taps, sy, sx, tap_axis=3)  # noqa: E731
+    if not torch.equal(k1(), got_a):
+        raise AssertionError("K8a and K1 differ on the same side-by-side data")
     a_ms = time_ms(lambda: deform_shift.shift_fwd(y, sy, sx))
+    a_queued = time_queued_ms(lambda: deform_shift.shift_fwd(y, sy, sx))
+    a_dev = device_ms(lambda: deform_shift.shift_fwd(y, sy, sx), "shift_fwd_kernel")
+    k1_ms, k1_queued = time_ms(k1), time_queued_ms(k1)
+    k1_dev = device_ms(k1, "deform_sample9_kernel")
     a_plain = time_ms(lambda: deform_shift.shift_fwd_plain(y, sy, sx), 10)
     a_lib = time_ms(lib_fwd)
     b_ms = time_ms(lambda: deform_shift.shift_adjoint(grad, sy, sx, reach, reach))
@@ -941,9 +1059,14 @@ def check_k8(dev) -> tuple[dict, dict, dict]:
     b_bound, b_by = bound(b_bytes, n_inside * 4 * 2 * c)
     c_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords
     c_bound, c_by = bound(c_bytes, n_inside * 4 * 2 * c)
-    print(f"[K8a shift_fwd] kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms, 9x grid_sample "
+    print(f"[K8a shift_fwd] kernel {a_ms:.4f} ms ({100 * a_bound / a_ms:.1f}% of the bound; "
+          f"queued {a_queued:.4f}, device {a_dev:.4f}), K1 side by side on the same data "
+          f"{k1_ms:.4f} ms (queued {k1_queued:.4f}, device {k1_dev:.4f}), the same bits; plain "
+          f"{a_plain:.4f} ms, 9x grid_sample "
           f"{a_lib:.4f} ms (max abs diff {lib_err:.3e}), bound {a_bound:.4f} ms ({a_by}: "
           f"{a_bytes / 1e6:.1f} MB)")
+    print(f"[K8a shift_fwd] ptxas: {ptxas_registers('deform_shift', 'shift_fwd_kernel')}; K1: "
+          f"{ptxas_registers('deform_sample', 'deform_sample9_kernel')}")
     print(f"[K8b shift_adjoint] kernel {b_ms:.4f} ms (the row-band gather), plain "
           f"{b_plain:.4f} ms, 9x grid_sampler_2d_backward (input) {b_lib:.4f} ms, bound "
           f"{b_bound:.4f} ms ({b_by}: {b_bytes / 1e6:.1f} MB), {100 * b_bound / b_ms:.1f}% of it")
@@ -1672,13 +1795,25 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
     print(f"{tag} aten::copy_ of a [9, ...] tensor: " + (
         f"{len(copies)} calls, {sum(ms for _, ms in copies):.3f} device ms, shapes "
         f"{sorted({shape for shape, _ in copies})[:4]}" if copies else "none"))
+    def stage_of(e):
+        return next((n[len(prefix):] for n in order
+                     if host_start[n] <= e.time_range.start <= host_end[n]), "no stage")
+
+    # aten::copy_ calls that run a device kernel, per stage: the box and mask
+    # branches' are the channel-last pyramid, made once per forward
+    copies_at: dict[str, tuple] = {}
+    for e in prof.events():
+        if e.name == "aten::copy_" and e.device_type != DeviceType.CUDA and e.kernels:
+            n, ms = copies_at.get(stage_of(e), (0, 0.0))
+            copies_at[stage_of(e)] = (n + 1, ms + sum(k.duration for k in e.kernels) / 1e3)
+    print(f"{tag} aten::copy_ with a device kernel per stage, calls (device ms): " + ", ".join(
+        f"{stage} {n} ({ms:.3f})" for stage, (n, ms) in copies_at.items()))
     # who launched the largest others: kernel name -> {(stage, op, shapes): (ms, n)}
     launched: dict[str, dict] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA or not e.kernels:
             continue
-        stage = next((n[len(prefix):] for n in order
-                      if host_start[n] <= e.time_range.start <= host_end[n]), "no stage")
+        stage = stage_of(e)
         node, up = "", e.cpu_parent
         while up is not None and not node:
             node = up.name.split(": ")[-1] if "Backward" in up.name else ""

@@ -25,9 +25,10 @@
 // strides: side by side (B, H, W, K, C), the output of one (N, Cin) x
 // (Cin, K * C) matmul that every no-grad route builds, or tap-major
 // (K, B, H, W, C). It adds the taps in tap order and the corners in corner
-// order, as sample_tap does, so both layouts, and K8a (deform_shift.cu) on
-// the side-by-side one, give the same bits. All are bound by the bytes of
-// the projections; none needs a halo window or padding.
+// order, as sample_tap does, so both layouts give the same bits; its body,
+// sample_taps_pixel (sample_tap.cuh), is K8a's (deform_shift.cu) too. All
+// are bound by the bytes of the projections; none needs a halo window or
+// padding.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -42,34 +43,16 @@
 namespace {
 
 // K1: y in either layout through its strides (tap t of image b's pixel p at
-// y + b * img_stride + t * tap_stride + p * pix_stride).
+// y + b * img_stride + t * tap_stride + p * pix_stride); the body is
+// sample_taps_pixel (sample_tap.cuh), which K8a runs too.
 template <typename T>
 __global__ void __launch_bounds__(256)
 deform_sample9_kernel(const T* __restrict__ y, const float* __restrict__ sy9,
                       const float* __restrict__ sx9, T* __restrict__ out,
                       int taps, int B, int H, int W, int C, int64_t img_stride,
                       int64_t tap_stride, int pix_stride) {
-  const int groups = C / 8;
-  const int64_t plane = (int64_t)B * H * W;  // pixels per tap
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= plane * groups) return;
-  const int g = (int)(tid % groups);
-  const int64_t pix = tid / groups;  // (b * H + i) * W + j
-  const int b = (int)(pix / ((int64_t)H * W));
-  const T* img = y + (int64_t)b * img_stride + g * 8;
-  float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  float py = __ldg(sy9 + pix), px = __ldg(sx9 + pix);
-  for (int t = 0; t < taps; ++t) {
-    const float cy = py, cx = px;
-    if (t + 1 < taps) {  // in flight while this tap is summed
-      py = __ldg(sy9 + (t + 1) * plane + pix);
-      px = __ldg(sx9 + (t + 1) * plane + pix);
-    }
-    sample_tap_hoisted(img + t * tap_stride, cy, cx, H, W, pix_stride, acc);
-  }
-  store8(out + pix * C + g * 8, acc);
+  sample_taps_pixel(y, sy9, sx9, out, (int64_t)blockIdx.x * blockDim.x + threadIdx.x, taps,
+                    B, H, W, C, img_stride, tap_stride, pix_stride);
 }
 
 // K2: one tap, y (B, H, W, C).

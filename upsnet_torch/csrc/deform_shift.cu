@@ -23,16 +23,20 @@
 // static (row candidate, column shift) pairs, because a VMEM slab can only be
 // shifted by static amounts; here a thread reads the four corners directly
 // from the unpadded map, so there is no window, no padding and no candidate
-// loop. K8a: one thread per (output pixel, 8 channels), one launch for all
-// taps, an f32 accumulator over all taps and corners, rounded once (K1 adds
-// the same way and reads this layout on its no-grad routes; the TPU's K1
-// adds taps in bf16). K8c: offset_grads_kernel of offset_grads.cuh (shared
-// with the coordinate pass of K3) at pixel stride K * C: a sub-warp of lanes
-// owns a pixel, a lane a group of 8 channels and its g, a tap's four corner
-// loads are issued before any is used, and the lanes' partial sums of each
-// tap go through shared memory to one sum in lane order: no atomics. Both
-// are bound by the bytes of y: a pixel's record is K * C contiguous values,
-// read with 16-byte loads along C.
+// loop. K8a is K1's function on K1's side-by-side layout, so it runs K1's
+// body, sample_taps_pixel (sample_tap.cuh), with the strides of
+// layout_strides(0, ...): image H * W * K * C, tap C, pixel K * C. One
+// thread per (output pixel, 8 channels), one launch for all taps; a tap's
+// four corner loads are issued before its first FMA and the next tap's
+// coordinates are in flight while it is summed; an f32 accumulator over all
+// taps and corners, rounded once, so K8a and K1 give the same bits (the
+// TPU's K1 adds taps in bf16). K8c: offset_grads_kernel of offset_grads.cuh
+// (shared with the coordinate pass of K3) at pixel stride K * C: a sub-warp
+// of lanes owns a pixel, a lane a group of 8 channels and its g, a tap's
+// four corner loads are issued before any is used, and the lanes' partial
+// sums of each tap go through shared memory to one sum in lane order: no
+// atomics. Both are bound by the bytes of y: a pixel's record is K * C
+// contiguous values, read with 16-byte loads along C.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -48,38 +52,28 @@ namespace {
 
 constexpr int kBlock = 256;
 
+// K8a: K1's body (sample_taps_pixel) on the side-by-side layout; a kernel of
+// its own, so that a profile tells the two apart.
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
 shift_fwd_kernel(const T* __restrict__ y, const float* __restrict__ sy,
-                 const float* __restrict__ sx, T* __restrict__ out,
-                 int K, int B, int H, int W, int C) {
-  const int groups = C / 8;
-  const int KC = K * C;
-  const int64_t plane = (int64_t)B * H * W;  // pixels per tap
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= plane * groups) return;
-  const int g = (int)(tid % groups);
-  const int64_t pix = tid / groups;  // (b * H + i) * W + j
-  const int b = (int)(pix / ((int64_t)H * W));
-  const T* img = y + (int64_t)b * H * W * KC + g * 8;
-  float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  for (int t = 0; t < K; ++t) {
-    sample_tap(img + t * C, __ldg(sy + t * plane + pix), __ldg(sx + t * plane + pix),
-               H, W, KC, acc);
-  }
-  store8(out + pix * C + g * 8, acc);
+                 const float* __restrict__ sx, T* __restrict__ out, int K, int B, int H,
+                 int W, int C, int64_t img_stride, int64_t tap_stride, int pix_stride) {
+  sample_taps_pixel(y, sy, sx, out, (int64_t)blockIdx.x * blockDim.x + threadIdx.x, K, B,
+                    H, W, C, img_stride, tap_stride, pix_stride);
 }
 
 template <typename T>
 void launch_fwd(const void* y, const void* sy, const void* sx, void* out, int K, int B,
                 int H, int W, int C, cudaStream_t s) {
+  int64_t img, tap, pix;  // side by side: img H * W * K * C, tap C, pixel K * C
+  layout_strides(0, K, B, H, W, C, img, tap, pix);
   const int64_t threads = (int64_t)B * H * W * (C / 8);
   const unsigned grid = (unsigned)((threads + kBlock - 1) / kBlock);
   shift_fwd_kernel<T><<<grid, kBlock, 0, s>>>(
       static_cast<const T*>(y), static_cast<const float*>(sy),
-      static_cast<const float*>(sx), static_cast<T*>(out), K, B, H, W, C);
+      static_cast<const float*>(sx), static_cast<T*>(out), K, B, H, W, C, img, tap,
+      (int)pix);
 }
 
 }  // namespace
@@ -91,7 +85,7 @@ extern "C" {
 int shift_fwd(const void* y, const void* sy, const void* sx, void* out, int K, int B,
               int H, int W, int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((int64_t)B * H * W > 0 && C >= 8) {
+  if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     if (dtype == 1) launch_fwd<__nv_bfloat16>(y, sy, sx, out, K, B, H, W, C, s);
     else launch_fwd<float>(y, sy, sx, out, K, B, H, W, C, s);
   }
@@ -105,8 +99,8 @@ int shift_offset_grads(const void* y, const void* sy, const void* sx, const void
                        int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
-    // tap t of pixel (r, q) at ((b * H + r) * W + q) * K * C + t * C
-    const int64_t img = (int64_t)H * W * K * C, tap = C, pix = (int64_t)K * C;
+    int64_t img, tap, pix;  // side by side: img H * W * K * C, tap C, pixel K * C
+    layout_strides(0, K, B, H, W, C, img, tap, pix);
     if (dtype == 1) {
       launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
                                          pix, s);

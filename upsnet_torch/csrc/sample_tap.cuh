@@ -2,7 +2,8 @@
 // samplers (K1, K2 in deform_sample.cu; K6 in deform_sample_tiled.cu; K8a in
 // deform_shift.cu) and, for its corners, the coordinate gradients
 // (offset_grads.cuh): a sample counts iff it lies in (-1, H) x (-1, W), and
-// a corner outside [0, H) x [0, W) reads zero.
+// a corner outside [0, H) x [0, W) reads zero. sample_taps_pixel is the whole
+// body of K1, which K8a runs too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -110,4 +111,43 @@ __device__ __forceinline__ void sample_tap_hoisted(const T* img, float sy, float
     widen8(raw[q], v);
     fma8(wgt[q], v, acc);
   }
+}
+
+// The body of K1 (deform_sample.cu) and K8a (deform_shift.cu). Thread `tid`
+// of a launch over (pixel, group of 8 channels), group fastest, writes
+// out[pix, g * 8 .. g * 8 + 8) = the sum over the taps of the bilinear
+// samples of tap t at (sy[t, pix], sx[t, pix]), in f32, rounded once. y is
+// read through (image, tap, pixel) strides (layout_strides). A tap's four
+// corner loads are issued before its first FMA (sample_tap_hoisted) and the
+// next tap's coordinates are loaded while it is summed; the taps are added
+// in tap order and the corners in corner order, as sample_tap adds them, so
+// both layouts give the same bits.
+template <typename T>
+__device__ __forceinline__ void sample_taps_pixel(const T* __restrict__ y,
+                                                  const float* __restrict__ sy,
+                                                  const float* __restrict__ sx,
+                                                  T* __restrict__ out, int64_t tid, int taps,
+                                                  int B, int H, int W, int C,
+                                                  int64_t img_stride, int64_t tap_stride,
+                                                  int pix_stride) {
+  const int groups = C / 8;
+  const int64_t plane = (int64_t)B * H * W;  // pixels per tap
+  if (tid >= plane * groups) return;
+  const int g = (int)(tid % groups);
+  const int64_t pix = tid / groups;  // (b * H + i) * W + j
+  const int b = (int)(pix / ((int64_t)H * W));
+  const T* img = y + (int64_t)b * img_stride + g * 8;
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  float py = __ldg(sy + pix), px = __ldg(sx + pix);
+  for (int t = 0; t < taps; ++t) {
+    const float cy = py, cx = px;
+    if (t + 1 < taps) {  // in flight while this tap is summed
+      py = __ldg(sy + (t + 1) * plane + pix);
+      px = __ldg(sx + (t + 1) * plane + pix);
+    }
+    sample_tap_hoisted(img + t * tap_stride, cy, cx, H, W, pix_stride, acc);
+  }
+  store8(out + pix * C + g * 8, acc);
 }

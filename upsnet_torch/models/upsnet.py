@@ -176,14 +176,20 @@ class Detections(NamedTuple):
     valid: torch.Tensor  # (B, D) bool
 
 
-def _pool_boxes(pyramid, rois, pooled: int, sampling_ratio: int = 2):
-    """FPN ROIAlign of rois (B, R, 4) over P2..P5 (NCHW) -> (B, R, P, P, C),
-    differentiable in the pyramid only."""
+def _channel_last(pyramid):
+    """P2..P5 (NCHW) as the contiguous (B, H, W, C) levels that
+    ``_pool_boxes`` reads; made once per forward for all its calls, so
+    autograd sums their gradients per level before the one permute back."""
+    return tuple(p.permute(0, 2, 3, 1).contiguous() for p in pyramid[:4])
+
+
+def _pool_boxes(levels4, rois, pooled: int, sampling_ratio: int = 2):
+    """FPN ROIAlign of rois (B, R, 4) over the channel-last P2..P5 of
+    ``_channel_last`` -> (B, R, P, P, C), differentiable in the levels only."""
     rois = rois.detach().contiguous()
     levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
-    feats = tuple(p.permute(0, 2, 3, 1).contiguous() for p in pyramid[:4])
     return FPNRoIAlign.apply(rois, levels, pooled, sampling_ratio,
-                             FPN_STRIDES[:4], *feats)
+                             FPN_STRIDES[:4], *levels4)
 
 
 def _flatten_rpn(rpn_cls, rpn_bbox):
@@ -284,7 +290,8 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
 
     with record_function("train.box_branch"):
         pb, r = net.pooled_size_box, tc.batch_rois
-        pooled_box = _pool_boxes(pyramid, tgt.rois, pb, net.roi_sampling_ratio)
+        levels4 = _channel_last(pyramid)
+        pooled_box = _pool_boxes(levels4, tgt.rois, pb, net.roi_sampling_ratio)
         cls_score, bbox_pred = model.box_head(pooled_box.reshape(bsz * r, pb, pb, -1))
         loss_cls = L.rcnn_cls_loss(cls_score, tgt.labels.reshape(-1),
                                    tgt.valid.reshape(-1))
@@ -296,7 +303,7 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
     with record_function("train.mask_branch"):
         pm, ms = net.pooled_size_mask, net.mask_size
         k_fg = int(tc.batch_rois * tc.fg_fraction)
-        pooled_mask = _pool_boxes(pyramid, tgt.rois[:, :k_fg], pm, net.roi_sampling_ratio)
+        pooled_mask = _pool_boxes(levels4, tgt.rois[:, :k_fg], pm, net.roi_sampling_ratio)
         mask_logits = model.mask_head(pooled_mask.reshape(bsz * k_fg, pm, pm, -1))
         loss_mask = L.mask_loss(
             mask_logits, tgt.labels[:, :k_fg].reshape(-1),
@@ -316,7 +323,7 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
     with record_function("train.panoptic"):
         if net.has_panoptic_head and net.has_fcn_head:
             g = gt_boxes.shape[1]
-            pooled_gt = _pool_boxes(pyramid, gt_boxes, pm, net.roi_sampling_ratio)
+            pooled_gt = _pool_boxes(levels4, gt_boxes, pm, net.roi_sampling_ratio)
             gt_mask_logits = model.mask_head(pooled_gt.reshape(bsz * g, pm, pm, -1))
             rows = torch.arange(bsz * g, device=dev)
             gt_chan = gt_mask_logits.float()[rows, gt_classes.reshape(-1).long()]
@@ -431,7 +438,8 @@ def forward_predict(model: UPSNetModule, cfg: Config, anchors, batch) -> dict:
         )
     with record_function("predict.box_branch"):
         pb = net.pooled_size_box
-        pooled_box = _pool_boxes(pyramid, rois, pb, net.roi_sampling_ratio)
+        levels4 = _channel_last(pyramid)
+        pooled_box = _pool_boxes(levels4, rois, pb, net.roi_sampling_ratio)
         r = rois.shape[1]
         cls_score, bbox_pred = model.box_head(pooled_box.reshape(bsz * r, pb, pb, -1))
         c = cls_score.shape[-1]
@@ -446,7 +454,7 @@ def forward_predict(model: UPSNetModule, cfg: Config, anchors, batch) -> dict:
 
     with record_function("predict.mask_branch"):
         pm = net.pooled_size_mask
-        pooled_mask = _pool_boxes(pyramid, dets.boxes, pm, net.roi_sampling_ratio)
+        pooled_mask = _pool_boxes(levels4, dets.boxes, pm, net.roi_sampling_ratio)
         d = dets.boxes.shape[1]
         mask_all = model.mask_head(pooled_mask.reshape(bsz * d, pm, pm, -1)).float()
         rows = torch.arange(bsz * d, device=mask_all.device)

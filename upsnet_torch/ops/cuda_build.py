@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 (with the shared ``csrc/*.cuh`` headers) into
 ``build/upsnet_torch_kernels/lib<name>-<hash>.so`` at the repository root;
-the hash covers the source and the headers, so an edit is rebuilt. The first
+the hash covers the source and the headers, so an edit is rebuilt, and nvcc's
+output (ptxas's registers and spills per kernel) is kept beside it. The first
 request for any library compiles every missing one, one ``nvcc`` process per
 source, all started together. Nothing here runs at import time, so the
 package imports on hosts without ``nvcc`` or a GPU.
@@ -27,7 +28,7 @@ SOURCES = ("deform_sample", "deform_sample_bwd", "roi_align_fpn",
            "roi_align_fpn_bwd", "deform_shift", "deform_sample_tiled",
            "deform_sample_mt", "deform_sample_mt_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # element type codes of the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,8 +79,15 @@ def build(names=SOURCES) -> None:
             failures.append(f"{n}: nvcc exited {proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from building library ``name``: ptxas's registers,
+    stack and spills of every kernel (``-Xptxas -v``)."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

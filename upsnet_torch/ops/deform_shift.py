@@ -16,9 +16,10 @@ outside the map read zero):
 
   * K8a: ``out[b,i,j,:] = sum_t bilinear(y[b,:,:,t*C:(t+1)*C]; sy[t,b,i,j],
     sx[t,b,i,j])``, all taps and corners in one f32 accumulator, rounded once
-    to ``y.dtype``. (K1 adds the same way on the card; the TPU's K1 adds the
-    taps in bf16, so in bf16 the shift route and the ``pallas`` route differ
-    by rounding on the TPU, by design.)
+    to ``y.dtype``. (On the card K8a runs K1's kernel body on this layout,
+    so the two give the same bits; the TPU's K1 adds the taps in bf16, so in
+    bf16 the shift route and the ``pallas`` route differ by rounding on the
+    TPU, by design.)
   * K8b: the gradient to ``y`` as a gather. Each source element sums, in f32
     and in a fixed order, over the output pixels whose hats reach it, and is
     written once in ``g.dtype``: no float atomics, no f32 canvas, the same
@@ -238,8 +239,10 @@ def shift_fwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tens
     y (B, H, W, K*C) bf16/f32, unpadded, tap-major along the last axis; sy,
     sx (K, B, H, W) f32 absolute sample coordinates, any values. Returns
     (B, H, W, C) in ``y.dtype``. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (C % 8 == 0, contiguous, 16-byte aligned). Not
-    differentiable by itself: ``DeformSampleShift`` is.
+    tensors launch the kernel (C % 8 == 0, contiguous, 16-byte aligned),
+    which runs K1's body (``sample_taps_pixel``) on this side-by-side layout
+    and so gives ``deform_sample9(y.view(B, H, W, K, C), sy, sx, tap_axis=3)``'s
+    bits. Not differentiable by itself: ``DeformSampleShift`` is.
     """
     global launches_fwd
     k, b, h, w, c = _check(sy, sx, y=y)

@@ -11,15 +11,24 @@ with the Detectron clamp (``ops/roi_align.py``), averaged.
 On the TPU the kernel DMAs a (32, 64)-cell window per RoI into VMEM,
 computes all samples as one joint-hat matmul, and walks a strip loop for
 RoIs larger than the window; small levels are zero-padded up to the window.
-On the H100, ``csrc/roi_align_fpn.cu`` needs none of it: one block per RoI
-reads the RoI's own level directly, its threads stride over
-(bin, 8-channel group) work items, and each sample corner is a 16-byte load
-along contiguous channels with an f32 accumulator.
+On the H100, ``csrc/roi_align_fpn.cu`` needs none of it: one thread per
+(RoI, bin, 8-channel group), group fastest, reads the RoI's own level
+directly. At C = 256 a warp is one bin and each corner 512 contiguous bytes
+of it; the grid is B·R·P²·C/8 threads in 128-thread blocks (24,500 blocks
+for the predict box call, 1000 RoIs an image at 7x7, and 9,800 for its mask
+call, 100 at 14x14), so every SM is full. A thread computes its bin's S row
+and S column coordinates once and issues the corner loads of its samples
+(all 16 of a bin at S = 2 in bf16, a sample row in f32) before the first
+FMA; the sums run in one order (samples by row then column, corners ll, lh,
+hl, hh, f32, one rounding), so runs give the same bits.
 
 What bounds it: the feature bytes the samples touch (at most the whole
 pyramid, 95 MB in bf16 at 832x1344, batch 2, C=256) plus the output
 (B·R·P·P·C), so bytes; the arithmetic (about 33 flops per output element
-at sampling_ratio 2) is small.
+at sampling_ratio 2) is small. What holds it back on the card is latency:
+each thread waits on the RoI's record, then on its corners, with its index
+and coordinate arithmetic spread over only 8 channels (the kernel's header
+says what the design does about it).
 
 ``launches`` counts K4's kernel launches and ``launches_bwd`` K5's (CPU
 calls do not count).
@@ -37,6 +46,23 @@ from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords
 
 launches = 0
 launches_bwd = 0
+
+# K4's fpn_roi_align and K5's fpn_roi_align_bwd: 7 pointers, B, R, C, P, S
+# and the four levels' (H, W), their four scales, the dtype code, the stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_float] * 4
+             + [ctypes.c_int, ctypes.c_void_p])
+_entries: dict = {}
+
+
+def _entry(lib_name: str, fn_name: str):
+    """The C entry point ``fn_name`` of library ``lib_name``, its argument
+    types set on first use only."""
+    if fn_name not in _entries:
+        fn = getattr(cuda_build.load(lib_name), fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES
+        _entries[fn_name] = fn
+    return _entries[fn_name]
 
 
 def _corner_table(hw, b: int, rois, levels, pooled: int, s: int, strides):
@@ -122,8 +148,10 @@ def fpn_roi_align(features, rois: torch.Tensor, levels: torch.Tensor,
     features: 4 levels (B, H_l, W_l, C) bf16/f32, channel-last; rois
     (B, R, 4) f32 image coordinates; levels (B, R) int32 in 0..3. Returns
     (B, R, pooled, pooled, C) in the features' dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (C % 8 == 0, contiguous,
-    16-byte aligned levels).
+    plain version; CUDA tensors launch the kernel (C % 8 == 0,
+    sampling_ratio 1, 2 or 4 as on the TPU, B·R·pooled²·C/8 below 2^31,
+    contiguous, 16-byte aligned levels). Off the CPU those needs are checked
+    before the device.
     """
     global launches
     _check(features, rois, levels)
@@ -131,24 +159,25 @@ def fpn_roi_align(features, rois: torch.Tensor, levels: torch.Tensor,
     if f0.device.type == "cpu":
         return fpn_roi_align_plain(features, rois, levels, pooled,
                                    sampling_ratio, strides)
-    if f0.device.type != "cuda":
-        raise ValueError(f"unsupported device {f0.device}")
     b, r = rois.shape[:2]
     c = f0.shape[-1]
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
+    if sampling_ratio not in (1, 2, 4):
+        raise ValueError(f"sampling_ratio={sampling_ratio} must be 1, 2 or 4")
+    if b * r * pooled * pooled * (c // 8) >= 2 ** 31:
+        raise ValueError(f"B*R*P*P*C/8 = {b * r * pooled * pooled * (c // 8)} must be "
+                         "below 2^31 (the kernel's 32-bit index)")
     for name, t in (("rois", rois), ("levels", levels), *(
             (f"level {i}", f) for i, f in enumerate(features))):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if f0.device.type != "cuda":
+        raise ValueError(f"unsupported device {f0.device}")
     if any(f.data_ptr() % 16 for f in features):
         raise ValueError("pyramid levels must be 16-byte aligned")
     out = torch.empty((b, r, pooled, pooled, c), dtype=f0.dtype, device=f0.device)
-    lib = cuda_build.load("roi_align_fpn")
-    fn = lib.fpn_roi_align
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn = _entry("roi_align_fpn", "fpn_roi_align")
     dims = [d for f in features for d in (f.shape[1], f.shape[2])]
     scales = [1.0 / st for st in strides]
     stream = torch.cuda.current_stream(f0.device).cuda_stream
@@ -157,7 +186,7 @@ def fpn_roi_align(features, rois: torch.Tensor, levels: torch.Tensor,
                     levels.data_ptr(), out.data_ptr(), b, r, c, pooled,
                     sampling_ratio, *dims, *scales,
                     cuda_build.DTYPE_CODES[f0.dtype], stream)
-    cuda_build.check(lib, status, "fpn_roi_align")
+    cuda_build.check(cuda_build.load("roi_align_fpn"), status, "fpn_roi_align")
     launches += 1
     return out
 
@@ -285,11 +314,7 @@ def fpn_roi_align_bwd(g: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
         raise ValueError("g must be 16-byte aligned")
     grads = tuple(torch.empty(tuple(sh), dtype=g.dtype, device=g.device) for sh in shapes)
     dims = tuple(d for sh in shapes for d in (sh[1], sh[2]))
-    lib = cuda_build.load("roi_align_fpn_bwd")
-    fn = lib.fpn_roi_align_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
-                   + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn = _entry("roi_align_fpn_bwd", "fpn_roi_align_bwd")
     scales = [1.0 / st for st in strides]
     stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):
@@ -297,7 +322,7 @@ def fpn_roi_align_bwd(g: torch.Tensor, rois: torch.Tensor, levels: torch.Tensor,
                     levels.data_ptr(), g.data_ptr(), b, r, c, pooled,
                     sampling_ratio, *dims, *scales,
                     cuda_build.DTYPE_CODES[g.dtype], stream)
-    cuda_build.check(lib, status, "fpn_roi_align_bwd")
+    cuda_build.check(cuda_build.load("roi_align_fpn_bwd"), status, "fpn_roi_align_bwd")
     launches_bwd += 1
     return grads
 
