@@ -19,10 +19,17 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    could take for the same work; the all-tap K2 and K6 must also equal
    (values) the one-tap kernel launched per tap with the adds in y's dtype,
    in the same run, in bf16 and, at P3, in float32;
-   the gathers (both all-tap K3 forms, K5, K8b) must give the same bits on
-   two runs, K5 also on RoIs clustered as training samples them, the
+   the gathers (both all-tap K3 forms, K5, K8b, K7b) must give the same bits
+   on two runs, K5 also on RoIs clustered as training samples them, the
    all-tap K2 and the unclipped K3 also at offsets of +-40 px, and every K3
-   form, K7b and K8c exact zeros at integer coordinates. K4 is checked at
+   form, K7b and K8c exact zeros at integer coordinates. K7a and K7b (a
+   counting-sort gather, no atomics) are checked at C 256 and 128 on three
+   offset fields (+-2 px; dx +-40 px with dy within +-(max_dy + 1); all
+   nine taps of a pixel at one point, one bin), two runs bit-identical,
+   with queued and profiled device ms (K7b's seven kernels summed, the
+   sort's share) and ptxas's registers. K7a, K7b, the unclipped K3, the
+   coordinate pass and K8c print a digest of their outputs, so that two
+   commits' logs compare bit for bit. K4 is checked at
    the five calls of a predict forward and a train step (the GT call with 97
    all-zero padded boxes an image), in bf16 and float32, two runs
    bit-identical, with its registers from ptxas and its device time under
@@ -98,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -176,12 +184,13 @@ def time_queued_ms(fn, n: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, symbol: str, n: int = 20) -> float:
-    """Median device time of the kernels whose name holds ``symbol`` over
-    ``n`` calls of ``fn`` under torch.profiler: the kernel alone, where
-    ``time_queued_ms`` reads the wrapper's host time instead once a call's
-    host time exceeds its device time. The profiler may drop a kernel
-    record now and then; the median is of those it kept."""
+def device_ms_by_kernel(fn, symbols, n: int = 20) -> dict:
+    """For each of ``symbols``, the median device time of the kernels whose
+    name holds it over ``n`` calls of ``fn`` under torch.profiler: the
+    kernels alone, where ``time_queued_ms`` reads the wrapper's host time
+    instead once a call's host time exceeds its device time. The profiler
+    may drop a kernel record now and then; each median is of those it
+    kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,11 +200,28 @@ def device_ms(fn, symbol: str, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and symbol in e.name]
-    if not times:
-        raise AssertionError(f"no kernel named {symbol} in {n} profiled calls")
-    return statistics.median(times)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for symbol in symbols:
+        times = [e.time_range.elapsed_us() / 1e3 for e in kernels if symbol in e.name]
+        if not times:
+            raise AssertionError(f"no kernel named {symbol} in {n} profiled calls")
+        out[symbol] = statistics.median(times)
+    return out
+
+
+def device_ms(fn, symbol: str, n: int = 20) -> float:
+    """``device_ms_by_kernel`` of the one kernel named by ``symbol``."""
+    return device_ms_by_kernel(fn, (symbol,), n)[symbol]
+
+
+def digest(*tensors) -> str:
+    """A short sha1 of the tensors' bytes, so that two runs (a parent's and a
+    change's) can be compared bit for bit from their logs."""
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -417,7 +443,7 @@ def check_coords(dev) -> None:
                   f"two runs bit-identical; exactly 0 at the {int(at_int_y.sum())} integer rows "
                   f"and {int(at_int_x.sum())} integer columns; kernel {ms:.4f} ms (queued "
                   f"{queued:.4f}), bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
-                  f"{100 * bound_ms / ms:.1f}% of it")
+                  f"{100 * bound_ms / ms:.1f}% of it; digest {digest(*got)}")
             del got, again, sy, sx
         del y, grad
         torch.cuda.empty_cache()
@@ -446,7 +472,7 @@ def check_coords(dev) -> None:
                              "coordinate")
     print(f"[coord pass] y {tuple(y.shape)} f32 (25 taps, C 384): gsy / gsx max abs err "
           f"{gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + 2e-3); exactly 0 at "
-          f"integer coordinates")
+          f"integer coordinates; digest {digest(gsy, gsx)}")
 
 
 def _random_rois(g, dev, n: int) -> torch.Tensor:
@@ -490,9 +516,9 @@ def ptxas_registers(lib: str, symbol: str) -> str:
     parts = []
     for name, info in found.items():
         s_arg = re.search(r"Li(\d+)E", name)
-        label = ("bf16" if "bfloat16" in name else "f32") + (
-            f" S={s_arg.group(1)}" if s_arg else "")
-        parts.append(f"{label} {info.get('regs', '?')} registers, {info.get('spill', '?')} B "
+        label = ("bf16 " if "bfloat16" in name else "f32 " if re.search(r"If[EL]", name)
+                 else "") + (f"S={s_arg.group(1)} " if s_arg else "")
+        parts.append(f"{label}{info.get('regs', '?')} registers, {info.get('spill', '?')} B "
                      f"spill stores, {info.get('stack', '?')} B stack")
     return "; ".join(sorted(parts)) or "not in the build log"
 
@@ -1002,7 +1028,8 @@ def check_k8(dev) -> tuple[dict, dict, dict]:
         raise AssertionError("K8c: coordinate gradients are all zero")
     print(f"[K8c shift_offset_grads] gsy / gsx max abs err {gsy_err:.3e} / {gsx_err:.3e} "
           f"(tolerance {c_rtol:g}*|ref| + {c_atol:g}); exactly 0 at the "
-          f"{int(at_int_y.sum())} integer rows and {int(at_int_x.sum())} integer columns")
+          f"{int(at_int_y.sum())} integer rows and {int(at_int_x.sum())} integer columns; "
+          f"digest {digest(*got_c)}")
 
     # library yardsticks on float32 copies made outside the timed calls (a
     # bf16 grid cannot hold the coordinates): 9 grid_sample calls and a sum
@@ -1126,9 +1153,9 @@ def _check_taps_backward(what: str, run, ref, sy, sx, tag: str):
         raise AssertionError(f"{what}: gradients are all zero")
     print(f"{tag}: grad_y max abs err {gy_err:.3e}, max rel err {gy_rel:.3e} (tolerance "
           f"{rtol:.4g}*|ref| + {atol:g}); gsy / gsx max abs err {gsy_err:.3e} / "
-          f"{gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); two runs bit-identical; "
-          f"exactly 0 at the {int(at_int_y.sum())} integer rows and {int(at_int_x.sum())} "
-          f"integer columns")
+          f"{gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); two runs bit-identical, "
+          f"digest {digest(*got)}; exactly 0 at the {int(at_int_y.sum())} integer rows and "
+          f"{int(at_int_x.sum())} integer columns")
     return gy_err, gy_rel, gsy_err, gsx_err
 
 
@@ -1421,13 +1448,26 @@ def check_k6(dev) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def check_k7(dev) -> tuple[dict, dict]:
-    """K7a and K7b at P2 of the 832x1344 bucket (2 x 208 x 336, 9 taps,
-    bf16), at C 256 (the first subnet layer) and at C 128 (the second; its
-    numbers are the returned ones): offsets uniform in +-2 px around each
-    tap, the samples of the first 16 rows on exactly integer rows and those
+# K7b's kernels as the profiler names them: the sort's five, then the
+# gather (grad_x) and the coordinate pass
+K7B_SORT = ("mt_bwd_count_kernel", "mt_bwd_scan_tiles_kernel", "mt_bwd_scan_totals_kernel",
+            "mt_bwd_place_kernel", "mt_bwd_rank_kernel")
+K7B_KERNELS = K7B_SORT + ("mt_bwd_gather_kernel", "mt_bwd_coords_kernel")
+
+
+def _k7_fields(dev) -> list:
+    """The coordinate fields of ``check_k7``, (K, B, H, W) = (9, 2, 208, 336),
+    P2 of the 832x1344 bucket: ``+-2 px``, offsets uniform in +-2 px around
+    each tap (its numbers are the kernels line's); ``+-40 px dx``, dx
+    uniform in +-40 px and dy in +-6 px around each tap (within
+    +-(max_dy + 1) rows of the pixel, as ``deform_conv2d_mt``'s clamp leaves
+    it); ``shared corner``, all nine taps of a pixel at one point within
+    +-2 px of it (offsets -kernel_offset + a constant a pixel: the pixel's
+    nine samples in one bin, the worst case for K7b's rank key). In each,
+    the samples of the first 16 rows lie on exactly integer rows and those
     of the first 16 columns on integer columns (zero coordinate derivative
-    there), 1% pushed beyond the image edge."""
+    there), and 1% are pushed beyond the image edge. Returns
+    [(name, sy, sx)]."""
     g = torch.Generator(device=dev).manual_seed(7)
     taps, b = 9, BATCH
     h, w = BUCKET[0] // 4, BUCKET[1] // 4
@@ -1437,113 +1477,216 @@ def check_k7(dev) -> tuple[dict, dict]:
     kx = (kk % 3 - 1).float()[:, None, None, None]
     iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
     ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
-    sy = iy + ky + torch.rand(shape, generator=g, device=dev) * 4 - 2
-    sx = ix + kx + torch.rand(shape, generator=g, device=dev) * 4 - 2
-    sy[:, :, :16] = sy[:, :, :16].round()
-    sx[:, :, :, :16] = sx[:, :, :, :16].round()
-    edge = torch.rand(shape, generator=g, device=dev) < 0.01
-    sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy).contiguous()
-    sx = sx.contiguous()
-    at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
+    fields = []
+    for name in ("+-2 px", "+-40 px dx", "shared corner"):
+        if name == "+-2 px":
+            sy = iy + ky + torch.rand(shape, generator=g, device=dev) * 4 - 2
+            sx = ix + kx + torch.rand(shape, generator=g, device=dev) * 4 - 2
+        elif name == "+-40 px dx":
+            sy = iy + ky + torch.rand(shape, generator=g, device=dev) * 12 - 6
+            sx = ix + kx + torch.rand(shape, generator=g, device=dev) * 80 - 40
+        else:
+            one = (1, b, h, w)
+            sy = (iy + torch.rand(one, generator=g, device=dev) * 4 - 2).expand(shape).clone()
+            sx = (ix + torch.rand(one, generator=g, device=dev) * 4 - 2).expand(shape).clone()
+        sy[:, :, :16] = sy[:, :, :16].round()
+        sx[:, :, :, :16] = sx[:, :, :, :16].round()
+        edge = torch.rand(shape, generator=g, device=dev) < 0.01
+        sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy)
+        fields.append((name, sy.contiguous(), sx.contiguous()))
+    return fields
+
+
+def _k7_touched(sy, sx) -> tuple[int, int]:
+    """``touched_rows`` of a K7 field: all taps read one x, so distinct rows
+    per image, over the taps."""
+    taps, b, h, w = sy.shape
+    return touched_rows(sy.transpose(0, 1).reshape(b, taps * h, w),
+                        sx.transpose(0, 1).reshape(b, taps * h, w), h, w)
+
+
+def _k7_library(x, sy, sx, grad=None):
+    """The library yardstick on float32 copies made outside the timed calls:
+    9 grid_sample calls on x (K7a's), or for an upstream gradient ``grad`` 9
+    calls of its backward op (K7b's; one-sided at integer coordinates and in
+    normalised coordinates, so a yardstick of speed only)."""
+    taps, b, h, w = sy.shape
     grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
-    # all taps read one x: distinct rows per image, over the taps
-    n_rows, n_inside = touched_rows(sy.transpose(0, 1).reshape(b, taps * h, w),
-                                    sx.transpose(0, 1).reshape(b, taps * h, w), h, w)
-    rows = []
-    for c in (256, 128):
-        x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-        grad = torch.randn((b, h, w, taps, c), generator=g, device=dev).to(torch.bfloat16)
+    x32 = x.float().permute(0, 3, 1, 2).contiguous()
+    if grad is None:
+        return lambda: [F.grid_sample(x32, grids[t], mode="bilinear", padding_mode="zeros",
+                                      align_corners=True) for t in range(taps)]
+    g32 = [grad[:, :, :, t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+    return lambda: [torch.ops.aten.grid_sampler_2d_backward(
+        g32[t], x32, grids[t], 0, 0, True, [True, True]) for t in range(taps)]
 
-        # K7a: four f32 products in another order, rounded once to bf16: one
-        # bf16 ulp (2^-7 relative) plus slack near zero
-        rtol, atol = 2.0 ** -7, 1e-4
-        got_a = deform_sample_mt.deform_sample_mt(x, sy, sx)
-        ref_a = deform_sample_mt.deform_sample_mt_plain(x, sy, sx)
-        torch.cuda.synchronize()
-        a_err, a_rel = compare(got_a, ref_a, rtol, atol)
-        print(f"[K7a deform_sample_mt] x {tuple(x.shape)} bf16, {taps} taps -> cols "
-              f"{tuple(got_a.shape)}: max abs err {a_err:.3e}, max rel err {a_rel:.3e} "
-              f"(tolerance {rtol:.4g}*|ref| + {atol:g})")
 
-        # K7b. grad_x: f32 canvas sums of about 36 terms (atomics on the
-        # card, so their order changes from run to run) rounded once to
-        # bf16: one bf16 ulp plus 1e-3 where the terms cancel. gsy, gsx: f32
-        # sums of 4 x C products of O(1) values in another order: 1e-4
-        # relative plus 1e-3 absolute.
-        b_atol = 1e-3
-        got_b = deform_sample_mt.deform_sample_mt_bwd(x, sy, sx, grad)
-        ref_b = deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, grad)
-        torch.cuda.synchronize()
-        b_err, b_rel = compare(got_b[0], ref_b[0], rtol, b_atol)
-        c_rtol, c_atol = 1e-4, 1e-3
-        gsy_err, _ = compare(got_b[1], ref_b[1], c_rtol, c_atol)
-        gsx_err, _ = compare(got_b[2], ref_b[2], c_rtol, c_atol)
-        if (float(got_b[1][at_int_y].abs().max()) != 0.0
-                or float(got_b[2][at_int_x].abs().max()) != 0.0):
-            raise AssertionError("K7b: non-zero coordinate gradient at an integer coordinate")
-        if float(got_b[1].abs().max()) == 0.0 or float(got_b[2].abs().max()) == 0.0:
-            raise AssertionError("K7b: coordinate gradients are all zero")
-        print(f"[K7b deform_sample_mt_bwd] C {c}: grad_x max abs err {b_err:.3e}, max rel err "
-              f"{b_rel:.3e} (tolerance {rtol:.4g}*|ref| + {b_atol:g}); gsy / gsx max abs err "
-              f"{gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); "
-              f"exactly 0 at the {int(at_int_y.sum())} integer rows and "
-              f"{int(at_int_x.sum())} integer columns")
-        del ref_a, ref_b
+def check_k7a(dev, fields) -> dict:
+    """K7a on each field of ``_k7_fields`` (bf16) at C 256 (the first subnet
+    layer) and C 128 (the second; at ``+-2 px`` the kernels line's numbers):
+    within one bf16 ulp of its plain version (four f32 products in another
+    order, rounded once) plus slack near zero, two runs bit-identical, the
+    digest of its columns; card, queued and device ms beside the bound; at
+    ``+-2 px`` also the plain version and 9 grid_sample calls."""
+    g = torch.Generator(device=dev).manual_seed(71)
+    rtol, atol = 2.0 ** -7, 1e-4
+    print(f"[K7a deform_sample_mt] ptxas: "
+          f"{ptxas_registers('deform_sample_mt', 'deform_sample_mt_kernel')}")
+    row = {}
+    for field, sy, sx in fields:
+        taps, b, h, w = sy.shape
+        n_rows, n_inside = _k7_touched(sy, sx)
+        for c in (256, 128):
+            x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
 
-        # library yardsticks on float32 copies made outside the timed calls:
-        # 9 grid_sample calls on x for K7a, 9 calls of its backward op for
-        # K7b (one-sided at integer coordinates and in normalised
-        # coordinates, so a yardstick of speed only)
-        x32 = x.float().permute(0, 3, 1, 2).contiguous()
-        g32 = [grad[:, :, :, t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+            def run():
+                return deform_sample_mt.deform_sample_mt(x, sy, sx)
 
-        def lib_fwd():
-            return [F.grid_sample(x32, grids[t], mode="bilinear", padding_mode="zeros",
-                                  align_corners=True) for t in range(taps)]
+            got, again = run(), run()
+            ref = deform_sample_mt.deform_sample_mt_plain(x, sy, sx)
+            torch.cuda.synchronize()
+            err, rel = compare(got, ref, rtol, atol)
+            if not torch.equal(got, again):
+                raise AssertionError(f"K7a, {field}, C {c}: two runs differ")
+            del ref, again
+            ms, queued = time_ms(run), time_queued_ms(run)
+            dev_ms = device_ms(run, "deform_sample_mt_kernel")
+            # bytes this run needs: the rows of x its counted samples touch
+            # (once, whichever tap reads them), the coordinates, the columns
+            # written; 4 corners x 2 flops per channel
+            n_bytes = n_rows * c * 2 + 2 * sy.numel() * 4 + got.numel() * 2
+            bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c)
+            line = (f"[K7a deform_sample_mt] {field}, x {tuple(x.shape)} bf16 -> cols "
+                    f"{tuple(got.shape)}: max abs err {err:.3e}, max rel err {rel:.3e} "
+                    f"(tolerance {rtol:.4g}*|ref| + {atol:g}); two runs bit-identical, digest "
+                    f"{digest(got)}; kernel {ms:.4f} ms, queued {queued:.4f}, device "
+                    f"{dev_ms:.4f}, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB),"
+                    f" {100 * bound_ms / dev_ms:.1f}% of it on the device")
+            if field == "+-2 px":
+                lib_fwd = _k7_library(x, sy, sx)
+                lib_err = float((torch.stack(lib_fwd(), 1).permute(0, 3, 4, 1, 2)
+                                 - got.float()).abs().max())
+                plain_ms = time_ms(lambda: deform_sample_mt.deform_sample_mt_plain(x, sy, sx), 10)
+                library_ms = time_ms(lib_fwd, 10)
+                line += (f"; plain {plain_ms:.4f} ms, 9x grid_sample {library_ms:.4f} ms (max "
+                         f"abs diff {lib_err:.3e})")
+                if c == 128:
+                    row = {"name": "deform_sample_mt", "route": "cuda",
+                           "source": "upsnet_torch/csrc/deform_sample_mt.cu",
+                           "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:1135",
+                           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+                del lib_fwd
+            print(line)
+            del x, got
+            torch.cuda.empty_cache()
+    return row
 
-        def lib_bwd():
-            return [torch.ops.aten.grid_sampler_2d_backward(
-                g32[t], x32, grids[t], 0, 0, True, [True, True]) for t in range(taps)]
 
-        lib_err = float((torch.stack(lib_fwd(), 1).permute(0, 3, 4, 1, 2)
-                         - got_a.float()).abs().max())
-        a_ms = time_ms(lambda: deform_sample_mt.deform_sample_mt(x, sy, sx))
-        a_plain = time_ms(lambda: deform_sample_mt.deform_sample_mt_plain(x, sy, sx), 10)
-        a_lib = time_ms(lib_fwd, 10)
-        b_ms = time_ms(lambda: deform_sample_mt.deform_sample_mt_bwd(x, sy, sx, grad))
-        b_plain = time_ms(
-            lambda: deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, grad), 10)
-        b_lib = time_ms(lib_bwd, 10)
+def check_k7b(dev, fields) -> dict:
+    """K7b on each field of ``_k7_fields`` (bf16) at C 256 and C 128 (at
+    ``+-2 px`` the kernels line's numbers), against its plain version:
+    grad_x, f32 sums of about 36 terms in another order rounded once to
+    bf16, within one bf16 ulp plus 1e-3 where the terms cancel; gsy, gsx,
+    f32 sums of 4 x C products of O(1) values in another order, within 1e-4
+    relative plus 1e-3. Two runs bit-identical (grad_x, gsy and gsx),
+    exactly 0 at integer coordinates, the outputs' digest; card, queued and
+    device ms (K7b's kernels summed) beside the bound, the sort's share of
+    the device time, the peak memory of a call above its inputs; at
+    ``+-2 px`` also the plain version and 9 calls of grid_sample's backward
+    op."""
+    g = torch.Generator(device=dev).manual_seed(72)
+    rtol, atol, c_rtol, c_atol = 2.0 ** -7, 1e-3, 1e-4, 1e-3
+    print("[K7b deform_sample_mt_bwd] ptxas: " + "; ".join(
+        f"{sym} {ptxas_registers('deform_sample_mt_bwd', sym)}" for sym in K7B_KERNELS))
+    row = {}
+    for field, sy, sx in fields:
+        taps, b, h, w = sy.shape
+        n_rows, n_inside = _k7_touched(sy, sx)
+        at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
+        for c in (256, 128):
+            x = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+            grad = torch.randn((b, h, w, taps, c), generator=g, device=dev).to(torch.bfloat16)
 
-        # bytes this run needs. K7a: the rows of x its counted samples touch
-        # (once, whichever tap reads them), the coordinates, the columns
-        # written. K7b: those rows, g, the coordinates, grad_x (bf16, every
-        # element written) and the two coordinate gradients. 4 corners x 2
-        # (K7a) or 6 (K7b) flops per channel.
-        coords = 2 * sy.numel() * 4
-        a_bytes = n_rows * c * 2 + coords + got_a.numel() * 2
-        a_bound, a_by = bound(a_bytes, n_inside * 4 * 2 * c)
-        b_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + x.numel() * 2
-        b_bound, b_by = bound(b_bytes, n_inside * 4 * 6 * c)
-        print(f"[K7a deform_sample_mt] C {c}: kernel {a_ms:.4f} ms, plain {a_plain:.4f} ms, 9x "
-              f"grid_sample {a_lib:.4f} ms (max abs diff {lib_err:.3e}), bound {a_bound:.4f} "
-              f"ms ({a_by}: {a_bytes / 1e6:.1f} MB)")
-        print(f"[K7b deform_sample_mt_bwd] C {c}: kernel {b_ms:.4f} ms (zeroed canvas, kernel, "
-              f"cast), plain {b_plain:.4f} ms, 9x grid_sampler_2d_backward {b_lib:.4f} ms, "
-              f"bound {b_bound:.4f} ms ({b_by}: {b_bytes / 1e6:.1f} MB)")
-        line = "upsnet_tpu/ops/deform_conv_pallas.py"
-        rows = [{"name": "deform_sample_mt", "route": "cuda",
-                 "source": "upsnet_torch/csrc/deform_sample_mt.cu", "replaces": f"{line}:1135",
-                 "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-                 "bound_by": a_by, "library_ms": a_lib},
-                {"name": "deform_sample_mt_bwd", "route": "cuda",
-                 "source": "upsnet_torch/csrc/deform_sample_mt_bwd.cu",
-                 "replaces": f"{line}:1267", "max_abs_err": max(b_err, gsy_err, gsx_err),
-                 "ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
-                 "library_ms": b_lib}]
-        del x, grad, got_a, got_b, x32, g32
-        torch.cuda.empty_cache()
-    return rows[0], rows[1]
+            def run():
+                return deform_sample_mt.deform_sample_mt_bwd(x, sy, sx, grad)
+
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            again = run()
+            ref = deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, grad)
+            torch.cuda.synchronize()
+            gx_err, gx_rel = compare(got[0], ref[0], rtol, atol)
+            gsy_err, _ = compare(got[1], ref[1], c_rtol, c_atol)
+            gsx_err, _ = compare(got[2], ref[2], c_rtol, c_atol)
+            del ref
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"K7b, {field}, C {c}: two runs differ")
+            del again
+            if (float(got[1][at_int_y].abs().max()) != 0.0
+                    or float(got[2][at_int_x].abs().max()) != 0.0):
+                raise AssertionError(f"K7b, {field}: non-zero coordinate gradient at an "
+                                     f"integer coordinate")
+            if (float(got[1].abs().max()) == 0.0 or float(got[2].abs().max()) == 0.0
+                    or float(got[0].float().abs().max()) == 0.0):
+                raise AssertionError(f"K7b, {field}: gradients are all zero")
+            ms, queued = time_ms(run), time_queued_ms(run)
+            per_kernel = device_ms_by_kernel(run, K7B_KERNELS)
+            dev_ms = sum(per_kernel.values())
+            sort_ms = sum(per_kernel[k] for k in K7B_SORT)
+            # bytes this run needs: the rows of x its counted samples touch,
+            # g once, the coordinates, grad_x (bf16, every element written)
+            # and the two coordinate gradients; 4 corners x 6 flops per
+            # channel. Both passes read g, so their floor adds g again.
+            coords = 2 * sy.numel() * 4
+            n_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + x.numel() * 2
+            bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 6 * c)
+            two_pass_ms = (n_bytes + grad.numel() * 2) / HBM_BYTES_PER_S * 1e3
+            line = (f"[K7b deform_sample_mt_bwd] {field}, C {c}: grad_x max abs err "
+                    f"{gx_err:.3e}, max rel err {gx_rel:.3e} (tolerance {rtol:.4g}*|ref| + "
+                    f"{atol:g}); gsy / gsx max abs err {gsy_err:.3e} / {gsx_err:.3e} "
+                    f"(tolerance {c_rtol:g}*|ref| + {c_atol:g}); two runs bit-identical, "
+                    f"digest {digest(*got)}; exactly 0 at the {int(at_int_y.sum())} integer "
+                    f"rows and {int(at_int_x.sum())} integer columns; kernel {ms:.4f} ms "
+                    f"(sort, gather and coordinate pass), queued {queued:.4f}, device "
+                    f"{dev_ms:.4f} (sort {sort_ms:.4f}, {100 * sort_ms / dev_ms:.1f}%; gather "
+                    f"{per_kernel['mt_bwd_gather_kernel']:.4f}; coordinate pass "
+                    f"{per_kernel['mt_bwd_coords_kernel']:.4f}), bound {bound_ms:.4f} ms "
+                    f"({bound_by}: {n_bytes / 1e6:.1f} MB, g once), "
+                    f"{100 * bound_ms / dev_ms:.1f}% of it on the device (two passes read g "
+                    f"twice: their floor is {two_pass_ms:.4f} ms); a call's peak memory above "
+                    f"its inputs {peak / 1e6:.1f} MB; {n_inside} counted samples")
+            if field == "+-2 px":
+                lib_bwd = _k7_library(x, sy, sx, grad)
+                plain_ms = time_ms(
+                    lambda: deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, grad), 10)
+                library_ms = time_ms(lib_bwd, 10)
+                line += (f"; plain {plain_ms:.4f} ms, 9x grid_sampler_2d_backward "
+                         f"{library_ms:.4f} ms")
+                if c == 128:
+                    row = {"name": "deform_sample_mt_bwd", "route": "cuda",
+                           "source": "upsnet_torch/csrc/deform_sample_mt_bwd.cu",
+                           "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:1267",
+                           "max_abs_err": max(gx_err, gsy_err, gsx_err), "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": library_ms}
+                del lib_bwd
+            print(line)
+            del x, grad, got
+            torch.cuda.empty_cache()
+    return row
+
+
+def check_k7(dev) -> tuple[dict, dict]:
+    """K7a and K7b on the three fields of ``_k7_fields``, each at C 256 and
+    C 128 (``check_k7a``, ``check_k7b``); both must give the same bits on
+    two runs."""
+    fields = _k7_fields(dev)
+    return check_k7a(dev, fields), check_k7b(dev, fields)
 
 
 COUNTERS = {"deform_sample9": (deform_sample, "launches"),
@@ -1835,7 +1978,8 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
 # the port's kernel functions as the profiler names them; offset_grads_kernel
 # is both K8c and the all-tap K3's coordinate pass, grad_y_gather_kernel both
 # K8b and the clipped K3's grad_y pass; the unclipped K3's grad_y pass is six
-# kernels
+# kernels, K7b seven (its sort, its gather and its coordinate pass, under
+# names of their own)
 KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_taps_kernel": "K2 taps",
                   "deform_sample_kernel": "K2 one tap",
                   "deform_sample_bwd_kernel": "K3 one tap",
@@ -1847,7 +1991,8 @@ KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_taps_kernel": "K
                   "fpn_roi_align_kernel": "K4", "fpn_roi_align_bwd_kernel": "K5",
                   "deform_sample_tiled_taps_kernel": "K6 taps",
                   "deform_sample_tiled_kernel": "K6 one tap", "deform_sample_mt_kernel": "K7a",
-                  "deform_sample_mt_bwd_kernel": "K7b", "shift_fwd_kernel": "K8a"}
+                  **dict.fromkeys(K7B_SORT, "K7b sort"), "mt_bwd_gather_kernel": "K7b grad_x",
+                  "mt_bwd_coords_kernel": "K7b coords", "shift_fwd_kernel": "K8a"}
 LOSS_KEYS = ("rpn_cls", "rpn_bbox", "cls", "bbox", "mask", "seg", "pano")
 METRIC_FIELDS = {*LOSS_KEYS, "total", "iter", "images_per_sec", "step_s", "loader_wait_s",
                  "platform"}

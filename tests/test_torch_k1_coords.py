@@ -21,7 +21,7 @@ from jax.experimental import pallas as pl
 from upsnet_tpu.ops import deform_conv_pallas as dcp
 from upsnet_tpu.ops.deform_conv import deform_conv2d_auto
 from upsnet_torch.ops import deform_conv as tdc
-from upsnet_torch.ops import deform_sample, deform_shift
+from upsnet_torch.ops import deform_sample, deform_sample_mt, deform_shift
 
 torch.set_num_threads(2)
 
@@ -203,23 +203,60 @@ def test_no_grad_deform_conv_reads_the_one_matmul_projection(rng, spies, impl):
 # ------------------------------------------- the coordinate pass's layouts
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("spread", [2.0, 12.0], ids=["near", "far"])
-def test_coordinate_pass_plain_versions_agree_in_both_layouts(dtype, spread):
+# (spread, dtype, g per tap): the one-g cases keep their ids
+COORD_CASES = [(spread, dtype, per_tap) for per_tap in (False, True)
+               for spread in (2.0, 12.0) for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _coord_case_id(case):
+    spread, dtype, per_tap = case
+    dtype_id = "-f32" if dtype == torch.float32 else "-bf16"
+    return ("near" if spread == 2.0 else "far") + dtype_id + ("-g_per_tap" if per_tap else "")
+
+
+@pytest.mark.parametrize("spread, dtype, g_per_tap", COORD_CASES,
+                         ids=[_coord_case_id(c) for c in COORD_CASES])
+def test_coordinate_pass_plain_versions_agree_in_both_layouts(dtype, spread, g_per_tap):
     """gsy, gsx of the same projections and coordinates through K8c's plain
     version (one-matmul layout) and the coordinate half of the all-tap K3's
     plain version, tap-major and side by side: the same bits, exact zeros
-    at integer coordinates and at samples that do not count."""
+    at integer coordinates and at samples that do not count. With
+    ``g_per_tap`` (K7b's case: one input x as every tap's map, a g row per
+    (pixel, tap)) each tap of those three with its own g, and K7b's plain
+    version on x: the same bits."""
     rng = np.random.RandomState(2)
     k, b, h, w, c = 9, 2, 6, 8, 16
     y9 = _t(rng.randn(k, b, h, w, c).astype(np.float32)).to(dtype)
     g = _t(rng.randn(b, h, w, c).astype(np.float32)).to(dtype)
     sy, sx = (_t(a) for a in _coords(rng, k, b, h, w, spread, integer_share=0.2))
-    side = _side_by_side(y9)
-    _, gsy_tm, gsx_tm = deform_sample.deform_sample_bwd_taps_plain(y9, sy, sx, g, None, 0)
-    _, gsy_sbs, gsx_sbs = deform_sample.deform_sample_bwd_taps_plain(side, sy, sx, g, None, 3)
-    gsy_k8c, gsx_k8c = deform_shift.shift_offset_grads_plain(side.flatten(3), sy, sx, g)
-    for got_y, got_x in ((gsy_sbs, gsx_sbs), (gsy_k8c, gsx_k8c)):
+    taps_plain = deform_sample.deform_sample_bwd_taps_plain
+    if not g_per_tap:
+        side = _side_by_side(y9)
+        _, gsy_tm, gsx_tm = taps_plain(y9, sy, sx, g, None, 0)
+        _, gsy_sbs, gsx_sbs = taps_plain(side, sy, sx, g, None, 3)
+        others = [(gsy_sbs, gsx_sbs), deform_shift.shift_offset_grads_plain(side.flatten(3), sy,
+                                                                            sx, g)]
+    else:
+        x = y9[0]
+        y9 = x.expand(k, *x.shape).contiguous()
+        side = _side_by_side(y9)
+        g9 = _t(rng.randn(b, h, w, k, c).astype(np.float32)).to(dtype)
+
+        def tapwise(fn):
+            """(gsy, gsx) (K, B, H, W) of fn(t, g_t) -> (gsy_t, gsx_t) (1, B, H, W)."""
+            parts = [fn(t, g9[:, :, :, t].contiguous()) for t in range(k)]
+            return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+        gsy_tm, gsx_tm = tapwise(lambda t, g_t: taps_plain(
+            y9[t:t + 1], sy[t:t + 1], sx[t:t + 1], g_t, None, 0)[1:])
+        others = [
+            tapwise(lambda t, g_t: taps_plain(side[:, :, :, t:t + 1], sy[t:t + 1],
+                                              sx[t:t + 1], g_t, None, 3)[1:]),
+            tapwise(lambda t, g_t: deform_shift.shift_offset_grads_plain(
+                side[:, :, :, t:t + 1].flatten(3), sy[t:t + 1], sx[t:t + 1], g_t)),
+            deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, g9)[1:],
+        ]
+    for got_y, got_x in others:
         assert got_y.dtype == got_x.dtype == torch.float32
         assert torch.equal(got_y, gsy_tm) and torch.equal(got_x, gsx_tm)
     outside = (sy <= -1) | (sy >= h) | (sx <= -1) | (sx >= w)

@@ -333,13 +333,16 @@ def test_deform_sample_mt_function_is_its_taps_one_by_one(rng):
 # ------------------------------------------------------ (e) deform_conv2d_mt
 
 
-@pytest.mark.parametrize("dilation", [1, 2])
-def test_deform_conv2d_mt_matches_jax_forward_and_gradients(dilation):
+@pytest.mark.parametrize("dilation, dx_px", [(1, 5), (2, 5), (1, 20)], ids=["1", "2", "1-dx20"])
+def test_deform_conv2d_mt_matches_jax_forward_and_gradients(dilation, dx_px):
     """``deform_conv2d_mt`` vs ``deform_conv2d_pallas_mt`` with bias: offsets
-    uniform in +-5 px against a +-3 window (dy clamped, dx free). Forward
-    atol 2e-4; each gradient within 1e-4 of its largest reference entry
-    (float32 on both sides; JAX rounds nothing in float32)."""
+    uniform in +-5 px against a +-3 window (dy clamped, dx free), dx also in
+    +-20 px (as ``_mt_coords``'s ``outside`` kind: many samples leave the
+    map). Forward atol 2e-4; each gradient within 1e-4 of its largest
+    reference entry (float32 on both sides; JAX rounds nothing in
+    float32)."""
     x, offsets, weight, bias = _conv_inputs(3, b=2, h=8, w=12, cin=8, cout=8, off_scale=5.0)
+    offsets[..., 1::2] *= dx_px / 5  # odd multiples of 1/16 or 1/4: never integers
     kw = dict(kernel_size=3, dilation=dilation, max_dy=MR)
 
     def jloss(x_, o_, w_, b_):

@@ -55,7 +55,8 @@
 // coordinates), so that a thread per (source pixel, 16 channels) sums the
 // 2 x 2 bins whose samples reach it with one record load and one g load a
 // sample, and writes grad_y once, tap-major. Scratch: about 4 bytes per bin
-// and 24 per sample.
+// and 24 per sample. The passes are the bodies of sorted_gather.cuh, which
+// K7b (deform_sample_mt_bwd.cu) runs under kernel names of its own.
 //
 // One tap (deform_sample_bwd): a sub-warp of `width` lanes (a power of two
 // <= 32, at least C / 8 when that fits) owns one pixel; a lane takes groups
@@ -63,8 +64,7 @@
 // scatters the weighted g into a zeroed f32 canvas with vector atomics (so
 // its sums differ between runs by f32 rounding), and the sub-warp reduces
 // the two coordinate gradients with shuffles in f32. The per-sample
-// arithmetic is sample_bwd of sample_bwd.cuh, shared with K7b
-// (deform_sample_mt_bwd.cu). No route takes it any more.
+// arithmetic is sample_bwd of sample_bwd.cuh. No route takes it any more.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -75,6 +75,7 @@
 #include "offset_grads.cuh"
 #include "sample_bwd.cuh"
 #include "sample_tap.cuh"
+#include "sorted_gather.cuh"
 #include "vec8.cuh"
 
 namespace {
@@ -303,229 +304,72 @@ int launch_grad_y(const void* g, const void* sy, const void* sx, void* gy, int K
 
 
 // ---- all taps, nothing clipped: a counting sort of the samples, a gather ----
+// (sorted_gather.cuh, shared with K7b; K3's planes are (tap, image), its keys
+// output pixels)
 
-constexpr int kScanTile = 2048;  // bins a block of the scan owns: 256 threads x 8
-
-// The bin of a sample of plane `plane` (tap t, image b: t * B + b), keyed by
-// its low corner (y0, x0) in [-1, H - 1] x [-1, W - 1], or -1 if it does
-// not count.
-__device__ __forceinline__ int sample_bin(float py, float px, int H, int W, int plane) {
-  if (!(py > -1.f && py < (float)H && px > -1.f && px < (float)W)) return -1;
-  const int y0 = (int)floorf(py), x0 = (int)floorf(px);
-  return (plane * (H + 1) + y0 + 1) * (W + 1) + x0 + 1;
-}
-
-// Where bin n's samples start in the placed order: its offset within its
-// tile plus the tiles before it.
-__device__ __forceinline__ int bin_start(const int* offsets, const int* tile_start, int n) {
-  return offsets[n] + tile_start[n / kScanTile];
-}
-
-// Histogram: counts[bin] += 1 per counted sample, and the sample's slot in
-// its bin (the order of the atomics: not yet the final order).
 __global__ void __launch_bounds__(256)
 bin_count_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
-                 int* __restrict__ counts, int* __restrict__ slot, int64_t n_samples, int H,
-                 int W) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_samples) return;
-  const int bin = sample_bin(__ldg(sy + n), __ldg(sx + n), H, W, (int)(n / ((int64_t)H * W)));
-  if (bin >= 0) slot[n] = atomicAdd(counts + bin, 1);
+                 int* __restrict__ counts, int* __restrict__ slot, int64_t n_samples, int K,
+                 int B, int H, int W) {
+  sorted_gather::count_body<false>(sy, sx, counts, slot, n_samples, K, B, H, W);
 }
 
-// Exclusive scan of each tile of kScanTile bins in place; the tile's total
-// goes to tile_start[tile].
 __global__ void __launch_bounds__(256)
 scan_tiles_kernel(int* __restrict__ counts, int* __restrict__ tile_start, int n_bins) {
-  constexpr int kPer = kScanTile / 256;
-  __shared__ int warp_sums[8];
-  const int base = blockIdx.x * kScanTile + threadIdx.x * kPer;
-  int v[kPer], sum = 0;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    v[k] = base + k < n_bins ? counts[base + k] : 0;
-    sum += v[k];
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl = sum;
-  for (int off = 1; off < 32; off *= 2) {
-    const int u = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += u;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  int run = incl - sum;
-  for (int w = 0; w < warp; ++w) run += warp_sums[w];
-  if (threadIdx.x == 255) tile_start[blockIdx.x] = run + sum;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if (base + k < n_bins) counts[base + k] = run;
-    run += v[k];
-  }
+  sorted_gather::scan_tiles_body(counts, tile_start, n_bins);
 }
 
-// Exclusive scan of the n_tiles tile totals in place, by one block.
 __global__ void __launch_bounds__(1024) scan_totals_kernel(int* __restrict__ tile_start,
                                                            int n_tiles) {
-  __shared__ int warp_sums[32];
-  __shared__ int carry;
-  if (threadIdx.x == 0) carry = 0;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int base = 0; base < n_tiles; base += 1024) {
-    const int k = base + threadIdx.x;
-    const int v = k < n_tiles ? tile_start[k] : 0;
-    int incl = v;
-    for (int off = 1; off < 32; off *= 2) {
-      const int u = __shfl_up_sync(0xffffffffu, incl, off);
-      if (lane >= off) incl += u;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();  // warp_sums written, carry of the last chunk settled
-    int run = carry + incl - v;
-    for (int w = 0; w < warp; ++w) run += warp_sums[w];
-    if (k < n_tiles) tile_start[k] = run;
-    __syncthreads();  // every thread has read carry and warp_sums
-    if (threadIdx.x == 1023) carry = run + v;
-  }
+  sorted_gather::scan_totals_body(tile_start, n_tiles);
 }
 
-// Placement: each counted sample's pixel into its bin at its slot.
 __global__ void __launch_bounds__(256)
 place_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
              const int* __restrict__ offsets, const int* __restrict__ tile_start,
-             const int* __restrict__ slot, int* __restrict__ placed, int64_t n_samples, int H,
-             int W) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_samples) return;
-  const int64_t hw = (int64_t)H * W;
-  const int bin = sample_bin(__ldg(sy + n), __ldg(sx + n), H, W, (int)(n / hw));
-  if (bin >= 0) placed[bin_start(offsets, tile_start, bin) + slot[n]] = (int)(n % hw);
+             const int* __restrict__ slot, int* __restrict__ placed, int64_t n_samples, int K,
+             int B, int H, int W) {
+  sorted_gather::place_body<false>(sy, sx, offsets, tile_start, slot, placed, n_samples, K, B,
+                                   H, W);
 }
 
-// Rank: each counted sample into its bin at its rank among the bin's
-// pixels, so that every bin lists its samples in ascending output pixel,
-// as a record of what the gather needs: the pixel and the fractional parts
-// ly, lx of its coordinates.
 __global__ void __launch_bounds__(256)
 rank_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
             const int* __restrict__ offsets, const int* __restrict__ tile_start,
             const int* __restrict__ placed, int4* __restrict__ records, int64_t n_samples,
-            int H, int W) {
-  const int64_t n = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_samples) return;
-  const int64_t hw = (int64_t)H * W;
-  const float py = __ldg(sy + n), px = __ldg(sx + n);
-  const int bin = sample_bin(py, px, H, W, (int)(n / hw));
-  if (bin < 0) return;
-  const int s0 = bin_start(offsets, tile_start, bin);
-  const int s1 = bin_start(offsets, tile_start, bin + 1);
-  const int p = (int)(n % hw);
-  int rank = 0;
-  for (int e = s0; e < s1; ++e) rank += placed[e] < p;
-  records[s0 + rank] = make_int4(p, __float_as_int(py - floorf(py)),
-                                 __float_as_int(px - floorf(px)), 0);
+            int K, int B, int H, int W) {
+  sorted_gather::rank_body<false>(sy, sx, offsets, tile_start, placed, records, n_samples, K,
+                                  B, H, W);
 }
 
-// Gather: a thread per (tap t, image b, source pixel (r, q), 8 * NG
-// channels) sums the samples whose low corner is (r, q), (r, q - 1),
-// (r - 1, q) or (r - 1, q - 1): bins (r + 1, q .. q + 1) and (r, q .. q + 1)
-// in the (y0 + 1, x0 + 1) numbering, each pair contiguous in the sorted
-// order. Row y0 = r first, then r - 1; within a row x0 = q - 1 first, then
-// q; within a bin ascending output pixel. One 16-byte record load per
-// sample, then its g. grad_y tap-major (K, B, H, W, C).
+// grad_y tap-major (K, B, H, W, C): plane t * B + b, g (B, H, W, C) read at
+// image b, key p.
 template <typename T, int NG>
 __global__ void __launch_bounds__(256)
 grad_y_sorted_kernel(const T* __restrict__ g, const int* __restrict__ offsets,
                      const int* __restrict__ tile_start, const int4* __restrict__ records,
-                     T* __restrict__ gy, int K, int B, int H, int W, int C) {
-  const int slices = C / (8 * NG);
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t hw = (int64_t)H * W;
-  if (tid >= (int64_t)K * B * hw * slices) return;
-  const int c0 = (int)(tid % slices) * 8 * NG;
-  const int64_t pix = tid / slices;  // ((t * B + b) * H + r) * W + q
-  const int plane = (int)(pix / hw);
-  const int r = (int)(pix % hw / W), q = (int)(pix % W);
-  const T* g_b = g + (plane % B) * hw * C + c0;
-  float acc[NG][8];
-#pragma unroll
-  for (int j = 0; j < NG; ++j) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
-  }
-#pragma unroll
-  for (int dr = 0; dr < 2; ++dr) {
-    const int first = (plane * (H + 1) + r + 1 - dr) * (W + 1) + q;  // bin (r - dr, q - 1)
-    // [e0, e1) holds bin (r - dr, q - 1), [e1, e2) bin (r - dr, q)
-    const int e1 = bin_start(offsets, tile_start, first + 1);
-    const int e2 = bin_start(offsets, tile_start, first + 2);
-    for (int e = bin_start(offsets, tile_start, first); e < e2; ++e) {
-      const int4 rec = __ldg(records + e);
-      const float ly = __int_as_float(rec.y), lx = __int_as_float(rec.z);
-      const float w = (dr ? ly : 1.f - ly) * (e >= e1 ? 1.f - lx : lx);
-#pragma unroll
-      for (int j = 0; j < NG; ++j) {
-        float gv[8];
-        load8(g_b + (int64_t)rec.x * C + j * 8, gv);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(w, gv[k], acc[j][k]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NG; ++j) store8(gy + pix * C + c0 + j * 8, acc[j]);
-}
-
-// The int32 scratch of the unclipped grad_y pass, in this order: bin
-// offsets (n_bins + 1, the last one the total), tile starts, one slot per
-// sample, the placed order, then from a multiple of 4 one 4-int record per
-// sample.
-int64_t records_at(int K, int B, int H, int W) {
-  const int64_t bins = (int64_t)K * B * (H + 1) * (W + 1) + 1;
-  const int64_t head = bins + (bins + kScanTile - 1) / kScanTile + 2 * (int64_t)K * B * H * W;
-  return (head + 3) / 4 * 4;
+                     T* __restrict__ gy, int planes, int B, int H, int W, int C, int64_t g_img) {
+  sorted_gather::gather_body<T, NG>(g, offsets, tile_start, records, gy, planes, B, H, W, C,
+                                    g_img);
 }
 
 int64_t unclipped_work(int K, int B, int H, int W) {
-  return records_at(K, B, H, W) + 4 * (int64_t)K * B * H * W;
+  return sorted_gather::work_len((int64_t)K * B * (H + 1) * (W + 1) + 1, (int64_t)K * B * H * W);
 }
 
 template <typename T>
 int launch_grad_y_unclipped(const void* g, const void* sy, const void* sx, void* gy,
                             void* work, int K, int B, int H, int W, int C, cudaStream_t s) {
-  const int n_bins = (int)((int64_t)K * B * (H + 1) * (W + 1) + 1);
-  const int n_tiles = (n_bins + kScanTile - 1) / kScanTile;
-  const int64_t n_samples = (int64_t)K * B * H * W;
-  int* offsets = static_cast<int*>(work);
-  int* tile_start = offsets + n_bins;
-  int* slot = tile_start + n_tiles;
-  int* placed = slot + n_samples;
-  int4* records = reinterpret_cast<int4*>(offsets + records_at(K, B, H, W));
-  const float* fy = static_cast<const float*>(sy);
-  const float* fx = static_cast<const float*>(sx);
-  cudaError_t err = cudaMemsetAsync(offsets, 0, (size_t)n_bins * sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = (unsigned)((n_samples + 255) / 256);
-  bin_count_kernel<<<grid, 256, 0, s>>>(fy, fx, offsets, slot, n_samples, H, W);
-  scan_tiles_kernel<<<n_tiles, 256, 0, s>>>(offsets, tile_start, n_bins);
-  scan_totals_kernel<<<1, 1024, 0, s>>>(tile_start, n_tiles);
-  place_kernel<<<grid, 256, 0, s>>>(fy, fx, offsets, tile_start, slot, placed, n_samples, H,
-                                    W);
-  rank_kernel<<<grid, 256, 0, s>>>(fy, fx, offsets, tile_start, placed, records, n_samples,
-                                   H, W);
-  // 16 channels a thread where C allows: one record load serves both groups
-  const int ng = C % 16 == 0 ? 2 : 1;
-  const int64_t threads = n_samples * (C / (8 * ng));
-  const unsigned blocks = (unsigned)((threads + 255) / 256);
-  if (ng == 2) {
-    grad_y_sorted_kernel<T, 2><<<blocks, 256, 0, s>>>(static_cast<const T*>(g), offsets,
-                                                       tile_start, records,
-                                                       static_cast<T*>(gy), K, B, H, W, C);
-  } else {
-    grad_y_sorted_kernel<T, 1><<<blocks, 256, 0, s>>>(static_cast<const T*>(g), offsets,
-                                                       tile_start, records,
-                                                       static_cast<T*>(gy), K, B, H, W, C);
-  }
+  const sorted_gather::SortKernels kernels{bin_count_kernel, scan_tiles_kernel,
+                                           scan_totals_kernel, place_kernel, rank_kernel};
+  sorted_gather::Sorted sorted;
+  const int err = sorted_gather::sort_samples(kernels, static_cast<const float*>(sy),
+                                              static_cast<const float*>(sx), work, K, B, H, W,
+                                              K * B, sorted, s);
+  if (err != 0) return err;
+  sorted_gather::launch_gather<T>(grad_y_sorted_kernel<T, 2>, grad_y_sorted_kernel<T, 1>,
+                                  static_cast<const T*>(g), sorted, static_cast<T*>(gy), K * B,
+                                  B, H, W, C, (int64_t)H * W * C, s);
   return (int)cudaGetLastError();
 }
 

@@ -13,9 +13,14 @@
 // the TPU's needs and are not carried over: the columns are written in the
 // GEMM's layout directly.
 //
-// One thread per (pixel, tap, group of 8 channels), the group fastest: each
-// corner is one 16-byte load (bf16) or two (f32) along contiguous channels,
-// the four corners sum in f32 and the result is rounded once. Any C that is
+// One thread per (pixel, group of 8 channels), the group fastest, over a
+// 32-bit index (the wrapper refuses calls of 2^31 threads or more): the
+// thread walks the K taps of its pixel as K1 does (sample_each_tap_pixel of
+// sample_tap.cuh), the next tap's coordinates in flight, a tap's four corner
+// loads (16 bytes each in bf16, two in f32, along contiguous channels)
+// issued before its first FMA, and each tap summed in f32 from zero and
+// rounded once into its 8 columns. The same sums in the same corner order
+// as the one-thread-a-tap design before it, so the same bits. Any C that is
 // a multiple of 8. Bound by bytes: the columns written (K times the input's
 // size) dominate; x is read about once through L2. 8 flops per element.
 //
@@ -35,29 +40,15 @@ constexpr int kBlock = 256;
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
 deform_sample_mt_kernel(const T* __restrict__ x, const float* __restrict__ sy,
-                        const float* __restrict__ sx, T* __restrict__ cols,
-                        int K, int B, int H, int W, int C) {
-  const int groups = C / 8;
-  const int64_t plane = (int64_t)B * H * W;  // pixels per tap
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= plane * K * groups) return;
-  const int g = (int)(tid % groups);
-  const int64_t item = tid / groups;  // pix * K + t
-  const int t = (int)(item % K);
-  const int64_t pix = item / K;  // (b * H + i) * W + j
-  const int64_t b = pix / ((int64_t)H * W);
-  float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  sample_tap(x + b * H * W * C + g * 8, __ldg(sy + t * plane + pix),
-             __ldg(sx + t * plane + pix), H, W, C, acc);
-  store8(cols + item * C + g * 8, acc);
+                        const float* __restrict__ sx, T* __restrict__ cols, int K, int B, int H,
+                        int W, int C) {
+  sample_each_tap_pixel(x, sy, sx, cols, blockIdx.x * blockDim.x + threadIdx.x, K, B, H, W, C);
 }
 
 template <typename T>
-void launch(const void* x, const void* sy, const void* sx, void* cols, int K, int B,
-            int H, int W, int C, cudaStream_t s) {
-  const int64_t threads = (int64_t)B * H * W * K * (C / 8);
+void launch(const void* x, const void* sy, const void* sx, void* cols, int K, int B, int H,
+            int W, int C, cudaStream_t s) {
+  const int64_t threads = (int64_t)B * H * W * (C / 8);
   const unsigned grid = (unsigned)((threads + kBlock - 1) / kBlock);
   deform_sample_mt_kernel<T><<<grid, kBlock, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(sy),
@@ -69,11 +60,12 @@ void launch(const void* x, const void* sy, const void* sx, void* cols, int K, in
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. x (B, H, W, C); sy, sx (K, B, H, W) f32;
-// cols (B, H, W, K, C).
+// cols (B, H, W, K, C). B * H * W * C / 8 < 2^31 (else cudaErrorInvalidValue).
 int deform_sample_mt(const void* x, const void* sy, const void* sx, void* cols,
                      int K, int B, int H, int W, int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W * K > 0 && C >= 8) {
+    if ((int64_t)B * H * W * (C / 8) >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
     if (dtype == 1) launch<__nv_bfloat16>(x, sy, sx, cols, K, B, H, W, C, s);
     else launch<float>(x, sy, sx, cols, K, B, H, W, C, s);
   }

@@ -1,5 +1,6 @@
-// One bilinear sample's backward, shared by K3 (deform_sample_bwd.cu) and
-// K7b (deform_sample_mt_bwd.cu).
+// One bilinear sample's backward, for the one-tap K3 (deform_sample_bwd.cu),
+// a scatter into an f32 canvas kept on no route as a yardstick. The routes'
+// backwards gather instead (sorted_gather.cuh, offset_grads.cuh).
 //
 // For out[:] = sum_{r, q} vy_r * vx_q * img[r, q, :] with the hat weights
 // vy_r = max(0, 1 - |sy - r|), vx_q = max(0, 1 - |sx - q|) and DCNv1 zero

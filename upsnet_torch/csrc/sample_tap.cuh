@@ -1,9 +1,9 @@
 // One bilinear sample with DCNv1 zero padding, shared by the forward
-// samplers (K1, K2 in deform_sample.cu; K6 in deform_sample_tiled.cu; K8a in
-// deform_shift.cu) and, for its corners, the coordinate gradients
-// (offset_grads.cuh): a sample counts iff it lies in (-1, H) x (-1, W), and
-// a corner outside [0, H) x [0, W) reads zero. sample_taps_pixel is the whole
-// body of K1, which K8a runs too.
+// samplers (K1, K2 in deform_sample.cu; K6 in deform_sample_tiled.cu; K7a in
+// deform_sample_mt.cu; K8a in deform_shift.cu) and, for its corners, the
+// coordinate gradients (offset_grads.cuh): a sample counts iff it lies in
+// (-1, H) x (-1, W), and a corner outside [0, H) x [0, W) reads zero. sample_taps_pixel is the whole
+// body of K1, which K8a runs too, and sample_each_tap_pixel that of K7a.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,15 +113,33 @@ __device__ __forceinline__ void sample_tap_hoisted(const T* img, float sy, float
   }
 }
 
+// Calls tap(t, sy, sx) for the taps t = 0 .. taps - 1 of output pixel `pix`
+// in order, with tap t's coordinates at sy[t * plane + pix], sx[...]; the
+// next tap's coordinates are loaded while tap t is used.
+template <typename F>
+__device__ __forceinline__ void walk_taps(const float* __restrict__ sy,
+                                          const float* __restrict__ sx, int64_t plane,
+                                          int64_t pix, int taps, F&& tap) {
+  float py = __ldg(sy + pix), px = __ldg(sx + pix);
+  for (int t = 0; t < taps; ++t) {
+    const float cy = py, cx = px;
+    if (t + 1 < taps) {  // in flight while this tap is used
+      py = __ldg(sy + (t + 1) * plane + pix);
+      px = __ldg(sx + (t + 1) * plane + pix);
+    }
+    tap(t, cy, cx);
+  }
+}
+
 // The body of K1 (deform_sample.cu) and K8a (deform_shift.cu). Thread `tid`
 // of a launch over (pixel, group of 8 channels), group fastest, writes
 // out[pix, g * 8 .. g * 8 + 8) = the sum over the taps of the bilinear
 // samples of tap t at (sy[t, pix], sx[t, pix]), in f32, rounded once. y is
 // read through (image, tap, pixel) strides (layout_strides). A tap's four
 // corner loads are issued before its first FMA (sample_tap_hoisted) and the
-// next tap's coordinates are loaded while it is summed; the taps are added
-// in tap order and the corners in corner order, as sample_tap adds them, so
-// both layouts give the same bits.
+// next tap's coordinates are loaded while it is summed (walk_taps); the taps
+// are added in tap order and the corners in corner order, as sample_tap adds
+// them, so both layouts give the same bits.
 template <typename T>
 __device__ __forceinline__ void sample_taps_pixel(const T* __restrict__ y,
                                                   const float* __restrict__ sy,
@@ -140,14 +158,38 @@ __device__ __forceinline__ void sample_taps_pixel(const T* __restrict__ y,
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  float py = __ldg(sy + pix), px = __ldg(sx + pix);
-  for (int t = 0; t < taps; ++t) {
-    const float cy = py, cx = px;
-    if (t + 1 < taps) {  // in flight while this tap is summed
-      py = __ldg(sy + (t + 1) * plane + pix);
-      px = __ldg(sx + (t + 1) * plane + pix);
-    }
+  walk_taps(sy, sx, plane, pix, taps, [&](int t, float cy, float cx) {
     sample_tap_hoisted(img + t * tap_stride, cy, cx, H, W, pix_stride, acc);
-  }
+  });
   store8(out + pix * C + g * 8, acc);
+}
+
+// The body of K7a (deform_sample_mt.cu): sample_taps_pixel with each tap
+// kept apart. Thread `tid` of a launch over (pixel, group of 8 channels),
+// group fastest, with a 32-bit index (the caller keeps B * H * W * C / 8
+// below 2^31), writes cols[pix, t, g * 8 .. g * 8 + 8) = the bilinear sample
+// of x (B, H, W, C) at (sy[t, pix], sx[t, pix]), in f32 from a fresh
+// accumulator, rounded once; cols (B, H, W, taps, C). The same sums in the
+// same corner order as sample_tap.
+template <typename T>
+__device__ __forceinline__ void sample_each_tap_pixel(const T* __restrict__ x,
+                                                      const float* __restrict__ sy,
+                                                      const float* __restrict__ sx,
+                                                      T* __restrict__ cols, unsigned tid,
+                                                      int taps, int B, int H, int W, int C) {
+  const unsigned groups = C / 8;
+  const unsigned hw = (unsigned)H * W;
+  const unsigned plane = (unsigned)B * hw;  // pixels per tap
+  if (tid >= plane * groups) return;
+  const unsigned g = tid % groups;
+  const unsigned pix = tid / groups;  // (b * H + i) * W + j
+  const T* img = x + (int64_t)(pix / hw) * hw * C + g * 8;
+  T* out = cols + (int64_t)pix * taps * C + g * 8;
+  walk_taps(sy, sx, plane, pix, taps, [&](int t, float cy, float cx) {
+    float acc[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+    sample_tap_hoisted(img, cy, cx, H, W, C, acc);
+    store8(out + t * C, acc);
+  });
 }

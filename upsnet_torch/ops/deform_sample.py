@@ -540,7 +540,17 @@ def coord_pass(y, sy, sx, g, gsy, gsx, k: int, tap_major: int) -> None:
                     (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, tap_major))
 
 
-SCAN_TILE = 2048  # bins a block of the unclipped pass's scan owns (kScanTile)
+SCAN_TILE = 2048  # bins a block of the counting sort's scan owns (kScanTile)
+
+
+def sort_work_len(planes: int, h: int, w: int, n_samples: int) -> int:
+    """Length of the int32 scratch of the counting sort and gather of
+    ``csrc/sorted_gather.cuh`` (``work_len``), which the unclipped all-tap K3
+    (``planes`` K * B) and K7b (``planes`` B) run: bin offsets and their
+    total, tile starts, a slot and a place per sample, then from a multiple
+    of 4 a 4-int record per sample."""
+    n_bins = planes * (h + 1) * (w + 1) + 1
+    return _round_up(n_bins + -(-n_bins // SCAN_TILE) + 2 * n_samples, 4) + 4 * n_samples
 
 
 def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
@@ -563,10 +573,7 @@ def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Ten
     if y.device.type == "cpu":
         return deform_sample_bwd_taps_plain(y, sy, sx, g, None)
     b, h, w, c = g.shape
-    n_bins, n = k * b * (h + 1) * (w + 1) + 1, k * b * h * w
-    # bin offsets, tile starts, a slot and a place per sample, then from a
-    # multiple of 4 a 4-int record per sample (unclipped_work in csrc)
-    n_work = _round_up(n_bins + -(-n_bins // SCAN_TILE) + 2 * n, 4) + 4 * n
+    n_work = sort_work_len(k * b, h, w, k * b * h * w)
     if n_work >= 2 ** 31:
         raise ValueError(f"{k} taps of a {b}x{h}x{w} map exceed the int32 scratch")
     work = torch.empty(n_work, dtype=torch.int32, device=y.device)

@@ -25,21 +25,22 @@ On the TPU both kernels hold a halo window of zero-padded rows in VMEM
 ``(B, H, K, Wpd, C)`` and, in backward, run per group of 3 taps with
 per-block windows accumulated in ``x.dtype`` before an f32 overlap-add. On
 the card a thread reads any address, so none of that is carried over: any H
-and W, coordinates of any value, the columns in the GEMM's layout, all K
-taps of the backward in one launch into one zeroed f32 canvas that the
-wrapper rounds once to ``x.dtype`` (in bf16 the more exact of the two; in
-float32 they agree to rounding of the sums).
-
-K7b scatters with atomics, as K3 does, and is not an adjoint gather as K8b:
-the gather needs a bounded box of candidate pixels per source element, and
-here dx is unrestricted. Its sums differ between runs by f32 rounding.
+and W, coordinates of any value, the columns in the GEMM's layout. K7a walks
+the K taps of a pixel in one thread, as K1 does. K7b is the unclipped
+all-tap K3 with the taps' roles turned round (one x for all taps, a g row
+per (pixel, tap)): a counting sort of all samples by low corner, the K taps
+of an image in one plane of bins ranked by (pixel, tap), and a gather that
+sums each grad_x element in f32 in a fixed order and writes it once in
+``x.dtype`` (no f32 canvas, no atomics, the same bits on every run), then
+the coordinate pass with g read per tap. dx is unrestricted here, so the
+sort and not a row-band or box gather.
 
 What bounds them: bytes. The columns are K times the input's size (644 MB
-in bf16 at 2 x 208 x 336, C 256, K 9), written once by K7a and read once, as
-``g``, by K7b.
+in bf16 at 2 x 208 x 336, C 256, K 9), written once by K7a and read, as
+``g``, by both passes of K7b.
 
-``launches_fwd`` and ``launches_bwd`` count the kernel launches (CPU calls
-do not count).
+``launches_fwd`` and ``launches_bwd`` count the wrappers' calls that launch
+(CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops import cuda_build
-from upsnet_torch.ops.deform_sample import _accum_dtype, _bilinear_zero_pad
+from upsnet_torch.ops.deform_sample import _accum_dtype, _bilinear_zero_pad, sort_work_len
 from upsnet_torch.ops.deform_shift import _image_base, _tap_nodes
 
 launches_fwd = 0
@@ -104,9 +105,8 @@ def deform_sample_mt_bwd_plain(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tens
 
 
 def _check(x, sy, sx, g=None):
-    """Shapes, dtypes, devices and contiguity of one call's tensors; on CUDA
-    also the kernels' channel and alignment needs. float64 passes on the CPU
-    only. Returns (K, B, H, W, C)."""
+    """Shapes, dtypes, devices and contiguity of one call's tensors. float64
+    passes on the CPU only. Returns (K, B, H, W, C)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     if sy.dim() != 4:
@@ -136,15 +136,24 @@ def _check(x, sy, sx, g=None):
             raise ValueError(f"{name} on {s.device}, x on {x.device}")
         if not s.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if cpu:
-        return k, b, h, w, c
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    return k, b, h, w, c
+
+
+def _check_kernel(x, g, limits) -> None:
+    """Off the CPU, a kernel's needs, checked before the device so that meta
+    tensors reach them: C a multiple of 8 and each ``(what, n)`` of
+    ``limits`` below 2^31 (the kernels' 32-bit indices and scratch); then a
+    CUDA device and 16-byte aligned x and g."""
+    c = x.shape[-1]
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
+    for what, n in limits:
+        if n >= 2 ** 31:
+            raise ValueError(f"{what} = {n} must be below 2^31")
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
     if x.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
         raise ValueError("x and g must be 16-byte aligned")
-    return k, b, h, w, c
 
 
 def deform_sample_mt(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
@@ -153,13 +162,15 @@ def deform_sample_mt(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> tor
     x (B, H, W, C) bf16/f32, unpadded; sy, sx (K, B, H, W) f32 absolute
     sample coordinates, any values. Returns the columns (B, H, W, K, C) in
     ``x.dtype``. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (C % 8 == 0, 16-byte aligned); all three contiguous. Not differentiable by
+    kernel (C % 8 == 0, B*H*W*C/8 threads below 2^31, 16-byte aligned; these
+    checked before the device); all three contiguous. Not differentiable by
     itself: ``DeformSampleMT`` is.
     """
     global launches_fwd
     k, b, h, w, c = _check(x, sy, sx)
     if x.device.type == "cpu":
         return deform_sample_mt_plain(x, sy, sx)
+    _check_kernel(x, None, [("B*H*W*C/8 threads", b * h * w * (c // 8))])
     cols = torch.empty((b, h, w, k, c), dtype=x.dtype, device=x.device)
     cuda_build.call("deform_sample_mt", "deform_sample_mt", x, (x, sy, sx, cols),
                     (k, b, h, w, c))
@@ -170,25 +181,30 @@ def deform_sample_mt(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> tor
 def deform_sample_mt_bwd(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
                          g: torch.Tensor):
     """K7b: the backward of ``deform_sample_mt`` for upstream gradient g
-    (B, H, W, K, C) in ``x.dtype``, all K taps in one launch.
+    (B, H, W, K, C) in ``x.dtype``, all K taps in one call.
 
     Returns (grad_x (B, H, W, C) in ``x.dtype``, gsy, gsx (K, B, H, W) f32,
-    exactly 0 where the coordinate is an integer). grad_x is summed in an
-    f32 canvas and cast once; on the card the canvas is filled with atomics,
-    so its sums differ between runs by f32 rounding. CPU tensors take the
-    plain version; CUDA tensors launch the kernel.
+    exactly 0 where the coordinate is an integer). Each grad_x element is an
+    f32 sum in a fixed order, rounded once: two runs give the same bits. CPU
+    tensors take the plain version; CUDA tensors launch the counting-sort
+    gather and the coordinate pass (C % 8 == 0, 16-byte aligned, the int32
+    scratch of about 4 bytes a bin and 24 a sample below 2^31 elements;
+    these checked before the device).
     """
     global launches_bwd
     k, b, h, w, c = _check(x, sy, sx, g)
     if x.device.type == "cpu":
         return deform_sample_mt_bwd_plain(x, sy, sx, g)
-    canvas = torch.zeros((b, h, w, c), dtype=torch.float32, device=x.device)
+    n_work = sort_work_len(b, h, w, k * b * h * w)
+    _check_kernel(x, g, [("the int32 scratch", n_work)])
+    gx = torch.empty_like(x) if k else torch.zeros_like(x)
     gsy = torch.empty((k, b, h, w), dtype=torch.float32, device=x.device)
     gsx = torch.empty_like(gsy)
+    work = torch.empty(n_work, dtype=torch.int32, device=x.device)
     cuda_build.call("deform_sample_mt_bwd", "deform_sample_mt_bwd", x,
-                    (x, sy, sx, g, canvas, gsy, gsx), (k, b, h, w, c))
+                    (x, sy, sx, g, gx, gsy, gsx, work), (k, b, h, w, c, n_work))
     launches_bwd += 1
-    return canvas.to(x.dtype), gsy, gsx
+    return gx, gsy, gsx
 
 
 class DeformSampleMT(torch.autograd.Function):
