@@ -31,9 +31,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    coordinate pass and K8c print a digest of their outputs, so that two
    commits' logs compare bit for bit. K4 is checked at
    the five calls of a predict forward and a train step (the GT call with 97
-   all-zero padded boxes an image), in bf16 and float32, two runs
-   bit-identical, with its registers from ptxas and its device time under
-   the profiler. K1 is checked and
+   all-zero padded boxes an image) and at sampling ratio 3 (its runtime-S
+   path) on the predict calls' RoIs, in bf16 and float32, each with the
+   plain version's bits and two runs bit-identical, with its registers from
+   ptxas and its device time under the profiler. K1 is checked and
    timed in both layouts it takes, side by side (the no-grad routes') and
    tap-major, which must give the same bits as each other and as K8a, which
    runs its body (K8a is timed beside K1 on the same data); the
@@ -92,8 +93,25 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    ``upsnet_torch.tools.bench_deform_impls``, at batch 2 over the tool's
    five shapes, forward and forward + backward, against the per-tap form;
    launch counts equal the tool's call counts;
-9. reference: a tiny float32 model on the card against the same model on
-   the CPU (plain versions, no kernels).
+9. predict_r101dcn, train_r101dcn: the paper's COCO model from its shipped
+   experiment file (``load_config`` of
+   ``experiments/upsnet_resnet101_dcn_coco_3x_16gpu.yaml``, built through the
+   registry as ``resnet_101_upsnet``): ResNet-101 with deformable 3x3s in
+   every block of C3-C5 (4 + 23 + 3 layers) beside the FCN head's 8, two
+   batch-2 requests under the file's ``dcn_impl`` (``auto``) and two train
+   steps under its ``dcn_impl_train`` (``pallas``), frozen-BN scales shrunk;
+   launch counts derived from the routing rules for every DCN layer with its
+   own shape and width (38 K1 a forward; 38 all-tap K2, 76 clipped all-tap
+   K3 passes, 3 K4, 3 K5 a step, and 38 K1 for the watch's probe), and
+   non-zero offset-conv gradients in each of C3, C4 and C5;
+10. train_gn: ``experiments/upsnet_r50_synth_rehearsal.yaml`` (R50,
+   ``norm: gn``, FCN DCN, ``dcn_impl_train: pallas``, ``dcn_boundary_grad:
+   damped``, ``dcn_max_dy: 8``) for two steps at batch 2 (the file trains
+   batch 8): every trainable GroupNorm parameter moves, the frozen stem's
+   and res2's stay bit-equal;
+11. reference: a tiny float32 model on the card against the same model on
+   the CPU (plain versions, no kernels), with frozen BN and no backbone DCN,
+   then with GroupNorm and DCN in C3-C5.
 
 The line before the last two is a JSON object with the numbers of every
 kernel on a path (``launches`` sums the predict, train and tool phases, each
@@ -122,9 +140,10 @@ if not torch.cuda.is_available():
 
 import torch.nn.functional as F  # noqa: E402
 
-from upsnet_torch.config import default_config  # noqa: E402
+from upsnet_torch.config import default_config, load_config  # noqa: E402
 from upsnet_torch.data.synthetic import synthetic_batch  # noqa: E402
-from upsnet_torch.models import layers  # noqa: E402
+from upsnet_torch.models import get_model, layers  # noqa: E402
+from upsnet_torch.models.resnet import STAGE_BLOCKS  # noqa: E402
 from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
 from upsnet_torch.ops import (  # noqa: E402
     cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, nms, roi_align_fpn)
@@ -148,6 +167,9 @@ WIDE_BUCKET = (832, 3328)
 WIDE_IM_HW = (800.0, 3328.0)
 WIDE_BATCH = 1
 REPS = 30
+EXPERIMENTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments")
+R101_DCN_YAML = os.path.join(EXPERIMENTS, "upsnet_resnet101_dcn_coco_3x_16gpu.yaml")
+GN_YAML = os.path.join(EXPERIMENTS, "upsnet_r50_synth_rehearsal.yaml")
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -280,13 +302,24 @@ def dcn_offsets(g, dev, shape) -> torch.Tensor:
     return torch.where(far, sign * mag, off)
 
 
+def r101_backbone_maps() -> list:
+    """(H, W, C) of the backbone DCN layers of the R101-DCN experiment at
+    the 832x1344 bucket, one entry per distinct shape, from ``dcn_layers``:
+    C3 104x168x128, C4 52x84x256, C5 26x42x512 (C = Cin = Cout)."""
+    cfg = load_config(R101_DCN_YAML)
+    cfg = cfg.replace(network=dataclasses.replace(cfg.network, fcn_with_dcn=False))
+    return sorted({(shape[1], shape[2], cout) for shape, cout in dcn_layers(cfg)},
+                  reverse=True)
+
+
 def check_k1(dev) -> dict:
-    """K1 at the four FCN levels of the path (P2 208x336 .. P5 26x42), C=128
-    bf16, 9 taps: +-2 px offsets with 3% of the samples moved 6-12 px and 1%
-    pushed beyond the image edge, in both layouts: side by side
-    (B, H, W, 9, C), the output of the one matmul that the no-grad routes
-    build (its numbers are the returned ones), and tap-major (9, B, H, W, C).
-    At every level the two layouts and K8a (``shift_fwd``) on the same
+    """K1 at the three backbone shapes of the R101-DCN path
+    (``r101_backbone_maps``, C 128 / 256 / 512) and the four FCN levels
+    (P2 208x336 .. P5 26x42, C=128), bf16, 9 taps: +-2 px offsets with 3% of
+    the samples moved 6-12 px and 1% pushed beyond the image edge, in both
+    layouts: side by side (B, H, W, 9, C), the output of the one matmul that
+    the no-grad routes build (its numbers are the returned ones), and
+    tap-major (9, B, H, W, C). At every shape the two layouts and K8a (``shift_fwd``) on the same
     side-by-side data must give the same bits, and lie within one bf16 ulp
     of the plain version. Times, the bound and the library yardstick are for
     P2; the tap-major time is printed beside the side-by-side one."""
@@ -296,7 +329,7 @@ def check_k1(dev) -> dict:
     ky = (kk // 3 - 1).float()[:, None, None, None]
     kx = (kk % 3 - 1).float()[:, None, None, None]
 
-    def inputs(h, w):
+    def inputs(h, w, c, g=g):
         shape = (taps, b, h, w)
         y9 = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
         iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
@@ -312,9 +345,15 @@ def check_k1(dev) -> dict:
     # bf16 ulp (<= 2^-7 relative) apart, plus f32 slack near zero
     rtol, atol = 2.0 ** -7, 1e-4
     max_abs = 0.0
-    for stride in (32, 16, 8, 4):  # P2 last: its tensors are timed below
-        h, w = BUCKET[0] // stride, BUCKET[1] // stride
-        y9, sy9, sx9 = inputs(h, w)
+    # the backbone's inputs from a generator of their own, so that the FCN
+    # levels' inputs stay what they were; P2 last: its tensors are timed below
+    g_backbone = torch.Generator(device=dev).manual_seed(21)
+    cases = [(f"backbone {hh}x{ww}", hh, ww, cc, g_backbone)
+             for hh, ww, cc in r101_backbone_maps()]
+    cases += [(f"FCN P{s}", BUCKET[0] // 2 ** s, BUCKET[1] // 2 ** s, c, g)
+              for s in (5, 4, 3, 2)]
+    for where, h, w, cc, gen in cases:
+        y9, sy9, sx9 = inputs(h, w, cc, gen)
         y_sbs = y9.permute(1, 2, 3, 0, 4).contiguous()
         got = deform_sample.deform_sample9(y_sbs, sy9, sx9, tap_axis=3)
         got_tm = deform_sample.deform_sample9(y9, sy9, sx9)
@@ -322,11 +361,11 @@ def check_k1(dev) -> dict:
         ref = deform_sample.deform_sample9_plain(y9, sy9, sx9)
         torch.cuda.synchronize()
         if not (torch.equal(got, got_tm) and torch.equal(got, got_k8a)):
-            raise AssertionError(f"K1 at {h}x{w}: the side-by-side, tap-major and K8a "
+            raise AssertionError(f"K1 {where}: the side-by-side, tap-major and K8a "
                                  f"results differ")
         err, rel = compare(got, ref, rtol, atol)
         max_abs = max(max_abs, err)
-        print(f"[K1 deform_sample9] y {tuple(y_sbs.shape)} side by side bf16: max abs err "
+        print(f"[K1 deform_sample9] {where}, y {tuple(y_sbs.shape)} side by side bf16: max abs err "
               f"{err:.3e}, max rel err {rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); "
               f"equal to tap-major K1 and to K8a")
 
@@ -517,22 +556,24 @@ def ptxas_registers(lib: str, symbol: str) -> str:
     for name, info in found.items():
         s_arg = re.search(r"Li(\d+)E", name)
         label = ("bf16 " if "bfloat16" in name else "f32 " if re.search(r"If[EL]", name)
-                 else "") + (f"S={s_arg.group(1)} " if s_arg else "")
+                 else "") + (f"S={s_arg.group(1)} " if s_arg else "") + (
+                     "runtime S " if "_any_" in name else "")
         parts.append(f"{label}{info.get('regs', '?')} registers, {info.get('spill', '?')} B "
                      f"spill stores, {info.get('stack', '?')} B stack")
     return "; ".join(sorted(parts)) or "not in the build log"
 
 
-def _k4_bound(feats, rois, levels, pooled: int, c: int) -> tuple[float, str, float]:
-    """The bound of one bf16 K4 call: bytes of the distinct feature rows its
-    counted samples touch, the RoIs, levels and output; flops 4 samples x 4
-    corners x 2 + 1 per output element. Returns (ms, what bounds it, bytes)."""
+def _k4_bound(feats, rois, levels, pooled: int, c: int, s: int = 2) -> tuple[float, str, float]:
+    """The bound of one bf16 K4 call at sampling ratio ``s``: bytes of the
+    distinct feature rows its counted samples touch, the RoIs, levels and
+    output; flops s^2 samples x 4 corners x 2 + 1 per output element.
+    Returns (ms, what bounds it, bytes)."""
     n_rois = rois.shape[1]
     n = BATCH * n_rois
     dev = rois.device
     lev = levels.reshape(n).long()
     strides = torch.tensor([4.0, 8.0, 16.0, 32.0], device=dev)
-    y, x = _sample_coords(rois.reshape(n, 4) / strides[lev][:, None], 1.0, pooled, 2)
+    y, x = _sample_coords(rois.reshape(n, 4) / strides[lev][:, None], 1.0, pooled, s)
     hs = torch.tensor([f.shape[1] for f in feats], device=dev, dtype=torch.float32)
     ws = torch.tensor([f.shape[2] for f in feats], device=dev, dtype=torch.float32)
     ext = (slice(None),) + (None,) * 4
@@ -545,7 +586,7 @@ def _k4_bound(feats, rois, levels, pooled: int, c: int) -> tuple[float, str, flo
     n_rows = int(torch.unique(cells).numel())
     n_out = n * pooled * pooled * c
     n_bytes = n_rows * c * 2 + rois.numel() * 4 + levels.numel() * 4 + n_out * 2
-    ms, by = bound(n_bytes, n_out * (4 * 4 * 2 + 1))
+    ms, by = bound(n_bytes, n_out * (s * s * 4 * 2 + 1))
     return ms, by, n_bytes
 
 
@@ -553,13 +594,15 @@ def check_k4(dev) -> dict:
     """K4 over an 832x1344 pyramid (C=256), batch 2, at the calls of a
     predict forward (1000 RoIs an image at 7x7, the box call; 100 at 14x14,
     the mask call) and of a train step (512 at 7x7; 128 at 14x14; the 100 GT
-    slots at 14x14: 3 boxes and 97 all-zero padded ones), in bf16 and in
-    float32. At each: within tolerance of the plain version, two runs
-    bit-identical, card ms and per call of 20 queued; in bf16 also the
-    kernel's device time under the profiler (the small calls' queued time is
-    the wrapper's host time), the plain time and the bound. The returned
-    times and bounds are the sums over the two calls of a forward; the error
-    is the largest bf16 one."""
+    slots at 14x14: 3 boxes and 97 all-zero padded ones), and at sampling
+    ratio 3 (the runtime-S path) on the predict calls' RoIs, in bf16 and in
+    float32. At each: against the plain version, which sums in the kernel's
+    order, within one rounding at S 2 (the fused instance) and its bits at
+    S 3 (the runtime-S path, unfused); two runs bit-identical, card ms and per
+    call of 20 queued; in bf16 also the kernel's device time under the
+    profiler (the small calls' queued time is the wrapper's host time), the
+    plain time and the bound. The returned times and bounds are the sums
+    over the two calls of a forward at the configured ratio 2."""
     g = torch.Generator(device=dev).manual_seed(2)
     c = 256
     feats = tuple(
@@ -569,53 +612,63 @@ def check_k4(dev) -> dict:
     feats32 = tuple(f.float() for f in feats)
     # the predict RoIs come first from the generator, so their inputs and bound
     # do not depend on the train shapes
-    calls = [("predict box", _random_rois(g, dev, 1000), 7),
-             ("predict mask", _random_rois(g, dev, 100), 14),
-             ("train box", _random_rois(g, dev, 512), 7),
-             ("train mask", _random_rois(g, dev, 128), 14)]
+    box, mask = _random_rois(g, dev, 1000), _random_rois(g, dev, 100)
+    calls = [("predict box", box, 7, 2), ("predict mask", mask, 14, 2),
+             ("train box", _random_rois(g, dev, 512), 7, 2),
+             ("train mask", _random_rois(g, dev, 128), 14, 2)]
     gt = torch.cat([_random_rois(g, dev, 3), torch.zeros((BATCH, 97, 4), device=dev)], 1)
-    calls.append(("train GT", gt.contiguous(), 14))
-    regs = ptxas_registers("roi_align_fpn", "fpn_roi_align_kernel")
+    calls += [("train GT", gt.contiguous(), 14, 2), ("S3 box", box, 7, 3),
+              ("S3 mask", mask, 14, 3)]
+    regs = ptxas_registers("roi_align_fpn", "fpn_roi_align")
     print(f"[K4 fpn_roi_align] ptxas: {regs}")
-    # bf16: f32 sums in another order than the plain version's, each rounded
-    # once to bf16: at most one bf16 ulp apart, plus f32 slack near zero.
-    # f32: the same sums in another order, 1e-5 of max|ref|
-    rtol, atol = 2.0 ** -7, 1e-4
     out = {"name": "fpn_roi_align", "route": "cuda",
            "source": "upsnet_torch/csrc/roi_align_fpn.cu",
            "replaces": "upsnet_tpu/ops/roi_align_pallas.py:265",
            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
            "bound_by": "bytes", "library_ms": None}
-    sums = {"predict": [0.0] * 4, "train": [0.0] * 4}  # card, queued, device, bound
-    for what, rois, pooled in calls:
+    sums = {"predict": [0.0] * 4, "train": [0.0] * 4, "S3": [0.0] * 4}  # card, queued, device, bound
+    for what, rois, pooled, s in calls:
         levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
         for dtype, fs in (("bf16", feats), ("f32", feats32)):
-            run = lambda: roi_align_fpn.fpn_roi_align(fs, rois, levels, pooled)  # noqa: E731
+            run = lambda: roi_align_fpn.fpn_roi_align(fs, rois, levels, pooled, s)  # noqa: E731
             got, again = run(), run()
-            ref = roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled)
+            ref = roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled, s)
             torch.cuda.synchronize()
             if not torch.equal(got, again):
                 raise AssertionError(f"K4 {what} {dtype}: two runs on the same inputs differ")
-            if dtype == "f32":
-                tol = 1e-5 * float(ref.abs().max())
-                max_abs, _ = compare(got, ref, 0.0, tol)
-                print(f"[K4 fpn_roi_align] {what}, {rois.shape[1]} RoIs x2 at {pooled}x{pooled} "
-                      f"f32: max abs err {max_abs:.3e} (tolerance {tol:.3e} = 1e-5 max|ref|); "
-                      f"two runs bit-identical; kernel {time_ms(run):.4f} ms (queued "
-                      f"{time_queued_ms(run):.4f})")
-                continue
-            max_abs, max_rel = compare(got, ref, rtol, atol)
-            ms, queued = time_ms(run), time_queued_ms(run)
-            dev_ms = device_ms(run, "fpn_roi_align_kernel")
-            plain_ms = time_ms(
-                lambda: roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled), 10)
-            bound_ms, bound_by, n_bytes = _k4_bound(fs, rois, levels, pooled, c)
-            print(f"[K4 fpn_roi_align] {what}, {rois.shape[1]} RoIs x2 at {pooled}x{pooled} "
-                  f"bf16: max abs err {max_abs:.3e}, max rel err {max_rel:.3e} (tolerance "
-                  f"{rtol:.4g}*|ref| + {atol:g}); two runs bit-identical; kernel {ms:.4f} ms "
-                  f"(queued {queued:.4f}, device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB)")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"K4 {what} {dtype}: output not finite")
+            if s in (1, 2, 4):
+                # the fused instances: the plain version's terms with one
+                # rounding fewer each, rounded once to T. bf16: at most one
+                # bf16 ulp apart, plus f32 slack near zero; f32: 1e-5 max|ref|
+                rtol, atol = (2.0 ** -7, 1e-4) if dtype == "bf16" else (
+                    0.0, 1e-5 * float(ref.abs().max()))
+                max_abs, _ = compare(got, ref, rtol, atol)
+                agree = f"max abs err {max_abs:.3e} (tolerance {rtol:.4g}*|ref| + {atol:.3g})"
+            else:
+                # the runtime-S path sums as the plain version sums
+                max_abs = float((got.float() - ref.float()).abs().max())
+                bits = torch.int16 if dtype == "bf16" else torch.int32
+                n_diff = int((got.view(bits) != ref.view(bits)).sum())
+                if n_diff:
+                    raise AssertionError(f"K4 {what} {dtype}: {n_diff} elements differ in bits "
+                                         f"from the plain version (max abs {max_abs:.3e})")
+                agree = "the plain version's bits"
             out["max_abs_err"] = max(out["max_abs_err"], max_abs)
+            head = (f"[K4 fpn_roi_align] {what}, {rois.shape[1]} RoIs x2 at {pooled}x{pooled}, "
+                    f"S {s}, {dtype}: {agree}, two runs bit-identical")
+            if dtype == "f32":
+                print(f"{head}; kernel {time_ms(run):.4f} ms (queued {time_queued_ms(run):.4f})")
+                continue
+            ms, queued = time_ms(run), time_queued_ms(run)
+            dev_ms = device_ms(run, "fpn_roi_align")
+            plain_ms = time_ms(
+                lambda: roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled, s), 10)
+            bound_ms, bound_by, n_bytes = _k4_bound(fs, rois, levels, pooled, c, s)
+            print(f"{head}; kernel {ms:.4f} ms (queued {queued:.4f}, device {dev_ms:.4f}), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+                  f"{n_bytes / 1e6:.1f} MB; {100 * bound_ms / dev_ms:.1f}% of it on the device)")
             phase = sums[what.split()[0]]
             for i, v in enumerate((ms, queued, dev_ms, bound_ms)):
                 phase[i] += v
@@ -624,10 +677,11 @@ def check_k4(dev) -> dict:
                 out["plain_ms"] += plain_ms
                 out["bound_ms"] += bound_ms
     for phase, (ms, queued, dev_ms, bound_ms) in sums.items():
-        unit = "forward" if phase == "predict" else "step"
-        print(f"[K4 fpn_roi_align] the calls of a {phase} {unit}, bf16: kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the bound), queued "
-              f"{queued:.4f} ms ({100 * bound_ms / queued:.1f}%), device {dev_ms:.4f} ms "
-              f"({100 * bound_ms / dev_ms:.1f}%), bound {bound_ms:.4f} ms")
+        unit = {"predict": "the calls of a predict forward", "train": "the calls of a train step",
+                "S3": "the predict calls at S 3"}[phase]
+        print(f"[K4 fpn_roi_align] {unit}, bf16: kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of "
+              f"the bound), queued {queued:.4f} ms ({100 * bound_ms / queued:.1f}%), device "
+              f"{dev_ms:.4f} ms ({100 * bound_ms / dev_ms:.1f}%), bound {bound_ms:.4f} ms")
     return out
 
 
@@ -678,16 +732,18 @@ def check_k2_taps(dev) -> dict:
     with the adds (equal), and against the plain version; timed beside the
     one-tap chain, the plain version, and nine ``grid_sample`` calls and the
     adds. Then the float32 form of the kernel on the P3 layer (9 x 2 x 104 x
-    168 x 128) at +-2 px, held the same way (the equality and the plain
-    version's tolerance; not timed)."""
+    168 x 128) at +-2 px, and the bf16 form at the three backbone shapes of
+    the R101-DCN path (``r101_backbone_maps``, C 128 / 256 / 512) at +-2 px,
+    held the same way (the equality and the plain version's tolerance; not
+    timed)."""
     g = torch.Generator(device=dev).manual_seed(13)
     taps, b, c = 9, BATCH, 128
     kk = torch.arange(taps, device=dev)
     ky = (kk // 3 - 1).float()[:, None, None, None]
     kx = (kk % 3 - 1).float()[:, None, None, None]
 
-    def layer(h, w, dtype, field):
-        """y, sy, sx of a nine-tap layer on an h x w map."""
+    def layer(h, w, dtype, field, c=c):
+        """y, sy, sx of a nine-tap layer on an h x w x c map."""
         shape = (taps, b, h, w)
         iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
         ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
@@ -767,6 +823,14 @@ def check_k2_taps(dev) -> dict:
           f"and 8 adds; against the plain version max abs err {err:.3e}, max rel err "
           f"{rel:.3e} (tolerance 2^-20 * (sum |tap| + sum |partial|) + 1e-5)")
     del y, sy, sx
+    for hh, ww, cc in r101_backbone_maps():
+        y, sy, sx = layer(hh, ww, torch.bfloat16, "+-2 px", cc)
+        err, rel = check(f"K2 taps backbone {hh}x{ww}x{cc}", y, sy, sx)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        print(f"[K2 deform_sample_taps] backbone, +-2 px, y {tuple(y.shape)} bf16: equal to 9 "
+              f"one-tap K2 and 8 adds; against the plain version max abs err {err:.3e}, max "
+              f"rel err {rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4)")
+        del y, sy, sx
     torch.cuda.empty_cache()
     return row
 
@@ -1134,7 +1198,7 @@ def _check_taps_backward(what: str, run, ref, sy, sx, tag: str):
     ``run()`` twice, the same bits both times, exact zeros at integer
     coordinates. grad_y: f32 sums in another order than the plain
     version's, rounded once to bf16: one bf16 ulp plus slack near zero.
-    gsy, gsx: f32 sums of 4 x 128 products of O(1) values in another order:
+    gsy, gsx: f32 sums of 4 x C products of O(1) values in another order:
     1e-4 relative plus 1e-3 absolute. Returns the grad_y max abs and rel
     errors and the gsy, gsx max abs errors."""
     rtol, atol, c_rtol, c_atol = 2.0 ** -7, 1e-4, 1e-4, 1e-3
@@ -1170,18 +1234,18 @@ def check_k3_taps(dev) -> dict:
     edge; two runs must give the same bits. Timed beside it in the same run:
     the one-tap K3 nine times on the same tap-major layer plus the stack
     that autograd made of its results, which is what the layer cost in the
-    one-tap form."""
+    one-tap form. Then, held the same way and not timed, tap-major at the
+    three backbone shapes of the R101-DCN path (``r101_backbone_maps``,
+    C 128 / 256 / 512)."""
     g = torch.Generator(device=dev).manual_seed(9)
     taps, c, max_d = 9, 128, 6
     reach = max_d + 1  # max_dy + half * dilation
     kk = torch.arange(taps, device=dev)
     ky = (kk // 3 - 1).float()[:, None, None, None]
     kx = (kk % 3 - 1).float()[:, None, None, None]
-    row = {}
-    for tag, b, (h, w) in (("P2 tap-major", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
-                           ("wide P2 side by side", WIDE_BATCH,
-                            (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4))):
-        tap_axis = 0 if tag.endswith("tap-major") else 3
+
+    def layer(b, h, w, c, tap_axis, g=g):
+        """y, grad, sy, sx of a nine-tap layer on a b x h x w x c map."""
         shape = (taps, b, h, w)
         y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
         if tap_axis == 3:
@@ -1193,12 +1257,22 @@ def check_k3_taps(dev) -> dict:
         sx = ix + kx + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
         sy, sx = _mark_integers(g, dev, sy, sx, h)
         deform_sample.check_reach(sy, sx, reach, None)
+        return y, grad, sy, sx
 
-        gy_err, gy_rel, gsy_err, gsx_err = _check_taps_backward(
-            "K3 taps", lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach,
+    def check(tag, y, grad, sy, sx, tap_axis):
+        return _check_taps_backward(
+            f"K3 taps {tag}", lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach,
                                                                     tap_axis),
             deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, tap_axis), sy, sx,
             f"[K3 deform_sample_bwd_taps] {tag}, y {tuple(y.shape)} bf16")
+
+    row = {}
+    for tag, b, (h, w) in (("P2 tap-major", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
+                           ("wide P2 side by side", WIDE_BATCH,
+                            (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4))):
+        tap_axis = 0 if tag.endswith("tap-major") else 3
+        y, grad, sy, sx = layer(b, h, w, c, tap_axis)
+        gy_err, gy_rel, gsy_err, gsx_err = check(tag, y, grad, sy, sx, tap_axis)
         ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach,
                                                                   tap_axis))
         plain_ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps_plain(
@@ -1244,6 +1318,14 @@ def check_k3_taps(dev) -> dict:
         print(line)
         del y, grad, sy, sx
         torch.cuda.empty_cache()
+    # the training route's layout at the backbone shapes of the R101-DCN path
+    g_backbone = torch.Generator(device=dev).manual_seed(22)
+    for hh, ww, cc in r101_backbone_maps():
+        y, grad, sy, sx = layer(BATCH, hh, ww, cc, 0, g_backbone)
+        errs = check(f"backbone {hh}x{ww} tap-major", y, grad, sy, sx, 0)
+        row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
+        del y, grad, sy, sx
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1706,44 +1788,63 @@ COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd")}
 
 
+def dcn_layers(cfg, bucket=BUCKET, batch: int = BATCH) -> list:
+    """(input shape (B, H, W, Cin), Cout) of every deformable conv that one
+    pass of the trunk of ``cfg`` runs at ``bucket``: where
+    ``backbone_with_dcn`` is set, the 3x3 of each bottleneck of the stages in
+    ``dcn_stages`` (stage s at stride 2^s, Cin = Cout = 64 * 2^(s-2), the
+    caffe stride being on the block's first 1x1), then the FCN head's layers
+    at P2..P5."""
+    net = cfg.network
+    out = []
+    if net.backbone_with_dcn:
+        for stage in net.dcn_stages:
+            h, w = -(-bucket[0] // 2 ** stage), -(-bucket[1] // 2 ** stage)
+            width = 64 * 2 ** (stage - 2)
+            out += [((batch, h, w, width), width)] * STAGE_BLOCKS[net.backbone][stage - 2]
+    if net.fcn_with_dcn:
+        for stride in (4, 8, 16, 32):
+            h, w = -(-bucket[0] // stride), -(-bucket[1] // stride)
+            for layer in range(net.fcn_num_layers):
+                cin = net.fpn_feature_dim if layer == 0 else net.fcn_head_dim
+                out.append(((batch, h, w, cin), net.fcn_head_dim))
+    return out
+
+
 def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
                       batch: int = BATCH) -> dict:
     """The launches of one ``forward_predict`` (grad False) or one train step
-    (grad True) of ``cfg`` at ``bucket``, from the port's routing rules. A
-    DCN layer that ``dcn_impl: shift`` sends to the shift route launches K8a
-    (and K8b + K8c in backward); one that ``pallas`` or the fallback of
-    ``shift`` sends to the tiled form launches the all-tap K6 (and the
-    all-tap K3's two passes in backward); any other launches K1 without
-    autograd, and with it the all-tap K2 and the two passes of the all-tap
-    K3, clipped where dy is (``pallas``, ``mxu``, ``shift``'s fallback), else
-    (``auto``, ``gather``) unclipped. The one-tap K2 and K6 run on no path.
-    ``heads`` False leaves out the ROIAlign calls (a pass of the trunk
-    alone)."""
+    (grad True) of ``cfg`` at ``bucket``, from the port's routing rules, each
+    DCN layer of ``dcn_layers`` routed with its own shape and Cout. A layer
+    that ``dcn_impl: shift`` sends to the shift route launches K8a (and K8b +
+    K8c in backward); one that ``pallas`` or the fallback of ``shift`` sends
+    to the tiled form launches the all-tap K6 (and the all-tap K3's two
+    passes in backward); any other launches K1 without autograd, and with it
+    the all-tap K2 and the two passes of the all-tap K3, clipped where dy is
+    (``pallas``, ``mxu``, ``shift``'s fallback), else (``auto``, ``gather``)
+    unclipped. The one-tap K2 and K6 run on no path. ``heads`` False leaves
+    out the ROIAlign calls (a pass of the trunk alone)."""
     net = cfg.network
     impl = (net.dcn_impl_train or net.dcn_impl) if grad else net.dcn_impl
     n = dict.fromkeys(COUNTERS, 0)
-    for stride in (4, 8, 16, 32):
-        h, w = -(-bucket[0] // stride), -(-bucket[1] // stride)
-        for layer in range(net.fcn_num_layers):
-            cin = net.fpn_feature_dim if layer == 0 else net.fcn_head_dim
-            shape = (batch, h, w, cin)
-            if impl == "shift" and deform_shift.shift_route_ok(
-                    shape, net.fcn_head_dim, net.dcn_max_dy, net.dcn_max_dy, 1):
-                n["shift_fwd"] += 1
-                n["shift_adjoint"] += grad
-                n["shift_offset_grads"] += grad
-            elif impl in ("pallas", "shift") and deform_sample.pallas_route(
-                    shape, net.fcn_head_dim, net.dcn_max_dy, 1)[0] == "tiled":
-                n["deform_sample_tiled_taps"] += 1
-                n["deform_sample_bwd_taps"] += 2 * grad
-            elif grad:
-                n["deform_sample_taps"] += 1
-                if impl in ("pallas", "mxu", "shift"):
-                    n["deform_sample_bwd_taps"] += 2
-                else:
-                    n["deform_sample_bwd_unclipped"] += 2
+    for shape, cout in dcn_layers(cfg, bucket, batch):
+        if impl == "shift" and deform_shift.shift_route_ok(
+                shape, cout, net.dcn_max_dy, net.dcn_max_dy, 1):
+            n["shift_fwd"] += 1
+            n["shift_adjoint"] += grad
+            n["shift_offset_grads"] += grad
+        elif impl in ("pallas", "shift") and deform_sample.pallas_route(
+                shape, cout, net.dcn_max_dy, 1)[0] == "tiled":
+            n["deform_sample_tiled_taps"] += 1
+            n["deform_sample_bwd_taps"] += 2 * grad
+        elif grad:
+            n["deform_sample_taps"] += 1
+            if impl in ("pallas", "mxu", "shift"):
+                n["deform_sample_bwd_taps"] += 2
             else:
-                n["deform_sample9"] += 1
+                n["deform_sample_bwd_unclipped"] += 2
+        else:
+            n["deform_sample9"] += 1
     if heads:
         n["fpn_roi_align"] = 3 if grad else 2  # box, mask (+ GT boxes of the panoptic loss)
         n["fpn_roi_align_bwd"] = 3 if grad else 0
@@ -1788,24 +1889,37 @@ def perturb_offset_biases(model, generator, dy_px: float = 2.0, dx_px: float = 2
                 m.offset_conv.bias.copy_(bias)
 
 
-def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
-                  im_hw=IM_HW, batch_size: int = BATCH):
-    """Two full-width requests of ``batch_size`` images on the ``bucket``
-    canvas through ``forward_predict`` with ``dcn_impl: impl``. Returns
-    (launches, a closure that serves one more request, the model, the last
-    batch and its seg_logits)."""
-    cfg = default_config()
-    cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl=impl))
+def describe(cfg) -> str:
     net, ds = cfg.network, cfg.dataset
+    stages = tuple(net.dcn_stages) if net.backbone_with_dcn else "none"
+    return (f"{cfg.symbol} ({net.backbone}, norm {net.norm}, backbone DCN stages {stages}): "
+            f"{ds.num_classes} classes, {ds.num_seg_classes} seg classes, fpn "
+            f"{net.fpn_feature_dim}, fcn {net.fcn_head_dim}, fc {net.rcnn_fc_dim}, "
+            f"{net.compute_dtype}, dcn_impl {net.dcn_impl}, dcn_impl_train "
+            f"{net.dcn_impl_train or net.dcn_impl}, dcn_max_dy {net.dcn_max_dy}, "
+            f"dcn_boundary_grad {net.dcn_boundary_grad}")
+
+
+def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
+                  im_hw=IM_HW, batch_size: int = BATCH, cfg=None, shrink_bn: bool = False):
+    """Two full-width requests of ``batch_size`` images on the ``bucket``
+    canvas through ``forward_predict``, of ``cfg`` (default: the default
+    config with ``dcn_impl: impl``) built through the model registry, with
+    frozen-BN scales shrunk where ``shrink_bn``. Returns (launches, a closure
+    that serves one more request, the model, the last batch and its
+    seg_logits)."""
+    if cfg is None:
+        cfg = default_config()
+        cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl=impl))
+    ds = cfg.dataset
     expect_n = expected_launches(cfg, grad=False, bucket=bucket, batch=batch_size)
-    print(f"[{tag}] {cfg.symbol}: {ds.num_classes} classes, {ds.num_seg_classes} seg "
-          f"classes, fpn {net.fpn_feature_dim}, fcn {net.fcn_head_dim}, fc "
-          f"{net.rcnn_fc_dim}, {net.compute_dtype}, dcn_impl {net.dcn_impl}, "
-          f"bucket {bucket}, batch {batch_size}")
+    print(f"[{tag}] {describe(cfg)}; bucket {bucket}, batch {batch_size}")
     gen = torch.Generator().manual_seed(cfg.seed)
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, generator=gen)
+    model = get_model(cfg.symbol, cfg, device=dev, generator=gen)
     perturb_offset_biases(model, gen)
+    if shrink_bn:
+        shrink_bn_scales(model, gen)
     anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(bucket))
     print(f"[{tag}] model built in {time.perf_counter() - t0:.2f} s")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1988,7 +2102,8 @@ KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_taps_kernel": "K
                   **dict.fromkeys(("bin_count_kernel", "scan_tiles_kernel",
                                    "scan_totals_kernel", "place_kernel", "rank_kernel",
                                    "grad_y_sorted_kernel"), "K3 unclipped grad_y"),
-                  "fpn_roi_align_kernel": "K4", "fpn_roi_align_bwd_kernel": "K5",
+                  "fpn_roi_align_kernel": "K4", "fpn_roi_align_any_kernel": "K4 runtime S",
+                  "fpn_roi_align_bwd_kernel": "K5",
                   "deform_sample_tiled_taps_kernel": "K6 taps",
                   "deform_sample_tiled_kernel": "K6 one tap", "deform_sample_mt_kernel": "K7a",
                   **dict.fromkeys(K7B_SORT, "K7b sort"), "mt_bwd_gather_kernel": "K7b grad_x",
@@ -2089,28 +2204,34 @@ def compare_wide_with_auto(model, cfg, anchors, batch, seg_pallas) -> None:
 
 
 def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train",
-                bucket=BUCKET, im_hw=IM_HW, batch_size: int = BATCH):
-    """``n_steps`` SGD steps of the full-width model with ``dcn_impl: impl``
-    on one synthetic batch of ``batch_size`` images on the ``bucket`` canvas,
-    through ``train_steps`` with a display interval of one step. Returns (launches, a closure that takes one more
-    step, the per-step loss dicts)."""
-    cfg = default_config()
+                bucket=BUCKET, im_hw=IM_HW, batch_size: int = BATCH, cfg=None):
+    """``n_steps`` SGD steps of the full-width model of ``cfg`` (default: the
+    default config with ``dcn_impl: impl``, ``dcn_boundary_grad: clip``),
+    built through the model registry, on one synthetic batch of
+    ``batch_size`` images on the ``bucket`` canvas, through ``train_steps``
+    with a display interval of one step and the saturation watch set to
+    'warn'. Frozen-BN scales are shrunk (a GroupNorm model has none). Every
+    trainable GroupNorm parameter must move, and where the backbone has DCN layers
+    each of their stages must get a non-zero offset-conv gradient. Returns
+    (launches, a closure that takes one more step, the per-step loss
+    dicts)."""
+    if cfg is None:
+        cfg = default_config()
+        cfg = cfg.replace(network=dataclasses.replace(
+            cfg.network, dcn_impl=impl, dcn_boundary_grad="clip", roi_align_impl="window"))
     cfg = cfg.replace(
         output_path=os.path.join("output", f"chip_smoke_{tag}"),
         # 'warn': from random weights at lr 0.02 one update drives most
         # offsets beyond the window, and the watch's default would end the run
-        network=dataclasses.replace(cfg.network, dcn_impl=impl, dcn_boundary_grad="clip",
-                                    roi_align_impl="window", dcn_saturation_action="warn"),
+        network=dataclasses.replace(cfg.network, dcn_saturation_action="warn"),
         train=dataclasses.replace(cfg.train, display_iter=1))
     net, tc = cfg.network, cfg.train
-    print(f"[{tag}] {cfg.symbol}: {net.compute_dtype} from {net.param_dtype} parameters, "
-          f"dcn_impl {net.dcn_impl}, dcn_boundary_grad {net.dcn_boundary_grad}, bucket "
-          f"{bucket}, batch {batch_size}, batch_rois {tc.batch_rois}, rpn_batch_size "
-          f"{tc.rpn_batch_size}, {tc.max_gt_instances} GT slots, lr {tc.lr}, grad_clip "
-          f"{tc.grad_clip}")
+    print(f"[{tag}] {describe(cfg)}; {net.param_dtype} parameters, bucket {bucket}, batch "
+          f"{batch_size}, batch_rois {tc.batch_rois}, rpn_batch_size {tc.rpn_batch_size}, "
+          f"{tc.max_gt_instances} GT slots, lr {tc.lr}, grad_clip {tc.grad_clip}")
     # one interval is one step and, where the loop watches the clip
     # ('pallas'), the watch's probe: a pass of the trunk without autograd
-    watched = impl in WATCHED_IMPLS
+    watched = (net.dcn_impl_train or net.dcn_impl) in WATCHED_IMPLS
     expect_n = expected_launches(cfg, grad=True, bucket=bucket, batch=batch_size)
     if watched:
         probe = expected_launches(cfg, grad=False, heads=False, bucket=bucket,
@@ -2120,7 +2241,7 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train",
     if os.path.exists(metrics_path):
         os.remove(metrics_path)
     gen = torch.Generator().manual_seed(cfg.seed)
-    model = build_model(cfg, device=dev, generator=gen)
+    model = get_model(cfg.symbol, cfg, device=dev, generator=gen)
     perturb_offset_biases(model, gen)
     shrink_bn_scales(model, gen)  # losses of a sane order, so the steps mean something
     anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(bucket))
@@ -2129,6 +2250,9 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train",
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if not p.requires_grad}
     trainable = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    gn_names = {f"{m_name}.{p_name}" for m_name, m in model.named_modules()
+                if isinstance(m, layers.GroupNorm) for p_name in ("scale", "bias")}
+    gn_before = {n: p.detach().clone() for n, p in trainable.items() if n in gn_names}
     print(f"[{tag}] {len(trainable)} trainable tensors "
           f"({sum(p.numel() for p in trainable.values()) / 1e6:.2f} M parameters), "
           f"{len(frozen)} frozen; {int(batch['gt_valid'].sum())} GT instances")
@@ -2175,10 +2299,27 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train",
                     if "offset_conv" in n}
     if not offset_grads or max(offset_grads.values()) == 0.0:
         raise AssertionError(f"offset-conv gradients all zero: {offset_grads}")
+    if net.backbone_with_dcn:
+        for stage in net.dcn_stages:
+            layer = {n: v for n, v in offset_grads.items()
+                     if n.startswith(f"backbone_net.res{stage}_")}
+            if not layer or max(layer.values()) == 0.0:
+                raise AssertionError(f"C{stage}: no non-zero offset-conv gradient in its "
+                                     f"backbone DCN layers {sorted(layer)}")
+        print(f"[{tag}] backbone offset-conv max |grad| per stage: " + ", ".join(
+            f"C{st} {max(v for n, v in offset_grads.items() if n.startswith(f'backbone_net.res{st}_')):.3e}"
+            for st in net.dcn_stages))
     now = dict(model.named_parameters())
     for name, before in frozen.items():
         if not torch.equal(now[name], before):
             raise AssertionError(f"frozen parameter {name} changed")
+    still = [n for n, before in gn_before.items() if torch.equal(now[n], before)]
+    if still:
+        raise AssertionError(f"trainable GroupNorm parameters unchanged: {still}")
+    if gn_names:
+        frozen_gn = sorted(n for n in gn_names if n in frozen)
+        print(f"[{tag}] GroupNorm: {len(gn_before)} trainable tensors all moved; "
+              f"{len(frozen_gn)} frozen ones bit-equal (stem and res2: {frozen_gn[:2]} ...)")
     # step_s of an interval: from the end of the last one to its losses read,
     # without the probe and the write that follow
     ms = [e["step_s"] * 1e3 for e in entries]
@@ -2190,7 +2331,8 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train",
                   f"{e['dcn_max_dy']:.2f} / {e['dcn_max_dx']:.2f} / {e['dcn_sat_frac']:.3f}"
                   for e in entries))
     print(f"[{tag}] offset-conv max |grad| after the last step: "
-          + ", ".join(f"{n} {v:.3e}" for n, v in offset_grads.items()))
+          + ", ".join(f"{n} {v:.3e}" for n, v in offset_grads.items()
+                      if not n.startswith("backbone_net.")))
     print(f"[{tag}] step ms {[round(x, 1) for x in ms]} (metrics.jsonl step_s); step 0 "
           f"{ms[0]:.1f} ms, steady (median of steps 1-{n_steps - 1}) {steady:.1f} ms = "
           f"{batch_size * 1e3 / steady:.2f} img/s; peak memory allocated {peak / 2 ** 30:.2f} GiB; "
@@ -2213,13 +2355,16 @@ def compare_step0_losses(shift: dict, pallas: dict) -> None:
         raise AssertionError(f"step-0 losses of shift and pallas differ: {bad}")
 
 
-def phase_reference(dev) -> None:
+def phase_reference(dev, norm: str = "frozen_bn", dcn_stages=()) -> None:
     """A tiny float32 model on the card (kernels, cuDNN) against the same
-    weights on the CPU (plain versions)."""
+    weights on the CPU (plain versions), with the backbone's ``norm`` and
+    deformable convs in ``dcn_stages``."""
     cfg = default_config()
     cfg = cfg.replace(
         network=dataclasses.replace(cfg.network, backbone="resnet_test", fpn_feature_dim=32,
-                                    rcnn_fc_dim=64, fcn_head_dim=16, compute_dtype="float32"),
+                                    rcnn_fc_dim=64, fcn_head_dim=16, compute_dtype="float32",
+                                    norm=norm, backbone_with_dcn=bool(dcn_stages),
+                                    dcn_stages=tuple(dcn_stages) or (3, 4, 5)),
         dataset=dataclasses.replace(cfg.dataset, num_classes=5, num_seg_classes=7,
                                     num_stuff=3),
         test=dataclasses.replace(cfg.test, rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32,
@@ -2251,7 +2396,9 @@ def phase_reference(dev) -> None:
     same = {k: bool(torch.equal(got[k], ref[k]))
             for k in ("classes", "det_valid", "pan_map", "pan_keep")}
     box_err = float((got["boxes"] - ref["boxes"]).abs().max()) if same["classes"] else None
-    print(f"[reference] tiny f32 model, card vs CPU: seg_logits max abs err {seg_err:.3e} "
+    n_dcn = sum(isinstance(m, layers.DeformConv) for m in gpu_model.backbone_net.modules())
+    print(f"[reference] tiny f32 model, norm {norm}, {n_dcn} backbone DCN layers, card vs CPU: "
+          f"seg_logits max abs err {seg_err:.3e} "
           f"(max |ref| {seg_scale:.3f}); discrete outputs equal {same}; boxes max abs "
           f"err {box_err}")
 
@@ -2382,9 +2529,29 @@ def main() -> None:
     counts, run, _ = phase_train(dev, "auto", 2, "train_auto")
     finish("train_auto", counts, run, "train.")
     del run
+    # the paper's COCO model, ResNet-101 with DCN in C3-C5, from its shipped
+    # experiment file; the YAML's dcn_impl ('auto') for predict, its
+    # dcn_impl_train ('pallas') for train
+    r101 = load_config(R101_DCN_YAML)
+    counts, run, model, batch, seg = phase_predict(dev, tag="predict_r101dcn", cfg=r101,
+                                                   shrink_bn=True)
+    finish("predict_r101dcn", counts, run, "predict.")
+    del run, model, batch, seg
+    counts, run, _ = phase_train(dev, n_steps=2, tag="train_r101dcn", cfg=r101)
+    finish("train_r101dcn", counts, run, "train.")
+    del run
+    # GroupNorm from scratch: the synthetic rehearsal's R50 at batch 2 (its
+    # YAML trains batch 8)
+    gn = load_config(GN_YAML)
+    print(f"[train_gn] {os.path.basename(GN_YAML)}: batch {gn.train.batch_size} in the file, "
+          f"run at batch {BATCH} to keep the script inside its time")
+    counts, run, _ = phase_train(dev, n_steps=2, tag="train_gn", cfg=gn)
+    finish("train_gn", counts, run, "train.")
+    del run
     torch.cuda.empty_cache()
     finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
+    phase_reference(dev, norm="gn", dcn_stages=(3, 4, 5))
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:

@@ -15,8 +15,11 @@ package.
   forward's three calls, against a channel-last copy made per call: equal
   outputs, and float32 gradients to the NCHW pyramid within f32 rounding
   (autograd adds the three calls' gradients in another order).
-- ``fpn_roi_align`` on meta tensors: the kernel's needs (C % 8, sampling
-  ratio 1, 2 or 4, a 32-bit flat index) are refused before the device.
+- ``fpn_roi_align`` at sampling ratio 3 against ``fpn_roi_align_batched``
+  under ``gather`` and ``dense`` (the TPU window kernel refuses it), P 7
+  and 14.
+- ``fpn_roi_align`` on meta tensors: the kernel's needs (C % 8, a sampling
+  ratio of at least 1, a 32-bit flat index) are refused before the device.
 Inputs come from numpy seeds.
 """
 
@@ -138,6 +141,23 @@ def test_k4_plain_matches_window_kernel_at_other_sampling_ratios(rng, s):
     _check_k4(rng, "levels_b2", 7, s, gather=False)
 
 
+@pytest.mark.parametrize("pooled", [7, 14])
+def test_k4_plain_matches_gather_and_dense_at_sampling_ratio_3(rng, pooled):
+    """S 3: refused by the TPU kernel, computed by the reference's gather
+    and dense forms (``roi_align_impl`` other than the window on the TPU),
+    and by K4 since its runtime-S path; its average is a division by 9."""
+    rois, levels, c = _case(rng, "levels_b2")
+    feats = _pyramid(rng, rois.shape[0], c)
+    got = roi_align_fpn.fpn_roi_align(tuple(_t(f) for f in feats), _t(rois), _t(levels),
+                                      pooled=pooled, sampling_ratio=3, strides=STRIDES)
+    args = (tuple(jnp.asarray(f) for f in feats), jnp.asarray(rois), jnp.asarray(levels))
+    for impl in ("gather", "dense"):
+        ref = np.asarray(fpn_roi_align_batched(*args, pooled=pooled, sampling_ratio=3,
+                                               strides=STRIDES, impl=impl))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=ROI_RTOL * float(np.abs(ref).max()), err_msg=impl)
+
+
 def _per_call_pool(pyramid, rois, pooled):
     """The pooling with a channel-last copy of the pyramid per call."""
     levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
@@ -186,17 +206,19 @@ def test_pool_boxes_on_levels_made_once_equal_per_call_copies(memory_format):
 # tensor shows the card's rules: (C, sampling ratio, RoIs an image, match)
 MALFORMED = {
     "c_mod_8": (12, 2, 4, "multiple of 8"),
-    "sampling_ratio": (8, 3, 4, "sampling_ratio=3"),
+    "sampling_ratio": (8, 0, 4, "sampling_ratio=0"),
     "index_2_31": (8, 2, 2 ** 31 // 49 + 1, "below 2\\^31"),
     "cuda_only": (8, 2, 4, "unsupported device"),
+    "ratio_3_reaches_the_device": (8, 3, 4, "unsupported device"),
 }
 
 
 @pytest.mark.parametrize("what", list(MALFORMED))
 def test_k4_wrapper_checks_the_kernels_needs_before_the_device(what):
-    """C % 8, a sampling ratio of 1, 2 or 4 and a flat index below 2^31 (at
-    P 7, C 8: B * R * 49 threads) are refused off the CPU without a launch;
-    a call that meets them reaches the device check."""
+    """C % 8, a sampling ratio of at least 1 (any such ratio has a kernel)
+    and a flat index below 2^31 (at P 7, C 8: B * R * 49 threads, whatever
+    the ratio) are refused off the CPU without a launch; a call that meets
+    them reaches the device check."""
     c, s, r, match = MALFORMED[what]
     feats = tuple(torch.empty((1, 4, 4, c), device="meta") for _ in STRIDES)
     rois = torch.empty((1, r, 4), device="meta")

@@ -6,6 +6,7 @@ from upsnet_torch.config.defaults import (
     TrainConfig,
     default_config,
 )
+from upsnet_torch.config.loader import load_config, update_config
 
 __all__ = [
     "Config",
@@ -14,4 +15,6 @@ __all__ = [
     "TestConfig",
     "TrainConfig",
     "default_config",
+    "load_config",
+    "update_config",
 ]

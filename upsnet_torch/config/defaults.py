@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Tuple
 
 
 @dataclass
@@ -157,6 +157,42 @@ class Config:
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 def default_config() -> Config:
     return Config()
+
+
+def _coerce(value: Any, target: Any) -> Any:
+    """Coerce a yaml value to the type of the dataclass default."""
+    if isinstance(target, bool):
+        return bool(value)
+    if isinstance(target, int) and not isinstance(value, bool):
+        return int(value)
+    if isinstance(target, float):
+        return float(value)
+    if isinstance(target, tuple):
+        if isinstance(value, (list, tuple)):
+            return tuple(
+                tuple(v) if isinstance(v, (list, tuple)) else v for v in value
+            )
+        return (value,)
+    return value
+
+
+def merge_into_dataclass(dc: Any, overrides: dict) -> Any:
+    """Deep-merge a plain dict of overrides into a dataclass tree; keys that
+    name no field are ignored (the reference's yamls carry extras)."""
+    updates = {}
+    names = {f.name for f in dataclasses.fields(dc)}
+    for key, value in overrides.items():
+        if key not in names:
+            continue
+        cur = getattr(dc, key)
+        if dataclasses.is_dataclass(cur) and isinstance(value, dict):
+            updates[key] = merge_into_dataclass(cur, value)
+        else:
+            updates[key] = _coerce(value, cur)
+    return dataclasses.replace(dc, **updates)

@@ -11,8 +11,11 @@ layout transform, the inverse of ``upsnet_tpu/convert/torch_converter.py``:
     (P, P, C) order;
   * ConvTranspose (the mask head's ``deconv``): flax HWIO, which applies the
     kernel without a flip -> torch (in, out, kh, kw), spatially reversed;
-  * deformable conv kernel, tap-major (K, in, out) -> (out, in, k, k);
-  * FrozenBN ``scale`` / ``bias`` -> the module's buffers of the same name.
+  * deformable conv kernel, tap-major (K, in, out) -> (out, in, k, k), in
+    the FCN head and in the backbone's ``-DCN`` stages
+    (``backbone_net.res4_0.conv2``, its ``offset_conv`` a plain conv);
+  * FrozenBN ``scale`` / ``bias`` -> the module's buffers of the same name,
+    GroupNorm ``scale`` / ``bias`` -> its parameters of the same name.
 
 Input is the tree as ``jax.device_get(params)`` gives it: nested dicts of
 numpy arrays. ``to_jax`` runs the same rules backwards, so that parameters

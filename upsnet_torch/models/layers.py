@@ -1,5 +1,5 @@
-"""Shared building blocks: frozen BN, caffe-padded conv, dense, deconv and
-deformable conv.
+"""Shared building blocks: frozen BN, GroupNorm, caffe-padded conv, dense,
+deconv and deformable conv.
 
 Port of ``upsnet_tpu/models/layers.py``. Parameters are float32 (the JAX
 ``param_dtype``); each module computes in its ``dtype`` by casting its
@@ -38,6 +38,53 @@ class FrozenBatchNorm(nn.Module):
         scale = self.scale.to(self.dtype)[None, :, None, None]
         bias = self.bias.to(self.dtype)[None, :, None, None]
         return x.to(self.dtype) * scale + bias
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over channel groups of NCHW maps, as flax 0.12's
+    ``nn.GroupNorm(num_groups=32, epsilon=1e-5)`` computes it: statistics in
+    float32 with the fast variance ``max(0, E[x^2] - E[x]^2)``, then
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast to
+    ``dtype`` at the end. ``F.group_norm`` takes another path (a two-pass
+    variance, the input's dtype), which is why this is written out.
+    ``scale`` and ``bias`` are float32 parameters and train."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 dtype=torch.float32):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide {channels} channels")
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        xf = x.float()
+        grouped = xf.reshape(b, self.num_groups, -1)
+        mean = grouped.mean(-1)
+        var = ((grouped * grouped).mean(-1) - mean * mean).clamp(min=0.0)
+        per_channel = c // self.num_groups
+        mean = mean.repeat_interleave(per_channel, 1)[:, :, None, None]
+        var = var.repeat_interleave(per_channel, 1)[:, :, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.scale[None, :, None, None]
+        y = (xf - mean) * mul + self.bias[None, :, None, None]
+        return y.to(self.dtype)
+
+
+NORMS = ("frozen_bn", "gn")
+
+
+def make_norm(kind: str, channels: int, dtype=torch.float32) -> nn.Module:
+    """The backbone's norm: 'frozen_bn' (affine constants from pretrained
+    statistics, the reference's) or 'gn' (GroupNorm 32, trainable, for
+    training from scratch). Both name their affines ``scale`` and ``bias``,
+    so the bridge and checkpoints see one layout."""
+    if kind == "gn":
+        return GroupNorm(channels, dtype=dtype)
+    if kind == "frozen_bn":
+        return FrozenBatchNorm(channels, dtype)
+    raise ValueError(f"unknown norm {kind!r}; expected one of {NORMS}")
 
 
 class Conv2d(nn.Conv2d):

@@ -57,9 +57,13 @@ class UPSNetModule(nn.Module):
                  fcn_with_dcn: bool = True, fcn_shared_subnet: bool = True,
                  dcn_impl: str = "auto", dcn_max_dy: int = 6,
                  pooled_size_box: int = 7, dtype=torch.float32,
-                 dcn_boundary_grad: str = "clip", dcn_impl_train: str = ""):
+                 dcn_boundary_grad: str = "clip", dcn_impl_train: str = "",
+                 dcn_stages=(), norm: str = "frozen_bn"):
         super().__init__()
-        self.backbone_net = ResNetBackbone(backbone, dtype)
+        # the backbone's DCN layers take the FCN head's train impl too: the
+        # JAX train step clones the whole model with dcn_impl_train
+        self.backbone_net = ResNetBackbone(backbone, dtype, norm, dcn_stages, dcn_impl,
+                                           dcn_max_dy, dcn_boundary_grad, dcn_impl_train)
         self.fpn = FPN((256, 512, 1024, 2048), fpn_dim, dtype)
         self.rpn = RPNHead(num_anchors, fpn_dim, fpn_dim, dtype)
         self.box_head = BoxHead(num_classes, pooled_size_box ** 2 * fpn_dim,
@@ -90,12 +94,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def freeze_stages(model: UPSNetModule, frozen_stages) -> None:
-    """``requires_grad_(False)`` on the backbone's conv1 (stage 1) and res2
-    blocks (stage 2) when listed, as the reference freezes them. FrozenBN
-    affines are buffers and never train."""
+    """``requires_grad_(False)`` on the backbone's stem, conv1 and its norm
+    (stage 1), and its res2 blocks (stage 2) when listed, as the reference
+    freezes them. FrozenBN affines are buffers and never train; GroupNorm's
+    are parameters and freeze with their stage."""
     prefixes = []
     if 1 in frozen_stages:
-        prefixes.append("backbone_net.conv1.")
+        prefixes += ["backbone_net.conv1.", "backbone_net.bn1."]
     if 2 in frozen_stages:
         prefixes.append("backbone_net.res2_")
     for name, p in model.named_parameters():
@@ -103,11 +108,19 @@ def freeze_stages(model: UPSNetModule, frozen_stages) -> None:
             p.requires_grad_(False)
 
 
+# The JAX package's ROIAlign forms: the TPU window kernel, the corner gather
+# and the dense separable matmuls compute one function (its window kernel off
+# the TPU is the gather), as K4 on the card and the plain version on the CPU.
+ROI_ALIGN_IMPLS = ("window", "gather", "dense")
+
+
 def build_model(cfg: Config, device=None,
                 generator: torch.Generator | None = None) -> UPSNetModule:
     """The model of ``cfg`` in eval mode on ``device`` (CUDA unless the
     caller passes another device), initialised from ``generator`` (default:
     seeded with ``cfg.seed``), with ``cfg.network.frozen_stages`` frozen.
+    Backbone DCN in ``dcn_stages`` where ``backbone_with_dcn`` is set; a
+    ``norm`` or ``roi_align_impl`` it does not know is refused by name.
     Raises when no device is given and CUDA is not available. Turns TF32
     off: the JAX package computes its float32 convs and matmuls (DCN
     offsets, mask paste) in full float32."""
@@ -117,8 +130,11 @@ def build_model(cfg: Config, device=None,
                                "to run on the CPU")
         device = "cuda"
     net = cfg.network
-    if net.backbone_with_dcn or net.norm != "frozen_bn":
-        raise NotImplementedError("backbone DCN and GroupNorm are not ported")
+    if net.norm not in layers.NORMS:
+        raise ValueError(f"network.norm={net.norm!r}: expected one of {layers.NORMS}")
+    if net.roi_align_impl not in ROI_ALIGN_IMPLS:
+        raise ValueError(f"network.roi_align_impl={net.roi_align_impl!r}: expected one "
+                         f"of {ROI_ALIGN_IMPLS}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = UPSNetModule(
@@ -138,6 +154,8 @@ def build_model(cfg: Config, device=None,
         dtype=getattr(torch, net.compute_dtype),
         dcn_boundary_grad=net.dcn_boundary_grad,
         dcn_impl_train=net.dcn_impl_train,
+        dcn_stages=tuple(net.dcn_stages) if net.backbone_with_dcn else (),
+        norm=net.norm,
     )
     freeze_stages(model, net.frozen_stages)
     if generator is None:

@@ -80,7 +80,10 @@ def _sample_coords(rois: torch.Tensor, spatial_scale: float, pooled: int,
     bin_w = roi_w * inv_p
     bin_h = roi_h * inv_p
     ph = torch.arange(pooled, dtype=rois.dtype, device=rois.device)
-    iy = (torch.arange(s, dtype=rois.dtype, device=rois.device) + 0.5) / s
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which rounds otherwise at s = 3
+    iy = ((torch.arange(s, dtype=rois.dtype, device=rois.device) + 0.5)
+          / torch.tensor(float(s), dtype=rois.dtype, device=rois.device))
     frac = ph[None, :, None] + iy[None, None, :]  # (1, P, S)
     ys = _fma(frac, bin_h[:, None, None], roi_y1[:, None, None])  # (N, P, S)
     xs = _fma(frac, bin_w[:, None, None], roi_x1[:, None, None])

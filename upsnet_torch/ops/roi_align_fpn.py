@@ -20,7 +20,10 @@ call, 100 at 14x14), so every SM is full. A thread computes its bin's S row
 and S column coordinates once and issues the corner loads of its samples
 (all 16 of a bin at S = 2 in bf16, a sample row in f32) before the first
 FMA; the sums run in one order (samples by row then column, corners ll, lh,
-hl, hh, f32, one rounding), so runs give the same bits.
+hl, hh, f32, then the average and one rounding), so runs give the same
+bits. S 1, 2 and 4 fuse each term's multiply and add; any other S runs with
+S as a runtime bound, each term a rounded product and a rounded add, and
+gives the plain version's bits.
 
 What bounds it: the feature bytes the samples touch (at most the whole
 pyramid, 95 MB in bf16 at 832x1344, batch 2, C=256) plus the output
@@ -99,7 +102,11 @@ def fpn_roi_align_plain(features, rois, levels, pooled: int = 7,
                         sampling_ratio: int = 2,
                         strides=FPN_STRIDES[:4]) -> torch.Tensor:
     """Plain PyTorch version of K4: every RoI samples its level of one
-    flattened pyramid buffer; f32 accumulation, one rounding at the end."""
+    flattened pyramid buffer. The f32 sum runs in the kernel's order (samples
+    by row, then column; corners ll, lh, hl, hh), each term a rounded product
+    added with one rounding, then divided by S^2 and rounded once to the
+    features' dtype: the bits of the kernel's runtime-S path, and within one
+    rounding of its fused S 1, 2, 4 instances."""
     b, r = rois.shape[:2]
     c = features[0].shape[-1]
     s = sampling_ratio
@@ -108,11 +115,16 @@ def fpn_roi_align_plain(features, rois, levels, pooled: int = 7,
     per_img, corners = _corner_table([f.shape[1:3] for f in features], b, rois,
                                      levels, pooled, s, strides)
     flat = flat.reshape(b * per_img, c)
+    terms = [flat[idx.reshape(-1)].reshape(n, pooled, pooled, s, s, c).float()
+             * wgt[..., None] for idx, wgt in corners]
     acc = torch.zeros((n, pooled, pooled, c), dtype=torch.float32, device=rois.device)
-    for idx, wgt in corners:
-        vals = flat[idx.reshape(-1)].reshape(n, pooled, pooled, s, s, c).float()
-        acc += (vals * wgt[..., None]).sum(dim=(3, 4))
-    out = acc / float(s * s)
+    for iy in range(s):
+        for ix in range(s):
+            for term in terms:
+                acc += term[:, :, :, iy, ix]
+    # divided as the kernel divides (a Python scalar divisor would multiply by
+    # its reciprocal on CUDA tensors)
+    out = acc / torch.tensor(float(s * s), device=acc.device)
     return out.reshape(b, r, pooled, pooled, c).to(features[0].dtype)
 
 
@@ -147,14 +159,17 @@ def fpn_roi_align(features, rois: torch.Tensor, levels: torch.Tensor,
 
     features: 4 levels (B, H_l, W_l, C) bf16/f32, channel-last; rois
     (B, R, 4) f32 image coordinates; levels (B, R) int32 in 0..3. Returns
-    (B, R, pooled, pooled, C) in the features' dtype. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (C % 8 == 0,
-    sampling_ratio 1, 2 or 4 as on the TPU, B·R·pooled²·C/8 below 2^31,
-    contiguous, 16-byte aligned levels). Off the CPU those needs are checked
-    before the device.
+    (B, R, pooled, pooled, C) in the features' dtype. Any sampling_ratio
+    >= 1, as the reference computes off the TPU (the kernel unrolls 1, 2 and
+    4 and takes any other as a runtime bound). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (C % 8 == 0, B·R·pooled²·C/8
+    below 2^31, contiguous, 16-byte aligned levels). Off the CPU those needs
+    are checked before the device.
     """
     global launches
     _check(features, rois, levels)
+    if sampling_ratio < 1:
+        raise ValueError(f"sampling_ratio={sampling_ratio} must be at least 1")
     f0 = features[0]
     if f0.device.type == "cpu":
         return fpn_roi_align_plain(features, rois, levels, pooled,
@@ -163,8 +178,6 @@ def fpn_roi_align(features, rois: torch.Tensor, levels: torch.Tensor,
     c = f0.shape[-1]
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
-    if sampling_ratio not in (1, 2, 4):
-        raise ValueError(f"sampling_ratio={sampling_ratio} must be 1, 2 or 4")
     if b * r * pooled * pooled * (c // 8) >= 2 ** 31:
         raise ValueError(f"B*R*P*P*C/8 = {b * r * pooled * pooled * (c // 8)} must be "
                          "below 2^31 (the kernel's 32-bit index)")

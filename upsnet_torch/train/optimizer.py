@@ -7,13 +7,15 @@ order of ``torch.optim.SGD(weight_decay=...)``), and the reference's
 per-parameter rules as param groups:
 
   weight       lr x 1, weight decay
-  bias         lr x 2, no weight decay (Detectron convention)
+  bias         biases and GroupNorm scales: lr x 2, no weight decay
+               (Detectron convention; the JAX labels under GN)
   offset       DCN offset-conv weights: lr x ``dcn_offset_lr_mult``, decay
   offset_bias  DCN offset-conv biases: the same damped lr, no decay
 
-Frozen parameters (``requires_grad`` False: backbone conv1 and res2) are
-left out. The schedule is linear warmup from ``warmup_factor`` over
-``warmup_iteration`` steps times a multi-step decay.
+Frozen parameters (``requires_grad`` False: the backbone's stem and res2)
+are left out; FrozenBN affines are buffers. The schedule is linear warmup
+from ``warmup_factor`` over ``warmup_iteration`` steps times a multi-step
+decay.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ def param_label(name: str) -> str:
     """The group of the trainable parameter ``name`` (a state_dict key)."""
     if "offset_conv" in name:
         return "offset_bias" if name.endswith(".bias") else "offset"
-    return "bias" if name.endswith(".bias") else "weight"
+    # a parameter named scale is a GroupNorm affine (FrozenBN's are buffers)
+    return "bias" if name.endswith((".bias", ".scale")) else "weight"
 
 
 def make_optimizer(cfg: Config, model: nn.Module) -> torch.optim.SGD:
