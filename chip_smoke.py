@@ -109,13 +109,33 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    damped``, ``dcn_max_dy: 8``) for two steps at batch 2 (the file trains
    batch 8): every trainable GroupNorm parameter moves, the frozen stem's
    and res2's stay bit-equal;
-11. reference: a tiny float32 model on the card against the same model on
+11. eval_r50coco: the evaluation entry, ``upsnet_torch.tools.test``, as a
+   user runs it, on ``experiments/upsnet_resnet50_coco_4gpu.yaml`` with
+   ``--dataset-override synthetic --max-images 8 --no-artifacts`` under the
+   file's ``dcn_impl`` (``auto``), with ``--weights`` a port checkpoint that
+   the phase writes from the seeded model with its offset biases at +-2 px;
+   the 256x320 scenes resize into the 832x1344 bucket, one image a forward,
+   exactly 8 K1 and 2 K4 an image; images/s, the per-image split (sample,
+   predict, host postprocess), the evaluators' seconds, peak memory, the RLE
+   codec and the metrics (meaningless at random weights: that they appear is
+   what counts), for a cold and a warm run, then a third run under
+   torch.profiler for the device's busy ms an image inside ``predict_step``
+   and the host's share of the warm run's image time;
+12. eval_tiny: ``experiments/upsnet_tiny_synthetic.yaml`` trains its file's
+   schedule (400 steps at batch 2) on the card through ``train_steps`` under
+   its ``dcn_impl_train`` (``gather``: 8 all-tap K2, 16 unclipped all-tap K3,
+   3 K4, 3 K5 a step) on the 8 evaluation scenes, is saved with
+   ``save_checkpoint`` and evaluated by the entry twice, ``--dcn-impl auto``
+   on the card (8 K1, 2 K4 an image) and ``--device cpu`` (plain versions,
+   no launch): PQ / SQ / RQ, box and mask AP and mIoU of the two within
+   1e-3 absolute, the tolerance the CPU test holds the port to against JAX;
+13. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels), with frozen BN and no backbone DCN,
    then with GroupNorm and DCN in C3-C5.
 
 The line before the last two is a JSON object with the numbers of every
-kernel on a path (``launches`` sums the predict, train and tool phases, each
-counted from 0);
+kernel on a path (``launches`` sums the predict, train, eval and tool
+phases, each counted from 0);
 then the card's name and power limit; the last line is the device record.
 """
 
@@ -133,6 +153,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -141,7 +162,9 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from upsnet_torch.config import default_config, load_config  # noqa: E402
-from upsnet_torch.data.synthetic import synthetic_batch  # noqa: E402
+from upsnet_torch.data.synthetic import SyntheticDataset, synthetic_batch  # noqa: E402
+from upsnet_torch.evaluation import inference  # noqa: E402
+from upsnet_torch.evaluation.inference import bucket_anchors  # noqa: E402
 from upsnet_torch.models import get_model, layers  # noqa: E402
 from upsnet_torch.models.resnet import STAGE_BLOCKS  # noqa: E402
 from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
@@ -149,10 +172,10 @@ from upsnet_torch.ops import (  # noqa: E402
     cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, nms, roi_align_fpn)
 from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt  # noqa: E402
 from upsnet_torch.tools import bench_deform_impls  # noqa: E402
+from upsnet_torch.train.checkpoints import save_checkpoint  # noqa: E402
 from upsnet_torch.train.optimizer import make_optimizer  # noqa: E402
 from upsnet_torch.train.step import make_train_step  # noqa: E402
 from upsnet_torch.train.trainer import WATCHED_IMPLS, train_steps  # noqa: E402
-from upsnet_torch.ops.anchors import pyramid_anchors  # noqa: E402
 from upsnet_torch.ops.boxes import fpn_level_assignment  # noqa: E402
 from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords  # noqa: E402
 
@@ -1920,7 +1943,7 @@ def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
     perturb_offset_biases(model, gen)
     if shrink_bn:
         shrink_bn_scales(model, gen)
-    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(bucket))
+    anchors = bucket_anchors(cfg, bucket, dev)
     print(f"[{tag}] model built in {time.perf_counter() - t0:.2f} s")
     g = torch.Generator(device=dev).manual_seed(3)
     batches = [{
@@ -2244,7 +2267,7 @@ def phase_train(dev, impl: str = "pallas", n_steps: int = 4, tag: str = "train",
     model = get_model(cfg.symbol, cfg, device=dev, generator=gen)
     perturb_offset_biases(model, gen)
     shrink_bn_scales(model, gen)  # losses of a sane order, so the steps mean something
-    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(bucket))
+    anchors = bucket_anchors(cfg, bucket, dev)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
         cfg, bucket, batch_size, seed=7, image_hw=tuple(int(x) for x in im_hw)).items()}
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -2381,7 +2404,7 @@ def phase_reference(dev, norm: str = "frozen_bn", dcn_stages=()) -> None:
     im_hw = torch.tensor([[64.0, 96.0], [56.0, 80.0]])
     outs = []
     for model, d in ((cpu_model, "cpu"), (gpu_model, dev)):
-        anchors = tuple(torch.as_tensor(a, device=d) for a in pyramid_anchors(hw))
+        anchors = bucket_anchors(cfg, hw, d)
         o = forward_predict(model, cfg, anchors,
                             {"images": images.to(d), "im_hw": im_hw.to(d)})
         outs.append({k: v.cpu() for k, v in o.items()})
@@ -2401,6 +2424,220 @@ def phase_reference(dev, norm: str = "frozen_bn", dcn_stages=()) -> None:
           f"seg_logits max abs err {seg_err:.3e} "
           f"(max |ref| {seg_scale:.3f}); discrete outputs equal {same}; boxes max abs "
           f"err {box_err}")
+
+
+R50_COCO_YAML = os.path.join(EXPERIMENTS, "upsnet_resnet50_coco_4gpu.yaml")
+TINY_YAML = os.path.join(EXPERIMENTS, "upsnet_tiny_synthetic.yaml")
+EVAL_IMAGES = 8
+# PQ / SQ / RQ, AP and mIoU of the card's run against the CPU's: the
+# tolerance of tests/test_torch_eval_loop.py (the port against JAX)
+METRIC_ABS = 1e-3
+
+
+def run_eval_entry(tag: str, argv: list, expect_image: dict):
+    """``upsnet_torch.tools.test`` on ``argv``, as a user runs it, with the
+    launch counters set to 0 just before it and read just after, and each
+    image's ``predict_step`` timed and its launches counted: every image must
+    launch exactly ``expect_image``. Returns (results, timings, launches,
+    per-image predict ms)."""
+    from upsnet_torch.tools import test as test_cli
+
+    orig = inference.predict_step
+    per_image, predict_ms = [], []
+
+    def counted(*a, **kw):
+        before = read_launches()
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)  # ends in a copy to the host: the device is done
+        predict_ms.append((time.perf_counter() - t0) * 1e3)
+        per_image.append({k: v - before[k] for k, v in read_launches().items()})
+        return out
+
+    reset_launches()
+    inference.predict_step = counted
+    try:
+        results, timings = test_cli.run(argv)
+    finally:
+        inference.predict_step = orig
+    launches = read_launches()
+    if len(per_image) != EVAL_IMAGES or any(m != expect_image for m in per_image):
+        raise AssertionError(f"[{tag}] launches per image {[nonzero(m) for m in per_image]}, "
+                             f"expected {nonzero(expect_image)} for each of {EVAL_IMAGES}")
+    if set(results) != {"boxes", "masks", "ssegs", "panoptic"}:
+        raise AssertionError(f"[{tag}] results {sorted(results)}")
+    return results, timings, launches, predict_ms
+
+
+def headline(results: dict) -> dict:
+    """The metrics compared and reported: PQ / SQ / RQ of All, Things and
+    Stuff, box and mask AP / AP50 / AP75, mIoU and pixel accuracy."""
+    out = {f"{k}.{m}": results[k][m] for k in ("boxes", "masks") for m in ("AP", "AP50", "AP75")}
+    out.update({f"ssegs.{m}": results["ssegs"][m] for m in ("mIoU", "pixel_acc")})
+    out.update({f"pq.{part}.{m}": results["panoptic"][part][m]
+                for part in ("All", "Things", "Stuff") for m in ("pq", "sq", "rq")})
+    return out
+
+
+def device_busy(run, prefix: str = "predict.") -> dict:
+    """``run()`` under torch.profiler: the summed device ms and the count of
+    the device ops (kernels and copies) that start inside the device ranges
+    of the ``<prefix>*`` profiler ranges (a forward's stages and its copy to
+    the host), the same over the whole run (model build and weight copies
+    included), and the run's wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, ops = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(prefix):
+            spans.append((e.time_range.start, e.time_range.end))
+        else:
+            ops.append(e)
+    inside = [e for e in ops if any(s <= e.time_range.start <= t for s, t in spans)]
+    return {"busy_ms": sum(e.time_range.elapsed_us() for e in inside) / 1e3,
+            "ops": len(inside), "all_busy_ms": sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+            "all_ops": len(ops), "wall_ms": wall}
+
+
+def phase_eval_r50coco(dev) -> dict:
+    """The evaluation entry at full width: ``resnet_50_upsnet`` from
+    ``experiments/upsnet_resnet50_coco_4gpu.yaml`` (COCO heads, bf16, its
+    ``dcn_impl``), seeded random weights with the offset biases at +-2 px
+    written as a port checkpoint, then ``upsnet_torch.tools.test`` with
+    ``--weights`` on 8 synthetic 256x320 scenes resized into the 832x1344
+    bucket, one image a forward: 8 K1 and 2 K4 an image. Run cold, warm,
+    and a third time under torch.profiler for the device's busy time."""
+    tag = "eval_r50coco"
+    cfg = load_config(R50_COCO_YAML)
+    print(f"[{tag}] {os.path.basename(R50_COCO_YAML)}: {describe(cfg)}")
+    meta = SyntheticDataset(cfg, 1, training=False).sample(0)
+    if meta["images"].shape != (*BUCKET, 3) or tuple(meta["im_hw"]) != (800.0, 1000.0):
+        raise AssertionError(f"a 256x320 scene lands in {meta['images'].shape} at "
+                             f"{tuple(meta['im_hw'])}, expected {BUCKET} at (800, 1000)")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = get_model(cfg.symbol, cfg, device=dev, generator=gen)
+    perturb_offset_biases(model, gen)
+    ckpt = save_checkpoint(os.path.join("output", f"chip_smoke_{tag}"), 0, model)
+    del model
+    torch.cuda.empty_cache()
+    argv = ["--cfg", R50_COCO_YAML, "--dataset-override", "synthetic", "--max-images",
+            str(EVAL_IMAGES), "--no-artifacts", "--weights", ckpt]
+    expect = expected_launches(cfg, grad=False, batch=1)
+    torch.cuda.reset_peak_memory_stats()
+    # run 0 is cold (cuDNN's first use falls on its image 0), run 1 warm
+    for run in range(2):
+        results, timings, counts, predict_ms = run_eval_entry(tag, argv, expect)
+        n = timings["images"]
+        print(f"[{tag}] run {run}: {n} images ({timings['detections']} detections) in "
+              f"{timings['wall_s']:.3f} s = "
+              f"{n / timings['wall_s']:.2f} img/s (samples, predict, postprocess and "
+              f"evaluators); per image: sample {timings['sample_s'] * 1e3 / n:.2f} ms, predict "
+              f"{timings['predict_s'] * 1e3 / n:.2f} ms (image 0 {predict_ms[0]:.2f} ms, images "
+              f"1-{n - 1} median {statistics.median(predict_ms[1:]):.2f} ms), host postprocess "
+              f"{timings['postprocess_s'] * 1e3 / n:.2f} ms; evaluators "
+              f"{timings['evaluate_s']:.3f} s; RLE codec {timings['rle_codec']}")
+        if run == 0:
+            launches = counts
+    peak = torch.cuda.max_memory_allocated()
+    prof = device_busy(lambda: run_eval_entry(tag, argv, expect))
+    wall_image = timings["wall_s"] * 1e3 / n
+    busy = prof["busy_ms"] / n
+    print(f"[{tag}] device busy {busy:.2f} ms an image inside predict_step ({prof['ops'] / n:.0f} "
+          f"device ops; the profiled run's whole device time {prof['all_busy_ms']:.1f} ms over "
+          f"{prof['all_ops']} ops, model build and weight copies included, wall "
+          f"{prof['wall_ms']:.1f} ms); host share of run 1's time an image "
+          f"{1 - busy / wall_image:.3f} ({wall_image:.2f} ms); peak memory allocated "
+          f"{peak / 2 ** 30:.3f} GiB")
+    print(f"[{tag}] launches per image {nonzero(expect)}; metrics (random weights): "
+          + json.dumps(headline(results)))
+    return launches
+
+
+def _train_samples(cfg, batch_size: int, n_steps: int, dev):
+    """Batches of the 8 evaluation scenes as the dataset trains on them
+    (``SyntheticDataset(training=True).sample``: seeded scale and flip, GT at
+    1/4 scale), ``batch_size`` a step in turn, on ``dev``."""
+    ds = SyntheticDataset(cfg, EVAL_IMAGES, training=True)
+    rng = np.random.RandomState(0)
+    keys = ("images", "im_hw", "gt_boxes", "gt_classes", "gt_valid", "gt_masks", "seg_gt",
+            "crowd_boxes", "crowd_valid")
+    for step in range(n_steps):
+        samples = [ds.sample((step * batch_size + j) % len(ds), rng) for j in range(batch_size)]
+        yield {k: torch.as_tensor(np.stack([s[k] for s in samples])).to(dev) for k in keys}
+
+
+def phase_eval_tiny(dev) -> dict:
+    """The first accuracy figure on the card: the tiny synthetic config
+    (``experiments/upsnet_tiny_synthetic.yaml``) trains its file's schedule
+    (``max_iteration`` steps at batch ``train.batch_size``) on the card under
+    its ``dcn_impl_train`` through ``train_steps``, on the 8 evaluation
+    scenes, is saved with ``save_checkpoint`` and evaluated by
+    ``upsnet_torch.tools.test`` twice: ``--dcn-impl auto`` on the card (8 K1,
+    2 K4 an image) and ``--device cpu`` (plain versions, no launch). The
+    metrics must agree within ``METRIC_ABS``."""
+    tag = "eval_tiny"
+    cfg = load_config(TINY_YAML)
+    cfg = cfg.replace(output_path=os.path.join("output", f"chip_smoke_{tag}"))
+    tc = cfg.train
+    n_steps, bucket = tc.max_iteration, tuple(tc.image_buckets[0])
+    print(f"[{tag}] {os.path.basename(TINY_YAML)}: {describe(cfg)}; {n_steps} steps at batch "
+          f"{tc.batch_size}, lr {tc.lr}, warmup {tc.warmup_iteration}, decay at "
+          f"{tc.decay_iteration}")
+    metrics_path = os.path.join(cfg.output_path, cfg.symbol, "metrics.jsonl")
+    if os.path.exists(metrics_path):
+        os.remove(metrics_path)
+    model = get_model(cfg.symbol, cfg, device=dev)
+    optimizer = make_optimizer(cfg, model)
+    expect_step = expected_launches(cfg, grad=True, bucket=bucket, batch=tc.batch_size)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = train_steps(model, cfg, bucket_anchors(cfg, bucket, dev),
+                          _train_samples(cfg, tc.batch_size, n_steps, dev), optimizer=optimizer,
+                          generator=torch.Generator(device=dev).manual_seed(11))
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != {k: v * n_steps for k, v in expect_step.items()}:
+        raise AssertionError(f"[{tag}] {n_steps} steps launched {nonzero(launches)}, expected "
+                             f"{n_steps} x {nonzero(expect_step)}")
+    bad = [i for i, m in enumerate(history) if not all(math.isfinite(v) for v in m.values())]
+    if len(history) != n_steps or bad:
+        raise AssertionError(f"[{tag}] {len(history)} steps, non-finite losses at {bad[:5]}")
+    print(f"[{tag}] trained {n_steps} steps in {train_s:.1f} s ({train_s * 1e3 / n_steps:.1f} ms "
+          f"a step, batches built on the host included); total loss {history[0]['total']:.3f} "
+          f"-> {history[-1]['total']:.3f}; launches a step {nonzero(expect_step)}")
+    ckpt = save_checkpoint(os.path.join(cfg.output_path, "ckpt"), n_steps, model, optimizer)
+    del model, optimizer
+    argv = ["--cfg", TINY_YAML, "--dataset-override", "synthetic", "--no-artifacts",
+            "--weights", ckpt, "--dcn-impl", "auto"]
+    auto = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl="auto"))
+    card, card_t, card_launches, _ = run_eval_entry(
+        tag, argv, expected_launches(auto, grad=False, bucket=bucket, batch=1))
+    for k, v in card_launches.items():
+        launches[k] += v
+    cpu, cpu_t, _, _ = run_eval_entry(tag, argv + ["--device", "cpu"],
+                                      dict.fromkeys(COUNTERS, 0))
+    got, ref = headline(card), headline(cpu)
+    off = {k: (got[k], ref[k]) for k in ref
+           if not ((math.isnan(got[k]) and math.isnan(ref[k]))
+                   or abs(got[k] - ref[k]) <= METRIC_ABS)}
+    print(f"[{tag}] card ({card_t['device']}, {card_t['images'] / card_t['wall_s']:.2f} img/s) "
+          f"against CPU ({cpu_t['images'] / cpu_t['wall_s']:.2f} img/s), tolerance "
+          f"{METRIC_ABS} absolute: " + json.dumps({k: [got[k], ref[k]] for k in ref}))
+    if off:
+        raise AssertionError(f"[{tag}] card and CPU metrics differ: {off}")
+    print(f"[{tag}] the tiny model after {n_steps} steps on the card: PQ "
+          f"{got['pq.All.pq']:.4f} (things {got['pq.Things.pq']:.4f}, stuff "
+          f"{got['pq.Stuff.pq']:.4f}), box AP {got['boxes.AP']:.4f} (AP50 "
+          f"{got['boxes.AP50']:.4f}), mask AP {got['masks.AP']:.4f}, mIoU "
+          f"{got['ssegs.mIoU']:.4f}")
+    return launches
 
 
 def phase_mt_tool(dev) -> dict:
@@ -2502,7 +2739,7 @@ def main() -> None:
 
     counts, run, model, batch, seg = phase_predict(dev)
     cfg = default_config()
-    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(BUCKET))
+    anchors = bucket_anchors(cfg, BUCKET, dev)
     compare_seg_with_tap_major(model, cfg, anchors, batch, seg)
     finish("predict", counts, run, "predict.")
     del run, model, batch, seg
@@ -2519,7 +2756,7 @@ def main() -> None:
     wide = dict(bucket=WIDE_BUCKET, im_hw=WIDE_IM_HW, batch_size=WIDE_BATCH)
     counts, run, model, batch, seg = phase_predict(dev, "pallas", "predict_wide", **wide)
     cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl="pallas"))
-    anchors = tuple(torch.as_tensor(a, device=dev) for a in pyramid_anchors(WIDE_BUCKET))
+    anchors = bucket_anchors(cfg, WIDE_BUCKET, dev)
     finish("predict_wide", counts, run, "predict.")  # profiled before the biases move
     compare_wide_with_auto(model, cfg, anchors, batch, seg)
     del run, model, batch, seg
@@ -2549,6 +2786,8 @@ def main() -> None:
     finish("train_gn", counts, run, "train.")
     del run
     torch.cuda.empty_cache()
+    finish("eval_r50coco", phase_eval_r50coco(dev), None, "")
+    finish("eval_tiny", phase_eval_tiny(dev), None, "")
     finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
     phase_reference(dev, norm="gn", dcn_stages=(3, 4, 5))

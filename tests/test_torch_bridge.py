@@ -118,14 +118,15 @@ def test_mask_head_deconv_flip(rng):
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port loads neither jax, flax nor the
-    JAX package."""
+    """Importing every module of the port loads neither jax, flax, orbax nor
+    the JAX package; the evaluation entry, its evaluators, the dataset base
+    and the checkpoints are among them."""
     code = (
         "import pkgutil, sys, importlib, upsnet_torch\n"
         "for m in pkgutil.walk_packages(upsnet_torch.__path__, 'upsnet_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'upsnet_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'upsnet_tpu'))\n"
         "print(' '.join(k for k in sys.modules if k.startswith('upsnet_torch.')))\n"
         "assert not bad, bad\n"
     )
@@ -137,7 +138,13 @@ def test_import_leaves_jax_out():
     assert {"upsnet_torch.ops.deform_shift", "upsnet_torch.utils.dcn_probe",
             "upsnet_torch.train.trainer", "upsnet_torch.ops.cuda_build",
             "upsnet_torch.ops.deform_sample_mt",
-            "upsnet_torch.tools.bench_deform_impls"} <= loaded
+            "upsnet_torch.tools.bench_deform_impls", "upsnet_torch.tools.test",
+            "upsnet_torch.evaluation.inference", "upsnet_torch.evaluation.rle",
+            "upsnet_torch.evaluation.rle_native", "upsnet_torch.evaluation.coco_eval",
+            "upsnet_torch.evaluation.pq", "upsnet_torch.evaluation.seg_eval",
+            "upsnet_torch.evaluation.panoptic_format", "upsnet_torch.data.base",
+            "upsnet_torch.data.transforms", "upsnet_torch.utils.logging",
+            "upsnet_torch.train.checkpoints"} <= loaded
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -20,7 +20,9 @@ layout transform, the inverse of ``upsnet_tpu/convert/torch_converter.py``:
 Input is the tree as ``jax.device_get(params)`` gives it: nested dicts of
 numpy arrays. ``to_jax`` runs the same rules backwards, so that parameters
 or gradients of the port can be held against the JAX package's leaf by
-leaf. This module imports neither jax nor the JAX package.
+leaf. ``save_jax_params_checkpoint`` writes a tree as a port checkpoint
+(``train/checkpoints.py``), which ``tools/test.py --weights`` reads. This
+module imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import math
 
 import numpy as np
 import torch
+
+from upsnet_torch.train.checkpoints import write_checkpoint
 
 DECONV_NAMES = ("deconv",)
 
@@ -77,6 +81,13 @@ def load_jax_params(model: torch.nn.Module, tree: dict) -> None:
     land on a parameter or buffer of matching shape and every parameter and
     buffer must be filled, or this raises."""
     model.load_state_dict(jax_params_to_state_dict(tree), strict=True)
+
+
+def save_jax_params_checkpoint(ckpt_dir: str, step: int, tree: dict) -> str:
+    """Write the flax parameter tree ``tree`` (nested dicts of numpy arrays)
+    as the port checkpoint ``<ckpt_dir>/step_{step:08d}``, with no optimizer
+    state. Returns its path."""
+    return write_checkpoint(ckpt_dir, step, jax_params_to_state_dict(tree))
 
 
 def _restore_kernel(path: tuple, w: np.ndarray, like: np.ndarray) -> np.ndarray:

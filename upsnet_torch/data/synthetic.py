@@ -1,10 +1,12 @@
-"""Synthetic training batches: deterministic random scenes with exact GT.
+"""Synthetic scenes: deterministic random images with exact GT.
 
 The rectangles-over-stripes scenes of ``upsnet_tpu/data/synthetic.py``
 (``SyntheticDataset._scene``): axis-aligned rectangles ("things") over a
 striped stuff background, drawn from ``RandomState(seed * 1000 + i)``, so
-boxes, masks and the semantic map are exact. Here they are assembled
-straight into ``forward_train``'s batch dict as numpy arrays.
+boxes, masks and the semantic map are exact. One generator, ``scene``,
+serves two callers: ``synthetic_batch`` assembles its scenes straight into
+``forward_train``'s batch dict, and ``SyntheticDataset`` serves them through
+``BaseDataset`` (resize, bucket, evaluators) as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ from __future__ import annotations
 import numpy as np
 
 from upsnet_torch.config.defaults import Config
+from upsnet_torch.data.base import BaseDataset
+from upsnet_torch.data.transforms import PIXEL_MEANS_BGR
 
-PIXEL_MEANS_BGR = np.array([102.9801, 115.9465, 122.7717], np.float32)
 IGNORE = 255
 
 
@@ -86,3 +89,33 @@ def synthetic_batch(cfg: Config, bucket, batch_size: int, seed: int,
         sq = seg[2::4, 2::4]
         out["seg_gt"][i, :sq.shape[0], :sq.shape[1]] = sq
     return out
+
+
+class SyntheticDataset(BaseDataset):
+    """``num_images`` scenes of ``image_hw``, image i drawn by ``scene`` from
+    ``RandomState(seed * 1000 + i)``: the images and GT of
+    ``upsnet_tpu/data/synthetic.py:SyntheticDataset``, bit for bit."""
+
+    def __init__(self, cfg: Config, num_images: int = 8, image_hw=(256, 320),
+                 training: bool = True, seed: int = 0):
+        super().__init__(cfg, training)
+        self.num_images = num_images
+        self.image_hw = image_hw
+        self.seed = seed
+        self.num_things = cfg.dataset.num_classes - 1
+        self.num_stuff = cfg.dataset.num_stuff
+
+    def __len__(self):
+        return self.num_images
+
+    def _scene(self, i: int):
+        img, boxes, classes, masks, seg = scene(
+            np.random.RandomState(self.seed * 1000 + i), self.image_hw, self.num_things,
+            self.num_stuff)
+        return img, {"boxes": boxes, "classes": classes, "masks": masks, "seg": seg}
+
+    def load_image(self, i: int) -> np.ndarray:
+        return self._scene(i)[0]
+
+    def load_gt(self, i: int) -> dict:
+        return self._scene(i)[1]
