@@ -129,9 +129,39 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    on the card (8 K1, 2 K4 an image) and ``--device cpu`` (plain versions,
    no launch): PQ / SQ / RQ, box and mask AP and mIoU of the two within
    1e-3 absolute, the tolerance the CPU test holds the port to against JAX;
-13. reference: a tiny float32 model on the card against the same model on
+13. train_entry: the training entry as a user runs it,
+   ``upsnet_torch.tools.train.run``, on a copy of
+   ``experiments/upsnet_r50_synth_rehearsal.yaml`` (GN R50 at full width,
+   batch 8, both buckets with flip, ``image_wire: uint8``, ``num_workers:
+   0``, the watch's action 'fail') that changes only the data and output
+   paths, ``snapshot_step`` 6, ``display_iter`` 3 and ``max_iteration`` 12,
+   reading 16 COCO-layout files written by ``upsnet_torch.tools.make_synth_coco``
+   (seed 0, 800x1333 base, a quarter portrait): to step 6, then with
+   ``resume: true`` to step 12. The resumed weights and momentum buffers must
+   equal the step-6 snapshot bit for bit, the first resumed step's rate
+   ``lr_schedule(cfg)(6)``; every step launches 8 all-tap K2, 16 clipped
+   all-tap K3, 3 K4, 3 K5, every display interval the probe's 8 K1; every
+   loss finite, both buckets drawn, snapshots at 6 and 12. Step ms between
+   the steps' decodes on the card (CUDA events), img/s, ``loader_wait_s`` and
+   its share from ``metrics.jsonl``, peak memory; then
+   ``upsnet_torch.tools.test --dataset-override coco --max-images 8`` on
+   ``step_00000012`` (8 K1, 2 K4 an image, finite metrics); with
+   ``--profile``, one more step under torch.profiler;
+14. eval_cityscapes: ``upsnet_torch.tools.test --dataset-override
+   cityscapes`` on a copy of
+   ``experiments/upsnet_r50_synth_cityscapes_rehearsal.yaml`` reading two
+   1024x2048 gtFine-layout images, from a checkpoint of the seeded model: 8
+   K1, 2 K4 an image, the Cityscapes instance AP, box AP, mIoU and PQ;
+15. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels), with frozen BN and no backbone DCN,
    then with GroupNorm and DCN in C3-C5.
+
+``--nondeterminism`` runs only a diagnostic: pairs of runs of the train
+entry's first 3 steps, as shipped, with cuDNN's deterministic algorithms, with
+two ops swapped for deterministic equivalents, and under
+``torch.use_deterministic_algorithms(True, warn_only=True)``, whether each pair
+agrees bit for bit, the ops PyTorch reports as non-deterministic, and which
+parameter gradients of one step differ between two runs.
 
 The line before the last two is a JSON object with the numbers of every
 kernel on a path (``launches`` sums the predict, train, eval and tool
@@ -148,9 +178,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2434,12 +2466,12 @@ EVAL_IMAGES = 8
 METRIC_ABS = 1e-3
 
 
-def run_eval_entry(tag: str, argv: list, expect_image: dict):
+def run_eval_entry(tag: str, argv: list, expect_image: dict, n_images: int = EVAL_IMAGES):
     """``upsnet_torch.tools.test`` on ``argv``, as a user runs it, with the
     launch counters set to 0 just before it and read just after, and each
-    image's ``predict_step`` timed and its launches counted: every image must
-    launch exactly ``expect_image``. Returns (results, timings, launches,
-    per-image predict ms)."""
+    image's ``predict_step`` timed and its launches counted: each of the
+    ``n_images`` images must launch exactly ``expect_image``. Returns
+    (results, timings, launches, per-image predict ms)."""
     from upsnet_torch.tools import test as test_cli
 
     orig = inference.predict_step
@@ -2460,9 +2492,9 @@ def run_eval_entry(tag: str, argv: list, expect_image: dict):
     finally:
         inference.predict_step = orig
     launches = read_launches()
-    if len(per_image) != EVAL_IMAGES or any(m != expect_image for m in per_image):
+    if len(per_image) != n_images or any(m != expect_image for m in per_image):
         raise AssertionError(f"[{tag}] launches per image {[nonzero(m) for m in per_image]}, "
-                             f"expected {nonzero(expect_image)} for each of {EVAL_IMAGES}")
+                             f"expected {nonzero(expect_image)} for each of {n_images}")
     if set(results) != {"boxes", "masks", "ssegs", "panoptic"}:
         raise AssertionError(f"[{tag}] results {sorted(results)}")
     return results, timings, launches, predict_ms
@@ -2640,6 +2672,420 @@ def phase_eval_tiny(dev) -> dict:
     return launches
 
 
+CITY_YAML = os.path.join(EXPERIMENTS, "upsnet_r50_synth_cityscapes_rehearsal.yaml")
+SYNTH_SET, SYNTH_IMAGES, CITY_IMAGES = "synthtrain", 16, 2
+# the train entry's copy of GN_YAML: snapshots and a resume at step 6 of 12
+ENTRY_TRAIN = {"snapshot_step": 6, "display_iter": 3, "max_iteration": 12}
+RESUME_AT = 6
+
+
+def yaml_copy(src: str, dst: str, changes: dict) -> str:
+    """A copy of the experiment file ``src`` at ``dst`` with only ``changes``
+    made: a dict value updates that section's fields, another value sets a
+    top-level field."""
+    import yaml
+
+    with open(src) as f:
+        doc = yaml.safe_load(f)
+    for key, value in changes.items():
+        if isinstance(value, dict):
+            doc[key].update(value)
+        else:
+            doc[key] = value
+    with open(dst, "w") as f:
+        yaml.safe_dump(doc, f, sort_keys=False)
+    return dst
+
+
+def write_coco_set(tag: str, tmp: str) -> str:
+    """The rehearsal's COCO-layout set, written by the port's tool: 16
+    images, seed 0, 800x1333 base, a quarter portrait."""
+    from upsnet_torch.tools import make_synth_coco
+
+    root = os.path.join(tmp, "synth_coco")
+    t0 = time.perf_counter()
+    make_synth_coco.gen_coco(root, SYNTH_SET, SYNTH_IMAGES, seed=0)
+    print(f"[{tag}] {SYNTH_IMAGES} COCO-layout images written in "
+          f"{time.perf_counter() - t0:.1f} s to a temporary directory")
+    return root
+
+
+def entry_config(tag: str, tmp: str, root: str, train_fields: dict) -> tuple:
+    """(path, config) of a copy of ``GN_YAML`` that trains on the set at
+    ``root`` into ``output/chip_smoke_<tag>`` with ``train_fields``."""
+    out = os.path.join("output", f"chip_smoke_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    changes = {"output_path": out, "dataset": {"dataset_path": root}, "train": train_fields}
+    path = yaml_copy(GN_YAML, os.path.join(tmp, f"{tag}.yaml"), changes)
+    print(f"[{tag}] {os.path.basename(GN_YAML)}, changed only: {json.dumps(changes)}")
+    return path, load_config(path)
+
+
+def phase_train_entry(dev, tmp: str):
+    """The training entry as a user runs it: ``upsnet_torch.tools.train.run``
+    on a copy of ``experiments/upsnet_r50_synth_rehearsal.yaml`` (GN R50, COCO
+    heads, ``dcn_impl_train: pallas``, batch 8, ``image_wire: uint8``, both
+    buckets with flip, the watch's action 'fail'), reading a COCO-layout set
+    from disk, to step 6, then again with ``resume: true`` to step 12; the
+    resume path alone once more with no step, into a model and optimizer of
+    its own, which must then hold the step-6 snapshot's weights and momentum
+    buffers bit for bit. Every step launches 8 K2, 16 clipped K3, 3 K4 and 3
+    K5 and every display interval the probe's 8 K1; every loss is finite;
+    the first resumed step's rate is ``lr_schedule(cfg)(6)``; snapshots at 6
+    and 12; both buckets drawn. Then ``upsnet_torch.tools.test`` evaluates
+    ``step_00000012`` on 8 of the images (8 K1 and 2 K4 an image). Returns
+    (the launches, a closure that takes one more step)."""
+    from upsnet_torch.data.coco import COCOPanoptic
+    from upsnet_torch.data.pipeline import make_loader
+    from upsnet_torch.data.wire import STEP_KEYS, decode_batch, encode_batch
+    from upsnet_torch.tools import train as train_cli
+    from upsnet_torch.train import trainer
+    from upsnet_torch.train.optimizer import lr_schedule
+
+    tag = "train_entry"
+    root = write_coco_set(tag, tmp)
+    yaml_path, cfg = entry_config(tag, tmp, root, dict(ENTRY_TRAIN))
+    resume_path = yaml_copy(yaml_path, os.path.join(tmp, f"{tag}_resume.yaml"),
+                            {"train": {"resume": True}})
+    tc, net = cfg.train, cfg.network
+    print(f"[{tag}] {describe(cfg)}; batch {tc.batch_size}, buckets {tc.image_buckets}, flip "
+          f"{tc.flip}, image_wire {tc.image_wire}, {tc.num_workers} loader workers, "
+          f"sample_cache_mb {tc.sample_cache_mb}, lr {tc.lr}, saturation action "
+          f"{net.dcn_saturation_action}")
+    per_bucket = [expected_launches(cfg, grad=True, bucket=tuple(b), batch=tc.batch_size)
+                  for b in tc.image_buckets]
+    if any(n != per_bucket[0] for n in per_bucket):
+        raise AssertionError(f"the buckets' steps launch differently: {per_bucket}")
+    step_n = per_bucket[0]
+    probe_n = expected_launches(cfg, grad=False, heads=False, batch=tc.batch_size)
+    interval_n = {k: tc.display_iter * v + probe_n[k] for k, v in step_n.items()}
+
+    buckets, events, steps = [], [], {}
+    prev = {}
+    orig_decode = trainer.decode_batch
+
+    def decode(batch):  # once a step, in the loop: the bucket and a device mark
+        out = orig_decode(batch)
+        buckets.append(tuple(out["images"].shape[1:3]))
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return out
+
+    def on_step(it, metrics):
+        steps[it] = metrics
+        bad = [k for k in (*LOSS_KEYS, "total") if not math.isfinite(metrics[k])]
+        if bad:
+            raise AssertionError(f"[{tag}] step {it}: non-finite loss terms {bad}: {metrics}")
+        if it % tc.display_iter == 0:
+            now = read_launches()
+            moved = {k: now[k] - prev[k] for k in now}
+            if moved != interval_n:
+                raise AssertionError(f"[{tag}] interval ending at {it}: launches "
+                                     f"{nonzero(moved)}, expected {nonzero(interval_n)}")
+            prev.update(now)
+
+    ckpt_dir = os.path.join(cfg.output_path, cfg.symbol, "checkpoints")
+    trainer.decode_batch = decode
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        prev.update(read_launches())
+        t0 = time.perf_counter()
+        model, history = train_cli.run(["--cfg", yaml_path, "--max-steps", str(RESUME_AT)],
+                                       on_step=on_step)
+        run_s = [time.perf_counter() - t0]
+        marks = [len(events)]
+        del model
+        torch.cuda.empty_cache()
+        # the resume path with no step: into a model and optimizer of our own
+        check = get_model(cfg.symbol, cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        check_opt = make_optimizer(cfg, check)
+        before = read_launches()
+        train_cli.run(["--cfg", resume_path, "--max-steps", str(RESUME_AT)], model=check,
+                      optimizer=check_opt)
+        if read_launches() != before:
+            raise AssertionError(f"[{tag}] a resume with no step launched kernels")
+        saved = torch.load(os.path.join(ckpt_dir, f"step_{RESUME_AT:08d}"), map_location="cpu",
+                           weights_only=True)
+        weights = check.state_dict()
+        off = [k for k, v in saved["state_dict"].items() if not torch.equal(weights[k].cpu(), v)]
+        got_opt, ref_opt = check_opt.state_dict(), saved["optimizer"]
+        momenta = [(i, s["momentum_buffer"]) for i, s in ref_opt["state"].items()]
+        off += [f"momentum {i}" for i, m in momenta
+                if not torch.equal(got_opt["state"][i]["momentum_buffer"].cpu(), m)]
+        if off or got_opt["param_groups"] != ref_opt["param_groups"] or not momenta:
+            raise AssertionError(f"[{tag}] the resumed state differs from the snapshot: {off[:8]}")
+        print(f"[{tag}] resume at {RESUME_AT}: {len(weights)} state_dict tensors, {len(momenta)} "
+              f"momentum buffers and the update count "
+              f"{got_opt['param_groups'][0]['count']} equal the snapshot bit for bit")
+        del check, check_opt, weights, saved, got_opt, ref_opt, momenta
+        torch.cuda.empty_cache()
+        prev.update(read_launches())
+        t0 = time.perf_counter()
+        model, resumed = train_cli.run(["--cfg", resume_path], on_step=on_step)
+        run_s.append(time.perf_counter() - t0)
+        marks.append(len(events))
+    finally:
+        trainer.decode_batch = orig_decode
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    n_steps, n_intervals = tc.max_iteration, tc.max_iteration // tc.display_iter
+    expect = {k: n_steps * v + n_intervals * probe_n[k] for k, v in step_n.items()}
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {nonzero(launches)}, expected {nonzero(expect)}")
+    if sorted(steps) != list(range(1, n_steps + 1)):
+        raise AssertionError(f"[{tag}] steps {sorted(steps)}")
+    want_lr = lr_schedule(cfg)(RESUME_AT)
+    if steps[RESUME_AT + 1]["lr"] != want_lr:
+        raise AssertionError(f"[{tag}] first resumed step's rate {steps[RESUME_AT + 1]['lr']}, "
+                             f"expected lr_schedule(cfg)({RESUME_AT}) = {want_lr}")
+    snaps = sorted(os.listdir(ckpt_dir))
+    if snaps != [f"step_{RESUME_AT:08d}", f"step_{n_steps:08d}"]:
+        raise AssertionError(f"[{tag}] snapshots {snaps}")
+    drawn = {b: buckets.count(b) for b in map(tuple, tc.image_buckets)}
+    if min(drawn.values()) == 0 or len(buckets) != n_steps:
+        raise AssertionError(f"[{tag}] batches by bucket {drawn} over {len(buckets)} steps")
+    # a step's device time: from its decode to the next step's, within a run
+    ms = [events[i].elapsed_time(events[i + 1]) for lo, hi in ((0, marks[0]), (marks[0], marks[1]))
+          for i in range(lo, hi - 1)]
+    steady = statistics.median(ms[1:])
+    lines = history + resumed
+    wait = sum(e["loader_wait_s"] for e in lines)
+    busy = sum(e["step_s"] for e in lines)
+    print(f"[{tag}] launches a step {nonzero(step_n)}, the probe a display interval "
+          f"{nonzero(probe_n)}; over the {n_steps} steps {nonzero(launches)}")
+    print(f"[{tag}] batches by bucket {drawn}; total loss by step "
+          + ", ".join(f"{it}: {steps[it]['total']:.3f}" for it in sorted(steps))
+          + f"; rate at step {RESUME_AT + 1} {want_lr:.6g} = lr_schedule(cfg)({RESUME_AT})")
+    print(f"[{tag}] step ms between decodes (runs 1 and 2, steps 1-{RESUME_AT - 1} and "
+          f"{RESUME_AT + 1}-{n_steps - 1}) {[round(x, 1) for x in ms]}; median after step 0 "
+          f"{steady:.1f} ms = {tc.batch_size * 1e3 / steady:.2f} img/s; runs {run_s[0]:.1f} s "
+          f"and {run_s[1]:.1f} s (model build, data and snapshots included); metrics.jsonl: "
+          f"loader_wait_s {wait:.3f} of {wait + busy:.3f} s, share {wait / (wait + busy):.3f}; "
+          f"peak memory allocated {peak / 2 ** 30:.2f} GiB; snapshots {snaps}")
+    print(f"[{tag}] metrics.jsonl lines: " + json.dumps(
+        [{k: e[k] for k in ("iter", "total", "step_s", "loader_wait_s", "images_per_sec",
+                            "dcn_max_dy", "dcn_max_dx", "dcn_sat_frac")} for e in lines]))
+
+    results, timings, eval_n, predict_ms = run_eval_entry(
+        tag, ["--cfg", yaml_path, "--dataset-override", "coco", "--max-images",
+              str(EVAL_IMAGES), "--no-artifacts", "--weights",
+              os.path.join(ckpt_dir, f"step_{n_steps:08d}")],
+        expected_launches(cfg, grad=False, batch=1))
+    metrics = headline(results)
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"[{tag}] non-finite metrics: {metrics}")
+    n = timings["images"]
+    print(f"[{tag}] eval of step {n_steps}: {n} images ({timings['detections']} detections) at "
+          f"{n / timings['wall_s']:.2f} img/s; per image: sample "
+          f"{timings['sample_s'] * 1e3 / n:.1f} ms, predict median "
+          f"{statistics.median(predict_ms):.2f} ms, host postprocess "
+          f"{timings['postprocess_s'] * 1e3 / n:.1f} ms; evaluators {timings['evaluate_s']:.2f} "
+          f"s; RLE codec {timings['rle_codec']}; metrics (12 steps: speed and function only) "
+          + json.dumps(metrics))
+    for k, v in eval_n.items():
+        launches[k] += v
+
+    dataset = COCOPanoptic(cfg)
+    host = next(iter(make_loader(dataset, tc.batch_size, seed=cfg.seed)))
+    batch = decode_batch({k: v.to(dev) for k, v in encode_batch(
+        {k: v for k, v in host.items() if k in STEP_KEYS}, net.compute_dtype,
+        tc.image_wire).items()})
+    step = make_train_step(model, cfg, bucket_anchors(cfg, host["images"].shape[1:3], dev),
+                           make_optimizer(cfg, model),
+                           generator=torch.Generator(device=dev).manual_seed(cfg.seed))
+    return launches, (lambda: step(batch))
+
+
+def phase_eval_cityscapes(dev, tmp: str) -> dict:
+    """The evaluation entry on the Cityscapes layout at 1024x2048: two images
+    written by ``make_synth_coco cityscapes``, a copy of
+    ``experiments/upsnet_r50_synth_cityscapes_rehearsal.yaml`` reading them,
+    a port checkpoint of the seeded model (offset biases at +-2 px), and
+    ``upsnet_torch.tools.test --dataset-override cityscapes``: ``Cityscapes``,
+    the Cityscapes instance AP and the base class's box AP, mIoU and PQ on
+    the card, 8 K1 and 2 K4 an image."""
+    from upsnet_torch.tools import make_synth_coco
+
+    tag = "eval_cityscapes"
+    root = os.path.join(tmp, "synth_cityscapes")
+    t0 = time.perf_counter()
+    make_synth_coco.gen_cityscapes(root, "train", CITY_IMAGES, seed=0)
+    print(f"[{tag}] {CITY_IMAGES} gtFine-layout images at 1024x2048 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = os.path.join("output", f"chip_smoke_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    changes = {"output_path": out, "dataset": {"dataset_path": root}}
+    yaml_path = yaml_copy(CITY_YAML, os.path.join(tmp, f"{tag}.yaml"), changes)
+    cfg = load_config(yaml_path)
+    print(f"[{tag}] {os.path.basename(CITY_YAML)}, changed only: {json.dumps(changes)}; "
+          f"{describe(cfg)}")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = get_model(cfg.symbol, cfg, device=dev, generator=gen)
+    perturb_offset_biases(model, gen)
+    ckpt = save_checkpoint(os.path.join(out, "ckpt"), 0, model)
+    del model
+    torch.cuda.empty_cache()
+    bucket = tuple(cfg.test.image_buckets[0])
+    results, timings, launches, predict_ms = run_eval_entry(
+        tag, ["--cfg", yaml_path, "--dataset-override", "cityscapes", "--no-artifacts",
+              "--weights", ckpt],
+        expected_launches(cfg, grad=False, bucket=bucket, batch=1), n_images=CITY_IMAGES)
+    metrics = {"boxes.AP": results["boxes"]["AP"], "masks.allAp": results["masks"]["allAp"],
+               "masks.allAp50%": results["masks"]["allAp50%"],
+               "ssegs.mIoU": results["ssegs"]["mIoU"],
+               "pq.All.pq": results["panoptic"]["All"]["pq"]}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"[{tag}] non-finite metrics: {metrics}")
+    n = timings["images"]
+    print(f"[{tag}] {n} images at {bucket} ({timings['detections']} detections): "
+          f"{n / timings['wall_s']:.2f} img/s, predict {predict_ms[0]:.1f} and "
+          f"{predict_ms[-1]:.1f} ms, sample {timings['sample_s'] * 1e3 / n:.1f} ms, host "
+          f"postprocess {timings['postprocess_s'] * 1e3 / n:.1f} ms an image, evaluators "
+          f"{timings['evaluate_s']:.2f} s; metrics (random weights) {json.dumps(metrics)}")
+    return launches
+
+
+_REPEAT_INTERLEAVE = torch.Tensor.repeat_interleave
+
+
+def _repeat_by_expand(x, repeats, dim=None, *, output_size=None):
+    """``Tensor.repeat_interleave`` for an int ``repeats`` as an expand and a
+    reshape: the same values, and a backward that sums over the expanded axis
+    instead of ``index_select``'s atomic ``index_add_``."""
+    if not isinstance(repeats, int):
+        return _REPEAT_INTERLEAVE(x, repeats, dim, output_size=output_size)
+    if dim is None:
+        x, dim = x.reshape(-1), 0
+    d = dim % x.dim()
+    shape = list(x.shape)
+    y = x.unsqueeze(d + 1).expand(*shape[:d + 1], repeats, *shape[d + 1:])
+    return y.reshape(*shape[:d], shape[d] * repeats, *shape[d + 1:])
+
+
+def _select_by_indexing(x, dim, index):
+    """``Tensor.index_select`` as advanced indexing: the same values, and a
+    backward that sorts the indices (``index_put_`` with accumulation) instead
+    of an atomic ``index_add_``."""
+    return x[(slice(None),) * (dim % x.dim()) + (index,)]
+
+
+def phase_nondeterminism(dev, tmp: str) -> None:
+    """Diagnostic, not run by default (``--nondeterminism``): the train
+    entry's first 3 steps on the rehearsal set, in pairs of runs from the same
+    seed: as shipped; with ``torch.backends.cudnn.deterministic`` (cuDNN's
+    deterministic convolution algorithms); that and ``repeat_interleave`` as
+    an expand (the FPN's nearest upsample and GroupNorm's per-channel
+    statistics, whose backward is otherwise an atomic ``index_add_``); that and
+    the seg-RoI loss's ``index_select`` as indexing (its backward sorted, not
+    atomic); and under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``. Prints whether each pair gives the same losses and
+    weights bit for bit, and every op that PyTorch reports as having no
+    deterministic form; then ``gradient_divergence``. The substitutions give
+    the same forward values and live only here."""
+    import warnings
+
+    from upsnet_torch.tools import train as train_cli
+
+    tag = "nondeterminism"
+    root = write_coco_set(tag, tmp)
+    n = 3
+    runs = []
+
+    def pair(name: str) -> None:
+        for _ in range(2):
+            path, _ = entry_config(f"{tag}_{len(runs)}", tmp, root,
+                                   {"max_iteration": n, "display_iter": n, "snapshot_step": n})
+            losses = {}
+            model, _ = train_cli.run(["--cfg", path],
+                                     on_step=lambda it, m: losses.update({it: m}))
+            runs.append((losses, digest(*model.state_dict().values())))
+            del model
+            torch.cuda.empty_cache()
+        (a, wa), (b, wb) = runs[-2:]
+        print(f"[{tag}] {name}: two runs of {n} steps give the same losses {a == b} and "
+              f"weights {wa == wb}; total {[round(a[i]['total'], 6) for i in sorted(a)]} and "
+              f"{[round(b[i]['total'], 6) for i in sorted(b)]}")
+
+    select = torch.Tensor.index_select
+    pair("as shipped")
+    torch.backends.cudnn.deterministic = True
+    try:
+        pair("cudnn.deterministic")
+        torch.Tensor.repeat_interleave = _repeat_by_expand
+        pair("cudnn.deterministic + repeat_interleave as expand")
+        torch.Tensor.index_select = _select_by_indexing
+        pair("cudnn.deterministic + repeat_interleave as expand + index_select as indexing")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.Tensor.repeat_interleave, torch.Tensor.index_select = _REPEAT_INTERLEAVE, select
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pair("use_deterministic_algorithms")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    reported = sorted({str(w.message).splitlines()[0] for w in caught
+                       if issubclass(w.category, UserWarning) and "determinis" in str(w.message)})
+    print(f"[{tag}] {len(reported)} ops reported non-deterministic:")
+    for r in reported:
+        print(f"[{tag}]   {r}")
+    gradient_divergence(dev, tmp, root)
+
+
+def gradient_divergence(dev, tmp: str, root: str) -> None:
+    """Where a step stops being reproducible: the seeded model's first
+    ``forward_train`` and backward on the set's first batch, twice as shipped
+    and twice under ``torch.use_deterministic_algorithms``; prints whether the
+    loss terms agree bit for bit and, by top-level module in the forward
+    order, how many parameter gradients differ. The op sits downstream, in
+    the forward, of the last parameter whose gradient differs."""
+    from upsnet_torch.data.coco import COCOPanoptic
+    from upsnet_torch.data.pipeline import make_loader
+    from upsnet_torch.data.wire import STEP_KEYS, decode_batch, encode_batch
+    from upsnet_torch.models.upsnet import forward_train
+
+    tag = "nondeterminism"
+    _, cfg = entry_config(f"{tag}_grads", tmp, root, {})
+    host = next(iter(make_loader(COCOPanoptic(cfg), cfg.train.batch_size, seed=cfg.seed)))
+    batch = decode_batch({k: v.to(dev) for k, v in encode_batch(
+        {k: v for k, v in host.items() if k in STEP_KEYS}, cfg.network.compute_dtype,
+        cfg.train.image_wire).items()})
+    anchors = bucket_anchors(cfg, host["images"].shape[1:3], dev)
+
+    def one():
+        model = get_model(cfg.symbol, cfg, device=dev)
+        total, losses = forward_train(model, cfg, anchors, batch, None,
+                                      torch.Generator(device=dev).manual_seed(cfg.seed))
+        total.backward()
+        out = ({k: v.item() for k, v in losses.items()},
+               {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None})
+        del model, total, losses
+        torch.cuda.empty_cache()
+        return out
+
+    for name in ("as shipped", "use_deterministic_algorithms"):
+        torch.use_deterministic_algorithms(name != "as shipped", warn_only=True)
+        try:
+            (la, ga), (lb, gb) = one(), one()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+        by_module = {}
+        for n in ga:
+            top = n.split(".")[0] + ("." + n.split(".")[1].split("_")[0]
+                                     if n.startswith("backbone_net") else "")
+            equal, total = by_module.get(top, (0, 0))
+            by_module[top] = (equal + (n not in differ), total + 1)
+        print(f"[{tag}] one step's gradients, {name}: loss terms equal {la == lb}; "
+              f"{len(differ)} of {len(ga)} parameter gradients differ; equal / all by module: "
+              + ", ".join(f"{m} {e}/{t}" for m, (e, t) in by_module.items()))
+        if differ:
+            print(f"[{tag}]   differing, last in the forward order: {differ[-6:]}")
+
+
 def phase_mt_tool(dev) -> dict:
     """The sample-first form through its one caller, the tool
     ``upsnet_torch.tools.bench_deform_impls``: first one ``deform_conv2d_mt``
@@ -2714,11 +3160,18 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one request and one train step of each "
                              "dcn_impl with torch.profiler")
+    parser.add_argument("--nondeterminism", action="store_true",
+                        help="only the diagnostic: which ops make the train entry's steps "
+                             "differ between runs")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
+    if args.nondeterminism:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_nondeterminism(dev, tmp)
+        return
     # the one-tap K2, K3 and K6 are held against their plain versions and
     # timed, but no route takes them any more: they are not in the kernels
     # line
@@ -2788,6 +3241,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     finish("eval_r50coco", phase_eval_r50coco(dev), None, "")
     finish("eval_tiny", phase_eval_tiny(dev), None, "")
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, run = phase_train_entry(dev, tmp)
+        finish("train_entry", counts, run, "train.")
+        del run
+        finish("eval_cityscapes", phase_eval_cityscapes(dev, tmp), None, "")
     finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
     phase_reference(dev, norm="gn", dcn_stages=(3, 4, 5))

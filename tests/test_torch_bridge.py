@@ -118,15 +118,16 @@ def test_mask_head_deconv_flip(rng):
 
 
 def test_import_leaves_jax_out():
-    """Importing every module of the port loads neither jax, flax, orbax nor
-    the JAX package; the evaluation entry, its evaluators, the dataset base
-    and the checkpoints are among them."""
+    """Importing every module of the port loads neither jax, flax, orbax, the
+    JAX package nor the root tools; the evaluation entry, its evaluators, the
+    dataset base and the checkpoints are among them, and so are the train
+    entry, the datasets, the loader and the wire."""
     code = (
         "import pkgutil, sys, importlib, upsnet_torch\n"
         "for m in pkgutil.walk_packages(upsnet_torch.__path__, 'upsnet_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'orbax', 'upsnet_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'upsnet_tpu', 'tools'))\n"
         "print(' '.join(k for k in sys.modules if k.startswith('upsnet_torch.')))\n"
         "assert not bad, bad\n"
     )
@@ -144,7 +145,11 @@ def test_import_leaves_jax_out():
             "upsnet_torch.evaluation.pq", "upsnet_torch.evaluation.seg_eval",
             "upsnet_torch.evaluation.panoptic_format", "upsnet_torch.data.base",
             "upsnet_torch.data.transforms", "upsnet_torch.utils.logging",
-            "upsnet_torch.train.checkpoints"} <= loaded
+            "upsnet_torch.train.checkpoints", "upsnet_torch.tools.train",
+            "upsnet_torch.tools.make_synth_coco", "upsnet_torch.data.pipeline",
+            "upsnet_torch.data.wire", "upsnet_torch.data.coco", "upsnet_torch.data.cityscapes",
+            "upsnet_torch.evaluation.cityscapes_eval", "upsnet_torch.convert.finetune",
+            "upsnet_torch.train.step", "upsnet_torch.utils.profiling"} <= loaded
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -352,9 +352,14 @@ def test_run_evaluation_refuses_tta_by_name(cfgs, field, value):
 
 
 @pytest.mark.parametrize("name", ["coco", "cityscapes"])
-def test_cli_refuses_unported_datasets_by_name(name):
-    with pytest.raises(NotImplementedError, match=f"dataset '{name}' is not ported"):
-        test_cli.run(["--cfg", TINY_YAML, "--dataset-override", name, "--device", "cpu"])
+def test_cli_refuses_unported_datasets_by_name(name, monkeypatch, tmp_path):
+    """Both datasets are ported now, so the CLI no longer refuses them: it
+    reads their files under ``dataset.dataset_path``, and a set that is not
+    there raises FileNotFoundError naming that path."""
+    yaml = str(pathlib.Path(__file__).resolve().parents[1] / TINY_YAML)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="data/coco"):
+        test_cli.run(["--cfg", yaml, "--dataset-override", name, "--device", "cpu"])
 
 
 def test_cli_runs_on_cuda_unless_told_otherwise(monkeypatch, tmp_path):

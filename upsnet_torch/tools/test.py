@@ -8,9 +8,10 @@ flags are those of the JAX package's ``tools/test.py``, plus ``--device``:
     python -m upsnet_torch.tools.test --cfg experiments/upsnet_tiny_synthetic.yaml \\
         --dataset-override synthetic [--weights <port checkpoint>] [--device cpu]
 
-It runs on the card unless ``--device cpu`` is given. The COCO and
-Cityscapes datasets and test-time augmentation are not ported yet and are
-refused by name.
+It runs on the card unless ``--device cpu`` is given. The datasets are
+``coco`` and ``cityscapes`` (files under ``dataset.dataset_path``, split
+``dataset.test_image_set``) and ``synthetic``; test-time augmentation is not
+ported yet and is refused by name.
 """
 
 from __future__ import annotations
@@ -22,13 +23,10 @@ import os
 import torch
 
 from upsnet_torch.config import load_config
-from upsnet_torch.data.synthetic import SyntheticDataset
+from upsnet_torch.data import DATASETS, make_dataset
 from upsnet_torch.evaluation.coco_eval import format_table
 from upsnet_torch.evaluation.inference import run_evaluation
 from upsnet_torch.utils.logging import create_logger
-
-# datasets whose loaders are not ported yet
-UNPORTED_DATASETS = ("coco", "cityscapes")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -37,7 +35,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--weights", "--weight_path", default=None,
                     help="port checkpoint path (upsnet_torch/train/checkpoints.py; "
                          "--weight_path is the reference CLI's spelling)")
-    ap.add_argument("--dataset-override", default=None)
+    ap.add_argument("--dataset-override", default=None, choices=DATASETS)
     ap.add_argument("--max-images", type=int, default=None)
     ap.add_argument("--no-artifacts", action="store_true",
                     help="skip writing panoptic PNG/JSON artifacts")
@@ -53,13 +51,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def make_dataset(cfg, name: str):
-    if name in UNPORTED_DATASETS:
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported yet; use --dataset-override synthetic")
-    return SyntheticDataset(cfg, num_images=8, training=False)
-
-
 def run(argv=None) -> tuple[dict, dict]:
     """Parse ``argv``, evaluate, log the results; returns (the evaluators'
     results by name, the timings of ``run_evaluation``)."""
@@ -70,7 +61,7 @@ def run(argv=None) -> tuple[dict, dict]:
     cfg = load_config(args.cfg)
     if args.dcn_impl:
         cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl=args.dcn_impl))
-    dataset = make_dataset(cfg, args.dataset_override or cfg.dataset.dataset)
+    dataset = make_dataset(cfg, args.dataset_override or cfg.dataset.dataset, training=False)
     out_dir = os.path.join(cfg.output_path, cfg.symbol)
     os.makedirs(out_dir, exist_ok=True)
     logger = create_logger(out_dir, cfg.symbol, "test")

@@ -56,6 +56,11 @@ def latest_checkpoint(ckpt_dir: str) -> str | None:
     return os.path.join(os.path.abspath(ckpt_dir), steps[-1]) if steps else None
 
 
+def read_state_dict(path: str) -> dict:
+    """The model weights of the snapshot at ``path``, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+
+
 class CheckpointMismatch(ValueError):
     """Raised at restore time when the snapshot does not match the model (or
     the optimizer) it is restored into, with the named differences."""

@@ -25,19 +25,19 @@ def make_train_step(model: nn.Module, cfg: Config, anchors,
     on ``model`` in place. ``metrics`` holds the 7 loss terms and ``total``
     as detached scalars on the model's device. ``noise`` is
     ``forward_train``'s; what it lacks is drawn from ``generator``. The
-    schedule counts the calls from 0. Gradients are clipped to the global
-    norm ``cfg.train.grad_clip`` over the trainable parameters."""
-    count = 0
+    schedule's step is the optimizer's update count (``optimizer.py``), which
+    every step made over the same optimizer shares, one per image bucket, and
+    which a checkpoint saves with the optimizer's state. Gradients are
+    clipped to the global norm ``cfg.train.grad_clip`` over the trainable
+    parameters."""
 
     def step(batch, noise=None):
-        nonlocal count
         optimizer.zero_grad(set_to_none=True)
         total, losses = forward_train(model, cfg, anchors, batch, noise, generator)
         with record_function("train.backward"):
             total.backward()
         with record_function("train.update"):
-            sgd_update(optimizer, cfg, count)
-        count += 1
+            sgd_update(optimizer, cfg)
         return {**{k: v.detach() for k, v in losses.items()}, "total": total.detach()}
 
     return step
