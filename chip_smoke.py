@@ -43,7 +43,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    25-tap, C 384 path). The one-tap K2, K3
    and K6, which no route takes any more, are checked and timed as the
    yardsticks of the layers they used to serve, and are not in the kernels
-   line;
+   line. Then, not timed, the kernels of the train entry and the two
+   evaluation phases at their own shapes (``check_entry_shapes``): K1, the
+   all-tap K2 and the clipped all-tap K3 (reach 9) on every DCN map of
+   the GN rehearsal file at batch 8 in both its buckets, 832x1344 and
+   1344x832, with K4 and K5 at the three calls of its step; K1 and K4 at
+   batch 1 at the evaluations' buckets, 1024x2048 included;
 3. predict: ``resnet_50_upsnet`` at full width (COCO: 81 classes, 133 seg
    classes) in bf16 at the 832x1344 bucket, random weights from a seed, DCN
    offset biases set to +-2 px, serving two batch-2 requests through
@@ -157,8 +162,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    then with GroupNorm and DCN in C3-C5.
 
 ``--nondeterminism`` runs only a diagnostic: pairs of runs of the train
-entry's first 3 steps, as shipped, with cuDNN's deterministic algorithms, with
-two ops swapped for deterministic equivalents, and under
+entry's first 3 steps, as shipped and under
 ``torch.use_deterministic_algorithms(True, warn_only=True)``, whether each pair
 agrees bit for bit, the ops PyTorch reports as non-deterministic, and which
 parameter gradients of one step differ between two runs.
@@ -367,38 +371,70 @@ def r101_backbone_maps() -> list:
                   reverse=True)
 
 
+def _tap_grid(dev) -> tuple:
+    """The 3x3 kernel's row and column offsets, (9, 1, 1, 1) each."""
+    kk = torch.arange(9, device=dev)
+    return (kk // 3 - 1).float()[:, None, None, None], (kk % 3 - 1).float()[:, None, None, None]
+
+
+def _k1_inputs(g, dev, b: int, h: int, w: int, c: int) -> tuple:
+    """y9 (9, B, H, W, C) bf16 and the sample coordinates sy9, sx9 of a
+    nine-tap layer: +-2 px offsets with 3% of the samples moved 6-12 px
+    (``dcn_offsets``) and 1% pushed beyond the image edge."""
+    taps = 9
+    ky, kx = _tap_grid(dev)
+    shape = (taps, b, h, w)
+    y9 = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+
+    sy9 = iy + ky + dcn_offsets(g, dev, shape)
+    sx9 = (ix + kx + dcn_offsets(g, dev, shape)).contiguous()
+    edge = torch.rand(shape, generator=g, device=dev) < 0.01
+    sy9 = torch.where(edge, sy9 + torch.where(sy9 < h / 2, -float(h), float(h)), sy9)
+    return y9, sy9.contiguous(), sx9
+
+
+# f32 sums in a different order, each rounded once to bf16: at most one
+# bf16 ulp (<= 2^-7 relative) apart, plus f32 slack near zero
+K1_RTOL, K1_ATOL = 2.0 ** -7, 1e-4
+
+
+def _check_k1(where: str, y9, sy9, sx9, k8a: bool = True) -> tuple:
+    """K1 on one nine-tap layer in both layouts, side by side (the no-grad
+    routes') and tap-major, and with ``k8a`` K8a on the side-by-side data:
+    the same bits, and within one bf16 ulp of the plain version. Returns
+    (the max abs error, the plain version's output)."""
+    y_sbs = y9.permute(1, 2, 3, 0, 4).contiguous()
+    got = deform_sample.deform_sample9(y_sbs, sy9, sx9, tap_axis=3)
+    same = [deform_sample.deform_sample9(y9, sy9, sx9)]
+    if k8a:
+        same.append(deform_shift.shift_fwd(y_sbs.flatten(3), sy9, sx9))
+    ref = deform_sample.deform_sample9_plain(y9, sy9, sx9)
+    torch.cuda.synchronize()
+    if not all(torch.equal(got, other) for other in same):
+        raise AssertionError(f"K1 {where}: the side-by-side, tap-major{' and K8a' * k8a} "
+                             f"results differ")
+    err, rel = compare(got, ref, K1_RTOL, K1_ATOL)
+    print(f"[K1 deform_sample9] {where}, y {tuple(y_sbs.shape)} side by side bf16: max abs err "
+          f"{err:.3e}, max rel err {rel:.3e} (tolerance {K1_RTOL:.4g}*|ref| + {K1_ATOL:g}); "
+          f"equal to tap-major K1{' and to K8a' * k8a}")
+    return err, ref
+
+
 def check_k1(dev) -> dict:
     """K1 at the three backbone shapes of the R101-DCN path
     (``r101_backbone_maps``, C 128 / 256 / 512) and the four FCN levels
-    (P2 208x336 .. P5 26x42, C=128), bf16, 9 taps: +-2 px offsets with 3% of
-    the samples moved 6-12 px and 1% pushed beyond the image edge, in both
-    layouts: side by side (B, H, W, 9, C), the output of the one matmul that
-    the no-grad routes build (its numbers are the returned ones), and
-    tap-major (9, B, H, W, C). At every shape the two layouts and K8a (``shift_fwd``) on the same
-    side-by-side data must give the same bits, and lie within one bf16 ulp
-    of the plain version. Times, the bound and the library yardstick are for
-    P2; the tap-major time is printed beside the side-by-side one."""
+    (P2 208x336 .. P5 26x42, C=128), bf16, 9 taps, on ``_k1_inputs``, in
+    both layouts: side by side (B, H, W, 9, C), the output of the one matmul
+    that the no-grad routes build (its numbers are the returned ones), and
+    tap-major (9, B, H, W, C). At every shape the two layouts and K8a
+    (``shift_fwd``) on the same side-by-side data must give the same bits,
+    and lie within one bf16 ulp of the plain version (``_check_k1``). Times,
+    the bound and the library yardstick are for P2; the tap-major time is
+    printed beside the side-by-side one."""
     g = torch.Generator(device=dev).manual_seed(1)
     taps, b, c = 9, BATCH, 128
-    kk = torch.arange(taps, device=dev)
-    ky = (kk // 3 - 1).float()[:, None, None, None]
-    kx = (kk % 3 - 1).float()[:, None, None, None]
-
-    def inputs(h, w, c, g=g):
-        shape = (taps, b, h, w)
-        y9 = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-        iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
-        ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
-
-        sy9 = iy + ky + dcn_offsets(g, dev, shape)
-        sx9 = (ix + kx + dcn_offsets(g, dev, shape)).contiguous()
-        edge = torch.rand(shape, generator=g, device=dev) < 0.01
-        sy9 = torch.where(edge, sy9 + torch.where(sy9 < h / 2, -float(h), float(h)), sy9)
-        return y9, sy9.contiguous(), sx9
-
-    # f32 sums in a different order, each rounded once to bf16: at most one
-    # bf16 ulp (<= 2^-7 relative) apart, plus f32 slack near zero
-    rtol, atol = 2.0 ** -7, 1e-4
     max_abs = 0.0
     # the backbone's inputs from a generator of their own, so that the FCN
     # levels' inputs stay what they were; P2 last: its tensors are timed below
@@ -408,21 +444,10 @@ def check_k1(dev) -> dict:
     cases += [(f"FCN P{s}", BUCKET[0] // 2 ** s, BUCKET[1] // 2 ** s, c, g)
               for s in (5, 4, 3, 2)]
     for where, h, w, cc, gen in cases:
-        y9, sy9, sx9 = inputs(h, w, cc, gen)
-        y_sbs = y9.permute(1, 2, 3, 0, 4).contiguous()
-        got = deform_sample.deform_sample9(y_sbs, sy9, sx9, tap_axis=3)
-        got_tm = deform_sample.deform_sample9(y9, sy9, sx9)
-        got_k8a = deform_shift.shift_fwd(y_sbs.flatten(3), sy9, sx9)
-        ref = deform_sample.deform_sample9_plain(y9, sy9, sx9)
-        torch.cuda.synchronize()
-        if not (torch.equal(got, got_tm) and torch.equal(got, got_k8a)):
-            raise AssertionError(f"K1 {where}: the side-by-side, tap-major and K8a "
-                                 f"results differ")
-        err, rel = compare(got, ref, rtol, atol)
+        y9, sy9, sx9 = _k1_inputs(gen, dev, b, h, w, cc)
+        err, ref = _check_k1(where, y9, sy9, sx9)
         max_abs = max(max_abs, err)
-        print(f"[K1 deform_sample9] {where}, y {tuple(y_sbs.shape)} side by side bf16: max abs err "
-              f"{err:.3e}, max rel err {rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); "
-              f"equal to tap-major K1 and to K8a")
+    y_sbs = y9.permute(1, 2, 3, 0, 4).contiguous()
 
     # the library yardstick: 9 grid_sample calls (zeros padding, corner-
     # aligned grid = DCN's zero-padded bilinear sampling) and a sum.
@@ -451,7 +476,7 @@ def check_k1(dev) -> dict:
     # bytes this run needs: every projection row a counted sample touches
     # (once), the coordinates, the output; flops: 4 corners x 2 per channel
     n_rows, n_inside = touched_rows(sy9, sx9, h, w)
-    n_bytes = n_rows * c * 2 + 2 * sy9.numel() * 4 + got.numel() * 2
+    n_bytes = n_rows * c * 2 + 2 * sy9.numel() * 4 + ref.numel() * 2
     n_flops = n_inside * 4 * 2 * c
     bound_ms, bound_by = bound(n_bytes, n_flops)
     print(f"[K1 deform_sample9] P2: kernel side by side {ms:.4f} ms ({100 * bound_ms / ms:.1f}% "
@@ -569,17 +594,17 @@ def check_coords(dev) -> None:
           f"integer coordinates; digest {digest(gsy, gsx)}")
 
 
-def _random_rois(g, dev, n: int) -> torch.Tensor:
-    """n RoIs per image over the 832x1344 canvas: log-uniform 8-800 px
+def _random_rois(g, dev, n: int, bucket=BUCKET, batch: int = BATCH) -> torch.Tensor:
+    """n RoIs per image over the ``bucket`` canvas: log-uniform 8-800 px
     sides, centers up to 60 px outside the image, and every tenth RoI
     wider than 256 px."""
-    hh, ww = BUCKET
-    side = torch.exp(torch.empty((BATCH, n, 2), device=dev).uniform_(
+    hh, ww = bucket
+    side = torch.exp(torch.empty((batch, n, 2), device=dev).uniform_(
         math.log(8.0), math.log(800.0), generator=g))
-    side[:, ::10, 0] = torch.empty((BATCH, side[:, ::10].shape[1]), device=dev).uniform_(
+    side[:, ::10, 0] = torch.empty((batch, side[:, ::10].shape[1]), device=dev).uniform_(
         260.0, 1100.0, generator=g)
-    cx = torch.empty((BATCH, n), device=dev).uniform_(-60.0, ww + 60.0, generator=g)
-    cy = torch.empty((BATCH, n), device=dev).uniform_(-60.0, hh + 60.0, generator=g)
+    cx = torch.empty((batch, n), device=dev).uniform_(-60.0, ww + 60.0, generator=g)
+    cy = torch.empty((batch, n), device=dev).uniform_(-60.0, hh + 60.0, generator=g)
     return torch.stack([cx - side[..., 0] / 2, cy - side[..., 1] / 2,
                         cx + side[..., 0] / 2, cy + side[..., 1] / 2], -1).contiguous()
 
@@ -645,6 +670,37 @@ def _k4_bound(feats, rois, levels, pooled: int, c: int, s: int = 2) -> tuple[flo
     return ms, by, n_bytes
 
 
+def _check_k4_call(what: str, dtype: str, fs, rois, levels, pooled: int, s: int) -> tuple:
+    """One K4 call on the levels ``fs`` against its plain version: finite,
+    two runs bit-identical; at S 1, 2, 4 (the fused instances: the plain
+    version's terms with one rounding fewer each, rounded once to T) within
+    one bf16 ulp plus f32 slack near zero in bf16, 1e-5 max|ref| in f32; at
+    any other S (the runtime-S path, which sums as the plain version sums)
+    its bits. Returns (the max abs error, how it agreed)."""
+    got = roi_align_fpn.fpn_roi_align(fs, rois, levels, pooled, s)
+    again = roi_align_fpn.fpn_roi_align(fs, rois, levels, pooled, s)
+    ref = roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled, s)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"K4 {what} {dtype}: two runs on the same inputs differ")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"K4 {what} {dtype}: output not finite")
+    if s in (1, 2, 4):
+        rtol, atol = (2.0 ** -7, 1e-4) if dtype == "bf16" else (
+            0.0, 1e-5 * float(ref.abs().max()))
+        max_abs, _ = compare(got, ref, rtol, atol)
+        agree = f"max abs err {max_abs:.3e} (tolerance {rtol:.4g}*|ref| + {atol:.3g})"
+    else:
+        max_abs = float((got.float() - ref.float()).abs().max())
+        bits = torch.int16 if dtype == "bf16" else torch.int32
+        n_diff = int((got.view(bits) != ref.view(bits)).sum())
+        if n_diff:
+            raise AssertionError(f"K4 {what} {dtype}: {n_diff} elements differ in bits "
+                                 f"from the plain version (max abs {max_abs:.3e})")
+        agree = "the plain version's bits"
+    return max_abs, f"{agree}, two runs bit-identical"
+
+
 def check_k4(dev) -> dict:
     """K4 over an 832x1344 pyramid (C=256), batch 2, at the calls of a
     predict forward (1000 RoIs an image at 7x7, the box call; 100 at 14x14,
@@ -686,33 +742,10 @@ def check_k4(dev) -> dict:
         levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
         for dtype, fs in (("bf16", feats), ("f32", feats32)):
             run = lambda: roi_align_fpn.fpn_roi_align(fs, rois, levels, pooled, s)  # noqa: E731
-            got, again = run(), run()
-            ref = roi_align_fpn.fpn_roi_align_plain(fs, rois, levels, pooled, s)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                raise AssertionError(f"K4 {what} {dtype}: two runs on the same inputs differ")
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"K4 {what} {dtype}: output not finite")
-            if s in (1, 2, 4):
-                # the fused instances: the plain version's terms with one
-                # rounding fewer each, rounded once to T. bf16: at most one
-                # bf16 ulp apart, plus f32 slack near zero; f32: 1e-5 max|ref|
-                rtol, atol = (2.0 ** -7, 1e-4) if dtype == "bf16" else (
-                    0.0, 1e-5 * float(ref.abs().max()))
-                max_abs, _ = compare(got, ref, rtol, atol)
-                agree = f"max abs err {max_abs:.3e} (tolerance {rtol:.4g}*|ref| + {atol:.3g})"
-            else:
-                # the runtime-S path sums as the plain version sums
-                max_abs = float((got.float() - ref.float()).abs().max())
-                bits = torch.int16 if dtype == "bf16" else torch.int32
-                n_diff = int((got.view(bits) != ref.view(bits)).sum())
-                if n_diff:
-                    raise AssertionError(f"K4 {what} {dtype}: {n_diff} elements differ in bits "
-                                         f"from the plain version (max abs {max_abs:.3e})")
-                agree = "the plain version's bits"
+            max_abs, agree = _check_k4_call(what, dtype, fs, rois, levels, pooled, s)
             out["max_abs_err"] = max(out["max_abs_err"], max_abs)
             head = (f"[K4 fpn_roi_align] {what}, {rois.shape[1]} RoIs x2 at {pooled}x{pooled}, "
-                    f"S {s}, {dtype}: {agree}, two runs bit-identical")
+                    f"S {s}, {dtype}: {agree}")
             if dtype == "f32":
                 print(f"{head}; kernel {time_ms(run):.4f} ms (queued {time_queued_ms(run):.4f})")
                 continue
@@ -777,6 +810,40 @@ def _check_forward_taps(what: str, got, chain, ref, plain_tap, taps: int):
     return float(err.max()), float((err / ref.float().abs().clamp(min=1e-3)).max())
 
 
+def _k2_layer(g, dev, b: int, h: int, w: int, c: int, dtype, field: str) -> tuple:
+    """y (9, B, H, W, C) in ``dtype``, sy, sx of a nine-tap layer on an
+    h x w x c map, tap-major: offsets ``field`` '+-2 px' (``dcn_offsets``)
+    or '+-40 px' (uniform), then ``_mark_integers``."""
+    taps = 9
+    ky, kx = _tap_grid(dev)
+    shape = (taps, b, h, w)
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+    y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(dtype)
+    if field == "+-40 px":
+        off_y = torch.rand(shape, generator=g, device=dev) * 80 - 40
+        off_x = torch.rand(shape, generator=g, device=dev) * 80 - 40
+    else:
+        off_y, off_x = dcn_offsets(g, dev, shape), dcn_offsets(g, dev, shape)
+    return (y, *_mark_integers(g, dev, iy + ky + off_y, ix + kx + off_x, h))
+
+
+def _k2_chain(y, sy, sx):
+    """The layer as the one-tap K2 did it: 9 launches, 8 adds."""
+    out = deform_sample.deform_sample(y[0], sy[0], sx[0])
+    for t in range(1, y.shape[0]):
+        out = out + deform_sample.deform_sample(y[t], sy[t], sx[t])
+    return out
+
+
+def _check_k2(what: str, y, sy, sx) -> tuple:
+    """``_check_forward_taps`` of the all-tap K2 on one tap-major layer."""
+    return _check_forward_taps(
+        what, deform_sample.deform_sample_taps(y, sy, sx), _k2_chain(y, sy, sx),
+        deform_sample.deform_sample_taps_plain(y, sy, sx),
+        lambda t: deform_sample.deform_sample_plain(y[t], sy[t], sx[t]), y.shape[0])
+
+
 def check_k2_taps(dev) -> dict:
     """The all-tap K2 on a nine-tap layer at P2 of the 832x1344 bucket
     (9 x 2 x 208 x 336 x 128, bf16, tap-major), at two offset fields: +-2 px
@@ -793,41 +860,13 @@ def check_k2_taps(dev) -> dict:
     timed)."""
     g = torch.Generator(device=dev).manual_seed(13)
     taps, b, c = 9, BATCH, 128
-    kk = torch.arange(taps, device=dev)
-    ky = (kk // 3 - 1).float()[:, None, None, None]
-    kx = (kk % 3 - 1).float()[:, None, None, None]
-
-    def layer(h, w, dtype, field, c=c):
-        """y, sy, sx of a nine-tap layer on an h x w x c map."""
-        shape = (taps, b, h, w)
-        iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
-        ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
-        y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(dtype)
-        if field == "+-40 px":
-            off_y = torch.rand(shape, generator=g, device=dev) * 80 - 40
-            off_x = torch.rand(shape, generator=g, device=dev) * 80 - 40
-        else:
-            off_y, off_x = dcn_offsets(g, dev, shape), dcn_offsets(g, dev, shape)
-        return (y, *_mark_integers(g, dev, iy + ky + off_y, ix + kx + off_x, h))
-
-    def chain(y, sy, sx):  # the layer as the one-tap K2 did it: 9 launches, 8 adds
-        out = deform_sample.deform_sample(y[0], sy[0], sx[0])
-        for t in range(1, taps):
-            out = out + deform_sample.deform_sample(y[t], sy[t], sx[t])
-        return out
-
-    def check(what, y, sy, sx):
-        return _check_forward_taps(
-            what, deform_sample.deform_sample_taps(y, sy, sx), chain(y, sy, sx),
-            deform_sample.deform_sample_taps_plain(y, sy, sx),
-            lambda t: deform_sample.deform_sample_plain(y[t], sy[t], sx[t]), taps)
 
     h, w = BUCKET[0] // 4, BUCKET[1] // 4
     row = {}
     for field in ("+-2 px", "+-40 px"):
-        y, sy, sx = layer(h, w, torch.bfloat16, field)
+        y, sy, sx = _k2_layer(g, dev, b, h, w, c, torch.bfloat16, field)
         planes = [y[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
-        err, rel = check("K2 taps", y, sy, sx)
+        err, rel = _check_k2("K2 taps", y, sy, sx)
         grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
 
         def run():
@@ -842,8 +881,8 @@ def check_k2_taps(dev) -> dict:
             return acc
 
         ms = time_ms(run)
-        queued = [time_queued_ms(f) for f in (run, lambda: chain(y, sy, sx))]
-        chain_ms = time_ms(lambda: chain(y, sy, sx))
+        queued = [time_queued_ms(f) for f in (run, lambda: _k2_chain(y, sy, sx))]
+        chain_ms = time_ms(lambda: _k2_chain(y, sy, sx))
         plain_ms = time_ms(lambda: deform_sample.deform_sample_taps_plain(y, sy, sx), 3)
         library_ms = time_ms(library, 10)
         del grids, planes
@@ -872,15 +911,15 @@ def check_k2_taps(dev) -> dict:
         else:
             row["max_abs_err"] = max(row["max_abs_err"], err)
         del y, sy, sx
-    y, sy, sx = layer(h // 2, w // 2, torch.float32, "+-2 px")
-    err, rel = check("K2 taps float32", y, sy, sx)
+    y, sy, sx = _k2_layer(g, dev, b, h // 2, w // 2, c, torch.float32, "+-2 px")
+    err, rel = _check_k2("K2 taps float32", y, sy, sx)
     print(f"[K2 deform_sample_taps] +-2 px, y {tuple(y.shape)} float32: equal to 9 one-tap K2 "
           f"and 8 adds; against the plain version max abs err {err:.3e}, max rel err "
           f"{rel:.3e} (tolerance 2^-20 * (sum |tap| + sum |partial|) + 1e-5)")
     del y, sy, sx
     for hh, ww, cc in r101_backbone_maps():
-        y, sy, sx = layer(hh, ww, torch.bfloat16, "+-2 px", cc)
-        err, rel = check(f"K2 taps backbone {hh}x{ww}x{cc}", y, sy, sx)
+        y, sy, sx = _k2_layer(g, dev, b, hh, ww, cc, torch.bfloat16, "+-2 px")
+        err, rel = _check_k2(f"K2 taps backbone {hh}x{ww}x{cc}", y, sy, sx)
         row["max_abs_err"] = max(row["max_abs_err"], err)
         print(f"[K2 deform_sample_taps] backbone, +-2 px, y {tuple(y.shape)} bf16: equal to 9 "
               f"one-tap K2 and 8 adds; against the plain version max abs err {err:.3e}, max "
@@ -1008,6 +1047,28 @@ def _clustered_rois(g, dev, n: int) -> torch.Tensor:
     return torch.cat([centre - side / 2, centre + side / 2], -1).contiguous()
 
 
+# overlapping RoIs add up to thousands of f32 terms per element, in another
+# order than the plain version's, then round once to bf16: one bf16 ulp,
+# plus 1e-3 where the terms cancel
+K5_RTOL, K5_ATOL = 2.0 ** -7, 1e-3
+
+
+def _check_k5_call(grad, rois, levels, shapes, dtypes) -> tuple:
+    """One K5 call against its plain version: every level gradient within
+    (K5_RTOL, K5_ATOL), the same bits on two runs, not all zero. Returns
+    the max abs and rel errors."""
+    got = roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes, dtypes)
+    again = roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes, dtypes)
+    ref = roi_align_fpn.fpn_roi_align_bwd_plain(grad, rois, levels, shapes, dtypes)
+    torch.cuda.synchronize()
+    errs = [compare(a, r, K5_RTOL, K5_ATOL) for a, r in zip(got, ref)]
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("K5: two runs on the same inputs differ")
+    if not any(float(a.abs().max()) > 0 for a in got):
+        raise AssertionError("K5: all level gradients are zero")
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
 def check_k5(dev) -> dict:
     """K5 into a bf16 832x1344 pyramid (C=256), batch 2, for the three calls
     of one train step: 512 RoIs at 7x7 (box head), 128 at 14x14 (fg masks)
@@ -1021,10 +1082,6 @@ def check_k5(dev) -> dict:
     c = 256
     shapes = [(BATCH, -(-BUCKET[0] // s), -(-BUCKET[1] // s), c) for s in (4, 8, 16, 32)]
     dtypes = [torch.bfloat16] * 4
-    # overlapping RoIs add up to thousands of f32 terms per element, in
-    # another order than the plain version's, then round once to bf16: one
-    # bf16 ulp, plus 1e-3 where the terms cancel
-    rtol, atol = 2.0 ** -7, 1e-3
     out = {"name": "fpn_roi_align_bwd", "route": "cuda",
            "source": "upsnet_torch/csrc/roi_align_fpn_bwd.cu",
            "replaces": "upsnet_tpu/ops/roi_align_pallas.py:465",
@@ -1039,17 +1096,7 @@ def check_k5(dev) -> dict:
             rois[:, 3:] = 0.0
             grad[:, 3:] = 0.0
         levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
-        got = roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes, dtypes)
-        again = roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes, dtypes)
-        ref = roi_align_fpn.fpn_roi_align_bwd_plain(grad, rois, levels, shapes, dtypes)
-        torch.cuda.synchronize()
-        errs = [compare(a, r, rtol, atol) for a, r in zip(got, ref)]
-        max_abs = max(e[0] for e in errs)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError("K5: two runs on the same inputs differ")
-        if not any(float(a.abs().max()) > 0 for a in got):
-            raise AssertionError("K5: all level gradients are zero")
-        del again, ref
+        max_abs, max_rel = _check_k5_call(grad, rois, levels, shapes, dtypes)
         ms = time_ms(lambda: roi_align_fpn.fpn_roi_align_bwd(grad, rois, levels, shapes,
                                                              dtypes))
         plain_ms = time_ms(lambda: roi_align_fpn.fpn_roi_align_bwd_plain(
@@ -1063,8 +1110,8 @@ def check_k5(dev) -> dict:
         n_flops = live * pooled * pooled * c * (4 * 4 * 2 + 1)
         bound_ms, bound_by = bound(n_bytes, n_flops)
         print(f"[K5 fpn_roi_align_bwd] {n_rois} {kind} RoIs x2 at {pooled}x{pooled}: max abs "
-              f"err {max_abs:.3e}, max rel err {max(e[1] for e in errs):.3e} (tolerance "
-              f"{rtol:.4g}*|ref| + {atol:g}); two runs bit-identical; kernel {ms:.4f} ms, "
+              f"err {max_abs:.3e}, max rel err {max_rel:.3e} (tolerance "
+              f"{K5_RTOL:.4g}*|ref| + {K5_ATOL:g}); two runs bit-identical; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP)")
         out["max_abs_err"] = max(out["max_abs_err"], max_abs)
@@ -1278,6 +1325,35 @@ def _check_taps_backward(what: str, run, ref, sy, sx, tag: str):
     return gy_err, gy_rel, gsy_err, gsx_err
 
 
+def _k3_layer(g, dev, b: int, h: int, w: int, c: int, tap_axis: int, max_d: int) -> tuple:
+    """y, grad, sy, sx of a nine-tap layer on a b x h x w x c map, bf16, y
+    tap-major (``tap_axis`` 0) or side by side (3): ``dcn_offsets`` clipped
+    to +-``max_d``, then ``_mark_integers``; within reach ``max_d + 1``."""
+    taps = 9
+    ky, kx = _tap_grid(dev)
+    shape = (taps, b, h, w)
+    y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    if tap_axis == 3:
+        y = y.permute(1, 2, 3, 0, 4).contiguous()
+    grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
+    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
+    sy = iy + ky + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
+    sx = ix + kx + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
+    sy, sx = _mark_integers(g, dev, sy, sx, h)
+    deform_sample.check_reach(sy, sx, max_d + 1, None)
+    return y, grad, sy, sx
+
+
+def _check_k3(tag: str, y, grad, sy, sx, tap_axis: int, reach: int) -> tuple:
+    """``_check_taps_backward`` of the clipped all-tap K3 on one layer."""
+    return _check_taps_backward(
+        f"K3 taps {tag}",
+        lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach, tap_axis),
+        deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, tap_axis), sy, sx,
+        f"[K3 deform_sample_bwd_taps] {tag}, y {tuple(y.shape)} bf16")
+
+
 def check_k3_taps(dev) -> dict:
     """The all-tap K3 on a nine-tap layer with dy and dx clipped to +-6
     (reach 7), C 128, bf16: tap-major at P2 of the 832x1344 bucket
@@ -1295,39 +1371,14 @@ def check_k3_taps(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(9)
     taps, c, max_d = 9, 128, 6
     reach = max_d + 1  # max_dy + half * dilation
-    kk = torch.arange(taps, device=dev)
-    ky = (kk // 3 - 1).float()[:, None, None, None]
-    kx = (kk % 3 - 1).float()[:, None, None, None]
-
-    def layer(b, h, w, c, tap_axis, g=g):
-        """y, grad, sy, sx of a nine-tap layer on a b x h x w x c map."""
-        shape = (taps, b, h, w)
-        y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-        if tap_axis == 3:
-            y = y.permute(1, 2, 3, 0, 4).contiguous()
-        grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-        iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
-        ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
-        sy = iy + ky + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
-        sx = ix + kx + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
-        sy, sx = _mark_integers(g, dev, sy, sx, h)
-        deform_sample.check_reach(sy, sx, reach, None)
-        return y, grad, sy, sx
-
-    def check(tag, y, grad, sy, sx, tap_axis):
-        return _check_taps_backward(
-            f"K3 taps {tag}", lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach,
-                                                                    tap_axis),
-            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, tap_axis), sy, sx,
-            f"[K3 deform_sample_bwd_taps] {tag}, y {tuple(y.shape)} bf16")
 
     row = {}
     for tag, b, (h, w) in (("P2 tap-major", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
                            ("wide P2 side by side", WIDE_BATCH,
                             (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4))):
         tap_axis = 0 if tag.endswith("tap-major") else 3
-        y, grad, sy, sx = layer(b, h, w, c, tap_axis)
-        gy_err, gy_rel, gsy_err, gsx_err = check(tag, y, grad, sy, sx, tap_axis)
+        y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, tap_axis, max_d)
+        gy_err, gy_rel, gsy_err, gsx_err = _check_k3(tag, y, grad, sy, sx, tap_axis, reach)
         ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach,
                                                                   tap_axis))
         plain_ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps_plain(
@@ -1376,8 +1427,8 @@ def check_k3_taps(dev) -> dict:
     # the training route's layout at the backbone shapes of the R101-DCN path
     g_backbone = torch.Generator(device=dev).manual_seed(22)
     for hh, ww, cc in r101_backbone_maps():
-        y, grad, sy, sx = layer(BATCH, hh, ww, cc, 0, g_backbone)
-        errs = check(f"backbone {hh}x{ww} tap-major", y, grad, sy, sx, 0)
+        y, grad, sy, sx = _k3_layer(g_backbone, dev, BATCH, hh, ww, cc, 0, max_d)
+        errs = _check_k3(f"backbone {hh}x{ww} tap-major", y, grad, sy, sx, 0, reach)
         row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
         del y, grad, sy, sx
     torch.cuda.empty_cache()
@@ -1841,6 +1892,115 @@ COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample_tiled": (deform_sample, "launches_tiled"),
             "deform_sample_mt": (deform_sample_mt, "launches_fwd"),
             "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd")}
+
+
+def check_entry_shapes(dev, rows: list) -> None:
+    """The kernels of the train entry and of the two evaluation phases at
+    the shapes those paths give them, which the checks above (batch 2 at
+    832x1344) do not reach. Each is held as its check above holds it, at
+    the same tolerance, bf16 (the files' compute dtype), and not timed:
+
+    - ``train_entry`` (``GN_YAML``: batch 8 in each of its buckets,
+      832x1344 and 1344x832): at every DCN layer's map (``dcn_layers``) the
+      all-tap K2 at +-2 px (``_check_k2``), the clipped all-tap K3
+      tap-major at the file's ``dcn_max_dy`` (8, reach 9; ``_check_k3``)
+      and K1 (the saturation probe's pass; ``_check_k1``); K4 and K5 at the
+      three calls of a step: ``batch_rois`` RoIs at the box size,
+      ``batch_rois * fg_fraction`` and the ``max_gt_instances`` GT slots (3
+      of them boxes, the others padding with no gradient) at the mask size;
+    - the evaluations at batch 1 (``GN_YAML``'s test buckets, and
+      ``CITY_YAML``'s 1024x2048): K1 at every DCN layer's map and K4 at the
+      two calls of a request (``rpn_post_nms_top_n`` RoIs at the box size,
+      ``max_det`` at the mask size).
+
+    Each kernel's largest error joins its entry of ``rows``."""
+    by_name = {r["name"]: r for r in rows}
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def fold(name: str, err: float) -> None:
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"], err)
+
+    def maps(cfg, bucket, batch: int) -> list:
+        return sorted({(*shape[:3], cout) for shape, cout in dcn_layers(cfg, bucket, batch)},
+                      reverse=True)
+
+    def levels_of(cfg, bucket, batch: int) -> list:
+        c = cfg.network.fpn_feature_dim
+        return [(batch, -(-bucket[0] // s), -(-bucket[1] // s), c) for s in (4, 8, 16, 32)]
+
+    def roi_calls(cfg, bucket, batch: int, grad: bool) -> list:
+        net = cfg.network
+        if not grad:
+            return [("box", _random_rois(g, dev, cfg.test.rpn_post_nms_top_n, bucket, batch),
+                     net.pooled_size_box),
+                    ("mask", _random_rois(g, dev, cfg.test.max_det, bucket, batch),
+                     net.pooled_size_mask)]
+        tc = cfg.train
+        gt = _random_rois(g, dev, tc.max_gt_instances, bucket, batch)
+        gt[:, 3:] = 0.0
+        return [("box", _random_rois(g, dev, tc.batch_rois, bucket, batch), net.pooled_size_box),
+                ("mask", _random_rois(g, dev, int(tc.batch_rois * tc.fg_fraction), bucket, batch),
+                 net.pooled_size_mask),
+                ("GT", gt.contiguous(), net.pooled_size_mask)]
+
+    def check_roi_align(tag: str, cfg, bucket, batch: int, grad: bool) -> None:
+        shapes = levels_of(cfg, bucket, batch)
+        feats = tuple(torch.randn(sh, generator=g, device=dev).to(torch.bfloat16)
+                      for sh in shapes)
+        s = cfg.network.roi_sampling_ratio
+        for what, rois, pooled in roi_calls(cfg, bucket, batch, grad):
+            levels = (fpn_level_assignment(rois) - 2).to(torch.int32).contiguous()
+            err, agree = _check_k4_call(f"{tag} {what}", "bf16", feats, rois, levels, pooled, s)
+            fold("fpn_roi_align", err)
+            head = f"{tag} {what}, {rois.shape[1]} RoIs x{batch} at {pooled}x{pooled}, S {s}, bf16"
+            print(f"[K4 fpn_roi_align] {head}: {agree}")
+            if not grad:
+                continue
+            n = rois.shape[1]
+            dy = torch.randn((batch, n, pooled, pooled, shapes[0][3]), generator=g,
+                             device=dev).to(torch.bfloat16)
+            if what == "GT":
+                dy[:, 3:] = 0.0
+            err, rel = _check_k5_call(dy, rois, levels, shapes, [torch.bfloat16] * 4)
+            fold("fpn_roi_align_bwd", err)
+            print(f"[K5 fpn_roi_align_bwd] {head}: max abs err {err:.3e}, max rel err {rel:.3e} "
+                  f"(tolerance {K5_RTOL:.4g}*|ref| + {K5_ATOL:g}); two runs bit-identical")
+            del dy
+        del feats
+        torch.cuda.empty_cache()
+
+    gn = load_config(GN_YAML)
+    tc, net = gn.train, gn.network
+    for bucket in map(tuple, tc.image_buckets):
+        tag = f"train_entry {bucket[0]}x{bucket[1]}"
+        for b, h, w, c in maps(gn, bucket, tc.batch_size):
+            where = f"{tag}, map {h}x{w}x{c}"
+            y, sy, sx = _k2_layer(g, dev, b, h, w, c, torch.bfloat16, "+-2 px")
+            err, rel = _check_k2(f"K2 taps {where}", y, sy, sx)
+            fold("deform_sample_taps", err)
+            print(f"[K2 deform_sample_taps] {where}, +-2 px, y {tuple(y.shape)} bf16: equal to 9 "
+                  f"one-tap K2 and 8 adds; against the plain version max abs err {err:.3e}, max "
+                  f"rel err {rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4)")
+            del y, sy, sx
+            y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, 0, net.dcn_max_dy)
+            errs = _check_k3(f"{where} tap-major, clipped +-{net.dcn_max_dy}", y, grad, sy, sx,
+                             0, net.dcn_max_dy + 1)
+            fold("deform_sample_bwd_taps", max(errs[0], errs[2], errs[3]))
+            del y, grad, sy, sx
+            y9, sy9, sx9 = _k1_inputs(g, dev, b, h, w, c)
+            fold("deform_sample9", _check_k1(f"{where} (the probe)", y9, sy9, sx9, k8a=False)[0])
+            del y9, sy9, sx9
+            torch.cuda.empty_cache()
+        check_roi_align(tag, gn, bucket, tc.batch_size, grad=True)
+    for name, cfg in (("train_entry eval", gn), ("eval_cityscapes", load_config(CITY_YAML))):
+        for bucket in map(tuple, cfg.test.image_buckets):
+            tag = f"{name} {bucket[0]}x{bucket[1]}"
+            for b, h, w, c in maps(cfg, bucket, 1):
+                y9, sy9, sx9 = _k1_inputs(g, dev, b, h, w, c)
+                fold("deform_sample9", _check_k1(f"{tag}, map {h}x{w}x{c}", y9, sy9, sx9,
+                                                 k8a=False)[0])
+                del y9, sy9, sx9
+            check_roi_align(tag, cfg, bucket, 1, grad=False)
 
 
 def dcn_layers(cfg, bucket=BUCKET, batch: int = BATCH) -> list:
@@ -2947,43 +3107,13 @@ def phase_eval_cityscapes(dev, tmp: str) -> dict:
     return launches
 
 
-_REPEAT_INTERLEAVE = torch.Tensor.repeat_interleave
-
-
-def _repeat_by_expand(x, repeats, dim=None, *, output_size=None):
-    """``Tensor.repeat_interleave`` for an int ``repeats`` as an expand and a
-    reshape: the same values, and a backward that sums over the expanded axis
-    instead of ``index_select``'s atomic ``index_add_``."""
-    if not isinstance(repeats, int):
-        return _REPEAT_INTERLEAVE(x, repeats, dim, output_size=output_size)
-    if dim is None:
-        x, dim = x.reshape(-1), 0
-    d = dim % x.dim()
-    shape = list(x.shape)
-    y = x.unsqueeze(d + 1).expand(*shape[:d + 1], repeats, *shape[d + 1:])
-    return y.reshape(*shape[:d], shape[d] * repeats, *shape[d + 1:])
-
-
-def _select_by_indexing(x, dim, index):
-    """``Tensor.index_select`` as advanced indexing: the same values, and a
-    backward that sorts the indices (``index_put_`` with accumulation) instead
-    of an atomic ``index_add_``."""
-    return x[(slice(None),) * (dim % x.dim()) + (index,)]
-
-
 def phase_nondeterminism(dev, tmp: str) -> None:
     """Diagnostic, not run by default (``--nondeterminism``): the train
     entry's first 3 steps on the rehearsal set, in pairs of runs from the same
-    seed: as shipped; with ``torch.backends.cudnn.deterministic`` (cuDNN's
-    deterministic convolution algorithms); that and ``repeat_interleave`` as
-    an expand (the FPN's nearest upsample and GroupNorm's per-channel
-    statistics, whose backward is otherwise an atomic ``index_add_``); that and
-    the seg-RoI loss's ``index_select`` as indexing (its backward sorted, not
-    atomic); and under ``torch.use_deterministic_algorithms(True,
+    seed: as shipped, and under ``torch.use_deterministic_algorithms(True,
     warn_only=True)``. Prints whether each pair gives the same losses and
     weights bit for bit, and every op that PyTorch reports as having no
-    deterministic form; then ``gradient_divergence``. The substitutions give
-    the same forward values and live only here."""
+    deterministic form; then ``gradient_divergence``."""
     import warnings
 
     from upsnet_torch.tools import train as train_cli
@@ -3008,18 +3138,7 @@ def phase_nondeterminism(dev, tmp: str) -> None:
               f"weights {wa == wb}; total {[round(a[i]['total'], 6) for i in sorted(a)]} and "
               f"{[round(b[i]['total'], 6) for i in sorted(b)]}")
 
-    select = torch.Tensor.index_select
     pair("as shipped")
-    torch.backends.cudnn.deterministic = True
-    try:
-        pair("cudnn.deterministic")
-        torch.Tensor.repeat_interleave = _repeat_by_expand
-        pair("cudnn.deterministic + repeat_interleave as expand")
-        torch.Tensor.index_select = _select_by_indexing
-        pair("cudnn.deterministic + repeat_interleave as expand + index_select as indexing")
-    finally:
-        torch.backends.cudnn.deterministic = False
-        torch.Tensor.repeat_interleave, torch.Tensor.index_select = _REPEAT_INTERLEAVE, select
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -3179,6 +3298,7 @@ def main() -> None:
     check_coords(dev)
     kernels = [check_k1(dev), check_k2_taps(dev), check_k3_taps(dev), check_k3_unclipped(dev),
                check_k4(dev), check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev)]
+    check_entry_shapes(dev, kernels)
     launches = dict.fromkeys(COUNTERS, 0)
 
     def finish(name, counts, run, prefix):

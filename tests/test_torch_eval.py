@@ -353,13 +353,20 @@ def test_run_evaluation_refuses_tta_by_name(cfgs, field, value):
 
 @pytest.mark.parametrize("name", ["coco", "cityscapes"])
 def test_cli_refuses_unported_datasets_by_name(name, monkeypatch, tmp_path):
-    """Both datasets are ported now, so the CLI no longer refuses them: it
-    reads their files under ``dataset.dataset_path``, and a set that is not
-    there raises FileNotFoundError naming that path."""
-    yaml = str(pathlib.Path(__file__).resolve().parents[1] / TINY_YAML)
+    """coco and cityscapes are ported, so neither is refused by name: the
+    CLI reads each from the configured ``dataset.dataset_path``, and a set
+    that is not there raises FileNotFoundError naming that path."""
+    import yaml
+
+    src = pathlib.Path(__file__).resolve().parents[1] / TINY_YAML
+    doc = yaml.safe_load(src.read_text())
+    missing = tmp_path / f"no_{name}_set"
+    doc.setdefault("dataset", {})["dataset_path"] = str(missing)
+    cfg_path = tmp_path / "tiny.yaml"
+    cfg_path.write_text(yaml.safe_dump(doc, sort_keys=False))
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(FileNotFoundError, match="data/coco"):
-        test_cli.run(["--cfg", yaml, "--dataset-override", name, "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match=f"no_{name}_set"):
+        test_cli.run(["--cfg", str(cfg_path), "--dataset-override", name, "--device", "cpu"])
 
 
 def test_cli_runs_on_cuda_unless_told_otherwise(monkeypatch, tmp_path):
