@@ -157,15 +157,28 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    ``experiments/upsnet_r50_synth_cityscapes_rehearsal.yaml`` reading two
    1024x2048 gtFine-layout images, from a checkpoint of the seeded model: 8
    K1, 2 K4 an image, the Cityscapes instance AP, box AP, mIoU and PQ;
-15. reference: a tiny float32 model on the card against the same model on
+15. upsample: the FCN head's ``resize_bilinear`` (two float32 matmuls a
+   level) timed against ``F.interpolate`` on a batch-8 step's P3-P5 maps;
+16. reproducible: two runs of the train entry as shipped (the GN rehearsal
+   file, batch 8, 4 steps), one in this process and one in a new process,
+   from one seed must give every step's losses and the last snapshot bit for
+   bit, without ``torch.use_deterministic_algorithms``; on a difference the
+   phase prints which gradients of one step part, then fails;
+17. ddp: two gloo ranks on the one card run one data-parallel step of the GN
+   R50 model (float32, batch 2 a rank): the ranks' weights the same bits,
+   the joined losses and every update within the CPU test's tolerance of
+   the single-process step on the joined batch of 4; in the same ranks
+   ``spatial_panoptic_fuse`` over two row slabs of a 1024x2048 canvas equal
+   to ``panoptic_fuse``; then a world-size-1 NCCL group trains 2 steps
+   through ``upsnet_torch.tools.train --backend nccl``;
+18. eval_tta: ``upsnet_torch.tools.test`` on a copy of the ResNet-101-DCN
+   COCO file with its own ``multi_scale`` [640, 800, 960] and ``flip_test``
+   (6 forwards an image, each 38 K1 and 2 K4) on 2 COCO-layout images from a
+   checkpoint of the seeded model: img/s and the per-image split (samples,
+   predicts, merge, fusion, postprocess);
+19. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels), with frozen BN and no backbone DCN,
    then with GroupNorm and DCN in C3-C5.
-
-``--nondeterminism`` runs only a diagnostic: pairs of runs of the train
-entry's first 3 steps, as shipped and under
-``torch.use_deterministic_algorithms(True, warn_only=True)``, whether each pair
-agrees bit for bit, the ops PyTorch reports as non-deterministic, and which
-parameter gradients of one step differ between two runs.
 
 The line before the last two is a JSON object with the numbers of every
 kernel on a path (``launches`` sums the predict, train, eval and tool
@@ -297,11 +310,12 @@ def device_ms(fn, symbol: str, n: int = 20) -> float:
 
 
 def digest(*tensors) -> str:
-    """A short sha1 of the tensors' bytes, so that two runs (a parent's and a
-    change's) can be compared bit for bit from their logs."""
+    """A short sha1 of the tensors' bytes in their logical order (whatever
+    their memory format), so that two runs (a parent's and a change's) can
+    be compared bit for bit from their logs."""
     h = hashlib.sha1()
     for t in tensors:
-        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -1908,10 +1922,12 @@ def check_entry_shapes(dev, rows: list) -> None:
       three calls of a step: ``batch_rois`` RoIs at the box size,
       ``batch_rois * fg_fraction`` and the ``max_gt_instances`` GT slots (3
       of them boxes, the others padding with no gradient) at the mask size;
-    - the evaluations at batch 1 (``GN_YAML``'s test buckets, and
-      ``CITY_YAML``'s 1024x2048): K1 at every DCN layer's map and K4 at the
-      two calls of a request (``rpn_post_nms_top_n`` RoIs at the box size,
-      ``max_det`` at the mask size).
+    - the evaluations at batch 1 (``GN_YAML``'s test buckets,
+      ``CITY_YAML``'s 1024x2048, and ``R101_DCN_YAML``'s, which every TTA
+      scale of ``eval_tta``, 640, 800 and 960, lands in): K1 at every DCN
+      layer's map (the R101-DCN backbone's C3-C5 too) and K4 at the two calls
+      of a request (``rpn_post_nms_top_n`` RoIs at the box size, ``max_det``
+      at the mask size).
 
     Each kernel's largest error joins its entry of ``rows``."""
     by_name = {r["name"]: r for r in rows}
@@ -1992,7 +2008,8 @@ def check_entry_shapes(dev, rows: list) -> None:
             del y9, sy9, sx9
             torch.cuda.empty_cache()
         check_roi_align(tag, gn, bucket, tc.batch_size, grad=True)
-    for name, cfg in (("train_entry eval", gn), ("eval_cityscapes", load_config(CITY_YAML))):
+    for name, cfg in (("train_entry eval", gn), ("eval_cityscapes", load_config(CITY_YAML)),
+                      ("eval_tta", load_config(R101_DCN_YAML))):
         for bucket in map(tuple, cfg.test.image_buckets):
             tag = f"{name} {bucket[0]}x{bucket[1]}"
             for b, h, w, c in maps(cfg, bucket, 1):
@@ -2837,6 +2854,12 @@ SYNTH_SET, SYNTH_IMAGES, CITY_IMAGES = "synthtrain", 16, 2
 # the train entry's copy of GN_YAML: snapshots and a resume at step 6 of 12
 ENTRY_TRAIN = {"snapshot_step": 6, "display_iter": 3, "max_iteration": 12}
 RESUME_AT = 6
+REPRO_TRAIN = {"snapshot_step": 4, "display_iter": 1, "max_iteration": 4}
+NCCL_TRAIN = {"snapshot_step": 2, "display_iter": 2, "max_iteration": 2}
+TTA_IMAGES = 2
+# the train entry's profiled device busy ms at batch 8 with F.interpolate as the FCN upsample
+# (PERF.md, section 5)
+TRAIN_ENTRY_BUSY_MS = 334.56
 
 
 def yaml_copy(src: str, dst: str, changes: dict) -> str:
@@ -3107,66 +3130,82 @@ def phase_eval_cityscapes(dev, tmp: str) -> dict:
     return launches
 
 
-def phase_nondeterminism(dev, tmp: str) -> None:
-    """Diagnostic, not run by default (``--nondeterminism``): the train
-    entry's first 3 steps on the rehearsal set, in pairs of runs from the same
-    seed: as shipped, and under ``torch.use_deterministic_algorithms(True,
-    warn_only=True)``. Prints whether each pair gives the same losses and
-    weights bit for bit, and every op that PyTorch reports as having no
-    deterministic form; then ``gradient_divergence``."""
-    import warnings
-
+def phase_reproducible(dev, tmp: str, root: str) -> dict:
+    """Two runs of the train entry as shipped, from the same seed, on copies
+    of ``GN_YAML`` (batch 8, both buckets) for ``REPRO_TRAIN`` steps on the
+    rehearsal set, without ``torch.use_deterministic_algorithms``: one
+    through ``upsnet_torch.tools.train.run`` here, one as a user starts it
+    again, ``python -m upsnet_torch.tools.train`` in a process of its own.
+    Every step's line of ``metrics.jsonl`` (its losses; ``display_iter`` 1)
+    and the last snapshot (weights, momentum buffers, update count) must be
+    the same bits in both. Where they are not, ``gradient_divergence``
+    prints where one step's gradients part before the phase fails. Returns
+    the launches of the first run."""
     from upsnet_torch.tools import train as train_cli
 
-    tag = "nondeterminism"
-    root = write_coco_set(tag, tmp)
-    n = 3
-    runs = []
-
-    def pair(name: str) -> None:
-        for _ in range(2):
-            path, _ = entry_config(f"{tag}_{len(runs)}", tmp, root,
-                                   {"max_iteration": n, "display_iter": n, "snapshot_step": n})
-            losses = {}
-            model, _ = train_cli.run(["--cfg", path],
-                                     on_step=lambda it, m: losses.update({it: m}))
-            runs.append((losses, digest(*model.state_dict().values())))
-            del model
-            torch.cuda.empty_cache()
-        (a, wa), (b, wb) = runs[-2:]
-        print(f"[{tag}] {name}: two runs of {n} steps give the same losses {a == b} and "
-              f"weights {wa == wb}; total {[round(a[i]['total'], 6) for i in sorted(a)]} and "
-              f"{[round(b[i]['total'], 6) for i in sorted(b)]}")
-
-    pair("as shipped")
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            pair("use_deterministic_algorithms")
-    finally:
-        torch.use_deterministic_algorithms(False)
-    reported = sorted({str(w.message).splitlines()[0] for w in caught
-                       if issubclass(w.category, UserWarning) and "determinis" in str(w.message)})
-    print(f"[{tag}] {len(reported)} ops reported non-deterministic:")
-    for r in reported:
-        print(f"[{tag}]   {r}")
-    gradient_divergence(dev, tmp, root)
+    tag = "reproducible"
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError(f"[{tag}] deterministic algorithms are on: not the shipped path")
+    paths, cfgs, secs = [], [], []
+    for i in range(2):
+        path, cfg = entry_config(f"{tag}_{i}", tmp, root, dict(REPRO_TRAIN))
+        paths.append(path)
+        cfgs.append(cfg)
+    reset_launches()
+    t0 = time.perf_counter()
+    train_cli.run(["--cfg", paths[0]])
+    secs.append(time.perf_counter() - t0)
+    launches = read_launches()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "upsnet_torch.tools.train", "--cfg", paths[1]],
+                         capture_output=True, text=True, timeout=900)
+    secs.append(time.perf_counter() - t0)
+    if out.returncode:
+        raise AssertionError(f"[{tag}] the second run exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    tc = cfgs[0].train
+    step_n = expected_launches(cfgs[0], grad=True, bucket=tuple(tc.image_buckets[0]),
+                               batch=tc.batch_size)
+    probe_n = expected_launches(cfgs[0], grad=False, heads=False, batch=tc.batch_size)
+    expect = {k: tc.max_iteration * v + tc.max_iteration // tc.display_iter * probe_n[k]
+              for k, v in step_n.items()}
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {nonzero(launches)}, expected {nonzero(expect)}")
+    lines, snaps = [], []
+    for cfg in cfgs:
+        sym = os.path.join(cfg.output_path, cfg.symbol)
+        with open(os.path.join(sym, "metrics.jsonl")) as f:
+            lines.append([{k: e[k] for k in (*LOSS_KEYS, "total")}
+                          for e in map(json.loads, f)])
+        snap = torch.load(os.path.join(sym, "checkpoints", f"step_{tc.max_iteration:08d}"),
+                          map_location="cpu", weights_only=True)
+        snaps.append(digest(*snap["state_dict"].values(),
+                            *(st["momentum_buffer"] for st in snap["optimizer"]["state"].values()))
+                     + f" count {snap['optimizer']['param_groups'][0]['count']}")
+    print(f"[{tag}] two runs of {tc.max_iteration} steps ({secs[0]:.1f} s in this process, "
+          f"{secs[1]:.1f} s in a new one): every step's losses equal {lines[0] == lines[1]}, "
+          f"last snapshot equal {snaps[0] == snaps[1]} ({snaps[0]} / {snaps[1]}); total by "
+          f"step {[e['total'] for e in lines[0]]} and {[e['total'] for e in lines[1]]}")
+    if len(lines[0]) != tc.max_iteration or lines[0] != lines[1] or snaps[0] != snaps[1]:
+        gradient_divergence(dev, tmp, root)
+        raise AssertionError(f"[{tag}] two runs of the shipped train entry differ")
+    return launches
 
 
 def gradient_divergence(dev, tmp: str, root: str) -> None:
     """Where a step stops being reproducible: the seeded model's first
-    ``forward_train`` and backward on the set's first batch, twice as shipped
-    and twice under ``torch.use_deterministic_algorithms``; prints whether the
-    loss terms agree bit for bit and, by top-level module in the forward
-    order, how many parameter gradients differ. The op sits downstream, in
-    the forward, of the last parameter whose gradient differs."""
+    ``forward_train`` and backward on the set's first batch, twice; prints
+    whether the loss terms agree bit for bit and, by top-level module in the
+    forward order, how many parameter gradients differ. The op sits
+    downstream, in the forward, of the last parameter whose gradient
+    differs."""
     from upsnet_torch.data.coco import COCOPanoptic
     from upsnet_torch.data.pipeline import make_loader
     from upsnet_torch.data.wire import STEP_KEYS, decode_batch, encode_batch
     from upsnet_torch.models.upsnet import forward_train
 
-    tag = "nondeterminism"
+    tag = "reproducible"
     _, cfg = entry_config(f"{tag}_grads", tmp, root, {})
     host = next(iter(make_loader(COCOPanoptic(cfg), cfg.train.batch_size, seed=cfg.seed)))
     batch = decode_batch({k: v.to(dev) for k, v in encode_batch(
@@ -3185,24 +3224,331 @@ def gradient_divergence(dev, tmp: str, root: str) -> None:
         torch.cuda.empty_cache()
         return out
 
-    for name in ("as shipped", "use_deterministic_algorithms"):
-        torch.use_deterministic_algorithms(name != "as shipped", warn_only=True)
-        try:
-            (la, ga), (lb, gb) = one(), one()
-        finally:
-            torch.use_deterministic_algorithms(False)
-        differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
-        by_module = {}
-        for n in ga:
-            top = n.split(".")[0] + ("." + n.split(".")[1].split("_")[0]
-                                     if n.startswith("backbone_net") else "")
-            equal, total = by_module.get(top, (0, 0))
-            by_module[top] = (equal + (n not in differ), total + 1)
-        print(f"[{tag}] one step's gradients, {name}: loss terms equal {la == lb}; "
-              f"{len(differ)} of {len(ga)} parameter gradients differ; equal / all by module: "
-              + ", ".join(f"{m} {e}/{t}" for m, (e, t) in by_module.items()))
-        if differ:
-            print(f"[{tag}]   differing, last in the forward order: {differ[-6:]}")
+    (la, ga), (lb, gb) = one(), one()
+    differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+    by_module = {}
+    for n in ga:
+        top = n.split(".")[0] + ("." + n.split(".")[1].split("_")[0]
+                                 if n.startswith("backbone_net") else "")
+        equal, total = by_module.get(top, (0, 0))
+        by_module[top] = (equal + (n not in differ), total + 1)
+    print(f"[{tag}] one step's gradients twice: loss terms equal {la == lb}; {len(differ)} of "
+          f"{len(ga)} parameter gradients differ; equal / all by module: "
+          + ", ".join(f"{m} {e}/{t}" for m, (e, t) in by_module.items()))
+    if differ:
+        print(f"[{tag}]   differing, last in the forward order: {differ[-6:]}")
+
+
+def time_upsample(dev) -> None:
+    """The FCN head's upsample in the train entry's step (batch 8, the P3,
+    P4 and P5 maps of 832x1344 at 128 channels to P2's 208x336, bf16):
+    ``resize_bilinear`` (two float32 matmuls a level, TF32 off) against
+    ``F.interpolate(mode='bilinear')``, forward and forward + backward,
+    CUDA-event medians; the share of the step's busy time (PERF.md)."""
+    from upsnet_torch.models.fcn import resize_bilinear
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    xs = [torch.randn((8, 128, 208 // f, 336 // f), generator=g, device=dev)
+          .to(torch.bfloat16).to(memory_format=torch.channels_last) for f in (2, 4, 8)]
+    grad = torch.randn((8, 128, 208, 336), generator=g, device=dev).to(torch.bfloat16)
+
+    def fwd(fn):
+        return lambda: [fn(x) for x in xs]
+
+    def fwd_bwd(fn):
+        def run():
+            leaves = [x.detach().requires_grad_() for x in xs]
+            torch.autograd.backward([fn(x) for x in leaves], [grad] * len(leaves))
+        return run
+
+    ours = lambda x: resize_bilinear(x, (208, 336))  # noqa: E731
+    theirs = lambda x: F.interpolate(x, size=(208, 336), mode="bilinear",  # noqa: E731
+                                     align_corners=False)
+    err = max(float((ours(x).float() - theirs(x).float()).abs().max()) for x in xs)
+    times = {name: (time_ms(fwd(fn)), time_ms(fwd_bwd(fn)))
+             for name, fn in (("resize_bilinear", ours), ("F.interpolate", theirs))}
+    flops = sum(2 * 8 * 128 * (h * w * 208 + 208 * w * 336) for h, w in
+                ((104, 168), (52, 84), (26, 42)))
+    print(f"[upsample] P3-P5 of a batch-8 step to 208x336 at C 128 bf16: "
+          + "; ".join(f"{k} forward {f:.3f} ms, forward + backward {fb:.3f} ms"
+                      for k, (f, fb) in times.items())
+          + f"; max abs difference {err:.3e}; {flops / 1e9:.1f} GFLOP forward in float32; "
+          f"forward + backward {100 * times['resize_bilinear'][1] / TRAIN_ENTRY_BUSY_MS:.2f}% "
+          f"of the step's {TRAIN_ENTRY_BUSY_MS} busy ms")
+
+
+def _ddp_card_rank(rank, world, init_file, cfg, batch, noise, fuse_args, out_dir):
+    """One rank of ``phase_ddp`` on cuda:0 over gloo: one data-parallel step
+    of ``cfg``'s seeded model on its rows of ``batch`` with the joined
+    ``noise``, then its row slab of ``spatial_panoptic_fuse``. Rank 0 saves
+    its weights to ``out_dir``; each rank returns (the joined losses, the
+    sha1 of its weights, its launches, its slab of the panoptic map, keep)."""
+    from upsnet_torch.parallel import steps as ddp_steps
+    from upsnet_torch.parallel.mesh import close_group, make_group
+    from upsnet_torch.parallel.spatial import spatial_panoptic_fuse
+
+    group = make_group(device="cuda:0", backend="gloo", init_method=f"file://{init_file}",
+                       rank=rank, world_size=world)
+    try:
+        dev = group.device
+        model = get_model(cfg.symbol, cfg, device=dev)
+        opt = make_optimizer(cfg, model)
+        ddp = ddp_steps.wrap_model(model, cfg, group)
+        b = batch["images"].shape[0] // world
+        mine = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(dev) for k, v in batch.items()}
+        step = ddp_steps.make_train_step(ddp, cfg, bucket_anchors(cfg, BUCKET, dev), opt, group)
+        reset_launches()
+        metrics = step(mine, {k: torch.from_numpy(v).to(dev) for k, v in noise.items()})
+        torch.cuda.synchronize()
+        launches = read_launches()
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        if rank == 0:
+            torch.save(state, os.path.join(out_dir, "ddp_rank0.pt"))
+        seg, dets, kw = fuse_args
+        hs = seg.shape[0] // world
+        pan, keep = spatial_panoptic_fuse(group, torch.from_numpy(seg[rank * hs:(rank + 1) * hs])
+                                          .to(dev), *(torch.from_numpy(d).to(dev) for d in dets),
+                                          **kw)
+        return ({k: float(v) for k, v in metrics.items()}, digest(*state.values()), launches,
+                pan.cpu().numpy(), keep.cpu().numpy())
+    finally:
+        close_group(group)
+
+
+def _fuse_inputs(num_classes: int, num_stuff: int, hw=(1024, 2048), n: int = 100) -> tuple:
+    """Seeded evidence for one image's fusion on ``hw``: 1/4-scale logits,
+    ``n`` boxes (some overlapping, so MaskRemoval drops some), classes,
+    28x28 mask logits, sorted scores, all valid but the last."""
+    rng = np.random.RandomState(13)
+    hq, wq = hw[0] // 4, hw[1] // 4
+    seg = rng.randn(hq, wq, num_classes).astype(np.float32)
+    x1, y1 = rng.uniform(0, hw[1] - 300, n), rng.uniform(0, hw[0] - 300, n)
+    boxes = np.stack([x1, y1, x1 + rng.uniform(16, 300, n), y1 + rng.uniform(16, 300, n)],
+                     -1).astype(np.float32)
+    boxes[1::3] = boxes[0::3][: len(boxes[1::3])] + 3.5
+    classes = rng.randint(1, num_classes - num_stuff + 1, n).astype(np.int64)
+    masks = (rng.randn(n, 28, 28) * 3).astype(np.float32)
+    scores = np.sort(rng.uniform(0, 1, n))[::-1].astype(np.float32).copy()
+    valid = np.ones(n, bool)
+    valid[-1] = False
+    return seg, (boxes, classes, masks, scores, valid)
+
+
+def phase_ddp(dev, tmp: str, root: str) -> dict:
+    """Data parallelism on the one card.
+
+    1. Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one device),
+       spawned with ``spawn_ranks``: ``GN_YAML``'s model (GN R50, full width,
+       COCO heads) in float32, batch 2 a rank, one step of the data-parallel
+       step (``parallel/steps.py``) with the joined batch's noise. The two
+       ranks' weights must be the same bits; every weight's update within
+       the CPU test's gradient tolerance (1e-3 |ref| + 1e-4 max|ref leaf| + 2
+       ulps of the weight) of one process's step on the same two halves
+       (counts summed, both backwards accumulated, one update); the joined
+       losses within rtol 1e-4 of the single-process step on the joined
+       batch of 4. The updates against that step are printed, not held: the
+       card's convolutions round differently at batch 4 and 2 (the P2 gap is
+       printed), and the proposals' ranking turns that into other sampled
+       RoIs. float32, so that these gaps stay at rounding size.
+    2. In the same ranks, ``spatial_panoptic_fuse`` over their two row slabs
+       of a 1024x2048 canvas (19 classes, 100 detections): the panoptic map
+       and keep flags the same as ``panoptic_fuse``'s on the whole map.
+    3. A world-size-1 NCCL group trains 2 steps through
+       ``upsnet_torch.tools.train --backend nccl`` on the rehearsal set at
+       the file's batch 8 (the DDP wrapper and its sum hook, one rank).
+    Returns the launches of the ranks' steps and the NCCL run."""
+    from upsnet_torch.models.upsnet import draw_noise, forward_train, panoptic_fuse
+    from upsnet_torch.parallel.mesh import spawn_ranks
+    from upsnet_torch.train.optimizer import sgd_update
+    from upsnet_torch.tools import train as train_cli
+
+    tag = "ddp"
+    world, per_rank = 2, 2
+    cfg = load_config(GN_YAML)
+    cfg = cfg.replace(network=dataclasses.replace(cfg.network, compute_dtype="float32"))
+    batch = synthetic_batch(cfg, BUCKET, world * per_rank, seed=5,
+                            image_hw=tuple(int(v) for v in IM_HW))
+    anchors = bucket_anchors(cfg, BUCKET, dev)
+    noise = {k: v.cpu().numpy() for k, v in draw_noise(
+        cfg, world * per_rank, sum(a.shape[0] for a in anchors),
+        torch.Generator(device=dev).manual_seed(cfg.seed), dev).items()}
+    city = load_config(CITY_YAML)
+    seg, dets = _fuse_inputs(city.dataset.num_seg_classes, city.dataset.num_stuff)
+    kw = dict(score_thresh=0.05, overlap_thresh=city.test.panoptic_mask_overlap_thresh,
+              num_stuff=city.dataset.num_stuff)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_ddp_card_rank, world, os.path.join(tmp, "ddp_init"), cfg, batch,
+                        noise, (seg, dets, kw), tmp, timeout_s=300)
+    spawn_s = time.perf_counter() - t0
+    (m0, d0, n0, pan0, keep0), (m1, d1, n1, pan1, keep1) = ranks
+    if d0 != d1 or m0 != m1:
+        raise AssertionError(f"[{tag}] the two ranks differ: weights {d0} / {d1}, losses equal "
+                             f"{m0 == m1}")
+    step_n = expected_launches(cfg, grad=True, batch=per_rank)
+    if n0 != step_n or n1 != step_n:
+        raise AssertionError(f"[{tag}] rank launches {nonzero(n0)} / {nonzero(n1)}, expected "
+                             f"{nonzero(step_n)} each")
+
+    got = torch.load(os.path.join(tmp, "ddp_rank0.pt"), map_location=dev, weights_only=True)
+    host = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    dnoise = {k: torch.from_numpy(v).to(dev) for k, v in noise.items()}
+
+    def rows(tree, r):
+        return {k: v[r * per_rank:(r + 1) * per_rank] for k, v in tree.items()}
+
+    def joined_of_halves(model, opt):
+        """The joined batch's step as one process computes it from the
+        ranks' halves: their counts summed, both backwards accumulated,
+        one update."""
+        counts = []
+        for r in range(world):
+            with torch.no_grad():
+                forward_train(model, cfg, anchors, rows(host, r), rows(dnoise, r),
+                              joined_counts=lambda c: counts.append(c.clone()) or c)
+        joined = counts[0] + counts[1]
+        opt.zero_grad(set_to_none=True)
+        for r in range(world):
+            total, _ = forward_train(model, cfg, anchors, rows(host, r), rows(dnoise, r),
+                                     joined_counts=lambda c: joined.clone())
+            total.backward()
+        sgd_update(opt, cfg)
+
+    def compare(model, before) -> tuple:
+        """(the leaves off the CPU test's gradient tolerance on the update,
+        or moved where the reference did not or the other way round, or
+        frozen and moved; the worst excess over 1e-3 |ref| + 2 ulps, as a
+        share of the leaf's largest update). The FCN offset convs start at
+        zero, where the clipped backward gives them no gradient: they move
+        on neither side."""
+        worst, off = 0.0, []
+        for n, p in model.named_parameters():
+            d_got, d_ref = got[n] - before[n], p.detach() - before[n]
+            scale = float(d_ref.abs().max())
+            excess = ((d_got - d_ref).abs() - 1e-3 * d_ref.abs()
+                      - 2 * torch.finfo(torch.float32).eps * before[n].abs())
+            if scale > 0:
+                worst = max(worst, float(excess.max()) / scale)
+            moved = not torch.equal(got[n], before[n])
+            if bool((excess > 1e-4 * scale).any()) or moved != (scale > 0) or (
+                    moved and not p.requires_grad):
+                off.append(n)
+        return off, worst
+
+    model = get_model(cfg.symbol, cfg, device=dev)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    joined_of_halves(model, make_optimizer(cfg, model))
+    off, worst_halves = compare(model, before)
+    model = get_model(cfg.symbol, cfg, device=dev)
+    ref = make_train_step(model, cfg, anchors, make_optimizer(cfg, model))(host, dnoise)
+    _, worst_joined = compare(model, before)
+    with torch.no_grad():
+        x = host["images"].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        p2_gap = float((model.extract(x)[0][0][:per_rank]
+                        - model.extract(x[:per_rank].contiguous(
+                            memory_format=torch.channels_last))[0][0]).abs().max())
+    losses_off = {k: (m0[k], float(v)) for k, v in ref.items()
+                  if not math.isclose(m0[k], float(v), rel_tol=1e-4)}
+    print(f"[{tag}] 2 gloo ranks on cuda:0, {describe(cfg)} float32, batch {per_rank} a rank, "
+          f"one step ({spawn_s:.1f} s with the ranks' start): weights bit-identical across ranks "
+          f"(sha1 {d0}); launches a rank {nonzero(n0)}. Against one process's step on the "
+          f"ranks' halves (counts summed, backwards accumulated): worst update excess "
+          f"{worst_halves:.3e} of a leaf's largest update (tolerance 1e-4). Against the "
+          f"single-process step on the joined batch of {world * per_rank}: total "
+          f"{m0['total']:.6f} / {float(ref['total']):.6f}, terms within rtol 1e-4; worst update "
+          f"excess {worst_joined:.3e} (not asserted: the card's trunk at batch "
+          f"{world * per_rank} and {per_rank} differs by up to {p2_gap:.3e} at P2, and the "
+          f"proposals' ranking turns that into other sampled RoIs)")
+    if off or losses_off:
+        raise AssertionError(f"[{tag}] DDP against one process: leaves {off[:8]}, losses "
+                             f"against the joined batch {losses_off}")
+    del model, before, got, ref, host, dnoise
+    torch.cuda.empty_cache()
+
+    pan_ref, keep_ref = panoptic_fuse(torch.from_numpy(seg)[None].to(dev),
+                                      *(torch.from_numpy(d)[None].to(dev) for d in dets), **kw)
+    pan = np.concatenate([pan0, pan1], 0)
+    if not (np.array_equal(pan, pan_ref[0].cpu().numpy())
+            and np.array_equal(keep0, keep_ref[0].cpu().numpy())
+            and np.array_equal(keep0, keep1)):
+        raise AssertionError(f"[{tag}] spatial_panoptic_fuse differs from panoptic_fuse")
+    print(f"[{tag}] spatial_panoptic_fuse over 2 row slabs of {seg.shape[0]}x{seg.shape[1]} "
+          f"(canvas 1024x2048, {len(keep0)} detections, {int(keep0.sum())} kept): panoptic map "
+          f"and keep equal to panoptic_fuse's")
+
+    path, ecfg = entry_config(f"{tag}_nccl", tmp, root, dict(NCCL_TRAIN))
+    tc = ecfg.train
+    reset_launches()
+    losses = {}
+    t0 = time.perf_counter()
+    _, history = train_cli.run(["--cfg", path, "--backend", "nccl"],
+                               on_step=lambda it, m: losses.update({it: m}))
+    nccl_s = time.perf_counter() - t0
+    nccl_n = read_launches()
+    step_n = expected_launches(ecfg, grad=True, batch=tc.batch_size)
+    probe_n = expected_launches(ecfg, grad=False, heads=False, batch=tc.batch_size)
+    expect = {k: tc.max_iteration * v + probe_n[k] for k, v in step_n.items()}
+    bad = [it for it, m in losses.items() if not all(math.isfinite(m[k]) for k in LOSS_KEYS)]
+    if nccl_n != expect or sorted(losses) != [1, 2] or bad:
+        raise AssertionError(f"[{tag}] NCCL run: launches {nonzero(nccl_n)} (expected "
+                             f"{nonzero(expect)}), steps {sorted(losses)}, non-finite {bad}")
+    print(f"[{tag}] world-size-1 NCCL group, tools.train --backend nccl, {tc.max_iteration} steps "
+          f"at batch {tc.batch_size} in {nccl_s:.1f} s: total "
+          f"{[round(losses[i]['total'], 4) for i in sorted(losses)]}, metrics.jsonl "
+          f"{len(history)} line(s)")
+    return {k: n0[k] + n1[k] + nccl_n[k] for k in n0}
+
+
+def phase_eval_tta(dev, tmp: str, root: str) -> dict:
+    """Test-time augmentation through the evaluation entry, as a user runs
+    it: ``upsnet_torch.tools.test`` on a copy of ``R101_DCN_YAML`` (the
+    paper's headline COCO file: ResNet-101-DCN, ``test.scales`` [800] plus
+    ``multi_scale`` [640, 800, 960] and ``flip_test``: 6 forwards an image)
+    that changes only the data and output paths, on ``TTA_IMAGES`` of the
+    rehearsal set's COCO-layout images, from a checkpoint of the seeded
+    model with its offset biases at +-2 px. Each forward must launch the
+    file's 38 K1 and 2 K4; img/s and the per-image split: building the 6
+    samples, the 6 predicts, merging (de-flip, unscale, resize and average
+    the logits, class NMS), the fusion, the host postprocess."""
+    tag = "eval_tta"
+    out = os.path.join("output", f"chip_smoke_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    changes = {"output_path": out,
+               "dataset": {"dataset_path": root, "test_image_set": SYNTH_SET}}
+    yaml_path = yaml_copy(R101_DCN_YAML, os.path.join(tmp, f"{tag}.yaml"), changes)
+    cfg = load_config(yaml_path)
+    variants = inference.tta_variants(cfg)
+    print(f"[{tag}] {os.path.basename(R101_DCN_YAML)}, changed only: {json.dumps(changes)}; "
+          f"{describe(cfg)}; TTA variants (scale, flip) {variants}")
+    gen = torch.Generator().manual_seed(cfg.seed)
+    model = get_model(cfg.symbol, cfg, device=dev, generator=gen)
+    perturb_offset_biases(model, gen)
+    ckpt = save_checkpoint(os.path.join(out, "ckpt"), 0, model)
+    del model
+    torch.cuda.empty_cache()
+    per_forward = [expected_launches(cfg, grad=False, bucket=tuple(b), batch=1)
+                   for b in cfg.test.image_buckets]
+    if any(n != per_forward[0] for n in per_forward):
+        raise AssertionError(f"[{tag}] the buckets' forwards launch differently: {per_forward}")
+    results, timings, launches, predict_ms = run_eval_entry(
+        tag, ["--cfg", yaml_path, "--dataset-override", "coco", "--max-images",
+              str(TTA_IMAGES), "--no-artifacts", "--weights", ckpt],
+        per_forward[0], n_images=TTA_IMAGES * len(variants))
+    metrics = headline(results)
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"[{tag}] non-finite metrics: {metrics}")
+    expect = {k: TTA_IMAGES * len(variants) * v for k, v in per_forward[0].items()}
+    if launches != expect:
+        raise AssertionError(f"[{tag}] launches {nonzero(launches)}, expected {nonzero(expect)}")
+    n = timings["images"]
+    print(f"[{tag}] {n} images ({timings['detections']} detections), {len(variants)} forwards "
+          f"an image of {nonzero(per_forward[0])}: {n / timings['wall_s']:.3f} img/s; per image: "
+          f"sample {timings['sample_s'] * 1e3 / n:.1f} ms, {len(variants)} predicts "
+          f"{timings['predict_s'] * 1e3 / n:.1f} ms (median forward "
+          f"{statistics.median(predict_ms):.2f} ms), merge {timings['merge_s'] * 1e3 / n:.1f} "
+          f"ms, fusion {timings['fuse_s'] * 1e3 / n:.1f} ms, host postprocess "
+          f"{timings['postprocess_s'] * 1e3 / n:.1f} ms; evaluators {timings['evaluate_s']:.2f} "
+          f"s; metrics (random weights) {json.dumps(metrics)}")
+    return launches
 
 
 def phase_mt_tool(dev) -> dict:
@@ -3279,18 +3625,11 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one request and one train step of each "
                              "dcn_impl with torch.profiler")
-    parser.add_argument("--nondeterminism", action="store_true",
-                        help="only the diagnostic: which ops make the train entry's steps "
-                             "differ between runs")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     phase_build()
-    if args.nondeterminism:
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_nondeterminism(dev, tmp)
-        return
     # the one-tap K2, K3 and K6 are held against their plain versions and
     # timed, but no route takes them any more: they are not in the kernels
     # line
@@ -3366,6 +3705,14 @@ def main() -> None:
         finish("train_entry", counts, run, "train.")
         del run
         finish("eval_cityscapes", phase_eval_cityscapes(dev, tmp), None, "")
+        root = os.path.join(tmp, "synth_coco")  # the set write_coco_set wrote for train_entry
+        t_new = time.perf_counter()
+        time_upsample(dev)
+        finish("reproducible", phase_reproducible(dev, tmp, root), None, "")
+        finish("ddp", phase_ddp(dev, tmp, root), None, "")
+        finish("eval_tta", phase_eval_tta(dev, tmp, root), None, "")
+        print(f"[new phases] upsample timing, reproducible, ddp and eval_tta took "
+              f"{time.perf_counter() - t_new:.1f} s")
     finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
     phase_reference(dev, norm="gn", dcn_stages=(3, 4, 5))

@@ -121,7 +121,9 @@ def test_import_leaves_jax_out():
     """Importing every module of the port loads neither jax, flax, orbax, the
     JAX package nor the root tools; the evaluation entry, its evaluators, the
     dataset base and the checkpoints are among them, and so are the train
-    entry, the datasets, the loader and the wire."""
+    entry, the datasets, the loader and the wire, the process group, the DDP
+    step and the row-slab fusion, TTA, and the reference converter with its
+    report tool."""
     code = (
         "import pkgutil, sys, importlib, upsnet_torch\n"
         "for m in pkgutil.walk_packages(upsnet_torch.__path__, 'upsnet_torch.'):\n"
@@ -149,7 +151,11 @@ def test_import_leaves_jax_out():
             "upsnet_torch.tools.make_synth_coco", "upsnet_torch.data.pipeline",
             "upsnet_torch.data.wire", "upsnet_torch.data.coco", "upsnet_torch.data.cityscapes",
             "upsnet_torch.evaluation.cityscapes_eval", "upsnet_torch.convert.finetune",
-            "upsnet_torch.train.step", "upsnet_torch.utils.profiling"} <= loaded
+            "upsnet_torch.train.step", "upsnet_torch.utils.profiling",
+            "upsnet_torch.parallel.mesh", "upsnet_torch.parallel.steps",
+            "upsnet_torch.parallel.spatial", "upsnet_torch.evaluation.tta",
+            "upsnet_torch.convert.upsnet_names", "upsnet_torch.convert.torch_converter",
+            "upsnet_torch.tools.convert_report"} <= loaded
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

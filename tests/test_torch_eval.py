@@ -344,11 +344,20 @@ def test_bucket_anchors_read_the_configured_scale_and_ratios(cfgs):
 
 
 @pytest.mark.parametrize("field,value", [("multi_scale", (128, 160)), ("flip_test", True)])
-def test_run_evaluation_refuses_tta_by_name(cfgs, field, value):
+def test_run_evaluation_refuses_tta_by_name(cfgs, field, value, monkeypatch):
+    """TTA is ported: each field routes an image through ``predict_image_tta``
+    with its (scale, flip) variants (``tests/test_torch_tta.py`` holds it
+    against JAX) instead of being refused."""
     tcfg, _ = cfgs
     cfg = tcfg.replace(test=dataclasses.replace(tcfg.test, **{field: value}))
-    with pytest.raises(NotImplementedError, match=f"test.{field}"):
-        tinf.run_evaluation(cfg, SyntheticDataset(cfg, 1, training=False), device="cpu")
+    calls = []
+    orig = tinf.predict_image_tta
+    monkeypatch.setattr(tinf, "predict_image_tta",
+                        lambda *a, **kw: calls.append(a[2]) or orig(*a, **kw))
+    results = tinf.run_evaluation(cfg, SyntheticDataset(cfg, 1, training=False), device="cpu")
+    assert calls == [0] and set(results) == {"boxes", "masks", "ssegs", "panoptic"}
+    assert tinf.tta_variants(cfg) == {"multi_scale": [(128, False), (160, False)],
+                                      "flip_test": [(128, False), (128, True)]}[field]
 
 
 @pytest.mark.parametrize("name", ["coco", "cityscapes"])

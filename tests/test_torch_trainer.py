@@ -261,8 +261,10 @@ def test_load_pretrained_any(run_a, sets, tmp_path):  # noqa: F811
     short.pop("fpn.lateral2.weight")
     with pytest.raises(CheckpointMismatch, match="fpn.lateral2.weight"):
         load_pretrained_any(write_checkpoint(str(tmp_path / "short"), 1, short), model, log)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        load_pretrained_any(str(tmp_path / "upsnet_coco.pth"), model, log)
+    not_tensors = tmp_path / "upsnet_coco.pth"  # a .pth now goes through the converter,
+    torch.save({"state_dict": {"w": torch.zeros(2)}, "fn": logging.getLogger}, not_tensors)
+    with pytest.raises(ValueError, match="weights_only"):  # which reads tensors only
+        load_pretrained_any(str(not_tensors), model, log)
     orbax = jax_save_checkpoint(str(tmp_path / "orbax"), 3, {"w": np.zeros(2, np.float32)},
                                 {"m": np.zeros(2, np.float32)})
     for path in (orbax, str(tmp_path / "orbax" / "latest")):

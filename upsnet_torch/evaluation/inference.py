@@ -26,9 +26,11 @@ from upsnet_torch.config.defaults import Config
 from upsnet_torch.evaluation import rle as rle_mod
 from upsnet_torch.evaluation import rle_native
 from upsnet_torch.evaluation.panoptic_format import build_panoptic_output, write_panoptic_results
+from upsnet_torch.evaluation.tta import predict_image_tta, tta_variants
 from upsnet_torch.models.registry import get_model
 from upsnet_torch.models.upsnet import forward_predict
 from upsnet_torch.ops.anchors import pyramid_anchors
+from upsnet_torch.parallel.mesh import Group
 from upsnet_torch.train.checkpoints import restore_checkpoint
 
 # seg_pred_q is uint8, as the JAX predict step's
@@ -148,27 +150,55 @@ def bucket_anchors(cfg: Config, bucket, device) -> tuple:
 
 
 @torch.no_grad()
-def predict_step(model, cfg: Config, anchors, batch) -> dict:
+def predict_step(model, cfg: Config, anchors, batch, seg_argmax: bool = True) -> dict:
     """``forward_predict`` with the JAX predict step's ``seg_argmax``
     (``upsnet_tpu/parallel/steps.py:make_predict_step``): ``seg_logits`` is
     replaced by ``seg_pred_q``, its uint8 argmax over the classes, taken on
     the device (``torch.argmax`` returns the first maximum, as
     ``jnp.argmax`` does), so that the full logits never cross to the host.
-    Every output comes back as a numpy array; the argmax and the copies run
-    inside a ``predict.to_host`` profiler range, after ``forward_predict``'s
-    ``predict.<stage>`` ranges."""
+    With ``seg_argmax`` False (test-time augmentation, which averages them)
+    the float32 ``seg_logits`` cross instead. Every output comes back as a
+    numpy array; the argmax and the copies run inside a ``predict.to_host``
+    profiler range, after ``forward_predict``'s ``predict.<stage>`` ranges."""
     out = forward_predict(model, cfg, anchors, batch)
     with record_function("predict.to_host"):
-        seg = out.pop("seg_logits")
-        if seg.shape[-1] > MAX_SEG_CLASSES:
-            raise ValueError(f"{seg.shape[-1]} semantic classes do not fit seg_pred_q's uint8")
-        out["seg_pred_q"] = torch.argmax(seg, dim=-1).to(torch.uint8)
+        if seg_argmax:
+            seg = out.pop("seg_logits")
+            if seg.shape[-1] > MAX_SEG_CLASSES:
+                raise ValueError(f"{seg.shape[-1]} semantic classes do not fit "
+                                 "seg_pred_q's uint8")
+            out["seg_pred_q"] = torch.argmax(seg, dim=-1).to(torch.uint8)
         return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def tta_results(cfg: Config, dataset, r: dict) -> dict:
+    """``predict_image_tta``'s merged outputs for one image -> detection /
+    seg / panoptic results, as ``postprocess_image`` gives them (the JAX
+    ``run_evaluation``'s TTA branch)."""
+    oh, ow = r["orig_hw"]
+    detections = []
+    for b, s_, c, m in zip(r["boxes"], r["scores"], r["classes"], r["mask_logits"]):
+        mp = 1.0 / (1.0 + np.exp(-m))
+        detections.append({
+            "image_id": r["image_id"], "category": int(c),
+            "score": float(s_), "bbox": b.tolist(),
+            "segmentation": rle_mod.encode(paste_mask_full(mp, b, (oh, ow))),
+        })
+    num_stuff, stuff_ids, thing_ids = _category_tables(cfg, dataset)
+    id_map, segments = build_panoptic_output(
+        r["pan_map"], num_stuff, r["classes"], r["pan_keep"],
+        cfg.test.panoptic_stuff_area_limit, stuff_ids, thing_ids,
+    )
+    return {
+        "detections": detections,
+        "seg": {"image_id": r["image_id"], "pred": r["seg_pred"]},
+        "panoptic": {"image_id": r["image_id"], "id_map": id_map, "segments": segments},
+    }
 
 
 def run_evaluation(cfg: Config, dataset, weights=None, logger=None,
                    max_images=None, model=None, output_dir=None, device=None,
-                   timings: dict | None = None) -> dict:
+                   timings: dict | None = None, group: Group | None = None) -> dict:
     """Predict and evaluate the first ``max_images`` images of ``dataset``
     (all by default). ``model``, a built model, takes the place of the JAX
     function's ``params``; by default the registry builds ``cfg.symbol`` on ``device``
@@ -177,16 +207,24 @@ def run_evaluation(cfg: Config, dataset, weights=None, logger=None,
     (boxes, masks, ssegs, panoptic). Where ``timings`` is given it is filled
     with the wall-clock split: images and detections, seconds building samples, in
     ``predict_step`` (host to device, the forward, device to host),
-    postprocessing on the host and in the evaluators, and the RLE codec.
+    postprocessing on the host and in the evaluators, and the RLE codec;
+    under TTA also the seconds merging the variants and fusing.
 
-    Test-time augmentation (``test.multi_scale``, ``test.flip_test``) is not
-    ported yet and is refused by name."""
-    if cfg.test.multi_scale or cfg.test.flip_test:
-        raise NotImplementedError(
-            f"test-time augmentation (test.multi_scale={tuple(cfg.test.multi_scale)}, "
-            f"test.flip_test={cfg.test.flip_test}) is not ported yet")
+    Test-time augmentation (``test.multi_scale``, ``test.flip_test``) runs
+    ``evaluation/tta.py:predict_image_tta`` per image, with the full float32
+    semantic logits on the way to the host (the JAX ``seg_argmax=not
+    use_tta``).
+
+    Under a process group (``group``; the model then lives on the group's
+    device) rank r predicts images ``r::world``, the JAX shard; the
+    per-image results are gathered to rank 0 in image order and rank 0
+    runs the evaluators and writes the artifacts, so the metrics equal one
+    process's. Every rank returns rank 0's results; ``timings`` are the
+    rank's own."""
+    group = group or Group()
+    use_tta = bool(cfg.test.multi_scale) or cfg.test.flip_test
     if model is None:
-        model = get_model(cfg.symbol, cfg, device=device)
+        model = get_model(cfg.symbol, cfg, device=group.device if group.distributed else device)
         if weights:
             restore_checkpoint(weights, model, partial=True)
     dev = next(model.parameters()).device
@@ -195,46 +233,68 @@ def run_evaluation(cfg: Config, dataset, weights=None, logger=None,
     # host->device bytes
     image_dtype = torch.bfloat16 if cfg.network.compute_dtype == "bfloat16" else torch.float32
 
-    all_dets, all_segs, all_pans = [], [], []
-    n = len(dataset) if max_images is None else min(max_images, len(dataset))
-    clock = dict.fromkeys(("sample_s", "predict_s", "postprocess_s"), 0.0)
-    t_start = time.perf_counter()
-    for i in range(n):
-        t0 = time.perf_counter()
-        s = dataset.sample(i)
-        bucket = tuple(s["images"].shape[:2])
+    def predict(bucket, s, seg_argmax=True):
         batch = {
             "images": torch.from_numpy(s["images"][None]).to(image_dtype).to(dev),
             "im_hw": torch.from_numpy(s["im_hw"][None]).to(dev),
         }
-        t1 = time.perf_counter()
-        out = predict_step(model, cfg, anchors_by_bucket[bucket], batch)
-        t2 = time.perf_counter()
-        res = postprocess_image(cfg, dataset, {k: v[0] for k, v in out.items()}, s)
-        all_dets.extend(res["detections"])
-        all_segs.append(res["seg"])
-        all_pans.append(res["panoptic"])
-        t3 = time.perf_counter()
-        clock["sample_s"] += t1 - t0
-        clock["predict_s"] += t2 - t1
-        clock["postprocess_s"] += t3 - t2
-        if logger and (i + 1) % 50 == 0:
-            logger.info("inference %d/%d", i + 1, n)
+        out = predict_step(model, cfg, anchors_by_bucket[bucket], batch, seg_argmax)
+        return {k: v[0] for k, v in out.items()}
 
-    _write_artifacts(output_dir, all_pans, logger)
-    t0 = time.perf_counter()
-    results = _summarize(dataset, all_dets, all_segs, all_pans)
+    n = len(dataset) if max_images is None else min(max_images, len(dataset))
+    clock = dict.fromkeys(("sample_s", "predict_s", "postprocess_s"), 0.0)
+    per_image = []
+    t_start = time.perf_counter()
+    for done, i in enumerate(range(group.rank, n, group.world), start=1):
+        if use_tta:
+            r = predict_image_tta(cfg, dataset, i, lambda b, s: predict(b, s, False), dev,
+                                  clock)
+            t2 = time.perf_counter()
+            res = tta_results(cfg, dataset, r)
+        else:
+            t0 = time.perf_counter()
+            s = dataset.sample(i)
+            t1 = time.perf_counter()
+            out = predict(tuple(s["images"].shape[:2]), s)
+            t2 = time.perf_counter()
+            res = postprocess_image(cfg, dataset, out, s)
+            clock["sample_s"] += t1 - t0
+            clock["predict_s"] += t2 - t1
+        per_image.append((i, res))
+        clock["postprocess_s"] += time.perf_counter() - t2
+        if logger and done % 50 == 0:
+            logger.info("inference %d/%d", done * group.world, n)
+
+    gathered = group.gather_to_main(per_image)
+    results, n_dets, t0 = None, 0, time.perf_counter()
+    if group.is_main:
+        all_dets, all_segs, all_pans = [], [], []
+        for _, res in sorted((r for rank in gathered for r in rank), key=lambda r: r[0]):
+            all_dets.extend(res["detections"])
+            all_segs.append(res["seg"])
+            all_pans.append(res["panoptic"])
+        n_dets = len(all_dets)
+        _write_artifacts(output_dir, all_pans, logger)
+        t0 = time.perf_counter()
+        results = _summarize(dataset, all_dets, all_segs, all_pans)
     clock["evaluate_s"] = time.perf_counter() - t0
-    clock.update(images=n, detections=len(all_dets), wall_s=time.perf_counter() - t_start,
-                 rle_codec=rle_native.codec(), device=str(dev))
+    results = group.broadcast_from_main(results)
+    clock.update(images=len(per_image), detections=sum(len(r["detections"]) for _, r in per_image),
+                 wall_s=time.perf_counter() - t_start, rle_codec=rle_native.codec(),
+                 device=str(dev))
     if logger:
-        per = 1e3 / max(n, 1)
-        logger.info("%d images (%d detections) on %s: sample %.2f ms, predict %.2f ms, "
+        per = 1e3 / max(len(per_image), 1)
+        logger.info("%d images (%d detections) on %s%s: sample %.2f ms, predict %.2f ms, "
                     "postprocess %.2f ms an image; evaluators %.3f s; wall %.3f s; RLE codec %s",
-                    n, len(all_dets), dev,
+                    clock["images"], clock["detections"], dev,
+                    f" (rank {group.rank} of {group.world}; {n} in all, {n_dets} detections)"
+                    if group.distributed else "",
                     clock["sample_s"] * per, clock["predict_s"] * per,
                     clock["postprocess_s"] * per, clock["evaluate_s"], clock["wall_s"],
                     clock["rle_codec"])
+        if use_tta:
+            logger.info("TTA, %d variants an image: merge %.2f ms, fusion %.2f ms an image",
+                        len(tta_variants(cfg)), clock["merge_s"] * per, clock["fuse_s"] * per)
     if timings is not None:
         timings.update(clock)
     return results

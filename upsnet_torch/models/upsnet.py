@@ -224,10 +224,30 @@ def _flatten_rpn(rpn_cls, rpn_bbox):
 
 NOISE_KEYS = ("rpn_fg", "rpn_bg", "roi_fg", "roi_bg", "unknown")
 
+# the counts that normalise the loss terms, in the order ``forward_train``
+# hands them to ``joined_counts``
+COUNT_KEYS = ("rpn_valid", "rpn_norm", "roi_valid", "mask_fg", "seg_valid", "images")
+
+
+def draw_noise(cfg: Config, batch_size: int, n_anchors: int, generator: torch.Generator,
+               device) -> dict:
+    """Every uniform draw that ``forward_train`` makes from ``generator`` for
+    a batch of ``batch_size`` when no ``noise`` is passed, in its order and
+    shapes: (B, anchors) twice, (B, proposals + G) twice, and (B, G) where
+    the panoptic head runs."""
+    tc, net = cfg.train, cfg.network
+    n_cand = tc.rpn_post_nms_top_n + tc.max_gt_instances
+    shapes = {"rpn_fg": n_anchors, "rpn_bg": n_anchors, "roi_fg": n_cand, "roi_bg": n_cand}
+    if net.has_panoptic_head and net.has_fcn_head:
+        shapes["unknown"] = tc.max_gt_instances
+    return {k: torch.rand((batch_size, n), device=device, generator=generator)
+            for k, n in shapes.items()}
+
 
 def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
                   noise: dict | None = None,
-                  generator: torch.Generator | None = None):
+                  generator: torch.Generator | None = None,
+                  joined_counts=None):
     """One training forward pass. Returns (total_loss, loss_dict) with the
     keys rpn_cls, rpn_bbox, cls, bbox, mask, seg, pano.
 
@@ -243,6 +263,13 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
     ``panoptic_box_keep_fraction``. Absent ones are drawn from ``generator``
     on the batch's device. Each stage runs inside a ``train.<stage>``
     profiler range.
+
+    Each term divides by a count over the batch (``COUNT_KEYS``: sampled
+    anchors, the RPN regression norm, sampled RoIs, fg mask RoIs, labelled
+    pixels, images). ``joined_counts``, when given, maps those local counts
+    (one float tensor, without grad) to the joined batch's: a data-parallel
+    step all-reduces them, so that each rank's terms are its share of the
+    joined batch's and their sum over the ranks is the joined batch's loss.
     """
     tc, net, ds = cfg.train, cfg.network, cfg.dataset
     noise = noise or {}
@@ -300,11 +327,22 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
             generator=generator,
         )
 
+    k_fg = int(tc.batch_rois * tc.fg_fraction)
+    seg_gt = batch["seg_gt"].long()
+    with torch.no_grad():
+        counts = torch.stack([
+            (rt.labels >= 0).sum().float(), rt.norm.sum().float(), tgt.valid.sum().float(),
+            tgt.fg[:, :k_fg].sum().float(), (seg_gt != L.IGNORE).sum().float(),
+            torch.tensor(float(bsz), device=dev)])
+        if joined_counts is not None:
+            counts = joined_counts(counts)
+    n_rpn, rpn_norm, n_roi, n_fg, n_seg, n_images = counts.unbind()
+
     with record_function("train.rpn_loss"):
-        loss_rpn_cls = L.rpn_cls_loss(cls_flat.reshape(-1, 2), rt.labels.reshape(-1))
+        loss_rpn_cls = L.rpn_cls_loss(cls_flat.reshape(-1, 2), rt.labels.reshape(-1), n_rpn)
         loss_rpn_bbox = L.rpn_bbox_loss(
             bbox_flat.reshape(-1, 4), rt.bbox_targets.reshape(-1, 4),
-            rt.bbox_inside.reshape(-1), rt.norm.sum())
+            rt.bbox_inside.reshape(-1), rpn_norm)
 
     with record_function("train.box_branch"):
         pb, r = net.pooled_size_box, tc.batch_rois
@@ -312,29 +350,28 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
         pooled_box = _pool_boxes(levels4, tgt.rois, pb, net.roi_sampling_ratio)
         cls_score, bbox_pred = model.box_head(pooled_box.reshape(bsz * r, pb, pb, -1))
         loss_cls = L.rcnn_cls_loss(cls_score, tgt.labels.reshape(-1),
-                                   tgt.valid.reshape(-1))
+                                   tgt.valid.reshape(-1), n_roi)
         loss_bbox = L.rcnn_bbox_loss(
             bbox_pred, tgt.labels.reshape(-1), tgt.bbox_targets.reshape(-1, 4),
-            tgt.fg.reshape(-1), tgt.valid.reshape(-1))
+            tgt.fg.reshape(-1), tgt.valid.reshape(-1), count=n_roi)
 
     # mask head on the fg RoIs, which occupy the first k_fg slots
     with record_function("train.mask_branch"):
         pm, ms = net.pooled_size_mask, net.mask_size
-        k_fg = int(tc.batch_rois * tc.fg_fraction)
         pooled_mask = _pool_boxes(levels4, tgt.rois[:, :k_fg], pm, net.roi_sampling_ratio)
         mask_logits = model.mask_head(pooled_mask.reshape(bsz * k_fg, pm, pm, -1))
         loss_mask = L.mask_loss(
             mask_logits, tgt.labels[:, :k_fg].reshape(-1),
-            tgt.mask_targets[:, :k_fg].reshape(-1, ms, ms), tgt.fg[:, :k_fg].reshape(-1))
+            tgt.mask_targets[:, :k_fg].reshape(-1, ms, ms), tgt.fg[:, :k_fg].reshape(-1),
+            n_fg)
 
     zero = torch.zeros((), device=dev)
-    seg_gt = batch["seg_gt"].long()
     with record_function("train.seg_loss"):
         seg_logits = fcn_logits.permute(0, 2, 3, 1)  # (B, H/4, W/4, C)
-        loss_seg = L.seg_loss(seg_logits, seg_gt) if net.has_fcn_head else zero
+        loss_seg = L.seg_loss(seg_logits, seg_gt, count=n_seg) if net.has_fcn_head else zero
         if net.has_fcn_head and tc.fcn_with_roi_loss:
             roi_seg = L.seg_roi_loss(seg_logits, seg_gt, gt_boxes * 0.25, gt_valid)
-            loss_seg = loss_seg + tc.fcn_roi_loss_weight * roi_seg.mean()
+            loss_seg = loss_seg + tc.fcn_roi_loss_weight * (roi_seg.sum() / n_images)
 
     # panoptic head, teacher-forced: GT boxes and classes with the mask
     # head's logits for them; needs the semantic head
@@ -360,7 +397,7 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
                     seg_gt[i], batch["gt_masks"][i], gt_valid[i], to_unknown[i],
                     ds.num_stuff)
                 per_image.append(L.panoptic_loss(pan_logits, pan_gt.long()))
-            loss_pano = torch.stack(per_image).mean()
+            loss_pano = torch.stack(per_image).sum() / n_images
         else:
             loss_pano = zero
 

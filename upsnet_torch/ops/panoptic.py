@@ -20,10 +20,11 @@ from upsnet_torch.ops.mask_paste import paste_masks
 IGNORE = 255
 
 
-def _box_window(boxes: torch.Tensor, hw, dtype) -> torch.Tensor:
-    """(N, H, W) indicator of each box's pixel window (inclusive coords)."""
+def _box_window(boxes: torch.Tensor, hw, dtype, row0: int = 0) -> torch.Tensor:
+    """(N, H, W) indicator of each box's pixel window (inclusive coords), on
+    the canvas rows ``row0 .. row0 + H - 1``."""
     h, w = hw
-    ys = torch.arange(h, dtype=boxes.dtype, device=boxes.device)[None, :, None]
+    ys = torch.arange(row0, row0 + h, dtype=boxes.dtype, device=boxes.device)[None, :, None]
     xs = torch.arange(w, dtype=boxes.dtype, device=boxes.device)[None, None, :]
     x1, y1, x2, y2 = (boxes[:, i][:, None, None] for i in range(4))
     win = ((ys >= torch.floor(y1)) & (ys <= torch.ceil(y2))
@@ -32,19 +33,19 @@ def _box_window(boxes: torch.Tensor, hw, dtype) -> torch.Tensor:
 
 
 def seg_term(seg_logits: torch.Tensor, boxes: torch.Tensor,
-             classes: torch.Tensor, num_stuff: int) -> torch.Tensor:
-    """seg_logits (H, W, C) stuff first; boxes (N, 4) at seg scale; classes
-    (N,) thing index. Each instance's thing channel inside its box, 0
-    outside: (N, H, W)."""
+             classes: torch.Tensor, num_stuff: int, row0: int = 0) -> torch.Tensor:
+    """seg_logits (H, W, C) stuff first, canvas rows from ``row0``; boxes
+    (N, 4) at seg scale; classes (N,) thing index. Each instance's thing
+    channel inside its box, 0 outside: (N, H, W)."""
     h, w, _ = seg_logits.shape
     chan = seg_logits[:, :, num_stuff:].permute(2, 0, 1)[classes.long()]
-    return chan * _box_window(boxes, (h, w), chan.dtype)
+    return chan * _box_window(boxes, (h, w), chan.dtype, row0)
 
 
 def mask_term(mask_logits: torch.Tensor, boxes: torch.Tensor,
-              out_hw) -> torch.Tensor:
+              out_hw, row0: int = 0) -> torch.Tensor:
     """Per-instance mask logits pasted into canvases (0 outside)."""
-    return paste_masks(mask_logits, boxes, out_hw)
+    return paste_masks(mask_logits, boxes, out_hw, row0=row0)
 
 
 def panoptic_logits(seg_logits, boxes, classes, mask_logits, inst_valid,
@@ -99,16 +100,17 @@ def mask_matching(seg_gt, gt_masks, gt_valid, to_unknown, num_stuff: int,
 
 
 def panoptic_argmax_stream(seg_logits, boxes, classes, mask_logits,
-                           inst_valid, num_stuff: int) -> torch.Tensor:
+                           inst_valid, num_stuff: int, row0: int = 0) -> torch.Tensor:
     """Per-pixel argmax over the panoptic stack without materialising it:
     (max, argmax) per channel group combined with the first-wins order.
-    Returns (H, W) int32 channel indices."""
+    seg_logits may be the row slab from canvas row ``row0``. Returns (H, W)
+    int32 channel indices."""
     h, w, _ = seg_logits.shape
     n = mask_logits.shape[0]
     stuff_max, stuff_arg = seg_logits[:, :, :num_stuff].max(-1)
 
-    seg_t = seg_term(seg_logits, boxes, classes, num_stuff)
-    inst = seg_t + mask_term(mask_logits, boxes, (h, w))
+    seg_t = seg_term(seg_logits, boxes, classes, num_stuff, row0)
+    inst = seg_t + mask_term(mask_logits, boxes, (h, w), row0)
     neg = torch.tensor(-1e4, dtype=inst.dtype, device=inst.device)
     valid = inst_valid[:, None, None]
     inst = torch.where(valid, inst, neg)

@@ -13,6 +13,15 @@ It trains on the card unless ``--device cpu`` is given, and copies the
 configuration file into ``<output_path>/<symbol>/``, where the log,
 ``metrics.jsonl`` and ``checkpoints/step_*`` go. ``train.resume: true``
 resumes from the newest snapshot there.
+
+Under ``torchrun`` it trains data-parallel, one process per card, each
+with ``train.batch_size`` images a step (``parallel/``); rank 0 writes the
+log, ``metrics.jsonl`` and the snapshots:
+
+    torchrun --nproc_per_node 4 -m upsnet_torch.tools.train --cfg <yaml>
+
+``--backend`` names the process group's backend (default NCCL on the card,
+gloo on the CPU); naming it makes a group even for one process.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 
 from upsnet_torch.config import load_config
 from upsnet_torch.data import DATASETS, make_dataset
+from upsnet_torch.parallel.mesh import close_group, make_group
 from upsnet_torch.train.trainer import train
 from upsnet_torch.utils.logging import create_logger
 from upsnet_torch.utils.profiling import trace
@@ -41,6 +51,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; 'cpu' runs the kernels' "
                          "plain versions)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process group backend (default: nccl on the card, gloo on the "
+                         "CPU, and no group for a single process)")
     return ap.parse_args(argv)
 
 
@@ -52,15 +65,22 @@ def run(argv=None, **train_kw):
         raise RuntimeError(f"--device {args.device}: no CUDA device; pass --device cpu to "
                            "run on the CPU")
     cfg = load_config(args.cfg)
-    out_dir = os.path.join(cfg.output_path, cfg.symbol)
-    os.makedirs(out_dir, exist_ok=True)
-    shutil.copy(args.cfg, out_dir)  # the reference copies the configuration to its output
-    logger = create_logger(out_dir, cfg.symbol, "train")
-    logger.info("config: %s", cfg)
-    dataset = make_dataset(cfg, args.dataset_override or cfg.dataset.dataset, training=True)
-    with trace(args.profile_dir):
-        return train(cfg, dataset, logger=logger, max_steps=args.max_steps,
-                     device=args.device, **train_kw)
+    group = make_group(cfg.num_devices, device=args.device, backend=args.backend)
+    try:
+        out_dir = os.path.join(cfg.output_path, cfg.symbol)
+        logger = None
+        if group.is_main:
+            os.makedirs(out_dir, exist_ok=True)
+            shutil.copy(args.cfg, out_dir)  # the reference copies the configuration
+            logger = create_logger(out_dir, cfg.symbol, "train")
+            logger.info("config: %s", cfg)
+        dataset = make_dataset(cfg, args.dataset_override or cfg.dataset.dataset,
+                               training=True)
+        with trace(args.profile_dir if group.is_main else None):
+            return train(cfg, dataset, logger=logger, max_steps=args.max_steps,
+                         device=group.device, group=group, **train_kw)
+    finally:
+        close_group(group)
 
 
 if __name__ == "__main__":

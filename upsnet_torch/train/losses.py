@@ -8,7 +8,9 @@ Port of ``upsnet_tpu/train/losses.py``, Detectron-lineage conventions:
 beta = 1 for RCNN bbox; per-pixel sigmoid BCE on the GT-class mask channel;
 softmax CE with ignore label 255 for the semantic and panoptic heads. Every
 function takes explicit validity masks, normalises by the sampled count as
-the reference does, and computes log-softmax and sums in float32.
+the reference does, and computes log-softmax and sums in float32. Where a
+``count`` is given it takes the place of the local count: a data-parallel
+step passes the joined batch's (``parallel/steps.py``).
 """
 
 from __future__ import annotations
@@ -16,27 +18,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+IGNORE = 255
+
 
 def smooth_l1(pred, target, beta: float):
     d = (pred - target).abs()
     return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta)
 
 
-def softmax_ce(logits, labels, valid, dims=None):
+def softmax_ce(logits, labels, valid, dims=None, count=None):
     """Softmax cross-entropy over the last axis, averaged over the valid
-    entries: of everything (``dims`` None, a scalar) or of the axes ``dims``
-    only. labels integer, logits (..., C), valid bool like labels."""
+    entries: of everything (``dims`` None, a scalar; divided by ``count``
+    when given) or of the axes ``dims`` only. labels integer, logits
+    (..., C), valid bool like labels."""
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     ll = torch.where(valid, ll, torch.zeros_like(ll))
     if dims is None:
-        return -ll.sum() / valid.sum().float().clamp(min=1.0)
+        if count is None:
+            count = valid.sum().float()
+        return -ll.sum() / count.clamp(min=1.0)
     return -ll.sum(dim=dims) / valid.sum(dim=dims).float().clamp(min=1.0)
 
 
-def rpn_cls_loss(cls_logits_flat, labels):
+def rpn_cls_loss(cls_logits_flat, labels, count=None):
     """cls_logits_flat (N, 2); labels (N,) in {1 fg, 0 bg, -1 ignore}."""
-    return softmax_ce(cls_logits_flat, labels.clamp(min=0), labels >= 0)
+    return softmax_ce(cls_logits_flat, labels.clamp(min=0), labels >= 0, count=count)
 
 
 def rpn_bbox_loss(bbox_pred_flat, targets, fg_mask, norm, beta: float = 1.0 / 9.0):
@@ -44,11 +51,12 @@ def rpn_bbox_loss(bbox_pred_flat, targets, fg_mask, norm, beta: float = 1.0 / 9.
     return (loss * fg_mask[:, None]).sum() / norm.clamp(min=1.0)
 
 
-def rcnn_cls_loss(cls_score, labels, valid):
-    return softmax_ce(cls_score, labels, valid)
+def rcnn_cls_loss(cls_score, labels, valid, count=None):
+    return softmax_ce(cls_score, labels, valid, count=count)
 
 
-def rcnn_bbox_loss(bbox_pred, labels, bbox_targets, fg, valid, beta: float = 1.0):
+def rcnn_bbox_loss(bbox_pred, labels, bbox_targets, fg, valid, beta: float = 1.0,
+                   count=None):
     """Class-specific regression on the 4 deltas of the GT class. bbox_pred
     (R, 4*C); labels (R,); bbox_targets (R, 4); fg, valid (R,) bool.
     Normalised by the number of valid sampled RoIs."""
@@ -57,10 +65,12 @@ def rcnn_bbox_loss(bbox_pred, labels, bbox_targets, fg, valid, beta: float = 1.0
     sel = pred[torch.arange(r, device=pred.device), labels.long()]
     loss = smooth_l1(sel, bbox_targets, beta).sum(-1)
     loss = torch.where(fg, loss, torch.zeros_like(loss))
-    return loss.sum() / valid.sum().float().clamp(min=1.0)
+    if count is None:
+        count = valid.sum().float()
+    return loss.sum() / count.clamp(min=1.0)
 
 
-def mask_loss(mask_logits, labels, mask_targets, fg):
+def mask_loss(mask_logits, labels, mask_targets, fg, count=None):
     """Per-pixel BCE on the GT-class channel of fg RoIs. mask_logits
     (R, C, M, M) as the mask head writes them; labels (R,); mask_targets
     (R, M, M) in {0, 1}; fg (R,) bool."""
@@ -68,19 +78,21 @@ def mask_loss(mask_logits, labels, mask_targets, fg):
     sel = mask_logits.float()[torch.arange(r, device=mask_logits.device), labels.long()]
     bce = sel.clamp(min=0) - sel * mask_targets + torch.log1p(torch.exp(-sel.abs()))
     bce = bce.mean(dim=(1, 2))
-    return torch.where(fg, bce, torch.zeros_like(bce)).sum() / fg.sum().float().clamp(min=1.0)
+    if count is None:
+        count = fg.sum().float()
+    return torch.where(fg, bce, torch.zeros_like(bce)).sum() / count.clamp(min=1.0)
 
 
-def seg_loss(seg_logits, seg_gt, ignore: int = 255):
+def seg_loss(seg_logits, seg_gt, ignore: int = IGNORE, count=None):
     """Semantic CE at 1/4 scale. seg_logits (B, H, W, C); seg_gt (B, H, W)
     with 255 = ignore."""
     valid = seg_gt != ignore
     return softmax_ce(seg_logits, torch.where(valid, seg_gt, torch.zeros_like(seg_gt)),
-                      valid)
+                      valid, count=count)
 
 
 def seg_roi_loss(seg_logits, seg_gt, gt_boxes_seg, gt_valid, crop: int = 28,
-                 ignore: int = 255):
+                 ignore: int = IGNORE):
     """RoI re-weighted semantic loss: crop logits and GT inside each GT box,
     resize to crop^2 with nearest sampling, CE over the crops of an image.
     seg_logits (B, H, W, C); seg_gt (B, H, W); gt_boxes_seg (B, G, 4) at seg
@@ -107,7 +119,7 @@ def seg_roi_loss(seg_logits, seg_gt, gt_boxes_seg, gt_valid, crop: int = 28,
                       dims=(1, 2, 3))
 
 
-def panoptic_loss(pan_logits, pan_gt, ignore: int = 255):
+def panoptic_loss(pan_logits, pan_gt, ignore: int = IGNORE):
     """CE over the (S + G + 1)-channel panoptic stack. pan_logits (K, H, W);
     pan_gt (H, W) int with 255 ignore."""
     valid = pan_gt != ignore

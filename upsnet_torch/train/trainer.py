@@ -9,7 +9,9 @@ one line to ``<cfg.output_path>/<cfg.symbol>/metrics.jsonl``.
 ``train_steps`` runs that loop over batches the caller builds. ``train``
 is the reference's whole entry: model, pretrained weights, optimizer,
 resume, the loader over a dataset and the device prefetch, the loop, and
-snapshots every ``snapshot_step`` iterations.
+snapshots every ``snapshot_step`` iterations; under a process group
+(``parallel/mesh.py``) each rank trains its share of the joined batch
+through the data-parallel step (``parallel/steps.py``).
 """
 
 from __future__ import annotations
@@ -24,10 +26,13 @@ import torch
 
 from upsnet_torch.config.defaults import Config
 from upsnet_torch.convert.finetune import is_class_dependent, remap_coco_state_dict_to_cityscapes
+from upsnet_torch.convert.torch_converter import load_pretrained
 from upsnet_torch.data.pipeline import make_loader
 from upsnet_torch.data.wire import DevicePrefetcher, decode_batch
 from upsnet_torch.evaluation.inference import bucket_anchors
 from upsnet_torch.models.registry import get_model
+from upsnet_torch.parallel import steps as ddp_steps
+from upsnet_torch.parallel.mesh import Group
 from upsnet_torch.train.checkpoints import (
     CheckpointMismatch,
     latest_checkpoint,
@@ -57,11 +62,18 @@ class IntervalLog:
     ``dcn_*`` fields from a probe of the trunk on the interval's last images.
     The watch acts on sustained saturation as
     ``cfg.network.dcn_saturation_action`` says ('fail' raises RuntimeError,
-    'warn' logs an error)."""
+    'warn' logs an error).
 
-    def __init__(self, model, cfg: Config, log: logging.Logger):
+    Under a process group (``group``) the losses are already the joined
+    batch's, the rate counts every rank's images, the probe's statistics
+    are the maximum over the ranks (so every rank takes the same decision:
+    a rank that raised alone would hang the others), and rank 0 alone writes
+    ``metrics.jsonl``."""
+
+    def __init__(self, model, cfg: Config, log: logging.Logger, group: Group | None = None):
         net = cfg.network
         self.model, self.log = model, log
+        self.group = group or Group()
         impl_train = net.dcn_impl_train or net.dcn_impl
         self.sat_watch = None
         if (net.fcn_with_dcn or net.backbone_with_dcn) and impl_train in WATCHED_IMPLS:
@@ -93,7 +105,7 @@ class IntervalLog:
         # the reads above waited for the whole interval, so wall minus the
         # wait for batches is step time
         wall = time.time() - self.t0
-        rate = len(steps) * last_images.shape[0] / wall
+        rate = len(steps) * last_images.shape[0] * self.group.world / wall
         self.log.info("iter %d (%.2f img/s; step %.2fs loader-wait %.2fs): %s",
                       it, rate, wall - self.loader_wait_s, self.loader_wait_s,
                       " ".join(f"{k}={v:.4f}" for k, v in sorted(means.items())))
@@ -103,12 +115,14 @@ class IntervalLog:
             "platform": last_images.device.type,
         }
         if self.sat_watch is not None:
-            fields, warning = self.sat_watch.update(probe_dcn_offsets(self.model, last_images))
+            stats = self.group.max_stats(probe_dcn_offsets(self.model, last_images))
+            fields, warning = self.sat_watch.update(stats)
             entry.update(fields)
             if warning:
                 self.log.error(warning)
-        with open(self.metrics_path, "a") as f:
-            f.write(json.dumps(entry) + "\n")
+        if self.group.is_main:
+            with open(self.metrics_path, "a") as f:
+                f.write(json.dumps(entry) + "\n")
         self.loader_wait_s = 0.0
         self.t0 = time.time()
         return entry, steps
@@ -167,12 +181,13 @@ def load_pretrained_any(path: str, model, log: logging.Logger) -> None:
         model for a Cityscapes config) goes through the COCO -> Cityscapes
         head remap (``convert/finetune.py``); any other difference raises
         ``CheckpointMismatch``;
-      * a reference ``.pth`` and a JAX (Orbax) snapshot directory are
-        refused by name."""
+      * a reference ``.pth`` (a released UPSNet state dict, or torchvision
+        ImageNet weights for the backbone) loads strictly through the
+        converter (``convert/torch_converter.py:load_pretrained``);
+      * a JAX (Orbax) snapshot directory is refused by name."""
     if path.endswith(".pth"):
-        raise NotImplementedError(
-            f"network.pretrained={path!r}: loading a reference .pth state dict is not "
-            "ported yet (ROADMAP Queue 1 item 8)")
+        load_pretrained(path, model, log)
+        return
     if os.path.basename(path) == "latest" and not os.path.isdir(path):
         resolved = latest_checkpoint(os.path.dirname(path))
         if resolved is None:
@@ -202,7 +217,7 @@ def load_pretrained_any(path: str, model, log: logging.Logger) -> None:
 
 
 def train(cfg: Config, dataset, logger=None, max_steps: int | None = None, model=None,
-          device="cuda", optimizer=None, on_step=None):
+          device="cuda", optimizer=None, on_step=None, group: Group | None = None):
     """Train on ``dataset`` as the JAX ``train`` does; returns (model, the
     metrics.jsonl lines as dicts).
 
@@ -225,9 +240,24 @@ def train(cfg: Config, dataset, logger=None, max_steps: int | None = None, model
     weights after iteration ``it`` are saved to ``checkpoints/step_{it}``
     where ``it % train.snapshot_step == 0`` and at the last iteration.
     ``on_step(it, metrics)``, when given, receives each step's losses and
-    its ``lr`` (the schedule's rate) once its interval is read."""
+    its ``lr`` (the schedule's rate) once its interval is read.
+
+    Under a process group (``group``, from ``parallel.mesh.make_group``;
+    ``device`` is then the group's) every rank builds the same model from
+    the same seed, resumes from the same snapshot, and reads its own stream
+    of ``train.batch_size`` batches (``host_id=rank``, ``num_hosts=world``:
+    the JAX multi-host stream; the JAX single-host mesh stream, batches of
+    ``batch_size * n_dev`` from one loader, is not reproduced). The steps
+    are ``parallel/steps.py``'s, whose losses, gradients and metrics are the
+    joined batch's. Rank 0 alone writes the log, ``metrics.jsonl`` and the
+    snapshots."""
     tc, net = cfg.train, cfg.network
-    logger = logger or create_logger(cfg.output_path, cfg.symbol, "train")
+    group = group or Group()
+    if logger is None:
+        logger = (create_logger(cfg.output_path, cfg.symbol, "train") if group.is_main
+                  else logging.getLogger(f"{__name__}.rank{group.rank}"))
+    if group.distributed:
+        device = group.device
     if model is None:
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"train: device {device} but no CUDA device; pass "
@@ -239,9 +269,17 @@ def train(cfg: Config, dataset, logger=None, max_steps: int | None = None, model
     if optimizer is None:
         optimizer = make_optimizer(cfg, model)
     generator = torch.Generator(device=dev).manual_seed(cfg.seed)
-    steps_by_bucket = {
-        tuple(b): make_train_step(model, cfg, bucket_anchors(cfg, b, dev), optimizer, generator)
-        for b in tc.image_buckets}
+    if group.distributed:
+        ddp = ddp_steps.wrap_model(model, cfg, group)
+        steps_by_bucket = {
+            tuple(b): ddp_steps.make_train_step(ddp, cfg, bucket_anchors(cfg, b, dev),
+                                                optimizer, group, generator)
+            for b in tc.image_buckets}
+    else:
+        steps_by_bucket = {
+            tuple(b): make_train_step(model, cfg, bucket_anchors(cfg, b, dev), optimizer,
+                                      generator)
+            for b in tc.image_buckets}
 
     start_iter = tc.begin_iteration
     ckpt_dir = os.path.join(cfg.output_path, cfg.symbol, "checkpoints")
@@ -253,12 +291,13 @@ def train(cfg: Config, dataset, logger=None, max_steps: int | None = None, model
             logger.info("resumed from %s at iter %d (update count %d)", latest, start_iter,
                         update_count(optimizer))
     loader = make_loader(dataset, batch_size=tc.batch_size, num_workers=tc.num_workers,
-                         shuffle=True, seed=cfg.seed)
-    logger.info("device %s (%s); image_wire=%s; batch %d, %d loader workers", dev,
-                torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host",
-                tc.image_wire, tc.batch_size, tc.num_workers)
+                         shuffle=True, seed=cfg.seed, host_id=group.rank,
+                         num_hosts=group.world)
+    logger.info("device %s (%s); image_wire=%s; batch %d a rank, %d ranks, %d loader workers",
+                dev, torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host",
+                tc.image_wire, tc.batch_size, group.world, tc.num_workers)
     prefetcher = DevicePrefetcher(iter(loader), dev, net.compute_dtype, tc.image_wire)
-    log = IntervalLog(model, cfg, logger)
+    log = IntervalLog(model, cfg, logger, group)
     sched = lr_schedule(cfg)
     total_steps = max_steps or tc.max_iteration
     history, lrs = [], []
@@ -288,7 +327,7 @@ def train(cfg: Config, dataset, logger=None, max_steps: int | None = None, model
             it += 1
             if it % tc.display_iter == 0:
                 flush(batch)
-            if it % tc.snapshot_step == 0 or it == total_steps:
+            if group.is_main and (it % tc.snapshot_step == 0 or it == total_steps):
                 logger.info("saved snapshot %s",
                             save_checkpoint(ckpt_dir, it, model, optimizer))
     finally:
