@@ -178,7 +178,28 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    predicts, merge, fusion, postprocess);
 19. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels), with frozen BN and no backbone DCN,
-   then with GroupNorm and DCN in C3-C5.
+   then with GroupNorm and DCN in C3-C5;
+20. remat: the GN rehearsal file's model at its batch 8 (832x1344,
+   ``pallas``, bf16) under ``train.remat`` off, full and ``save_dcn``, from
+   the same weights and batch, a warm step and three timed ones each: step
+   ms (CUDA events), peak allocated, K2 / K3 launches a step; the three the
+   same losses and weights bit for bit, K2 8 / 16 / 8 a step, ``save_dcn``'s
+   peak below off's;
+21. train_frozenbn: ``upsnet_torch.tools.make_synth_pretrained`` folds the
+   frozen-BN parity file's R50 (each pass's worst |mean| and |std - 1|), then
+   ``python -m upsnet_torch.tools.train`` trains a copy of the file that
+   changes only paths, ``max_iteration`` (24), ``display_iter`` and
+   ``snapshot_step`` on the train entry's COCO-layout set: the pretrained
+   snapshot an exact match, every loss finite, the last interval's total
+   below the first's;
+22. goldens: ``upsnet_torch.tools.goldens`` dumps phase 19's tiny frozen-BN
+   model on the card and on the CPU from one snapshot and ``compare`` passes
+   them; a dump of R50 COCO at 832x1344 on the card has the JAX tool's keys
+   (read from ``tools/goldens.py``) and its shapes.
+
+Every train step runs under the configuration's ``train.remat`` (default
+on, ``save_dcn``): the sampling forwards launch once a step, as without
+remat, and twice under full remat (``expected_launches``).
 
 The line before the last two is a JSON object with the numbers of every
 kernel on a path (``launches`` sums the predict, train, eval and tool
@@ -2054,23 +2075,27 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
     passes in backward); any other launches K1 without autograd, and with it
     the all-tap K2 and the two passes of the all-tap K3, clipped where dy is
     (``pallas``, ``mxu``, ``shift``'s fallback), else (``auto``, ``gather``)
-    unclipped. The one-tap K2 and K6 run on no path. ``heads`` False leaves
+    unclipped. The one-tap K2 and K6 run on no path. Under ``train.remat``
+    with a policy other than ``save_dcn`` a step recomputes the trunk, the
+    sampling forwards (K2, K6, K8a) included, in its backward: they launch
+    twice; ``save_dcn`` keeps their outputs (once). ``heads`` False leaves
     out the ROIAlign calls (a pass of the trunk alone)."""
-    net = cfg.network
+    net, tc = cfg.network, cfg.train
     impl = (net.dcn_impl_train or net.dcn_impl) if grad else net.dcn_impl
+    fwd = 2 if grad and tc.remat and tc.remat_policy != "save_dcn" else 1
     n = dict.fromkeys(COUNTERS, 0)
     for shape, cout in dcn_layers(cfg, bucket, batch):
         if impl == "shift" and deform_shift.shift_route_ok(
                 shape, cout, net.dcn_max_dy, net.dcn_max_dy, 1):
-            n["shift_fwd"] += 1
+            n["shift_fwd"] += fwd
             n["shift_adjoint"] += grad
             n["shift_offset_grads"] += grad
         elif impl in ("pallas", "shift") and deform_sample.pallas_route(
                 shape, cout, net.dcn_max_dy, 1)[0] == "tiled":
-            n["deform_sample_tiled_taps"] += 1
+            n["deform_sample_tiled_taps"] += fwd
             n["deform_sample_bwd_taps"] += 2 * grad
         elif grad:
-            n["deform_sample_taps"] += 1
+            n["deform_sample_taps"] += fwd
             if impl in ("pallas", "mxu", "shift"):
                 n["deform_sample_bwd_taps"] += 2
             else:
@@ -3620,6 +3645,236 @@ def phase_mt_tool(dev) -> dict:
     return launches
 
 
+REMAT_POLICIES = {"off": (False, "save_dcn"), "full": (True, ""), "save_dcn": (True, "save_dcn")}
+REMAT_STEPS = 3  # timed, after a warm step
+
+
+def phase_remat(dev) -> dict:
+    """``train.remat`` and ``train.remat_policy`` on the model of ``GN_YAML``
+    at its batch 8 (832x1344, ``dcn_impl_train: pallas``, bf16, offset biases
+    at +-2 px): for each of off, full and ``save_dcn``, from the same weights,
+    synthetic batch and noise seed, a warm step and ``REMAT_STEPS`` timed
+    ones through ``make_train_step``, each with a new optimizer. Prints each
+    policy's step ms (CUDA events), peak allocated and K2 / K3 launches a
+    step. Every step's losses and the last weights must be the same bits
+    under the three; every step's launches those of ``expected_launches``
+    (K2 8, 16 and 8); ``save_dcn``'s peak must lie below ``off``'s. Returns
+    the three runs' launches."""
+    tag = "remat"
+    base = load_config(GN_YAML)
+    tc = base.train
+    gen = torch.Generator().manual_seed(base.seed)
+    model = get_model(base.symbol, base, device=dev, generator=gen)
+    perturb_offset_biases(model, gen)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    anchors = bucket_anchors(base, BUCKET, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
+        base, BUCKET, tc.batch_size, seed=7, image_hw=tuple(int(x) for x in IM_HW)).items()}
+    print(f"[{tag}] {describe(base)}; batch {tc.batch_size}, bucket {BUCKET}; per policy a warm "
+          f"step and {REMAT_STEPS} timed ones from one state")
+    launches = dict.fromkeys(COUNTERS, 0)
+    runs = {}
+    for name, (remat, policy) in REMAT_POLICIES.items():
+        cfg = base.replace(train=dataclasses.replace(tc, remat=remat, remat_policy=policy))
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        step = make_train_step(model, cfg, anchors, make_optimizer(cfg, model),
+                               generator=torch.Generator(device=dev).manual_seed(11))
+        expect = expected_launches(cfg, grad=True, batch=tc.batch_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, ms = [], []
+        for i in range(1 + REMAT_STEPS):
+            before = read_launches()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(batch)
+            end.record()
+            losses.append({k: float(v) for k, v in metrics.items()})  # the step is done
+            moved = {k: v - before[k] for k, v in read_launches().items()}
+            if moved != expect:
+                raise AssertionError(f"[{tag}] {name} step {i}: launches {nonzero(moved)}, "
+                                     f"expected {nonzero(expect)}")
+            if i:
+                ms.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        for k, v in read_launches().items():
+            launches[k] += v
+        del step
+        runs[name] = {"losses": losses, "weights": digest(*model.state_dict().values()),
+                      "ms": ms, "peak": peak}
+        print(f"[{tag}] {name} (remat {remat}, remat_policy {policy!r}): step ms "
+              f"{[round(x, 2) for x in ms]}, median {statistics.median(ms):.2f}; peak allocated "
+              f"{peak / 2 ** 30:.3f} GiB; a step launches {expect['deform_sample_taps']} K2, "
+              f"{expect['deform_sample_bwd_taps']} K3; total by step "
+              f"{[x['total'] for x in losses]}; weights {runs[name]['weights']}")
+    ref = runs["off"]
+    off = [n for n, r in runs.items()
+           if r["losses"] != ref["losses"] or r["weights"] != ref["weights"]]
+    if off:
+        raise AssertionError(f"[{tag}] {off}: losses or weights differ from off's bits")
+    if not runs["save_dcn"]["peak"] < ref["peak"]:
+        raise AssertionError(f"[{tag}] save_dcn's peak {runs['save_dcn']['peak']} is not below "
+                             f"off's {ref['peak']}")
+    med = {n: statistics.median(r["ms"]) for n, r in runs.items()}
+    print(f"[{tag}] the three policies give the same losses and weights bit for bit; against off: "
+          + ", ".join(f"{n} step {med[n] - med['off']:+.2f} ms, peak "
+                      f"{(r['peak'] - ref['peak']) / 2 ** 30:+.3f} GiB"
+                      for n, r in runs.items() if n != "off"))
+    return launches
+
+
+FROZENBN_YAML = os.path.join(EXPERIMENTS, "upsnet_r50_synth_frozenbn.yaml")
+FROZENBN_TRAIN = {"max_iteration": 24, "display_iter": 4, "snapshot_step": 24}
+
+
+def phase_train_frozenbn(dev, tmp: str, root: str) -> None:
+    """The frozen-BN parity file (``upsnet_r50_synth_frozenbn.yaml``: frozen
+    BN, straddle filtering on, ``dcn_impl_train: gather``, batch 8) as its
+    header runs it, on the card: ``upsnet_torch.tools.make_synth_pretrained``
+    folds data statistics into the seeded R50's frozen-BN affines (each
+    pass's worst |mean| and |std - 1| printed, the last within 0.1), then
+    ``python -m upsnet_torch.tools.train`` trains a copy of the file that
+    changes only the paths (data, output, ``network.pretrained``),
+    ``max_iteration``, ``display_iter`` and ``snapshot_step``, on the set at
+    ``root``. The pretrained snapshot must load as an exact match, every loss
+    term of every interval be finite and the last interval's total lie below
+    the first's (the file's own gate: finite, decreasing losses)."""
+    from upsnet_torch.tools import make_synth_pretrained
+
+    tag = "train_frozenbn"
+    t0 = time.perf_counter()
+    path, passes = make_synth_pretrained.run(
+        ["--cfg", FROZENBN_YAML, "--out", os.path.join(tmp, "synth_frozenbn_r50")])
+    print(f"[{tag}] make_synth_pretrained on {os.path.basename(FROZENBN_YAML)} "
+          f"({time.perf_counter() - t0:.1f} s): worst |mean| / |std-1| by pass "
+          + ", ".join(f"{mu:.4f} / {sd:.4f}" for mu, sd in passes))
+    if max(passes[-1]) > make_synth_pretrained.CONVERGED:
+        raise AssertionError(f"[{tag}] the fold did not converge: {passes[-1]}")
+    out = os.path.join("output", f"chip_smoke_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    changes = {"output_path": out, "dataset": {"dataset_path": root},
+               "network": {"pretrained": path}, "train": dict(FROZENBN_TRAIN)}
+    yaml_path = yaml_copy(FROZENBN_YAML, os.path.join(tmp, f"{tag}.yaml"), changes)
+    cfg = load_config(yaml_path)
+    print(f"[{tag}] {os.path.basename(FROZENBN_YAML)}, changed only: {json.dumps(changes)}; "
+          f"{describe(cfg)}; batch {cfg.train.batch_size}, remat {cfg.train.remat} "
+          f"{cfg.train.remat_policy!r}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "upsnet_torch.tools.train", "--cfg", yaml_path],
+                          capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"[{tag}] the train entry exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    if f"pretrained: loaded {path} (exact match)" not in proc.stderr:
+        raise AssertionError(f"[{tag}] network.pretrained did not load as an exact match:\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(os.path.join(cfg.output_path, cfg.symbol, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    n = cfg.train.max_iteration // cfg.train.display_iter
+    bad = [(e["iter"], k) for e in lines for k in (*LOSS_KEYS, "total")
+           if not math.isfinite(e[k])]
+    if len(lines) != n or bad:
+        raise AssertionError(f"[{tag}] {len(lines)} intervals (expected {n}); non-finite {bad}")
+    first, last = lines[0]["total"], lines[-1]["total"]
+    steps = [e["step_s"] * 1e3 for e in lines]
+    print(f"[{tag}] {cfg.train.max_iteration} steps in {secs:.1f} s (process start, build, "
+          f"data included): pretrained loaded as an exact match; total by interval "
+          f"{[round(e['total'], 4) for e in lines]}; step ms by interval "
+          f"{[round(x, 1) for x in steps]}, "
+          f"loader_wait_s {[round(e['loader_wait_s'], 3) for e in lines]}; last by term "
+          + json.dumps({k: round(lines[-1][k], 4) for k in LOSS_KEYS}))
+    if not last < first:
+        raise AssertionError(f"[{tag}] the last interval's total {last} is not below the "
+                             f"first's {first}")
+
+
+GOLDENS_TINY_YAML = """\
+symbol: upsnet
+dataset: {dataset: coco, num_classes: 5, num_seg_classes: 7, num_stuff: 3}
+network: {backbone: resnet_test, norm: frozen_bn, fpn_feature_dim: 32, rcnn_fc_dim: 64,
+          fcn_head_dim: 16, compute_dtype: float32}
+test: {scales: [128], max_size: 160, image_buckets: [[128, 160], [160, 128]],
+       rpn_pre_nms_top_n: 64, rpn_post_nms_top_n: 32, max_det: 8}
+"""
+# tests/test_torch_goldens.py's: 1e-4 of the largest values a tiny dump
+# holds, box corners on the 160-px canvas (card and CPU differ by f32 order)
+GOLDENS_ATOL = 1e-4 * 160
+
+
+def jax_goldens_keys() -> set:
+    """The keys that the JAX package's ``tools/goldens.py`` writes, read from
+    its source without running it: its per-level patterns (``C{i}`` over the
+    backbone's levels 2-5, ``P{i}``, ``rpn_cls_P{i}`` and ``rpn_bbox_P{i}``
+    over the pyramid's 2-6) and its tuple of ``forward_predict`` keys."""
+    with open(os.path.join(os.path.dirname(EXPERIMENTS), "tools", "goldens.py")) as f:
+        src = f.read()
+    per_level = re.findall(r'out\[f"(\w+)\{i\}"\]', src)
+    if per_level != ["C", "P", "rpn_cls_P", "rpn_bbox_P"]:
+        raise AssertionError(f"tools/goldens.py's per-level keys changed: {per_level}")
+    keys = set(re.findall(r'"(\w+)"', re.search(r"for k in \(([^)]*)\):", src).group(1)))
+    for prefix in per_level:
+        keys |= {f"{prefix}{lv}" for lv in (range(2, 6) if prefix == "C" else range(2, 7))}
+    return keys
+
+
+def phase_goldens(dev, tmp: str) -> dict:
+    """``upsnet_torch.tools.goldens`` on the card: the tiny float32 frozen-BN
+    model of ``phase_reference`` (its weights written as a port snapshot)
+    dumped on the card and on the CPU from the same snapshot and synthetic
+    image, and ``compare`` of the two passing at ``GOLDENS_ATOL``; then
+    ``upsnet_resnet50_coco_4gpu.yaml`` at 832x1344 dumped on the card (seeded
+    weights), whose keys must be the JAX tool's (``jax_goldens_keys``) and
+    shapes its layout for that file (``goldens.expected_layout``, held to the
+    JAX tool's dump on the CPU by the tests). Returns the launches of the
+    card's dumps."""
+    from upsnet_torch.tools import goldens
+
+    tag = "goldens"
+    yaml_path = os.path.join(tmp, f"{tag}_tiny.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(GOLDENS_TINY_YAML)
+    cfg = load_config(yaml_path)
+    gen = torch.Generator().manual_seed(5)
+    model = build_model(cfg, device="cpu", generator=gen)
+    perturb_offset_biases(model, gen)
+    shrink_bn_scales(model, gen)
+    ckpt = save_checkpoint(os.path.join(tmp, f"{tag}_ckpt"), 0, model)
+    reset_launches()
+    dumps = {}
+    for device in ("cuda", "cpu"):
+        dumps[device] = os.path.join(tmp, f"{tag}_{device}.npz")
+        goldens.main(["dump", "--cfg", yaml_path, "--weights", ckpt, "--synthetic", "0",
+                      "--out", dumps[device], "--device", device])
+    print(f"[{tag}] compare, tiny float32 frozen-BN model, card (a) against CPU (b):")
+    if goldens.main(["compare", dumps["cuda"], dumps["cpu"], "--atol", str(GOLDENS_ATOL)]):
+        raise AssertionError(f"[{tag}] the card's dump differs from the CPU's beyond "
+                             f"{GOLDENS_ATOL}")
+    r50 = load_config(R50_COCO_YAML)
+    out = os.path.join(tmp, f"{tag}_r50.npz")
+    t0 = time.perf_counter()
+    goldens.main(["dump", "--cfg", R50_COCO_YAML, "--synthetic", "0", "--out", out])
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    got = np.load(out)
+    shapes = {k: got[k].shape for k in got.files}
+    keys = jax_goldens_keys()
+    layout = goldens.expected_layout(r50, tuple(r50.test.image_buckets[0]))
+    if set(shapes) != keys or set(layout) != keys or shapes != layout:
+        off = {k: (shapes.get(k), layout.get(k)) for k in keys if shapes.get(k) != layout.get(k)}
+        raise AssertionError(f"[{tag}] R50 COCO dump: keys {sorted(set(shapes) ^ keys)} off the "
+                             f"JAX tool's; shapes off its layout: {off}")
+    print(f"[{tag}] R50 COCO dump on the card ({secs:.1f} s, build included): {len(keys)} keys, "
+          f"the JAX tool's, with its shapes (C2 {shapes['C2']}, P6 {shapes['P6']}, mask_logits "
+          f"{shapes['mask_logits']}, seg_logits {shapes['seg_logits']}); dtypes "
+          + json.dumps({k: str(got[k].dtype) for k in ("C2", "P2", "rpn_cls_P2", "boxes",
+                                                       "mask_logits", "seg_logits", "pan_map")}))
+    return launches
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -3698,6 +3953,9 @@ def main() -> None:
     finish("train_gn", counts, run, "train.")
     del run
     torch.cuda.empty_cache()
+    t_remat = time.perf_counter()
+    finish("remat", phase_remat(dev), None, "")
+    t_remat = time.perf_counter() - t_remat
     finish("eval_r50coco", phase_eval_r50coco(dev), None, "")
     finish("eval_tiny", phase_eval_tiny(dev), None, "")
     with tempfile.TemporaryDirectory() as tmp:
@@ -3711,8 +3969,13 @@ def main() -> None:
         finish("reproducible", phase_reproducible(dev, tmp, root), None, "")
         finish("ddp", phase_ddp(dev, tmp, root), None, "")
         finish("eval_tta", phase_eval_tta(dev, tmp, root), None, "")
-        print(f"[new phases] upsample timing, reproducible, ddp and eval_tta took "
+        print(f"[phases 15-18] upsample timing, reproducible, ddp and eval_tta took "
               f"{time.perf_counter() - t_new:.1f} s")
+        t_new = time.perf_counter()
+        phase_train_frozenbn(dev, tmp, root)
+        finish("goldens", phase_goldens(dev, tmp), None, "")
+        print(f"[phases 20-22] remat, train_frozenbn and goldens took "
+              f"{t_remat + time.perf_counter() - t_new:.1f} s")
     finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
     phase_reference(dev, norm="gn", dcn_stages=(3, 4, 5))

@@ -122,8 +122,9 @@ def test_import_leaves_jax_out():
     JAX package nor the root tools; the evaluation entry, its evaluators, the
     dataset base and the checkpoints are among them, and so are the train
     entry, the datasets, the loader and the wire, the process group, the DDP
-    step and the row-slab fusion, TTA, and the reference converter with its
-    report tool."""
+    step and the row-slab fusion, TTA, the reference converter with its
+    report tool, the remat policies with the sampling forwards' dispatcher
+    ops they name, the folded frozen-BN init tool and the goldens harness."""
     code = (
         "import pkgutil, sys, importlib, upsnet_torch\n"
         "for m in pkgutil.walk_packages(upsnet_torch.__path__, 'upsnet_torch.'):\n"
@@ -155,7 +156,9 @@ def test_import_leaves_jax_out():
             "upsnet_torch.parallel.mesh", "upsnet_torch.parallel.steps",
             "upsnet_torch.parallel.spatial", "upsnet_torch.evaluation.tta",
             "upsnet_torch.convert.upsnet_names", "upsnet_torch.convert.torch_converter",
-            "upsnet_torch.tools.convert_report"} <= loaded
+            "upsnet_torch.tools.convert_report", "upsnet_torch.models.remat",
+            "upsnet_torch.ops.deform_sample", "upsnet_torch.tools.make_synth_pretrained",
+            "upsnet_torch.tools.goldens"} <= loaded
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

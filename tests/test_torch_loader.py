@@ -5,7 +5,8 @@
 in the same order, with 0 and with 2 workers over two epochs of the COCO set
 of ``test_torch_datasets.py`` (both buckets); the batches must not depend on
 the worker count; closing the iterator, or the prefetcher over it, must stop
-its worker processes. ``decode_batch(encode_batch(b))`` must give JAX
+its worker processes, and no worker may outlive the loader, also one slower
+to exit than torch's join timeout. ``decode_batch(encode_batch(b))`` must give JAX
 ``decode_batch(encode_batch(b))`` bit for bit for the uint8 and bf16 image
 wires and for float32 compute, masks and labels included; an unknown
 ``image_wire`` is refused; the prefetcher raises its thread's exception at
@@ -85,6 +86,26 @@ def test_early_close_stops_the_workers(sets, through):  # noqa: F811
         pre.close()
         assert not pre._thread.is_alive()
     assert not _wait_for_no_children()
+
+
+@pytest.mark.parametrize("how", ["end", "close"])
+def test_workers_slow_to_exit_are_reaped(sets, monkeypatch, how):  # noqa: F811
+    """torch joins each worker for ``MP_STATUS_CHECK_INTERVAL`` seconds and
+    then terminates it without a join; with that interval at 0 every worker
+    is slower to exit than it (as on a loaded host), and none may outlive the
+    loader: not after the stream's end, not after an early close."""
+    monkeypatch.setattr(torch.utils.data._utils, "MP_STATUS_CHECK_INTERVAL", 0.0)
+    ds = COCOPanoptic(load_config(sets["coco_yaml"]))
+    assert not _wait_for_no_children()
+    if how == "end":
+        got = list(make_loader(ds, 2, num_workers=3, seed=1, epochs=1, shuffle=False))
+        assert got
+    else:
+        it = iter(make_loader(ds, 2, num_workers=3, seed=1))
+        next(it)
+        assert len(mp.active_children()) == 3
+        it.close()
+    assert not mp.active_children()
 
 
 def _batch(rng) -> dict:

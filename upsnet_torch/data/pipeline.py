@@ -30,6 +30,8 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
+WORKER_EXIT_S = 30.0  # a terminated worker's exit; one still alive after it is killed
+
 
 def collate(samples: list[dict]) -> dict:
     return {k: np.stack([s[k] for s in samples], axis=0) for k in samples[0]}
@@ -133,10 +135,18 @@ class Loader:
         try:
             yield from self._bucket_stream(
                 {k: v.numpy() for k, v in s.items()} for s in it)
-        finally:  # an early close: stop and join the workers now
+        finally:  # the end or an early close: stop the workers and reap them now
             shutdown = getattr(it, "_shutdown_workers", None)
             if shutdown is not None:
                 shutdown()
+                # torch joins each worker for a few seconds and then terminates
+                # it without a join: a worker slow to exit (a loaded host)
+                # would outlive the loader, so join what it terminated
+                for w in getattr(it, "_workers", ()):
+                    w.join(timeout=WORKER_EXIT_S)
+                    if w.is_alive():
+                        w.kill()
+                        w.join()
 
 
 def make_loader(dataset, batch_size: int, num_workers: int = 0, **kw) -> Loader:

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from upsnet_torch.models.remat import recomputing
 from upsnet_torch.ops.deform_conv import deform_conv2d
 
 
@@ -160,8 +161,9 @@ class DeformConv(nn.Module):
     >= 0.9 * max_dy]`` of its raw offsets into ``offset_max`` (a detached
     tensor on the offsets' device, the elementwise maximum over the calls
     since it was last set to None; the JAX layer sows the same three numbers
-    per call). Nothing reads it during a step, so it costs no sync;
-    ``utils/dcn_probe.py`` resets and reads it.
+    per call; the recompute of a checkpointed trunk, ``models/remat.py``,
+    does not record again). Nothing reads it during a step, so it costs no
+    sync; ``utils/dcn_probe.py`` resets and reads it.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3,
@@ -198,7 +200,8 @@ class DeformConv(nn.Module):
     def forward(self, x):  # (B, Cin, H, W)
         # offsets stay float32: sub-pixel positions must not lose bits
         offsets = self.offset_conv(x.float())
-        self._record_offsets(offsets.detach())
+        if not recomputing():  # a checkpointed trunk's recompute saw them already
+            self._record_offsets(offsets.detach())
         o, i, k, _ = self.weight.shape
         w_taps = self.weight.reshape(o, i, k * k).permute(2, 1, 0)
         y = deform_conv2d(

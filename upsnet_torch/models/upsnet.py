@@ -34,6 +34,7 @@ from upsnet_torch.models.fcn import FCNHead
 from upsnet_torch.models.fpn import FPN
 from upsnet_torch.models.heads import BoxHead, MaskHead
 from upsnet_torch.models.registry import register_model
+from upsnet_torch.models.remat import run_checkpointed
 from upsnet_torch.models.resnet import ResNetBackbone
 from upsnet_torch.models.rpn import RPNHead
 from upsnet_torch.ops import panoptic as pan_ops
@@ -262,7 +263,8 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
     routes GT instance i to the unknown channel where it exceeds
     ``panoptic_box_keep_fraction``. Absent ones are drawn from ``generator``
     on the batch's device. Each stage runs inside a ``train.<stage>``
-    profiler range.
+    profiler range. The trunk (``extract``) runs under ``train.remat`` and
+    ``train.remat_policy`` as the JAX step runs it (``models/remat.py``).
 
     Each term divides by a count over the batch (``COUNT_KEYS``: sampled
     anchors, the RPN regression norm, sampled RoIs, fg mask RoIs, labelled
@@ -292,7 +294,8 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
 
     with record_function("train.trunk"):
         x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        pyramid, rpn_cls, rpn_bbox, fcn_logits = model.extract(x)
+        pyramid, rpn_cls, rpn_bbox, fcn_logits = run_checkpointed(
+            model.extract, x, tc.remat, tc.remat_policy)
         cls_flat, bbox_flat = _flatten_rpn(rpn_cls, rpn_bbox)
 
     with record_function("train.targets"), torch.no_grad():

@@ -3,8 +3,10 @@
 Port of the single-device half of ``upsnet_tpu/parallel/steps.py:
 make_train_step``: forward, backward, global-norm gradient clip, scheduled
 SGD update. The DCN layers take ``dcn_impl_train`` by themselves while
-autograd records (``models/layers.py:DeformConv``). Activations are kept,
-not rematerialised: ``train.remat`` is not read.
+autograd records (``models/layers.py:DeformConv``). What the backward keeps
+of the trunk follows ``train.remat`` and ``train.remat_policy``
+(``models/remat.py``): every activation without remat, only the DCN layers'
+sampled outputs under ``save_dcn`` (the default), nothing under full remat.
 """
 
 from __future__ import annotations
