@@ -3,7 +3,17 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --rehearsal {coco,cityscapes,frozenbn}
+
+The second form trains one shipped rehearsal file as shipped instead of the
+phases below (``run_rehearsal``): the data of the port's ``make_synth_coco``
+at the root tool's defaults, for frozenbn the port's folded init, then
+``python -m upsnet_torch.tools.train`` on a copy of the file that changes
+only its paths and ``python -m upsnet_torch.tools.test`` on its last
+snapshot, each in a new process; it prints the losses, step ms, loader-wait
+share, offsets, peak memory, metrics beside the JAX package's TPU runs and
+each stage's seconds, and fails unless the reference's gate is met.
 
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
@@ -181,17 +191,22 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    then with GroupNorm and DCN in C3-C5;
 20. remat: the GN rehearsal file's model at its batch 8 (832x1344,
    ``pallas``, bf16) under ``train.remat`` off, full and ``save_dcn``, from
-   the same weights and batch, a warm step and three timed ones each: step
-   ms (CUDA events), peak allocated, K2 / K3 launches a step; the three the
-   same losses and weights bit for bit, K2 8 / 16 / 8 a step, ``save_dcn``'s
-   peak below off's;
+   the same weights and batch, each with its own model, a warm step and
+   nine timed ones each, the three's steps in turns: step ms (CUDA events),
+   peak allocated above what was resident, K2 / K3 launches a step; the
+   three the same losses and weights bit for bit, K2 8 / 16 / 8 a step,
+   ``save_dcn``'s peak below off's and not above full's, its median step at
+   most 1.02 times full's; with ``--profile`` two more steps of full and of
+   ``save_dcn`` in turns under torch.profiler, the trunk's host ms of each;
 21. train_frozenbn: ``upsnet_torch.tools.make_synth_pretrained`` folds the
    frozen-BN parity file's R50 (each pass's worst |mean| and |std - 1|), then
    ``python -m upsnet_torch.tools.train`` trains a copy of the file that
    changes only paths, ``max_iteration`` (24), ``display_iter`` and
    ``snapshot_step`` on the train entry's COCO-layout set: the pretrained
    snapshot an exact match, every loss finite, the last interval's total
-   below the first's;
+   below the first's; with ``--profile``, the frozen-BN model at its batch 8
+   under ``gather`` from the fold on a synthetic batch: nine timed steps
+   and one under torch.profiler;
 22. goldens: ``upsnet_torch.tools.goldens`` dumps phase 19's tiny frozen-BN
    model on the card and on the CPU from one snapshot and ``compare`` passes
    them; a dump of R50 COCO at 832x1344 on the card has the JAX tool's keys
@@ -200,6 +215,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 Every train step runs under the configuration's ``train.remat`` (default
 on, ``save_dcn``): the sampling forwards launch once a step, as without
 remat, and twice under full remat (``expected_launches``).
+
+Without CUDA the script exits 1 and prints nothing on stdout; it imports
+without CUDA, so that the tests can hold its gate functions.
 
 The line before the last two is a JSON object with the numbers of every
 kernel on a path (``launches`` sums the predict, train, eval and tool
@@ -210,6 +228,7 @@ then the card's name and power limit; the last line is the device record.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import hashlib
 import json
@@ -222,32 +241,29 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-if not torch.cuda.is_available():
-    sys.exit("chip_smoke: CUDA is not available")
-
-import torch.nn.functional as F  # noqa: E402
-
-from upsnet_torch.config import default_config, load_config  # noqa: E402
-from upsnet_torch.data.synthetic import SyntheticDataset, synthetic_batch  # noqa: E402
-from upsnet_torch.evaluation import inference  # noqa: E402
-from upsnet_torch.evaluation.inference import bucket_anchors  # noqa: E402
-from upsnet_torch.models import get_model, layers  # noqa: E402
-from upsnet_torch.models.resnet import STAGE_BLOCKS  # noqa: E402
-from upsnet_torch.models.upsnet import build_model, forward_predict  # noqa: E402
-from upsnet_torch.ops import (  # noqa: E402
+from upsnet_torch.config import default_config, load_config
+from upsnet_torch.data.synthetic import SyntheticDataset, synthetic_batch
+from upsnet_torch.evaluation import inference
+from upsnet_torch.evaluation.inference import bucket_anchors
+from upsnet_torch.models import get_model, layers
+from upsnet_torch.models.resnet import STAGE_BLOCKS
+from upsnet_torch.models.upsnet import build_model, forward_predict
+from upsnet_torch.ops import (
     cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, nms, roi_align_fpn)
-from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt  # noqa: E402
-from upsnet_torch.tools import bench_deform_impls  # noqa: E402
-from upsnet_torch.train.checkpoints import save_checkpoint  # noqa: E402
-from upsnet_torch.train.optimizer import make_optimizer  # noqa: E402
-from upsnet_torch.train.step import make_train_step  # noqa: E402
-from upsnet_torch.train.trainer import WATCHED_IMPLS, train_steps  # noqa: E402
-from upsnet_torch.ops.boxes import fpn_level_assignment  # noqa: E402
-from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords  # noqa: E402
+from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt
+from upsnet_torch.tools import bench_deform_impls
+from upsnet_torch.train.checkpoints import save_checkpoint
+from upsnet_torch.train.optimizer import make_optimizer
+from upsnet_torch.train.step import make_train_step
+from upsnet_torch.train.trainer import WATCHED_IMPLS, train_steps
+from upsnet_torch.ops.boxes import fpn_level_assignment
+from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -2241,7 +2257,8 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
     neighbours' device ranges instead. The largest device ops that are not
     the port's are named by the stage whose host range holds the aten op
     that launched them (kernel linked to op by correlation), that op, the
-    autograd node it ran under, and its input shapes."""
+    autograd node it ran under, and its input shapes. Returns each stage's
+    host ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2344,6 +2361,7 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
         print(f"{tag} largest not the port's: {name[:90]} {total:.3f} ms; launched by "
               + ("; ".join(f"{ms:.3f} ms ({n}) in {stage}: {op}, shapes {shapes[:160]}"
                            for (stage, op, shapes), (ms, n) in sites) or "no linked op"))
+    return host
 
 
 # the port's kernel functions as the profiler names them; offset_grads_kernel
@@ -3646,20 +3664,35 @@ def phase_mt_tool(dev) -> dict:
 
 
 REMAT_POLICIES = {"off": (False, "save_dcn"), "full": (True, ""), "save_dcn": (True, "save_dcn")}
-REMAT_STEPS = 3  # timed, after a warm step
+# timed, after a warm step: each policy first, second and third three times; the
+# medians of 9 host-bound steps part by about 1% between calls
+REMAT_STEPS = 9
+# save_dcn skips 8 K2 a step and is otherwise full remat: its median step may
+# exceed full's by run-to-run spread only
+REMAT_SAVE_DCN_OVER_FULL = 1.02
 
 
-def phase_remat(dev) -> dict:
+def phase_remat(dev, profile: bool = False) -> dict:
     """``train.remat`` and ``train.remat_policy`` on the model of ``GN_YAML``
     at its batch 8 (832x1344, ``dcn_impl_train: pallas``, bf16, offset biases
     at +-2 px): for each of off, full and ``save_dcn``, from the same weights,
     synthetic batch and noise seed, a warm step and ``REMAT_STEPS`` timed
-    ones through ``make_train_step``, each with a new optimizer. Prints each
-    policy's step ms (CUDA events), peak allocated and K2 / K3 launches a
-    step. Every step's losses and the last weights must be the same bits
+    ones through ``make_train_step``, each policy with a model and optimizer
+    of its own, the three policies' steps in turns (so that a drift of the
+    host or the card falls on all three). Prints each policy's step ms (CUDA
+    events), peak allocated (the largest over its steps, above what was
+    resident before the step: the three models are) and K2 / K3 launches a
+    step. The peaks are compared in the bytes the steps requested
+    (``requested_bytes``): the allocated bytes also count the rounding of
+    blocks and the cached blocks reused whole, which move by megabytes
+    between two steps that hold the same tensors. Every step's losses and the last weights must be the same bits
     under the three; every step's launches those of ``expected_launches``
-    (K2 8, 16 and 8); ``save_dcn``'s peak must lie below ``off``'s. Returns
-    the three runs' launches."""
+    (K2 8, 16 and 8); ``save_dcn``'s peak must lie below ``off``'s and not
+    above full's, its median step not above ``REMAT_SAVE_DCN_OVER_FULL``
+    times full's. With ``profile``, two more steps of full and of
+    ``save_dcn`` in turns under torch.profiler, and the trunk's host ms of
+    each.
+    Returns the three runs' launches."""
     tag = "remat"
     base = load_config(GN_YAML)
     tc = base.train
@@ -3671,58 +3704,88 @@ def phase_remat(dev) -> dict:
     batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
         base, BUCKET, tc.batch_size, seed=7, image_hw=tuple(int(x) for x in IM_HW)).items()}
     print(f"[{tag}] {describe(base)}; batch {tc.batch_size}, bucket {BUCKET}; per policy a warm "
-          f"step and {REMAT_STEPS} timed ones from one state")
-    launches = dict.fromkeys(COUNTERS, 0)
+          f"step and {REMAT_STEPS} timed ones from one state, the policies' steps in turns")
     runs = {}
     for name, (remat, policy) in REMAT_POLICIES.items():
         cfg = base.replace(train=dataclasses.replace(tc, remat=remat, remat_policy=policy))
-        model.load_state_dict(state)
-        model.zero_grad(set_to_none=True)
-        torch.cuda.empty_cache()
-        step = make_train_step(model, cfg, anchors, make_optimizer(cfg, model),
-                               generator=torch.Generator(device=dev).manual_seed(11))
-        expect = expected_launches(cfg, grad=True, batch=tc.batch_size)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        losses, ms = [], []
-        for i in range(1 + REMAT_STEPS):
+        own = copy.deepcopy(model)
+        own.load_state_dict(state)
+        runs[name] = {"model": own, "losses": [], "ms": [], "peak": 0, "above": 0,
+                      "requested": 0,
+                      "expect": expected_launches(cfg, grad=True, batch=tc.batch_size),
+                      "step": make_train_step(
+                          own, cfg, anchors, make_optimizer(cfg, own),
+                          generator=torch.Generator(device=dev).manual_seed(11))}
+    del model
+    torch.cuda.empty_cache()
+    reset_launches()
+    names = list(runs)
+    for i in range(1 + REMAT_STEPS):
+        for name in names[i % 3:] + names[:i % 3]:  # each policy first, second, third in turn
+            r = runs[name]
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            requested = torch.cuda.memory_stats()["requested_bytes.all.current"]
+            torch.cuda.reset_peak_memory_stats()
             before = read_launches()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            metrics = step(batch)
+            metrics = r["step"](batch)
             end.record()
-            losses.append({k: float(v) for k, v in metrics.items()})  # the step is done
+            r["losses"].append({k: float(v) for k, v in metrics.items()})  # the step is done
+            peak = torch.cuda.max_memory_allocated()
+            r["peak"], r["above"] = max(r["peak"], peak), max(r["above"], peak - resident)
+            r["requested"] = max(r["requested"], torch.cuda.memory_stats()[
+                "requested_bytes.all.peak"] - requested)
             moved = {k: v - before[k] for k, v in read_launches().items()}
-            if moved != expect:
+            if moved != r["expect"]:
                 raise AssertionError(f"[{tag}] {name} step {i}: launches {nonzero(moved)}, "
-                                     f"expected {nonzero(expect)}")
+                                     f"expected {nonzero(r['expect'])}")
             if i:
-                ms.append(start.elapsed_time(end))
-        peak = torch.cuda.max_memory_allocated()
-        for k, v in read_launches().items():
-            launches[k] += v
-        del step
-        runs[name] = {"losses": losses, "weights": digest(*model.state_dict().values()),
-                      "ms": ms, "peak": peak}
+                r["ms"].append(start.elapsed_time(end))
+    launches = read_launches()
+    for name, r in runs.items():
+        r["weights"] = digest(*r["model"].state_dict().values())
+        remat, policy = REMAT_POLICIES[name]
         print(f"[{tag}] {name} (remat {remat}, remat_policy {policy!r}): step ms "
-              f"{[round(x, 2) for x in ms]}, median {statistics.median(ms):.2f}; peak allocated "
-              f"{peak / 2 ** 30:.3f} GiB; a step launches {expect['deform_sample_taps']} K2, "
-              f"{expect['deform_sample_bwd_taps']} K3; total by step "
-              f"{[x['total'] for x in losses]}; weights {runs[name]['weights']}")
+              f"{[round(x, 2) for x in r['ms']]}, median {statistics.median(r['ms']):.2f}; peak "
+              f"allocated {r['peak'] / 2 ** 30:.3f} GiB with the three models resident, "
+              f"{r['above'] / 2 ** 30:.3f} GiB above what was resident before a step "
+              f"(requested by the step: {r['requested']} bytes); a step "
+              f"launches {r['expect']['deform_sample_taps']} K2, "
+              f"{r['expect']['deform_sample_bwd_taps']} K3; total by step "
+              f"{[x['total'] for x in r['losses']]}; weights {r['weights']}")
+    if profile:  # in turns, twice: a process's first profiled step carries the set-up
+        for name in ("full", "save_dcn") * 2:
+            host = phase_profile(lambda step=runs[name]["step"]: step(batch), "train.",
+                                 f"remat {name}", other_thread=("train.backward",))
+            runs[name].setdefault("trunk_host_ms", []).append(round(host["train.trunk"], 2))
+    for r in runs.values():
+        del r["model"], r["step"]
+    torch.cuda.empty_cache()
     ref = runs["off"]
     off = [n for n, r in runs.items()
            if r["losses"] != ref["losses"] or r["weights"] != ref["weights"]]
     if off:
         raise AssertionError(f"[{tag}] {off}: losses or weights differ from off's bits")
-    if not runs["save_dcn"]["peak"] < ref["peak"]:
-        raise AssertionError(f"[{tag}] save_dcn's peak {runs['save_dcn']['peak']} is not below "
-                             f"off's {ref['peak']}")
+    saved, full = runs["save_dcn"], runs["full"]
     med = {n: statistics.median(r["ms"]) for n, r in runs.items()}
     print(f"[{tag}] the three policies give the same losses and weights bit for bit; against off: "
-          + ", ".join(f"{n} step {med[n] - med['off']:+.2f} ms, peak "
-                      f"{(r['peak'] - ref['peak']) / 2 ** 30:+.3f} GiB"
-                      for n, r in runs.items() if n != "off"))
+          + ", ".join(f"{n} step {med[n] - med['off']:+.2f} ms, peak above the resident "
+                      f"{(r['above'] - ref['above']) / 2 ** 30:+.3f} GiB"
+                      for n, r in runs.items() if n != "off")
+          + f"; save_dcn's median step / full's {med['save_dcn'] / med['full']:.4f} (at most "
+          f"{REMAT_SAVE_DCN_OVER_FULL})")
+    if profile:
+        print(f"[{tag}] trunk host ms of a profiled step, full then save_dcn in turns: "
+              f"save_dcn {saved['trunk_host_ms']}, full {full['trunk_host_ms']}")
+    if not (saved["requested"] < ref["requested"] and saved["requested"] <= full["requested"]):
+        raise AssertionError(f"[{tag}] save_dcn's peak request {saved['requested']} is not "
+                             f"below off's {ref['requested']} or is above full's "
+                             f"{full['requested']}")
+    if not med["save_dcn"] <= REMAT_SAVE_DCN_OVER_FULL * med["full"]:
+        raise AssertionError(f"[{tag}] save_dcn's median step {med['save_dcn']:.2f} ms is above "
+                             f"{REMAT_SAVE_DCN_OVER_FULL} x full's {med['full']:.2f}")
     return launches
 
 
@@ -3730,7 +3793,7 @@ FROZENBN_YAML = os.path.join(EXPERIMENTS, "upsnet_r50_synth_frozenbn.yaml")
 FROZENBN_TRAIN = {"max_iteration": 24, "display_iter": 4, "snapshot_step": 24}
 
 
-def phase_train_frozenbn(dev, tmp: str, root: str) -> None:
+def phase_train_frozenbn(dev, tmp: str, root: str) -> str:
     """The frozen-BN parity file (``upsnet_r50_synth_frozenbn.yaml``: frozen
     BN, straddle filtering on, ``dcn_impl_train: gather``, batch 8) as its
     header runs it, on the card: ``upsnet_torch.tools.make_synth_pretrained``
@@ -3741,7 +3804,8 @@ def phase_train_frozenbn(dev, tmp: str, root: str) -> None:
     ``max_iteration``, ``display_iter`` and ``snapshot_step``, on the set at
     ``root``. The pretrained snapshot must load as an exact match, every loss
     term of every interval be finite and the last interval's total lie below
-    the first's (the file's own gate: finite, decreasing losses)."""
+    the first's (the file's own gate: finite, decreasing losses). Returns the
+    folded snapshot's path."""
     from upsnet_torch.tools import make_synth_pretrained
 
     tag = "train_frozenbn"
@@ -3762,16 +3826,13 @@ def phase_train_frozenbn(dev, tmp: str, root: str) -> None:
     print(f"[{tag}] {os.path.basename(FROZENBN_YAML)}, changed only: {json.dumps(changes)}; "
           f"{describe(cfg)}; batch {cfg.train.batch_size}, remat {cfg.train.remat} "
           f"{cfg.train.remat_policy!r}")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "upsnet_torch.tools.train", "--cfg", yaml_path],
-                          capture_output=True, text=True, timeout=900)
-    secs = time.perf_counter() - t0
-    if proc.returncode:
-        raise AssertionError(f"[{tag}] the train entry exited {proc.returncode}:\n"
-                             f"{proc.stderr[-3000:]}")
-    if f"pretrained: loaded {path} (exact match)" not in proc.stderr:
-        raise AssertionError(f"[{tag}] network.pretrained did not load as an exact match:\n"
-                             f"{proc.stderr[-3000:]}")
+    log_path = os.path.join(tmp, f"{tag}.log")
+    secs = run_entry(tag, ["upsnet_torch.tools.train", "--cfg", yaml_path], log_path)
+    with open(log_path) as f:
+        failed = pretrained_gate(f.read(), path)
+    if failed:
+        raise AssertionError(f"[{tag}] network.pretrained did not load as an exact match: "
+                             f"{failed}")
     with open(os.path.join(cfg.output_path, cfg.symbol, "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     n = cfg.train.max_iteration // cfg.train.display_iter
@@ -3780,16 +3841,319 @@ def phase_train_frozenbn(dev, tmp: str, root: str) -> None:
     if len(lines) != n or bad:
         raise AssertionError(f"[{tag}] {len(lines)} intervals (expected {n}); non-finite {bad}")
     first, last = lines[0]["total"], lines[-1]["total"]
-    steps = [e["step_s"] * 1e3 for e in lines]
+    rows = interval_rows(lines)
     print(f"[{tag}] {cfg.train.max_iteration} steps in {secs:.1f} s (process start, build, "
           f"data included): pretrained loaded as an exact match; total by interval "
           f"{[round(e['total'], 4) for e in lines]}; step ms by interval "
-          f"{[round(x, 1) for x in steps]}, "
+          f"{[round(ms, 1) for _, ms, _ in rows]}, "
           f"loader_wait_s {[round(e['loader_wait_s'], 3) for e in lines]}; last by term "
           + json.dumps({k: round(lines[-1][k], 4) for k in LOSS_KEYS}))
     if not last < first:
         raise AssertionError(f"[{tag}] the last interval's total {last} is not below the "
                              f"first's {first}")
+    return path
+
+
+def profile_frozenbn_step(dev, pretrained: str) -> None:
+    """The frozen-BN parity file's step on its own: the model of
+    ``FROZENBN_YAML`` (frozen BN, ``dcn_impl_train: gather``, remat as the
+    file says) from the folded snapshot ``pretrained``, at its batch 8 on a
+    synthetic 832x1344 batch through ``make_train_step``, as the remat
+    phase runs the GN model: a warm step and ``REMAT_STEPS`` timed ones
+    (CUDA events), peak allocated, then one step under torch.profiler."""
+    import logging
+
+    from upsnet_torch.train.trainer import load_pretrained_any
+
+    tag = "profile_frozenbn"
+    cfg = load_config(FROZENBN_YAML)
+    tc = cfg.train
+    model = get_model(cfg.symbol, cfg, device=dev,
+                      generator=torch.Generator().manual_seed(cfg.seed))
+    load_pretrained_any(pretrained, model, logging.getLogger(tag))
+    anchors = bucket_anchors(cfg, BUCKET, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in synthetic_batch(
+        cfg, BUCKET, tc.batch_size, seed=7, image_hw=tuple(int(x) for x in IM_HW)).items()}
+    step = make_train_step(model, cfg, anchors, make_optimizer(cfg, model),
+                           generator=torch.Generator(device=dev).manual_seed(11))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(1 + REMAT_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(batch)
+        end.record()
+        float(metrics["total"])
+        if i:
+            ms.append(start.elapsed_time(end))
+    print(f"[{tag}] {describe(cfg)}; batch {tc.batch_size}, bucket {BUCKET}, remat {tc.remat} "
+          f"{tc.remat_policy!r}: step ms {[round(x, 2) for x in ms]}, median "
+          f"{statistics.median(ms):.2f}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    phase_profile(lambda: step(batch), "train.", "train_frozenbn batch 8 gather",
+                  other_thread=("train.backward",))
+    del step, model
+    torch.cuda.empty_cache()
+
+
+def interval_rows(lines: list) -> list:
+    """(iter, step ms, loader-wait share) of each ``metrics.jsonl`` line of a
+    run from iteration 0. A line's ``step_s`` is its interval's wall less the
+    interval's loader wait, over all the interval's steps (its probe and
+    snapshot included), so a step's ms is that over the steps since the line
+    before."""
+    rows, prev = [], 0
+    for e in lines:
+        wall = e["step_s"] + e["loader_wait_s"]
+        rows.append((e["iter"], e["step_s"] * 1e3 / (e["iter"] - prev),
+                     e["loader_wait_s"] / wall))
+        prev = e["iter"]
+    return rows
+
+
+# --rehearsal: one of the three shipped rehearsal files, trained as shipped
+REHEARSAL_YAMLS = {"coco": GN_YAML, "cityscapes": CITY_YAML, "frozenbn": FROZENBN_YAML}
+# The JAX package's own runs of the three files on a TPU (STATUS.md, round 5):
+# printed beside the port's as the reference's, never as the port's
+JAX_TPU_RESULTS = {
+    "coco": {"pq.All.pq": 0.817, "pq.Things.pq": 0.876, "boxes.AP": 0.673, "masks.AP": 0.742,
+             "ssegs.mIoU": 0.965},
+    "cityscapes": {"pq.All.pq": 0.731, "masks.AP": 0.571, "boxes.AP": 0.544,
+                   "ssegs.mIoU": 0.791},
+    "frozenbn": {"total first -> last": [32.6, 3.17], "seg first -> last": [18.9, 1.88]},
+}
+# The reference's gates on the evaluation: each metric must lie above its
+# value. frozenbn is gated on its losses and its pretrained load (the JAX
+# package gated it so); its metrics are recorded.
+REHEARSAL_GATES = {
+    "coco": {"pq.All.pq": 0.5, "pq.Things.pq": 0.0, "boxes.AP": 0.0, "masks.AP": 0.0},
+    "cityscapes": {"pq.All.pq": 0.5, "masks.AP": 0.0, "boxes.AP": 0.0},
+    "frozenbn": {},
+}
+REHEARSAL_PROBE_IMAGES = 8
+
+
+def rehearsal_changes(name: str, out: str, data_root: str, pretrained: str | None = None):
+    """The changes that the rehearsal's copy of its file makes: the paths
+    alone (output, data and, for frozenbn, ``network.pretrained``)."""
+    changes = {"output_path": out, "dataset": {"dataset_path": data_root}}
+    if name == "frozenbn":
+        changes["network"] = {"pretrained": pretrained}
+    return changes
+
+
+def rehearsal_metrics(results: dict, cityscapes: bool) -> dict:
+    """The gated and reported metrics of the evaluation entry's results: PQ
+    of All, Things and Stuff, box AP, mask AP (on Cityscapes its instance
+    AP, ``allAp``, the reference's "mask AP"), mIoU."""
+    pan = results["panoptic"]
+    return {"pq.All.pq": pan["All"]["pq"], "pq.Things.pq": pan["Things"]["pq"],
+            "pq.Stuff.pq": pan["Stuff"]["pq"], "boxes.AP": results["boxes"]["AP"],
+            "masks.AP": results["masks"]["allAp" if cityscapes else "AP"],
+            "ssegs.mIoU": results["ssegs"]["mIoU"]}
+
+
+def eval_gate(name: str, metrics: dict) -> list:
+    """The failures of rehearsal ``name``'s evaluation gate, as text (none:
+    met). A missing or NaN metric fails."""
+    return [f"{k} {metrics.get(k)} is not above {floor}"
+            for k, floor in REHEARSAL_GATES[name].items()
+            if not (metrics.get(k) is not None and metrics[k] > floor)]
+
+
+def loss_gate(lines: list) -> list:
+    """The failures of the frozen-BN file's loss gate on its ``metrics.jsonl``
+    lines: every loss term and the total finite in every interval, and each
+    lower in the last interval than in the first."""
+    keys = (*LOSS_KEYS, "total")
+    bad = [f"{k} at iter {e['iter']} is {e[k]}" for e in lines for k in keys
+           if not math.isfinite(e[k])]
+    if len(lines) < 2:
+        return bad + [f"{len(lines)} intervals: nothing to compare"]
+    return bad + [f"{k} ends at {lines[-1][k]}, not below its first interval's {lines[0][k]}"
+                  for k in keys if not lines[-1][k] < lines[0][k]]
+
+
+def pretrained_gate(train_log: str, path: str) -> list:
+    """The failure, if any, of the exact-match load of ``network.pretrained``
+    (``path``) in the train entry's log."""
+    line = f"pretrained: loaded {path} (exact match)"
+    return [] if line in train_log else [f"no line '{line}' in the train log"]
+
+
+def run_entry(tag: str, argv: list, log_path: str) -> float:
+    """``python -m <argv>`` in a new process with its output in
+    ``log_path``. Returns its seconds; a non-zero exit raises with the log's
+    end."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        code = subprocess.run([sys.executable, "-m", *argv], stdout=f,
+                              stderr=subprocess.STDOUT, timeout=3600).returncode
+    secs = time.perf_counter() - t0
+    if code:
+        with open(log_path) as f:
+            raise AssertionError(f"[{tag}] python -m {argv[0]} exited {code}:\n"
+                                 f"{f.read()[-3000:]}")
+    print(f"[{tag}] python -m {' '.join(argv)}: {secs:.1f} s")
+    return secs
+
+
+def probe_trained_offsets(cfg, ckpt: str, dev) -> dict:
+    """The offset probe (``probe_dcn_offsets``) of the model of ``cfg`` with
+    the weights of ``ckpt`` on the first ``REHEARSAL_PROBE_IMAGES`` images of
+    its evaluation set, one image a forward: the largest |dy|, |dx| and
+    share of components at >= 0.9 ``dcn_max_dy`` over layers and images."""
+    from upsnet_torch.data import make_dataset
+    from upsnet_torch.train.checkpoints import read_state_dict
+    from upsnet_torch.utils.dcn_probe import probe_dcn_offsets
+
+    model = get_model(cfg.symbol, cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(read_state_dict(ckpt))
+    model.eval()
+    dataset = make_dataset(cfg, cfg.dataset.dataset, training=False)
+    worst = {"max_dy": 0.0, "max_dx": 0.0, "sat_frac": 0.0}
+    for i in range(min(REHEARSAL_PROBE_IMAGES, len(dataset))):
+        image = torch.from_numpy(dataset.sample(i)["images"])[None].to(dev)
+        for stats in probe_dcn_offsets(model, image).values():
+            worst = {k: max(v, stats[k]) for k, v in worst.items()}
+    del model
+    torch.cuda.empty_cache()
+    return worst
+
+
+def goldens_card_against_cpu(tag: str, yaml_path: str, ckpt: str, out: str, dev) -> None:
+    """Where a rehearsal's gate fails, the first look for the stage at
+    fault: ``upsnet_torch.tools.goldens`` dumps of the trained snapshot
+    ``ckpt`` on ``dev`` and on the CPU (synthetic image 0), and their
+    comparison key by key (C2..C5, P2..P6, RPN, detections, masks, seg
+    logits, panoptic map), printed, not gated."""
+    from upsnet_torch.tools import goldens
+
+    dumps = []
+    for label, device in (("card", str(dev)), ("cpu", "cpu")):
+        dumps.append(os.path.join(out, f"goldens_{label}.npz"))
+        goldens.main(["dump", "--cfg", yaml_path, "--weights", ckpt, "--synthetic", "0",
+                      "--out", dumps[-1], "--device", device])
+    print(f"[{tag}] goldens of the trained snapshot, {dev} (a) against cpu (b):")
+    goldens.main(["compare", *dumps])
+
+
+def run_rehearsal(name: str, dev) -> None:
+    """``--rehearsal name``: the shipped file of ``REHEARSAL_YAMLS[name]``
+    trained as shipped on the card, through the port's entries in new
+    processes: ``make_synth_coco`` at the root tool's defaults (seed 0; 200
+    COCO-layout images, or 12 gtFine-layout ones at 1024x2048), for
+    frozenbn ``make_synth_pretrained``, then ``tools.train`` on a copy of
+    the file that changes only its paths (``rehearsal_changes``), then
+    ``tools.test --weights <last snapshot>`` over the file's evaluation set;
+    the kernels build while the data is written.
+    Prints the loss total by interval and the last interval by term, step
+    ms and loader-wait share by interval, the watch's ``dcn_max_dy`` /
+    ``dcn_max_dx`` where the file's route is watched and the probe's on the
+    trained weights, peak allocated, the metrics beside the JAX package's
+    TPU runs, and each stage's seconds; then checks the reference's gate
+    (``eval_gate``; for frozenbn ``pretrained_gate`` and ``loss_gate``);
+    where it fails, ``goldens_card_against_cpu`` runs before the failure is
+    raised."""
+    from upsnet_torch.data import make_dataset
+    from upsnet_torch.train.checkpoints import latest_checkpoint
+
+    tag = f"rehearsal {name}"
+    src = REHEARSAL_YAMLS[name]
+    city = name == "cityscapes"
+    stages = {}
+    out = os.path.abspath(os.path.join("output", f"chip_smoke_rehearsal_{name}"))
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        build = pool.submit(phase_build)  # nvcc beside the data writer: both on the host
+        root = os.path.join(tmp, "synth_cityscapes" if city else "synth_coco")
+        stages["data"] = run_entry(
+            tag, ["upsnet_torch.tools.make_synth_coco", "cityscapes" if city else "coco",
+                  "--root", root], os.path.join(out, "data.log"))
+        build.result()
+        stages["build and data"] = time.perf_counter() - t0
+        pretrained = None
+        if name == "frozenbn":
+            fold_log = os.path.join(out, "fold.log")
+            stages["fold"] = run_entry(
+                tag, ["upsnet_torch.tools.make_synth_pretrained", "--cfg", src, "--out",
+                      os.path.join(tmp, "synth_frozenbn_r50")], fold_log)
+            pretrained = latest_checkpoint(os.path.join(tmp, "synth_frozenbn_r50"))
+            with open(fold_log) as f:
+                print(f"[{tag}] fold: " + "; ".join(
+                    line.strip() for line in f if line.startswith("pass ")))
+        changes = rehearsal_changes(name, out, root, pretrained)
+        yaml_path = yaml_copy(src, os.path.join(out, f"{name}.yaml"), changes)
+        cfg = load_config(yaml_path)
+        tc = cfg.train
+        n_images = len(make_dataset(cfg, cfg.dataset.dataset, training=True))
+        print(f"[{tag}] {os.path.basename(src)}, changed only: {json.dumps(changes)}; "
+              f"{describe(cfg)}; {n_images} images, batch {tc.batch_size}, max_iteration "
+              f"{tc.max_iteration}, display_iter {tc.display_iter}, snapshot_step "
+              f"{tc.snapshot_step}, remat {tc.remat} {tc.remat_policy!r}, num_workers "
+              f"{tc.num_workers}, sample_cache_mb {tc.sample_cache_mb}, image_wire "
+              f"{tc.image_wire}, dcn_saturation_action {cfg.network.dcn_saturation_action}")
+        train_log = os.path.join(out, "train.log")
+        stages["train"] = run_entry(tag, ["upsnet_torch.tools.train", "--cfg", yaml_path],
+                                    train_log)
+        with open(train_log) as f:
+            log_text = f.read()
+        run_dir = os.path.join(cfg.output_path, cfg.symbol)
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        ckpt = latest_checkpoint(os.path.join(run_dir, "checkpoints"))
+        results_path = os.path.join(out, "results.json")
+        stages["eval"] = run_entry(
+            tag, ["upsnet_torch.tools.test", "--cfg", yaml_path, "--weights", ckpt,
+                  "--no-artifacts", "--results-json", results_path],
+            os.path.join(out, "test.log"))
+        offsets = probe_trained_offsets(cfg, ckpt, dev)  # on the set, before it goes
+    with open(results_path) as f:
+        metrics = rehearsal_metrics(json.load(f), city)
+    rows = interval_rows(lines)
+    epoch_steps = -(-n_images // tc.batch_size)
+    first_epoch = [e for e in lines if e["iter"] - tc.display_iter < epoch_steps]
+    stages["first-epoch loader wait"] = sum(e["loader_wait_s"] for e in first_epoch)
+    peak = re.findall(r"peak allocated ([0-9.]+) GiB", log_text)
+    print(f"[{tag}] total by interval {[round(e['total'], 4) for e in lines]}; last interval "
+          f"(iter {lines[-1]['iter']}) by term "
+          + json.dumps({k: round(lines[-1][k], 4) for k in LOSS_KEYS}))
+    print(f"[{tag}] step ms by interval {[round(ms, 1) for _, ms, _ in rows]}; loader-wait "
+          f"share by interval {[round(sh, 3) for _, _, sh in rows]}; peak allocated "
+          + (f"{peak[-1]} GiB" if peak else "not logged"))
+    if any("dcn_max_dy" in e for e in lines):
+        print(f"[{tag}] the watch's dcn_max_dy by interval "
+              f"{[round(e['dcn_max_dy'], 3) for e in lines]}, dcn_max_dx "
+              f"{[round(e['dcn_max_dx'], 3) for e in lines]}")
+    else:
+        print(f"[{tag}] dcn_impl_train {cfg.network.dcn_impl_train}: not watched, no probe "
+              "in metrics.jsonl")
+    print(f"[{tag}] the probe on the trained weights (step {lines[-1]['iter']}, the first "
+          f"{REHEARSAL_PROBE_IMAGES} evaluation images): "
+          + json.dumps({k: round(v, 4) for k, v in offsets.items()}))
+    with open(os.path.join(out, "test.log")) as f:
+        for line in f:
+            found = re.search(r"\b(boxes|masks|ssegs|panoptic): ", line)
+            if found:
+                print(f"[{tag}] eval: {line[found.start():].strip()[:600]}")
+    print(f"[{tag}] the port on the card: " + json.dumps({k: round(v, 4)
+                                                            for k, v in metrics.items()}))
+    print(f"[{tag}] the JAX package's TPU run (STATUS.md, round 5; the reference's, not the "
+          f"port's): {json.dumps(JAX_TPU_RESULTS[name])}")
+    print(f"[{tag}] seconds by stage: " + json.dumps({k: round(v, 1) for k, v in stages.items()}))
+    failures = eval_gate(name, metrics)
+    if name == "frozenbn":
+        failures += pretrained_gate(log_text, pretrained) + loss_gate(lines)
+    if failures:
+        goldens_card_against_cpu(tag, yaml_path, ckpt, out, dev)
+        raise AssertionError(f"[{tag}] the reference's gate is not met: {failures}")
+    print(f"[{tag}] the reference's gate is met: " + (
+        ", ".join(f"{k} > {v}" for k, v in REHEARSAL_GATES[name].items())
+        or "the pretrained snapshot an exact match, every term finite and lower in the last "
+           "interval than in the first"))
 
 
 GOLDENS_TINY_YAML = """\
@@ -3880,10 +4244,30 @@ def main() -> None:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one request and one train step of each "
                              "dcn_impl with torch.profiler")
+    parser.add_argument("--rehearsal", choices=sorted(REHEARSAL_YAMLS),
+                        help="instead of the phases, train this shipped rehearsal file as "
+                             "shipped, evaluate it and check the reference's gate")
     args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available")
     dev = torch.device("cuda", 0)
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    if args.rehearsal:
+        run_rehearsal(args.rehearsal, dev)
+    else:
+        run_phases(dev, args.profile)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def run_phases(dev, profile: bool) -> None:
+    """Phases 1-22 (the module's docstring), ending in the kernels line."""
     phase_build()
     # the one-tap K2, K3 and K6 are held against their plain versions and
     # timed, but no route takes them any more: they are not in the kernels
@@ -3900,7 +4284,7 @@ def main() -> None:
         one more pass of it on request, and free its memory."""
         for k, v in counts.items():
             launches[k] += v
-        if args.profile and run is not None:
+        if profile and run is not None:
             phase_profile(run, prefix, name, other_thread=("train.backward",))
         torch.cuda.empty_cache()
 
@@ -3954,7 +4338,7 @@ def main() -> None:
     del run
     torch.cuda.empty_cache()
     t_remat = time.perf_counter()
-    finish("remat", phase_remat(dev), None, "")
+    finish("remat", phase_remat(dev, profile), None, "")
     t_remat = time.perf_counter() - t_remat
     finish("eval_r50coco", phase_eval_r50coco(dev), None, "")
     finish("eval_tiny", phase_eval_tiny(dev), None, "")
@@ -3972,7 +4356,9 @@ def main() -> None:
         print(f"[phases 15-18] upsample timing, reproducible, ddp and eval_tta took "
               f"{time.perf_counter() - t_new:.1f} s")
         t_new = time.perf_counter()
-        phase_train_frozenbn(dev, tmp, root)
+        pretrained = phase_train_frozenbn(dev, tmp, root)
+        if profile:
+            profile_frozenbn_step(dev, pretrained)
         finish("goldens", phase_goldens(dev, tmp), None, "")
         print(f"[phases 20-22] remat, train_frozenbn and goldens took "
               f"{t_remat + time.perf_counter() - t_new:.1f} s")
@@ -3984,13 +4370,6 @@ def main() -> None:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on a main path")
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -103,6 +103,39 @@ def test_exact_route_gradients_match_jax_grad(impl, field):
                                    err_msg=name)
 
 
+def test_zero_offsets_get_no_gradient_here_and_a_one_sided_one_in_jax():
+    """At zero offsets every sample lies on an integer coordinate, where the
+    port's ``gather`` route takes the Pallas kernel's rule (ROADMAP,
+    "Decided and pinned"): the gradient to the offsets is exactly 0, so an
+    offset conv that starts at zero, as every one does, never moves under
+    ``dcn_impl_train: gather`` in the port. The JAX ``deform_conv2d_batched``,
+    which that setting trains with, differentiates its floor one-sidedly and
+    gives the offsets a gradient there. The forward and the gradients to x,
+    weight and bias agree (as above: atol 1e-4; 1e-3 |ref| + 1e-4 max|ref|)."""
+    x, _, weight, bias = _conv_inputs(3, 1.0)
+    offsets = np.zeros((2, 10, 14, 18), np.float32)
+    cot = np.random.RandomState(4).randn(2, 10, 14, 16).astype(np.float32)
+
+    def jloss(*a):
+        out = jdc.deform_conv2d_batched(*a)
+        return jnp.sum(out * cot), out
+
+    (_, ref_out), ref_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(a) for a in (x, offsets, weight, bias)))
+    targs = [_t(a).requires_grad_() for a in (x, offsets, weight, bias)]
+    out = tdc.deform_conv2d(*targs, impl="gather")
+    (out * _t(cot)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), atol=1e-4)
+    assert not targs[1].grad.any()
+    ref_offsets = np.asarray(ref_grads[1])
+    assert (ref_offsets != 0).mean() > 0.5 and np.abs(ref_offsets).max() > 0.1
+    for name, t, ref in zip(("x", "weight", "bias"), targs[::2] + targs[3:],
+                            (ref_grads[0], ref_grads[2], ref_grads[3])):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(t.grad.numpy(), ref, rtol=1e-3,
+                                   atol=1e-4 * np.abs(ref).max(), err_msg=name)
+
+
 # ----------------------------------------------- the node and its plain backward
 
 

@@ -17,16 +17,25 @@
     inference route (K1) in a checkpointed step, which the reentrant form,
     shown alongside, does;
   * a 2-rank DDP step under ``save_dcn`` matches the single-process step on
-    the joined batch at ``test_torch_parallel.py``'s tolerances.
+    the joined batch at ``test_torch_parallel.py``'s tolerances;
+  * ``save_dcn`` runs no Python dispatch mode in the trunk; its store of
+    sampled outputs is read back in the recompute and emptied by the
+    backward, and freed with a graph dropped without one (also from a
+    forward that raised), after which a step still gives the ``off`` step's
+    bits; the step's bits are the same with the checkpoint's early stop on
+    and off.
 """
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from test_torch_parallel import (
     B_RANK, WORLD, _assert_update_close, _ddp_rank, _joined_batch, _model, _params,
@@ -42,7 +51,7 @@ from upsnet_torch.config import default_config
 from upsnet_torch.convert.from_jax import load_jax_params, to_jax
 from upsnet_torch.models import remat
 from upsnet_torch.models import upsnet as tup
-from upsnet_torch.ops import deform_conv, deform_sample, deform_shift
+from upsnet_torch.ops import deform_conv, deform_sample, deform_shift, recompute
 from upsnet_torch.ops.anchors import pyramid_anchors
 from upsnet_torch.parallel.mesh import spawn_ranks
 from upsnet_torch.train.optimizer import make_optimizer
@@ -284,3 +293,135 @@ def test_ddp_step_under_save_dcn_equals_the_joined_batch_step(tmp_path):
         np.testing.assert_allclose(m0[0][k], float(ref[k]), rtol=1e-4, err_msg=k)
     for n, p in before.items():
         _assert_update_close(first0[n], ref_first[n], p, n)
+
+
+# ---------------------------------------------------------------------------
+# ``save_dcn`` keeps the sampled outputs in a per-checkpoint store
+# (``upsnet_torch/ops/recompute.py``), with no dispatch mode
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def off_step(inputs):
+    state, batch, noise = inputs
+    return _one_step(_cfg("off"), state, batch, noise)
+
+
+def _assert_same_step(got, ref, what):
+    (m, g, w), (m_ref, g_ref, w_ref) = got, ref
+    assert m.keys() == m_ref.keys() and all(torch.equal(m[k], m_ref[k]) for k in m), what
+    assert g.keys() == g_ref.keys() and all(torch.equal(g[n], g_ref[n]) for n in g), what
+    assert all(torch.equal(w[n], w_ref[n]) for n in w), what
+
+
+@pytest.fixture
+def stores(monkeypatch):
+    """Every ``SavedSamples`` store that ``save_dcn`` makes, by weak reference."""
+    made = []
+
+    class Recorded(recompute.SavedSamples):
+        def __init__(self):
+            super().__init__()
+            made.append(weakref.ref(self))
+
+    monkeypatch.setattr(remat, "SavedSamples", Recorded)
+    return made
+
+
+def test_no_dispatch_mode_runs_inside_the_trunk_under_save_dcn(inputs, monkeypatch):
+    state, batch, noise = inputs
+    seen = []
+
+    def spy(module, name):
+        real = getattr(module, name)
+
+        def recorded(*a, **kw):
+            seen.append((name, recompute.recomputing(), _get_current_dispatch_mode()))
+            return real(*a, **kw)
+
+        monkeypatch.setattr(module, name, recorded)
+
+    spy(deform_sample, "deform_sample_taps")
+    spy(deform_conv, "sample_coords")
+    _one_step(_cfg("save_dcn"), state, batch, noise)
+    assert [s for s in seen if s[0] == "deform_sample_taps"] == [
+        ("deform_sample_taps", False, None)] * N_DCN
+    coords = [s for s in seen if s[0] == "sample_coords"]
+    assert coords == [("sample_coords", False, None)] * N_DCN + [
+        ("sample_coords", True, None)] * N_DCN  # the first forward, then the recompute
+
+
+def test_the_store_is_read_back_and_emptied_by_the_backward(inputs, off_step, stores):
+    state, batch, noise = inputs
+    kept = []
+    real = recompute.sampled
+
+    def watched(launch):
+        out = real(launch)
+        store = recompute._state.store
+        kept.append((recompute.recomputing(), store.next, len(store.outs),
+                     sum(o is not None for o in store.outs)))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (deform_sample, deform_shift):
+            mp.setattr(module, "sampled", watched)
+        _assert_same_step(_one_step(_cfg("save_dcn"), state, batch, noise), off_step,
+                          "save_dcn")
+    assert kept == [(False, 0, i + 1, i + 1) for i in range(N_DCN)] + [
+        (True, i + 1, N_DCN, N_DCN - i - 1) for i in range(N_DCN)]
+    assert len(stores) == 1
+    store = stores[0]()
+    assert store is None or (store.outs == [] and store.next == N_DCN)  # emptied
+    gc.collect()
+    assert stores[0]() is None  # freed with the step's graph
+    assert getattr(recompute._state, "store", None) is None and not recompute.recomputing()
+
+
+def _forward_train(cfg, state, batch, noise):
+    model = tup.build_model(cfg, device="cpu")
+    model.load_state_dict(state)
+    anchors = tuple(torch.from_numpy(a) for a in pyramid_anchors((H, W)))
+    return tup.forward_train(model, cfg, anchors, {k: _t(v) for k, v in batch.items()},
+                             {k: _t(v) for k, v in noise.items()})
+
+
+def test_a_forward_dropped_without_a_backward_leaves_nothing_behind(
+        inputs, off_step, stores, monkeypatch):
+    state, batch, noise = inputs
+    total, losses = _forward_train(_cfg("save_dcn"), state, batch, noise)
+    assert total.requires_grad and len(stores) == 1
+    assert len(stores[0]().outs) == N_DCN and all(o is not None for o in stores[0]().outs)
+    del total, losses
+    gc.collect()
+    assert stores[0]() is None
+    # a step that raises in the middle of the trunk, with half the outputs kept
+    real = deform_sample.deform_sample_taps
+    n = [0]
+
+    def failing(*a):
+        n[0] += 1
+        if n[0] > N_DCN // 2:
+            raise RuntimeError("planted")
+        return real(*a)
+
+    monkeypatch.setattr(deform_sample, "deform_sample_taps", failing)
+    with pytest.raises(RuntimeError, match="planted") as raised:
+        _forward_train(_cfg("save_dcn"), state, batch, noise)
+    del raised
+    monkeypatch.setattr(deform_sample, "deform_sample_taps", real)
+    gc.collect()
+    assert len(stores) == 2 and stores[1]() is None
+    assert getattr(recompute._state, "store", None) is None and not recompute.recomputing()
+    _assert_same_step(_one_step(_cfg("save_dcn"), state, batch, noise), off_step,
+                      "save_dcn after dropped graphs")
+
+
+@pytest.mark.parametrize("early_stop", [True, False])
+@pytest.mark.parametrize("policy,per_step", [("full", 2), ("save_dcn", 1)])
+def test_early_stop_on_and_off_give_the_same_step(inputs, off_step, sampling_calls,
+                                                  policy, per_step, early_stop):
+    state, batch, noise = inputs
+    with torch.utils.checkpoint.set_checkpoint_early_stop(early_stop):
+        got = _one_step(_cfg(policy), state, batch, noise)
+    _assert_same_step(got, off_step, f"{policy}, early stop {early_stop}")
+    assert sampling_calls["deform_sample_taps"] == per_step * N_DCN

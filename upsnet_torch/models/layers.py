@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from upsnet_torch.models.remat import recomputing
+from upsnet_torch.ops.recompute import recomputing
 from upsnet_torch.ops.deform_conv import deform_conv2d
 
 

@@ -14,69 +14,39 @@ Port of the ``jax.checkpoint`` around ``extract`` in
   * ``remat: True`` with any other policy ('' is the documented one)
     recomputes everything, the sampling kernels included (twice a step).
 
-The checkpoint is ``torch.utils.checkpoint``'s non-reentrant form. The
-reentrant form runs the first forward without autograd, so each
-``DeformConv`` would take its inference ``impl`` (K1) there, and the
-parameters would get no gradient through it. ``save_dcn`` is selective
-checkpointing: the sampling forwards are dispatcher ops
-(``deform_sample.deform_sample_taps_op``, ``deform_sample_tiled_taps_op``,
-``deform_shift.shift_fwd_op``), their outputs are cached in the forward and
-handed back in the recompute instead of running the op again. Every other op
-of the trunk is recomputed. Recomputed values are the first forward's bits
-where the ops are deterministic, so the three settings give the same step.
+The checkpoint is ``torch.utils.checkpoint``'s non-reentrant form under
+both policies. The reentrant form runs the first forward without autograd,
+so each ``DeformConv`` would take its inference ``impl`` (K1) there, and the
+parameters would get no gradient through it. ``save_dcn`` differs from full
+remat only in a ``SavedSamples`` store (``ops/recompute.py``) in scope in the
+first forward and the recompute: the sampling Functions keep their outputs
+there and hand them back in the recompute instead of launching again. No
+dispatch mode runs, so every other op costs what it costs under full remat.
+Recomputed values are the first forward's bits where the ops are
+deterministic, so the three settings give the same step.
 
 Side effects of the trunk that must not repeat in the recompute ask
-``recomputing()``: ``DeformConv`` records its offsets' extremes only in the
-first forward.
+``ops.recompute.recomputing()``: ``DeformConv`` records its offsets' extremes
+only in the first forward.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
 
 import torch
-from torch.utils.checkpoint import (
-    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import checkpoint
 
-from upsnet_torch.ops import deform_sample, deform_shift  # noqa: F401  (they define the ops)
-
-_state = threading.local()
-
-# the ops whose outputs ``save_dcn`` keeps: the sampling forwards
-SAVED_OPS = frozenset((torch.ops.upsnet.deform_sample_taps.default,
-                       torch.ops.upsnet.deform_sample_tiled_taps.default,
-                       torch.ops.upsnet.shift_fwd.default))
-
-
-def recomputing() -> bool:
-    """True while a checkpointed trunk is being recomputed in the backward."""
-    return getattr(_state, "recompute", False)
-
-
-@contextlib.contextmanager
-def _recompute(inner=contextlib.nullcontext()):
-    prev = recomputing()
-    _state.recompute = True
-    try:
-        with inner:
-            yield
-    finally:
-        _state.recompute = prev
-
-
-def _save_dcn_policy(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in SAVED_OPS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
+from upsnet_torch.ops.recompute import SavedSamples, Scope
 
 
 def _save_dcn_contexts():
-    forward, recompute = create_selective_checkpoint_contexts(_save_dcn_policy)
-    return forward, _recompute(recompute)
+    store = SavedSamples()
+    return Scope(store, recompute=False), Scope(store, recompute=True)
 
 
 def _full_contexts():
-    return contextlib.nullcontext(), _recompute()
+    return contextlib.nullcontext(), Scope(None, recompute=True)
 
 
 def run_checkpointed(fn, x: torch.Tensor, remat: bool, policy: str):

@@ -66,6 +66,7 @@ import ctypes
 import torch
 
 from upsnet_torch.ops import cuda_build
+from upsnet_torch.ops.recompute import sampled
 
 launches = 0
 launches_taps = 0
@@ -420,18 +421,6 @@ def deform_sample_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> t
     return out
 
 
-# The training forwards as dispatcher ops, so that the ``save_dcn`` remat
-# policy (``models/remat.py``) can name them: selective checkpointing decides
-# per op that the dispatcher sees, and a ctypes launch inside an
-# ``autograd.Function`` is not one. The ops have no autograd formula of their
-# own; the Functions below call them from ``forward`` and keep their
-# backwards. Body, launch and count are the wrappers'.
-@torch.library.custom_op("upsnet::deform_sample_taps", mutates_args=(),
-                         schema="(Tensor y, Tensor sy, Tensor sx) -> Tensor")
-def deform_sample_taps_op(y, sy, sx):
-    return deform_sample_taps(y, sy, sx)
-
-
 class DeformSample(torch.autograd.Function):
     """``deform_sample`` with gradients to y, sy and sx: forward K2,
     backward the one-tap K3 (their plain versions on CPU tensors)."""
@@ -617,7 +606,7 @@ class DeformSampleTaps(torch.autograd.Function):
     def forward(ctx, y, sy, sx, reach_y: int | None):
         ctx.save_for_backward(y, sy, sx)
         ctx.reach_y = reach_y
-        return deform_sample_taps_op(y, sy, sx)
+        return sampled(lambda: deform_sample_taps(y, sy, sx))
 
     @staticmethod
     def backward(ctx, g):
@@ -818,15 +807,6 @@ def deform_sample_tiled_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor
     return out
 
 
-@torch.library.custom_op(
-    "upsnet::deform_sample_tiled_taps", mutates_args=(),
-    schema="(Tensor y, Tensor sy, Tensor sx, int reach_y, int reach_x) -> Tensor")
-def deform_sample_tiled_taps_op(y, sy, sx, reach_y, reach_x):
-    """``deform_sample_tiled_taps`` as a dispatcher op (see
-    ``deform_sample_taps_op``)."""
-    return deform_sample_tiled_taps(y, sy, sx, reach_y, reach_x)
-
-
 class DeformSampleTiled(torch.autograd.Function):
     """The K taps of the column-tiled form: the all-tap K6, which adds the
     taps in ``y.dtype`` in tap order (the JAX package has no fused tiled
@@ -843,7 +823,7 @@ class DeformSampleTiled(torch.autograd.Function):
     def forward(ctx, y, sy, sx, reach_y: int, reach_x: int):
         ctx.save_for_backward(y, sy, sx)
         ctx.reach_y = reach_y
-        return deform_sample_tiled_taps_op(y, sy, sx, reach_y, reach_x)
+        return sampled(lambda: deform_sample_tiled_taps(y, sy, sx, reach_y, reach_x))
 
     @staticmethod
     def backward(ctx, g):

@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops import cuda_build
+from upsnet_torch.ops.recompute import sampled
 from upsnet_torch.ops.deform_sample import (
     _accum_dtype, _bilinear_zero_pad, _hat_nodes, _round_up, band_gather, check_band,
     check_reach)
@@ -302,14 +303,6 @@ def shift_offset_grads(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     return gsy, gsx
 
 
-@torch.library.custom_op("upsnet::shift_fwd", mutates_args=(),
-                         schema="(Tensor y, Tensor sy, Tensor sx) -> Tensor")
-def shift_fwd_op(y, sy, sx):
-    """``shift_fwd`` as a dispatcher op, so that the ``save_dcn`` remat
-    policy can name it (``deform_sample.deform_sample_taps_op``)."""
-    return shift_fwd(y, sy, sx)
-
-
 class DeformSampleShift(torch.autograd.Function):
     """``shift_fwd`` with gradients to y, sy and sx: forward K8a, backward
     K8b + K8c (their plain versions on CPU tensors). ``reach_y``, ``reach_x``
@@ -319,7 +312,7 @@ class DeformSampleShift(torch.autograd.Function):
     def forward(ctx, y, sy, sx, reach_y: int, reach_x: int):
         ctx.save_for_backward(y, sy, sx)
         ctx.reach = (reach_y, reach_x)
-        return shift_fwd_op(y, sy, sx)
+        return sampled(lambda: shift_fwd(y, sy, sx))
 
     @staticmethod
     def backward(ctx, g):

@@ -6,7 +6,8 @@ evaluate_boxes / evaluate_masks / evaluate_ssegs / evaluate_panoptic. The
 flags are those of the JAX package's ``tools/test.py``, plus ``--device``:
 
     python -m upsnet_torch.tools.test --cfg experiments/upsnet_tiny_synthetic.yaml \\
-        --dataset-override synthetic [--weights <port checkpoint>] [--device cpu]
+        --dataset-override synthetic [--weights <port checkpoint>] [--device cpu] \\
+        [--results-json results.json]
 
 It runs on the card unless ``--device cpu`` is given. The datasets are
 ``coco`` and ``cityscapes`` (files under ``dataset.dataset_path``, split
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 
@@ -46,6 +48,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-images", type=int, default=None)
     ap.add_argument("--no-artifacts", action="store_true",
                     help="skip writing panoptic PNG/JSON artifacts")
+    ap.add_argument("--results-json", default=None,
+                    help="also write the evaluators' results to this file as JSON")
     ap.add_argument("--no-mesh", action="store_true",
                     help="accepted for the JAX CLI's sake: the port predicts one image a "
                          "forward, and its processes come from torchrun, so it changes "
@@ -95,6 +99,9 @@ def run(argv=None) -> tuple[dict, dict]:
         if k in ("boxes", "masks") and "APs" in v:
             # the reference prints the full pycocotools 12-metric table
             logger.info("%s COCOeval table:\n%s", k, format_table(v, cfg.test.max_det))
+    if args.results_json and group.is_main:
+        with open(args.results_json, "w") as f:  # numpy scalars and arrays as numbers, lists
+            json.dump(results, f, default=lambda value: value.tolist())
     return results, timings
 
 

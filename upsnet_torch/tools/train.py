@@ -77,8 +77,12 @@ def run(argv=None, **train_kw):
         dataset = make_dataset(cfg, args.dataset_override or cfg.dataset.dataset,
                                training=True)
         with trace(args.profile_dir if group.is_main else None):
-            return train(cfg, dataset, logger=logger, max_steps=args.max_steps,
-                         device=group.device, group=group, **train_kw)
+            out = train(cfg, dataset, logger=logger, max_steps=args.max_steps,
+                        device=group.device, group=group, **train_kw)
+        if group.is_main and group.device.type == "cuda":
+            logger.info("peak allocated %.3f GiB",
+                        torch.cuda.max_memory_allocated(group.device) / 2 ** 30)
+        return out
     finally:
         close_group(group)
 
