@@ -13,7 +13,8 @@ at the root tool's defaults, for frozenbn the port's folded init, then
 only its paths and ``python -m upsnet_torch.tools.test`` on its last
 snapshot, each in a new process; it prints the losses, step ms, loader-wait
 share, offsets, peak memory, metrics beside the JAX package's TPU runs and
-each stage's seconds, and fails unless the reference's gate is met.
+each stage's seconds, and fails unless the reference's gate is met and, for a
+file that trains under ``gather`` or ``mxu``, the offsets moved from zero.
 
 Phases (any failure raises and exits non-zero; there is no CPU path):
 
@@ -32,7 +33,11 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    the gathers (both all-tap K3 forms, K5, K8b, K7b) must give the same bits
    on two runs, K5 also on RoIs clustered as training samples them, the
    all-tap K2 and the unclipped K3 also at offsets of +-40 px, and every K3
-   form, K7b and K8c exact zeros at integer coordinates. K7a and K7b (a
+   form, K7b and K8c exact zeros at integer coordinates under the ``pallas``
+   rule of the coordinate derivative; both all-tap K3 forms also under each
+   rule (``pallas``, ``hat``, ``floor``) on integer-heavy coordinates, and the
+   unclipped one with ``auto``'s device flag at both values, against the
+   plain version of the rule taken, two runs bit-identical. K7a and K7b (a
    counting-sort gather, no atomics) are checked at C 256 and 128 on three
    offset fields (+-2 px; dx +-40 px with dy within +-(max_dy + 1); all
    nine taps of a pixel at one point, one bin), two runs bit-identical,
@@ -1333,12 +1338,14 @@ def check_k8(dev) -> tuple[dict, dict, dict]:
     return k8a, k8b, k8c
 
 
-def _mark_integers(g, dev, sy, sx, h: int):
-    """5% of the samples onto exactly integer rows, another 5% onto integer
-    columns, and 1% pushed beyond the image edge (not counted)."""
+def _mark_integers(g, dev, sy, sx, h: int, share: float = 0.05):
+    """``share`` of the samples onto exactly integer rows, another ``share``
+    onto integer columns (5% each by default; 50% each is what the checks of
+    the rules call integer-heavy), and 1% pushed beyond the image edge (not
+    counted)."""
     shape = sy.shape
-    int_y = torch.rand(shape, generator=g, device=dev) < 0.05
-    int_x = torch.rand(shape, generator=g, device=dev) < 0.05
+    int_y = torch.rand(shape, generator=g, device=dev) < share
+    int_x = torch.rand(shape, generator=g, device=dev) < share
     sy = torch.where(int_y, sy.round(), sy)
     sx = torch.where(int_x, sx.round(), sx).contiguous()
     edge = torch.rand(shape, generator=g, device=dev) < 0.01
@@ -1346,14 +1353,16 @@ def _mark_integers(g, dev, sy, sx, h: int):
     return sy.contiguous(), sx
 
 
-def _check_taps_backward(what: str, run, ref, sy, sx, tag: str):
+def _check_taps_backward(what: str, run, ref, sy, sx, tag: str, rule: str = "pallas"):
     """An all-tap K3 form against its plain version ``ref`` on one input:
-    ``run()`` twice, the same bits both times, exact zeros at integer
-    coordinates. grad_y: f32 sums in another order than the plain
-    version's, rounded once to bf16: one bf16 ulp plus slack near zero.
-    gsy, gsx: f32 sums of 4 x C products of O(1) values in another order:
-    1e-4 relative plus 1e-3 absolute. Returns the grad_y max abs and rel
-    errors and the gsy, gsx max abs errors."""
+    ``run()`` twice, the same bits both times; under the ``pallas`` rule
+    exact zeros at integer coordinates, under ``hat`` and ``floor`` (the
+    rule the coordinates were differentiated by) gradients there. grad_y:
+    f32 sums in another order than the plain version's, rounded once to
+    bf16: one bf16 ulp plus slack near zero. gsy, gsx: f32 sums of 4 (hat:
+    up to 6) x C products of O(1) values in another order: 1e-4 relative
+    plus 1e-3 absolute. Returns the grad_y max abs and rel errors and the
+    gsy, gsx max abs errors."""
     rtol, atol, c_rtol, c_atol = 2.0 ** -7, 1e-4, 1e-4, 1e-3
     got, again = run(), run()
     torch.cuda.synchronize()
@@ -1363,23 +1372,30 @@ def _check_taps_backward(what: str, run, ref, sy, sx, tag: str):
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"{what}: two runs on the same inputs differ")
     at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
-    if (float(got[1][at_int_y].abs().max()) != 0.0
-            or float(got[2][at_int_x].abs().max()) != 0.0):
+    at_int = (float(got[1][at_int_y].abs().max()), float(got[2][at_int_x].abs().max()))
+    if rule == "pallas" and at_int != (0.0, 0.0):
         raise AssertionError(f"{what}: non-zero coordinate gradient at an integer coordinate")
+    if rule != "pallas" and 0.0 in at_int:
+        raise AssertionError(f"{what}, rule {rule}: no coordinate gradient at integer "
+                             f"coordinates")
     if float(got[1].abs().max()) == 0.0 or float(got[0].float().abs().max()) == 0.0:
         raise AssertionError(f"{what}: gradients are all zero")
+    at_int_text = ("exactly 0" if rule == "pallas" else
+                   f"rule {rule}: up to {max(at_int):.3e}")
     print(f"{tag}: grad_y max abs err {gy_err:.3e}, max rel err {gy_rel:.3e} (tolerance "
           f"{rtol:.4g}*|ref| + {atol:g}); gsy / gsx max abs err {gsy_err:.3e} / "
           f"{gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); two runs bit-identical, "
-          f"digest {digest(*got)}; exactly 0 at the {int(at_int_y.sum())} integer rows and "
-          f"{int(at_int_x.sum())} integer columns")
+          f"digest {digest(*got)}; {at_int_text} at the {int(at_int_y.sum())} integer rows "
+          f"and {int(at_int_x.sum())} integer columns")
     return gy_err, gy_rel, gsy_err, gsx_err
 
 
-def _k3_layer(g, dev, b: int, h: int, w: int, c: int, tap_axis: int, max_d: int) -> tuple:
+def _k3_layer(g, dev, b: int, h: int, w: int, c: int, tap_axis: int, max_d: int,
+              int_share: float = 0.05) -> tuple:
     """y, grad, sy, sx of a nine-tap layer on a b x h x w x c map, bf16, y
     tap-major (``tap_axis`` 0) or side by side (3): ``dcn_offsets`` clipped
-    to +-``max_d``, then ``_mark_integers``; within reach ``max_d + 1``."""
+    to +-``max_d``, then ``_mark_integers`` at ``int_share``; within reach
+    ``max_d + 1``."""
     taps = 9
     ky, kx = _tap_grid(dev)
     shape = (taps, b, h, w)
@@ -1391,18 +1407,20 @@ def _k3_layer(g, dev, b: int, h: int, w: int, c: int, tap_axis: int, max_d: int)
     ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
     sy = iy + ky + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
     sx = ix + kx + clip_offsets(dcn_offsets(g, dev, shape), float(max_d))
-    sy, sx = _mark_integers(g, dev, sy, sx, h)
+    sy, sx = _mark_integers(g, dev, sy, sx, h, int_share)
     deform_sample.check_reach(sy, sx, max_d + 1, None)
     return y, grad, sy, sx
 
 
-def _check_k3(tag: str, y, grad, sy, sx, tap_axis: int, reach: int) -> tuple:
-    """``_check_taps_backward`` of the clipped all-tap K3 on one layer."""
+def _check_k3(tag: str, y, grad, sy, sx, tap_axis: int, reach: int,
+              rule: str = "pallas") -> tuple:
+    """``_check_taps_backward`` of the clipped all-tap K3 on one layer under
+    ``rule``."""
     return _check_taps_backward(
         f"K3 taps {tag}",
-        lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach, tap_axis),
-        deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, tap_axis), sy, sx,
-        f"[K3 deform_sample_bwd_taps] {tag}, y {tuple(y.shape)} bf16")
+        lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach, tap_axis, rule),
+        deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, tap_axis, rule), sy,
+        sx, f"[K3 deform_sample_bwd_taps] {tag}, rule {rule}, y {tuple(y.shape)} bf16", rule)
 
 
 def check_k3_taps(dev) -> dict:
@@ -1416,9 +1434,12 @@ def check_k3_taps(dev) -> dict:
     edge; two runs must give the same bits. Timed beside it in the same run:
     the one-tap K3 nine times on the same tap-major layer plus the stack
     that autograd made of its results, which is what the layer cost in the
-    one-tap form. Then, held the same way and not timed, tap-major at the
-    three backbone shapes of the R101-DCN path (``r101_backbone_maps``,
-    C 128 / 256 / 512)."""
+    one-tap form. Then, held the same way and not timed, tap-major under
+    each rule of the coordinate derivative (``deform_sample.RULES``: zeros
+    at integer coordinates under ``pallas``, gradients there under ``hat``
+    and ``floor``) on an integer-heavy P2 layer (half the samples on integer
+    rows, half on integer columns), and at the three backbone shapes of the
+    R101-DCN path (``r101_backbone_maps``, C 128 / 256 / 512)."""
     g = torch.Generator(device=dev).manual_seed(9)
     taps, c, max_d = 9, 128, 6
     reach = max_d + 1  # max_dy + half * dilation
@@ -1475,6 +1496,15 @@ def check_k3_taps(dev) -> dict:
         print(line)
         del y, grad, sy, sx
         torch.cuda.empty_cache()
+    # each rule of the coordinate derivative on an integer-heavy P2 layer
+    # (half the rows and half the columns integers), tap-major: the layout
+    # of DeformSampleTaps, which takes pallas and hat on this form
+    y, grad, sy, sx = _k3_layer(g, dev, BATCH, BUCKET[0] // 4, BUCKET[1] // 4, c, 0, max_d,
+                                int_share=0.5)
+    for rule in deform_sample.RULES:
+        errs = _check_k3("P2 tap-major integer-heavy", y, grad, sy, sx, 0, reach, rule)
+        row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
+    del y, grad, sy, sx
     # the training route's layout at the backbone shapes of the R101-DCN path
     g_backbone = torch.Generator(device=dev).manual_seed(22)
     for hh, ww, cc in r101_backbone_maps():
@@ -1496,7 +1526,12 @@ def check_k3_unclipped(dev) -> dict:
     integer rows, 5% on integer columns and 1% beyond the image edge. Two
     runs must give the same bits. Timed beside it at each field: the layer
     as the one-tap K3 did it (nine zeroed canvases, launches and casts, and
-    the stack of the nine results)."""
+    the stack of the nine results). Then, held the same way and not timed,
+    on an integer-heavy field (+-2 px, half the samples on integer rows,
+    half on integer columns): each rule of the coordinate derivative, and
+    ``auto``'s device flag at both values under ``hat`` and ``pallas``
+    (False: ``floor`` taken), each against the plain version of the rule
+    taken."""
     g = torch.Generator(device=dev).manual_seed(10)
     taps, b, c = 9, BATCH, 128
     h, w = BUCKET[0] // 4, BUCKET[1] // 4
@@ -1559,7 +1594,23 @@ def check_k3_unclipped(dev) -> dict:
                    "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": library_ms}
         del sy, sx
-    del y, grad, g32, planes
+    # each rule, and auto's device flag at both values (False: floor instead
+    # of the rule), on an integer-heavy field (half the rows and half the
+    # columns integers)
+    sy, sx = _mark_integers(g, dev, iy + ky + dcn_offsets(g, dev, shape),
+                            ix + kx + dcn_offsets(g, dev, shape), h, 0.5)
+    for rule, flag in [(r, None) for r in deform_sample.RULES] + [
+            ("hat", True), ("hat", False), ("pallas", True), ("pallas", False)]:
+        fast = None if flag is None else torch.tensor(flag, device=dev)
+        taken = rule if flag is not False else "floor"
+        errs = _check_taps_backward(
+            "K3 unclipped",
+            lambda: deform_sample.deform_sample_bwd_unclipped(y, sy, sx, grad, rule, fast),
+            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 0, rule, fast),
+            sy, sx, f"[K3 deform_sample_bwd_unclipped] integer-heavy, rule {rule}, flag "
+            f"{flag} ({taken} taken), y {tuple(y.shape)} bf16", taken)
+        row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
+    del sy, sx, y, grad, g32, planes
     torch.cuda.empty_cache()
     return row
 
@@ -3975,6 +4026,19 @@ def loss_gate(lines: list) -> list:
                   for k in keys if not lines[-1][k] < lines[0][k]]
 
 
+def offset_gate(cfg, offsets: dict) -> list:
+    """The failure, if any, of a file that trains its DCN layers under a
+    route whose derivative is not 0 at integer coordinates (``gather``,
+    ``mxu``): its offsets start at zero, so the probe's largest |dy| and
+    |dx| on the trained weights must lie above 0."""
+    if cfg.network.dcn_impl_train not in ("gather", "mxu"):
+        return []
+    if max(offsets["max_dy"], offsets["max_dx"]) > 0:
+        return []
+    return [f"the offsets did not move from zero under {cfg.network.dcn_impl_train}: "
+            f"{offsets}"]
+
+
 def pretrained_gate(train_log: str, path: str) -> list:
     """The failure, if any, of the exact-match load of ``network.pretrained``
     (``path``) in the train entry's log."""
@@ -4053,9 +4117,10 @@ def run_rehearsal(name: str, dev) -> None:
     ``dcn_max_dx`` where the file's route is watched and the probe's on the
     trained weights, peak allocated, the metrics beside the JAX package's
     TPU runs, and each stage's seconds; then checks the reference's gate
-    (``eval_gate``; for frozenbn ``pretrained_gate`` and ``loss_gate``);
-    where it fails, ``goldens_card_against_cpu`` runs before the failure is
-    raised."""
+    (``eval_gate``; for frozenbn ``pretrained_gate`` and ``loss_gate``) and
+    ``offset_gate`` (a file trained under ``gather`` or ``mxu``, as frozenbn
+    is, moved its offsets from zero); where one fails,
+    ``goldens_card_against_cpu`` runs before the failure is raised."""
     from upsnet_torch.data import make_dataset
     from upsnet_torch.train.checkpoints import latest_checkpoint
 
@@ -4133,7 +4198,7 @@ def run_rehearsal(name: str, dev) -> None:
               "in metrics.jsonl")
     print(f"[{tag}] the probe on the trained weights (step {lines[-1]['iter']}, the first "
           f"{REHEARSAL_PROBE_IMAGES} evaluation images): "
-          + json.dumps({k: round(v, 4) for k, v in offsets.items()}))
+          + json.dumps(offsets))
     with open(os.path.join(out, "test.log")) as f:
         for line in f:
             found = re.search(r"\b(boxes|masks|ssegs|panoptic): ", line)
@@ -4144,7 +4209,7 @@ def run_rehearsal(name: str, dev) -> None:
     print(f"[{tag}] the JAX package's TPU run (STATUS.md, round 5; the reference's, not the "
           f"port's): {json.dumps(JAX_TPU_RESULTS[name])}")
     print(f"[{tag}] seconds by stage: " + json.dumps({k: round(v, 1) for k, v in stages.items()}))
-    failures = eval_gate(name, metrics)
+    failures = eval_gate(name, metrics) + offset_gate(cfg, offsets)
     if name == "frozenbn":
         failures += pretrained_gate(log_text, pretrained) + loss_gate(lines)
     if failures:

@@ -10,7 +10,11 @@ plain backward against nine ``DeformSample`` backwards; that no per-tap node
 is built any more; and ``deform_conv2d(impl="auto")`` against the JAX
 ``deform_conv2d_auto`` on a map that the JAX routing rule, lowered as
 ``test_torch_tiled_mt.py`` lowers it, sends to the column-tiled Pallas
-kernel, run in interpret mode.
+kernel, run in interpret mode. Then the derivative at integer sample
+coordinates route by route (``gather``, ``mxu``, ``pallas`` routed to
+``mxu`` and untiled, ``auto`` inside and beyond its window), at zero offsets
+and on an integer-heavy field, against ``jax.grad`` of the JAX function each
+route stands for on a TPU.
 
 Inputs come from numpy seeds. Every tolerance is stated where it is used.
 """
@@ -103,37 +107,119 @@ def test_exact_route_gradients_match_jax_grad(impl, field):
                                    err_msg=name)
 
 
-def test_zero_offsets_get_no_gradient_here_and_a_one_sided_one_in_jax():
-    """At zero offsets every sample lies on an integer coordinate, where the
-    port's ``gather`` route takes the Pallas kernel's rule (ROADMAP,
-    "Decided and pinned"): the gradient to the offsets is exactly 0, so an
-    offset conv that starts at zero, as every one does, never moves under
-    ``dcn_impl_train: gather`` in the port. The JAX ``deform_conv2d_batched``,
-    which that setting trains with, differentiates its floor one-sidedly and
-    gives the offsets a gradient there. The forward and the gradients to x,
-    weight and bias agree (as above: atol 1e-4; 1e-3 |ref| + 1e-4 max|ref|)."""
-    x, _, weight, bias = _conv_inputs(3, 1.0)
-    offsets = np.zeros((2, 10, 14, 18), np.float32)
-    cot = np.random.RandomState(4).randn(2, 10, 14, 16).astype(np.float32)
+def _jax_untiled(*a):
+    """The JAX layer as the TPU runs ``dcn_impl: pallas`` where its routing
+    rule answers ``untiled``: the per-tap Pallas kernels (interpreted) and
+    their backward kernel."""
+    return dcp.deform_conv2d_pallas.__wrapped__(*a, 3, 1, 6)
+
+
+# case: (port impl, Cout, the JAX function the route stands for on a TPU,
+# its rule at an integer coordinate)
+RULE_CASES = {
+    "gather": ("gather", 16, lambda *a: jdc.deform_conv2d_batched(*a), "floor"),
+    "mxu": ("mxu", 16, lambda *a: jdc.deform_conv2d_mxu(*a, 3, 1, 6), "hat"),
+    # Cout % 128 != 0: pallas_route answers mxu, on a TPU as here
+    "pallas_to_mxu": ("pallas", 16, lambda *a: jdc.deform_conv2d_mxu(*a, 3, 1, 6), "hat"),
+    "pallas_untiled": ("pallas", 128, _jax_untiled, "pallas"),
+    # the JAX cond itself; at Cout 16 its fast branch is the mxu form on a
+    # TPU as on this CPU, and its exact branch the gather form
+    "auto_in_window": ("auto", 16, lambda *a: jdc.deform_conv2d_auto(*a, 3, 1, 6), "hat"),
+    "auto_beyond": ("auto", 16, lambda *a: jdc.deform_conv2d_auto(*a, 3, 1, 6), "floor"),
+}
+
+
+def _rule_offsets(case, field):
+    """``zero`` offsets (every sample on an integer coordinate, as every
+    offset conv starts) or ``integer_heavy`` ones: uniform in +-3 px with a
+    quarter of the components rounded to integers, as ``_taps`` draws them;
+    for ``auto_beyond`` one dy set to 7.0, beyond the +-6 window."""
+    if field == "zero":
+        offsets = np.zeros((2, 10, 14, 18), np.float32)
+    else:
+        rng = np.random.RandomState(7)
+        offsets = rng.uniform(-3, 3, (2, 10, 14, 18))
+        offsets = np.where(rng.rand(*offsets.shape) < 0.25, np.round(offsets), offsets)
+        offsets = offsets.astype(np.float32)
+    if case == "auto_beyond":
+        offsets[1, 4, 5, 8] = 7.0
+    return offsets
+
+
+@pytest.mark.parametrize("field", ["zero", "integer_heavy"])
+@pytest.mark.parametrize("case", list(RULE_CASES))
+def test_zero_offsets_get_no_gradient_here_and_a_one_sided_one_in_jax(monkeypatch, case,
+                                                                     field):
+    """The derivative at integer sample coordinates, route by route: the
+    forward and the gradients to x, offsets, weight and bias of
+    ``deform_conv2d(impl)`` against ``jax.value_and_grad`` of the JAX
+    function that the route stands for on a TPU (``RULE_CASES``), at zero
+    offsets and on an integer-heavy field. ``gather`` and ``auto`` beyond the
+    window take the gather form's one-sided derivative, ``mxu`` and
+    ``pallas`` routed to ``mxu`` (and ``auto`` inside the window at that
+    width) the mxu form's, where abs' is +1 at 0 and a maximum's tie takes
+    half; ``pallas`` untiled keeps the Pallas kernels' 0 at integers (JAX's
+    routing rule, which answers ``mxu`` on a CPU, given the port's, which is
+    the TPU's arithmetic). So an offset conv that starts at zero gets a
+    gradient wherever its reference route gives one. Tolerances as above:
+    atol 1e-4 on the forward; 1e-3 |ref| + 1e-4 max|ref| per gradient."""
+    impl, cout, jax_fn, rule = RULE_CASES[case]
+    x, _, weight, bias = _conv_inputs(3, 1.0, cout=cout)
+    offsets = _rule_offsets(case, field)
+    port_route = tsample.pallas_route(x.shape, cout, 6, 1)[0]
+    assert port_route == ("untiled" if cout == 128 else "mxu")
+    monkeypatch.setattr(dcp, "pallas_route", tsample.pallas_route)
+    cot = np.random.RandomState(4).randn(2, 10, 14, cout).astype(np.float32)
 
     def jloss(*a):
-        out = jdc.deform_conv2d_batched(*a)
+        out = jax_fn(*a)
         return jnp.sum(out * cot), out
 
     (_, ref_out), ref_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True)(
         *(jnp.asarray(a) for a in (x, offsets, weight, bias)))
     targs = [_t(a).requires_grad_() for a in (x, offsets, weight, bias)]
-    out = tdc.deform_conv2d(*targs, impl="gather")
+    out = tdc.deform_conv2d(*targs, impl=impl)
     (out * _t(cot)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), atol=1e-4)
-    assert not targs[1].grad.any()
-    ref_offsets = np.asarray(ref_grads[1])
-    assert (ref_offsets != 0).mean() > 0.5 and np.abs(ref_offsets).max() > 0.1
-    for name, t, ref in zip(("x", "weight", "bias"), targs[::2] + targs[3:],
-                            (ref_grads[0], ref_grads[2], ref_grads[3])):
+    for name, t, ref in zip(("x", "offsets", "weight", "bias"), targs, ref_grads):
         ref = np.asarray(ref)
         np.testing.assert_allclose(t.grad.numpy(), ref, rtol=1e-3,
                                    atol=1e-4 * np.abs(ref).max(), err_msg=name)
+    got = targs[1].grad.numpy()
+    if rule == "pallas" and field == "zero":
+        assert not got.any()
+    else:
+        assert (got != 0).mean() > 0.5 and np.abs(got).max() > 0.1
+    if field == "zero" and rule != "pallas":
+        # the gather and mxu forms' derivatives differ at integers
+        other = (jdc.deform_conv2d_mxu if rule == "floor" else
+                 lambda *a: jdc.deform_conv2d_batched(*a))
+        _, other_grads = jax.value_and_grad(
+            lambda *a: jnp.sum(other(*a) * cot), argnums=(0, 1, 2, 3))(
+                *(jnp.asarray(a) for a in (x, offsets, weight, bias)))
+        assert np.abs(np.asarray(other_grads[1]) - got).max() > 0.1
+
+
+@pytest.mark.parametrize("route", ["tiled", "shift", "mt"])
+def test_the_pallas_kernels_routes_keep_zero_at_integers(monkeypatch, route):
+    """The routes that stand for a Pallas backward kernel keep its rule: at
+    zero offsets the offsets get exactly no gradient (the tiled form with
+    the routing rule answering ``tiled``, ``shift`` with every layer sent to
+    the shift kernels, ``deform_conv2d_mt``), while x and the weight do."""
+    x, _, weight, bias = _conv_inputs(3, 1.0)
+    targs = [_t(a).requires_grad_() for a in (x, np.zeros((2, 10, 14, 18), np.float32),
+                                              weight, bias)]
+    if route == "tiled":
+        monkeypatch.setattr(tdc, "pallas_route", lambda *a, **kw: ("tiled", 6))
+        out = tdc.deform_conv2d(*targs, impl="pallas")
+    elif route == "shift":
+        monkeypatch.setattr(tdc, "shift_route_ok", lambda *a, **kw: True)
+        out = tdc.deform_conv2d(*targs, impl="shift")
+    else:
+        out = tdc.deform_conv2d_mt(*targs)
+    out.square().sum().backward()
+    assert not targs[1].grad.any()
+    assert all(float(t.grad.abs().max()) > 0 for t in targs[::2])
 
 
 # ----------------------------------------------- the node and its plain backward
@@ -182,19 +268,36 @@ def test_unclipped_backward_is_nine_deform_sample_backwards(dtype):
     assert float(gy.abs().max()) > 0 and float(gsy.abs().max()) > 0
 
 
-@pytest.mark.parametrize("what", ["rank", "taps", "g_dtype", "g_shape", "sx_shape"])
+@pytest.mark.parametrize("what", ["rank", "taps", "g_dtype", "g_shape", "sx_shape", "rule",
+                                  "fast_dtype", "fast_size"])
 def test_unclipped_wrapper_checks(what):
     y = torch.zeros((3, 1, 4, 5, 8))
     s = torch.full((3, 1, 4, 5), 40.0)  # far beyond the map: no reach check here
     g = torch.zeros((1, 4, 5, 8))
     tsample.deform_sample_bwd_unclipped(y, s, s, g)
+    tsample.deform_sample_bwd_unclipped(y, s, s, g, "hat", torch.tensor(False))
     bad = {"rank": lambda: tsample.deform_sample_bwd_unclipped(y[0], s, s, g),
            "taps": lambda: tsample.deform_sample_bwd_unclipped(y, s[:2], s[:2], g),
            "g_dtype": lambda: tsample.deform_sample_bwd_unclipped(y, s, s, g.bfloat16()),
            "g_shape": lambda: tsample.deform_sample_bwd_unclipped(y, s, s, g[..., :4]),
-           "sx_shape": lambda: tsample.deform_sample_bwd_unclipped(y, s, s[..., :4], g)}[what]
+           "sx_shape": lambda: tsample.deform_sample_bwd_unclipped(y, s, s[..., :4], g),
+           "rule": lambda: tsample.deform_sample_bwd_unclipped(y, s, s, g, "central"),
+           "fast_dtype": lambda: tsample.deform_sample_bwd_unclipped(
+               y, s, s, g, "hat", torch.tensor(1.0)),
+           "fast_size": lambda: tsample.deform_sample_bwd_unclipped(
+               y, s, s, g, "hat", torch.ones(2, dtype=torch.bool))}[what]
     with pytest.raises(TypeError if what == "g_dtype" else ValueError):
         bad()
+
+
+def test_a_flag_takes_the_unclipped_form():
+    """``auto``'s device flag goes with the unclipped K3 alone: a node with a
+    reach and a flag is refused."""
+    y = torch.zeros((3, 1, 4, 5, 8))
+    s = torch.full((3, 1, 4, 5), 1.0)
+    tsample.DeformSampleTaps.apply(y, s, s, None, "pallas", torch.tensor(True))
+    with pytest.raises(ValueError, match="unclipped"):
+        tsample.DeformSampleTaps.apply(y, s, s, 2, "pallas", torch.tensor(True))
 
 
 @pytest.mark.parametrize("impl", ["gather", "auto"])

@@ -112,6 +112,27 @@ def test_the_pretrained_gate_refuses_anything_but_an_exact_match(log):
     assert len(chip_smoke.pretrained_gate(log, "/x/step_00000000")) == 1
 
 
+ZERO_PROBE = {"max_dy": 0.0, "max_dx": 0.0, "sat_frac": 0.0}
+
+
+@pytest.mark.parametrize("impl, probe, refused", [
+    ("gather", ZERO_PROBE, True), ("mxu", ZERO_PROBE, True),
+    ("gather", dict(ZERO_PROBE, max_dx=0.004), False), ("mxu", dict(ZERO_PROBE, max_dy=3.0), False),
+    # under these routes offsets that start at zero may stay there, as in the reference
+    ("pallas", ZERO_PROBE, False), ("auto", ZERO_PROBE, False), ("shift", ZERO_PROBE, False)])
+def test_the_offset_gate_refuses_offsets_left_at_zero(impl, probe, refused):
+    """A file trained under ``gather`` or ``mxu`` (frozenbn trains under
+    ``gather``) must have moved its offsets from their zero init: those
+    routes' derivatives are not 0 at integer coordinates."""
+    cfg = chip_smoke.load_config(chip_smoke.FROZENBN_YAML)
+    assert cfg.network.dcn_impl_train == "gather"
+    cfg = cfg.replace(network=dataclasses.replace(cfg.network, dcn_impl_train=impl))
+    failures = chip_smoke.offset_gate(cfg, probe)
+    assert len(failures) == int(refused)
+    if refused:
+        assert failures[0].startswith(f"the offsets did not move from zero under {impl}")
+
+
 def _fields(cfg) -> dict:
     """Every field of a configuration, by dotted path."""
     out = {}

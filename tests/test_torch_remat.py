@@ -6,7 +6,9 @@
     same weights, batch and noise gives the same bits, losses, gradients and
     SGD update, without remat, under full remat and under ``save_dcn``, on
     each training route (``dcn_impl_train`` ``pallas``, ``gather`` and
-    ``shift``, the last with every layer sent to the shift route);
+    ``shift``, the last with every layer sent to the shift route); under
+    ``auto`` with one layer's offsets beyond its window, the recompute takes
+    each layer's coordinate derivative as the first forward did;
   * the sampling forwards, counted at their wrappers, run once per DCN layer
     and step without remat and under ``save_dcn``, twice under full remat;
   * under ``remat: True, remat_policy: save_dcn`` in both packages the loss
@@ -140,6 +142,49 @@ def test_the_three_policies_give_the_same_step_bits(inputs, impl, monkeypatch, s
     used = "shift_fwd" if impl == "shift" else "deform_sample_taps"
     assert sampling_calls[used] == 4 * N_DCN  # off 8, full 16, save_dcn 8
     assert sampling_calls["deform_sample9"] == 0
+
+
+def test_auto_takes_the_same_rule_in_the_recompute(inputs, monkeypatch):
+    """``dcn_impl_train: auto`` decides each layer's coordinate derivative
+    from a flag on the device, the JAX cond's predicate, computed from the
+    layer's offsets. Offsets as shipped (zero, every sample on an integer
+    coordinate, where the rules differ) but the FCN head's first DCN with
+    one dy of 7 px, beyond the +-6 window: its backwards take ``floor``, the
+    second DCN's the ``hat`` rule of its route. The recompute of a
+    checkpointed step computes the flag again from the recomputed offsets,
+    beside the store of sampled outputs, and must reach the same choice:
+    under ``off``, ``full`` and ``save_dcn`` the backwards see the same
+    rules and flags, in order, and the step gives the same bits."""
+    state, batch, noise = inputs
+    state = dict(state)
+    for k, v in state.items():
+        if k.endswith("offset_conv.bias"):
+            state[k] = torch.zeros_like(v)
+            if ".dcn1." in k:
+                state[k][0] = 7.0
+    real = deform_sample.deform_sample_bwd_unclipped
+    seen = []
+
+    def spy(y, sy, sx, g, rule="pallas", fast=None):
+        seen.append((rule, None if fast is None else bool(fast)))
+        return real(y, sy, sx, g, rule, fast)
+
+    monkeypatch.setattr(deform_sample, "deform_sample_bwd_unclipped", spy)
+    runs, choices = {}, {}
+    for policy in POLICIES:
+        seen.clear()
+        runs[policy] = _one_step(_cfg(policy, "auto"), state, batch, noise)
+        choices[policy] = list(seen)
+    assert sorted(set(choices["off"])) == [("hat", False), ("hat", True)]
+    assert len(choices["off"]) == N_DCN
+    m_ref, g_ref, w_ref = runs["off"]
+    for policy, (m, g, w) in runs.items():
+        assert choices[policy] == choices["off"], policy
+        assert all(torch.equal(m[k], m_ref[k]) for k in m), policy
+        assert all(torch.equal(g[n], g_ref[n]) for n in g_ref), policy
+        assert all(torch.equal(w[n], w_ref[n]) for n in w_ref), policy
+    offset_grads = [g_ref[n] for n in g_ref if n.endswith("offset_conv.weight")]
+    assert offset_grads and all(float(t.abs().max()) > 0 for t in offset_grads)
 
 
 @pytest.mark.parametrize("policy,per_step", [("off", 1), ("full", 2), ("save_dcn", 1)])

@@ -4,7 +4,9 @@ references.
 
 K2: ``deform_sample`` vs ``deform_conv_pallas._sample_pallas``.
 K3: ``deform_sample_bwd`` vs ``_sample_pallas_bwd``, on fractional, integer
-and out-of-range coordinates.
+and out-of-range coordinates; the plain version under each rule of the
+coordinate derivative against ``jax.vjp`` of its JAX form at integer
+coordinates.
 K5: ``fpn_roi_align_bwd`` vs ``roi_align._fpn_roi_align_bwd`` and
 ``roi_align_pallas.fpn_roi_align_window_bwd``.
 Then the two ``torch.autograd.Function``s, the training form of
@@ -128,21 +130,69 @@ def test_sample_bwd_plain_matches_pallas_kernel_f32(rng, kind):
         assert np.abs(gsy.numpy()).max() > 1 and np.abs(gsx.numpy()).max() > 1
 
 
-def test_sample_bwd_integer_coordinates_zero_not_one_sided(rng):
-    """The convention is pinned in one place: at integer coordinates the
-    autograd Function (through the plain version) gives zero coordinate
-    gradients, where a one-sided (floor-based) derivative does not."""
-    y = _t(rng.randn(B, H, W, C).astype(np.float32)).requires_grad_(True)
-    sy, sx = (_t(a).requires_grad_(True) for a in _coords(rng, "integer"))
-    out = deform_sample.DeformSample.apply(y, sy, sx)
-    out.backward(_t(rng.randn(B, H, W, C).astype(np.float32)))
-    assert not sy.grad.any() and not sx.grad.any() and y.grad.abs().max() > 0
-    # one-sided: autograd through the floor-based forward is not zero there
-    sy2 = sy.detach().clone().requires_grad_(True)
+def _jax_form_vjp(rule, y, sy, sx, g):
+    """(grad_y, gsy, gsx) of one tap by ``jax.vjp`` of the JAX form whose
+    derivative ``rule`` is: the Pallas ``deform_sample`` (its backward
+    kernel, interpreted), or ``deform_conv2d_mxu`` (``hat``) or
+    ``deform_conv2d_batched`` (``floor``) as a 1x1 layer with the identity
+    weight, whose offsets are the coordinates less the pixel's own."""
+    if rule == "pallas":
+        _, vjp = jax.vjp(lambda a, b, c: dcp.deform_sample(a, b, c, MAX_DY),
+                         jnp.asarray(_pad(y)), jnp.asarray(sy), jnp.asarray(sx))
+        gy, gsy, gsx = vjp(jnp.asarray(g))
+        return _unpad(gy), np.asarray(gsy), np.asarray(gsx)
+    iy = np.arange(H, dtype=np.float32)[None, :, None]
+    ix = np.arange(W, dtype=np.float32)[None, None, :]
+    offsets = np.stack([sy - iy, sx - ix], axis=-1)
+    eye = jnp.eye(C, dtype=jnp.float32)[None]
+    if rule == "hat":  # the window one row beyond the farthest |dy|: no clip tie
+        layer = lambda a, o: jdc.deform_conv2d_mxu(a, o, eye, None, 1, 1, MAX_DY + 1)  # noqa: E731
+    else:
+        layer = lambda a, o: jdc.deform_conv2d_batched(a, o, eye, None, 1, 1)  # noqa: E731
+    _, vjp = jax.vjp(layer, jnp.asarray(y), jnp.asarray(offsets))
+    gy, goff = vjp(jnp.asarray(g))
+    return np.asarray(gy), np.asarray(goff[..., 0]), np.asarray(goff[..., 1])
+
+
+@pytest.mark.parametrize("rule", ["pallas", "hat", "floor"])
+def test_sample_bwd_integer_coordinates_zero_not_one_sided(rng, rule):
+    """The rules of the coordinate derivative (``deform_sample.RULES``) at
+    integer coordinates, among them samples on the first and last row and
+    column and samples outside the map: K3's plain version under each rule
+    against ``jax.vjp`` of the JAX form it stands for (``_jax_form_vjp``),
+    f32 (grad_y rtol 1e-5, atol 1e-5; gsy, gsx sums of 4 x C products of O(1)
+    values, rtol 1e-5, atol 1e-4). ``pallas`` is 0 there, and the autograd
+    Function (the one-tap K3, which has that rule only) gives 0 too; ``floor``
+    is the one-sided derivative that autograd through the floor-based
+    forward gives; ``hat`` is neither."""
+    y = rng.randn(B, H, W, C).astype(np.float32)
+    g = rng.randn(B, H, W, C).astype(np.float32)
+    sy, sx = _coords(rng, "integer")
+    counted = (sy > -1) & (sy < H) & (sx > -1) & (sx < W)
+    for edge in (sy == 0, sy == H - 1, sx == 0, sx == W - 1, ~counted):
+        assert edge.sum() >= 10
+    r_gy, r_gsy, r_gsx = _jax_form_vjp(rule, y, sy, sx, g)
+    gy, gsy, gsx = deform_sample.deform_sample_bwd_plain(_t(y), _t(sy), _t(sx), _t(g), rule)
+    np.testing.assert_allclose(gy.numpy(), r_gy, **F32_TOL)
+    np.testing.assert_allclose(gsy.numpy(), r_gsy, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(gsx.numpy(), r_gsx, rtol=1e-5, atol=1e-4)
+    assert not gsy.numpy()[~counted].any() and not gsx.numpy()[~counted].any()
+
+    # one-sided: autograd through the floor-based forward
+    sy2, sx2 = (_t(a).requires_grad_(True) for a in (sy, sx))
     base = (torch.arange(B) * (H * W))[:, None, None]
-    deform_sample._bilinear_zero_pad(y.detach().reshape(-1, C), sy2, sx.detach(), H, W,
-                                     base).sum().backward()
-    assert sy2.grad.abs().max() > 0
+    deform_sample._bilinear_zero_pad(_t(y).reshape(-1, C), sy2, sx2, H, W,
+                                     base).mul(_t(g)).sum().backward()
+    floor_like = (np.allclose(sy2.grad.numpy(), gsy.numpy(), rtol=1e-5, atol=1e-4)
+                  and np.allclose(sx2.grad.numpy(), gsx.numpy(), rtol=1e-5, atol=1e-4))
+    assert floor_like == (rule == "floor")
+    if rule == "pallas":
+        assert not gsy.numpy().any() and not gsx.numpy().any()
+        ty, tsy, tsx = (_t(a).requires_grad_(True) for a in (y, sy, sx))
+        deform_sample.DeformSample.apply(ty, tsy, tsx).backward(_t(g))
+        assert not tsy.grad.any() and not tsx.grad.any() and ty.grad.abs().max() > 0
+    else:
+        assert np.abs(gsy.numpy()).max() > 1 and np.abs(gsx.numpy()).max() > 1
 
 
 @pytest.mark.parametrize("kind", KINDS)

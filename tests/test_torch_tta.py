@@ -22,6 +22,7 @@ shows the same on the R101-DCN COCO file's own buckets.
 """
 
 import dataclasses
+import inspect
 import math
 
 import jax
@@ -103,6 +104,14 @@ def test_fuse_tta_matches_jax(cfgs, rng):
     for g, r in zip(padded, rpadded):
         np.testing.assert_array_equal(g, r)
     assert keep.any() and pan.shape == (oh, ow)
+
+
+@pytest.mark.parametrize("fn", ["fuse_tta", "predict_image_tta"])
+def test_the_tta_entries_take_a_device_with_no_default(fn):
+    """Both TTA entries name the device they fuse on, with no default: no
+    caller falls back to the CPU unasked."""
+    param = inspect.signature(getattr(ttta, fn)).parameters["device"]
+    assert param.default is inspect.Parameter.empty
 
 
 def _recording(tta_module, monkeypatch) -> list:

@@ -12,11 +12,12 @@
 //   gsy[t, b, i, j] = sum_c g_c * sum_{r, q} dvy_r *  vx_q * y_t[b, r, q, c]
 //   gsx[t, b, i, j] = sum_c g_c * sum_{r, q}  vy_r * dvx_q * y_t[b, r, q, c]
 //
-// with the derivative of the TPU kernel it replaces,
+// where dv, the derivative of a node's hat weight, is that of the JAX function
+// the caller's route stands for (offset_grads.cuh names the three rules): by
+// default that of the TPU kernel this replaces,
 // upsnet_tpu/ops/deform_conv_pallas.py:_sample_pallas_bwd
-// (_sample_bwd_kernel): dv = -sign(d) where |d| < 1, else 0. At an integer
-// coordinate d = 0 at the peak and |d| = 1 at its neighbours, so every
-// derivative there is 0.
+// (_sample_bwd_kernel), dv = -sign(d) where |d| < 1, else 0, which is 0 at
+// an integer coordinate. The one-tap form has that rule only.
 //
 // The TPU kernel read-modify-writes a window of an f32 canvas in a fixed
 // sequence of grid steps, so its sums come out the same on every run. Blocks
@@ -432,21 +433,24 @@ int deform_sample_bwd_unclipped_grad_y(const void* g, const void* sy, const void
   return (int)cudaGetLastError();
 }
 
-// All taps, pass 2 (both forms): gsy, gsx (K, B, H, W) f32, every element written; y in
-// the layout named by tap_major, g (B, H, W, C).
+// All taps, pass 2 (both forms): gsy, gsx (K, B, H, W) f32, every element
+// written; y in the layout named by tap_major, g (B, H, W, C); rule 0
+// (kPallas), 1 (kHat) or 2 (kFloor), else cudaErrorInvalidValue; fast null,
+// or a device byte: where it reads 0, kFloor instead of rule (`auto`).
 int deform_sample_bwd_taps_coords(const void* y, const void* sy, const void* sx,
-                                  const void* g, void* gsy, void* gsx, int K, int B, int H,
-                                  int W, int C, int tap_major, int dtype, void* stream) {
+                                  const void* g, void* gsy, void* gsx, const void* fast, int K,
+                                  int B, int H, int W, int C, int tap_major, int rule,
+                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     int64_t img, tap, pix;
     layout_strides(tap_major, K, B, H, W, C, img, tap, pix);
-    if (dtype == 1) {
-      launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
-                                         pix, s);
-    } else {
-      launch_offset_grads<float>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap, pix, s);
-    }
+    const int err = dtype == 1
+        ? launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
+                                             pix, rule, fast, s)
+        : launch_offset_grads<float>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap, pix,
+                                     rule, fast, s);
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }

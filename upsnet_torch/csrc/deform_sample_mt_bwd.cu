@@ -98,8 +98,8 @@ mt_bwd_coords_kernel(const T* __restrict__ x, const float* __restrict__ sy,
                      const float* __restrict__ sx, const T* __restrict__ g,
                      float* __restrict__ gsy, float* __restrict__ gsx, int K, int B, int H,
                      int W, int C) {
-  offset_grads::body<T, WIDTH, true>(x, sy, sx, g, gsy, gsx, K, B, H, W, C, (int64_t)H * W * C,
-                                     0, C, C, (int64_t)K * C);
+  offset_grads::body<T, WIDTH, true, offset_grads::kPallas>(
+      x, sy, sx, g, gsy, gsx, K, B, H, W, C, (int64_t)H * W * C, 0, C, C, (int64_t)K * C);
 }
 
 int64_t mt_work(int K, int B, int H, int W) {

@@ -101,12 +101,12 @@ int shift_offset_grads(const void* y, const void* sy, const void* sx, const void
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     int64_t img, tap, pix;  // side by side: img H * W * K * C, tap C, pixel K * C
     layout_strides(0, K, B, H, W, C, img, tap, pix);
-    if (dtype == 1) {
-      launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
-                                         pix, s);
-    } else {
-      launch_offset_grads<float>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap, pix, s);
-    }
+    const int err = dtype == 1
+        ? launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
+                                             pix, offset_grads::kPallas, nullptr, s)
+        : launch_offset_grads<float>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap, pix,
+                                     offset_grads::kPallas, nullptr, s);
+    if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -68,7 +68,7 @@ def _fuse_device(seg_lg, boxes, classes, ms_logits, scores, valid, *, device,
 
 
 def fuse_tta(cfg: Config, seg_avg, boxes, scores, classes, mask_logits,
-             base_scale: float, bucket: tuple, content_hw: tuple, device="cpu"):
+             base_scale: float, bucket: tuple, content_hw: tuple, device):
     """Fuse TTA-merged evidence with ``panoptic_fuse`` on ``device``.
 
     seg_avg (oh, ow, C) averaged logits at ORIGINAL resolution; detections
@@ -126,7 +126,7 @@ def tta_variants(cfg: Config) -> list:
     return [(ts, fl) for ts in scales for fl in flips]
 
 
-def predict_image_tta(cfg: Config, dataset, i: int, predict, device="cpu",
+def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
                       timings: dict | None = None):
     """Run every (scale, flip) variant of image ``i`` through
     ``predict(bucket, sample) -> outputs`` (numpy, full f32 ``seg_logits``)

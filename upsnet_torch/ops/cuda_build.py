@@ -111,7 +111,8 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
 def call(lib_name: str, fn_name: str, tensor, pointers, ints) -> None:
     """Launch C entry point ``fn_name(pointers..., ints..., dtype, stream)``
     of library ``lib_name`` on ``tensor``'s device and current stream, with
-    ``tensor``'s element type code; raise on a CUDA error."""
+    ``tensor``'s element type code (a pointer None passes null); raise on a
+    CUDA error."""
     lib = load(lib_name)
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
@@ -119,6 +120,6 @@ def call(lib_name: str, fn_name: str, tensor, pointers, ints) -> None:
                    + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(tensor.device).cuda_stream
     with torch.cuda.device(tensor.device):
-        status = fn(*(p.data_ptr() for p in pointers), *ints, DTYPE_CODES[tensor.dtype],
-                    stream)
+        status = fn(*(None if p is None else p.data_ptr() for p in pointers), *ints,
+                    DTYPE_CODES[tensor.dtype], stream)
     check(lib, status, fn_name)

@@ -41,7 +41,9 @@ but each layer computes what the JAX package computes for it on a TPU, so
 ``deform_conv2d`` routes by the TPU's rules as arithmetic:
 
   * ``auto`` / ``gather``: exact sampling at the offsets as given (untiled
-    kernels, no clip);
+    kernels, no clip); ``auto`` under autograd differentiates as the JAX
+    ``deform_conv2d_auto``'s ``lax.cond`` picks, from a flag on the device
+    (``auto_fast``);
   * ``pallas`` / ``mxu``: where ``pallas_route`` answers ``untiled`` or
     ``mxu``, dy clipped to +-max_dy by ``clip_offsets``, dx unrestricted,
     untiled kernels; where ``pallas`` gets ``tiled`` (a map too wide for the
@@ -63,8 +65,6 @@ from upsnet_torch.ops.deform_sample import (
     DeformSampleTaps, DeformSampleTiled, deform_sample9, pallas_route)
 from upsnet_torch.ops.deform_sample_mt import DeformSampleMT
 from upsnet_torch.ops.deform_shift import DeformSampleShift, shift_route_ok
-
-EXACT_IMPLS = ("auto", "gather")
 
 
 BOUNDARY_GRADS = ("clip", "damped", "straight_through")
@@ -224,6 +224,17 @@ def deform_conv2d_shift(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Te
     return out
 
 
+def auto_fast(offsets: torch.Tensor, max_dy: int, max_dx: int | None) -> torch.Tensor:
+    """The predicate of the JAX ``deform_conv2d_auto``'s ``lax.cond``, as a
+    one-element bool tensor on the offsets' device (no host sync): every
+    |dy| <= max_dy, and every |dx| <= max_dx unless it is None."""
+    off = offsets.detach()
+    ok = torch.linalg.vector_norm(off[..., 0::2], float("inf")) <= float(max_dy)
+    if max_dx is not None:
+        ok = ok & (torch.linalg.vector_norm(off[..., 1::2], float("inf")) <= float(max_dx))
+    return ok
+
+
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor | None = None, kernel_size: int = 3,
                   dilation: int = 1, impl: str = "auto", max_dy: int = 6,
@@ -233,7 +244,13 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     x (B, H, W, Cin); offsets (B, H, W, 2K); weight (K, Cin, Cout) tap-major;
     bias (Cout,). Returns (B, H, W, Cout) in x.dtype. Differentiable in x,
     offsets, weight and bias; ``boundary_grad`` is the gradient of the
-    offset clip of the windowed impls.
+    offset clip of the windowed impls. The derivative at an integer sample
+    coordinate is that of the JAX function the route stands for on a TPU
+    (``ops/deform_sample.py``, ``RULES``): ``floor`` under ``gather``;
+    ``hat`` under ``mxu`` and where ``pallas`` routes to ``mxu``; ``pallas``
+    on the Pallas kernels' routes; under ``auto`` the rule of the route
+    ``pallas_route`` answers while every offset lies inside its window, else
+    ``floor``, decided on the device.
     """
     if impl == "shift" and shift_route_ok(x.shape, weight.shape[-1], max_dy, max_dy,
                                           dilation, weight.shape[0]):
@@ -246,11 +263,14 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
         if route == "tiled":
             return _deform_conv2d_tiled(x, offsets, weight, bias, kernel_size, dilation,
                                         max_dy, max_dx, boundary_grad)
-        clip = max_dy
+        clip, rule = max_dy, ("hat" if route == "mxu" else "pallas")
     elif impl == "mxu":
-        clip = max_dy
-    elif impl in EXACT_IMPLS:
-        clip = None
+        clip, rule = max_dy, "hat"
+    elif impl == "gather":
+        clip, rule = None, "floor"
+    elif impl == "auto":  # the rule of the JAX cond's fast branch, where it is taken
+        route, max_dx = pallas_route(x.shape, weight.shape[-1], max_dy, dilation)
+        clip, rule = None, ("hat" if route == "mxu" else "pallas")
     else:
         raise NotImplementedError(f"dcn_impl {impl!r} is not ported")
     sy9, sx9 = sample_coords(offsets, kernel_size, dilation, clip, boundary_grad)
@@ -258,8 +278,9 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
             t is not None and t.requires_grad for t in (x, offsets, weight))):
         out = deform_sample9(side_by_side_projections(x, weight), sy9, sx9, tap_axis=3)
     else:
+        fast = auto_fast(offsets, max_dy, max_dx) if impl == "auto" else None
         reach = None if clip is None else clip + (kernel_size - 1) // 2 * dilation
-        out = DeformSampleTaps.apply(tap_projections(x, weight), sy9, sx9, reach)
+        out = DeformSampleTaps.apply(tap_projections(x, weight), sy9, sx9, reach, rule, fast)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

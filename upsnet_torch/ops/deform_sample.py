@@ -222,11 +222,29 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
 # and the coordinates and writes grad_y and the two coordinate gradients.
 # About 9 flops per element and corner.
 #
-# The coordinate derivative follows the TPU kernel: with the hat weight
-# v(d) = max(0, 1 - |d|) of a node at distance d, dv/dd = -sign(d) where
-# |d| < 1 and 0 elsewhere. At an integer coordinate the peak has d = 0 and
-# its neighbours |d| = 1, so gsy = gsx = 0 there (a floor-based one-sided
-# derivative, as autograd through ``_bilinear_zero_pad`` gives, does not).
+# The coordinate derivative is that of the JAX function the caller's route
+# stands for, one of three rules (``RULES``) that differ only where a
+# coordinate is an integer. With the hat weight v(d) = max(0, 1 - |d|) of a
+# node at distance d:
+#
+#   * ``pallas``, the Pallas backward kernels (the untiled and tiled
+#     ``pallas`` routes, ``shift``, ``mt``): dv/dd = -sign(d) where |d| < 1,
+#     else 0, so gsy = gsx = 0 at an integer coordinate (the peak has d = 0,
+#     its neighbours |d| = 1);
+#   * ``hat``, autodiff of max(0, 1 - |d|) as ``deform_conv2d_mxu`` writes it
+#     (``mxu``, and ``pallas`` where ``pallas_route`` answers ``mxu``): at an
+#     integer r, abs' is +1 at 0 and each maximum's tie takes half, so per
+#     axis 0.5 v[r + 1] - v[r] - 0.5 v[r - 1];
+#   * ``floor``, autodiff of the floor-based corner weights of
+#     ``deform_conv2d_batched`` (``gather``; ``auto`` where an offset lies
+#     beyond the window): per axis v[r + 1] - v[r], one-sided.
+#
+# ``auto`` under training passes a device flag (``fast``), the JAX cond's
+# predicate: where it is False the coordinate pass takes ``floor`` instead of
+# its rule, read on the device, with no host sync. The forward and grad_y are
+# the same under every rule.
+
+RULES = {"pallas": 0, "hat": 1, "floor": 2}  # the kernels' codes
 
 
 def _accum_dtype(dtype):
@@ -243,22 +261,43 @@ def deform_sample_plain(y: torch.Tensor, sy: torch.Tensor,
                               _accum_dtype(y.dtype)).to(y.dtype)
 
 
-def _hat_nodes(s: torch.Tensor):
-    """The two nodes a coordinate's hat can reach: ((index, v, dv), ...) with
-    v = max(0, 1 - |d|) and dv = -sign(d) on |d| < 1, else 0."""
+def _hat_nodes(s: torch.Tensor, rule: str):
+    """The nodes a coordinate's hat weighs on under ``rule``: ((index, v,
+    dv), ...) with v = max(0, 1 - |d|) and dv as ``rule`` says: the low
+    node, the high one, and under ``hat`` the node below the low one, which
+    has v = 0 and dv = -0.5 at an integer coordinate, else 0."""
     low = torch.floor(s)
     frac = s - low
-    moved = (frac > 0).to(s.dtype)  # 0 at an integer coordinate
     idx = low.to(torch.int64)
-    return ((idx, 1 - frac, -moved), (idx + 1, frac, moved))
+    if rule == "floor":
+        one = torch.ones_like(s)
+        return ((idx, 1 - frac, -one), (idx + 1, frac, one))
+    moved = (frac > 0).to(s.dtype)  # 0 at an integer coordinate
+    if rule == "pallas":
+        return ((idx, 1 - frac, -moved), (idx + 1, frac, moved))
+    if rule == "hat":
+        return ((idx, 1 - frac, -torch.ones_like(s)), (idx + 1, frac, 1 - 0.5 * (1 - moved)),
+                (idx - 1, torch.zeros_like(s), -0.5 * (1 - moved)))
+    raise ValueError(f"rule {rule!r} not in {list(RULES)}")
+
+
+def resolve_rule(rule: str, fast: torch.Tensor | None) -> str:
+    """The rule a plain version takes: ``rule``, or ``floor`` where the flag
+    ``fast`` (a one-element bool tensor, None: no flag) is False. Reads the
+    flag on the host, which syncs a CUDA flag: the kernels read it on the
+    device instead."""
+    if rule not in RULES:
+        raise ValueError(f"rule {rule!r} not in {list(RULES)}")
+    return rule if fast is None or bool(fast) else "floor"
 
 
 def deform_sample_bwd_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                            g: torch.Tensor):
-    """Plain PyTorch version of K3, written out over the 2x2 support with
-    the hat weights and their derivative (not autograd through the forward,
-    which would give a one-sided derivative at integer coordinates).
-    Returns (grad_y in ``y.dtype``, gsy, gsx in ``sy.dtype``)."""
+                            g: torch.Tensor, rule: str = "pallas"):
+    """Plain PyTorch version of K3, written out over the nodes of each
+    coordinate with the hat weights and their derivative under ``rule``
+    (``RULES``; the one-tap kernel has ``pallas`` only). Returns (grad_y in
+    ``y.dtype``, gsy, gsx in ``sy.dtype``); grad_y is the same under every
+    rule."""
     b, h, w, c = y.shape
     acc = _accum_dtype(y.dtype)
     n = b * h * w
@@ -271,14 +310,18 @@ def deform_sample_bwd_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     gsy = torch.zeros(n, dtype=acc, device=y.device)
     gsx = torch.zeros(n, dtype=acc, device=y.device)
     sy_f, sx_f = sy.reshape(n).to(acc), sx.reshape(n).to(acc)
-    for yy, vy, dvy in _hat_nodes(sy_f):
-        for xx, vx, dvx in _hat_nodes(sx_f):
+    nodes_x = _hat_nodes(sx_f, rule)
+    for i, (yy, vy, dvy) in enumerate(_hat_nodes(sy_f, rule)):
+        for j, (xx, vx, dvx) in enumerate(nodes_x):
+            if i == 2 and j == 2:  # v = 0 at both: no weight of any kind
+                continue
             ok = (inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)).to(acc)
             idx = base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
             dot = (y_flat[idx].to(acc) * g_flat).sum(-1) * ok
             gsy += dvy * vx * dot
             gsx += vy * dvx * dot
-            canvas.index_add_(0, idx, (vy * vx * ok)[:, None] * g_flat)
+            if i < 2 and j < 2:  # the node below the low one has v = 0
+                canvas.index_add_(0, idx, (vy * vx * ok)[:, None] * g_flat)
     return (canvas.reshape(b, h, w, c).to(y.dtype),
             gsy.reshape(b, h, w).to(sy.dtype), gsx.reshape(b, h, w).to(sx.dtype))
 
@@ -437,23 +480,27 @@ class DeformSample(torch.autograd.Function):
 
 
 def deform_sample_bwd_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                                 g: torch.Tensor, reach_y: int | None, tap_axis: int = 0):
+                                 g: torch.Tensor, reach_y: int | None, tap_axis: int = 0,
+                                 rule: str = "pallas", fast: torch.Tensor | None = None):
     """Plain PyTorch version of both all-tap K3 forms: the reach check
     (none for ``reach_y`` None, the unclipped form), then
-    ``deform_sample_bwd_plain`` on each tap of y. Returns (grad_y in y's
-    layout and dtype, gsy, gsx (K, B, H, W))."""
+    ``deform_sample_bwd_plain`` on each tap of y under ``resolve_rule(rule,
+    fast)``. Returns (grad_y in y's layout and dtype, gsy, gsx (K, B, H,
+    W))."""
     if reach_y is not None:
         check_reach(sy, sx, reach_y, None)
+    rule = resolve_rule(rule, fast)
     gy = torch.empty_like(y)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
     for t in range(y.shape[tap_axis]):
         gy.select(tap_axis, t)[...], gsy[t], gsx[t] = deform_sample_bwd_plain(
-            y.select(tap_axis, t), sy[t], sx[t], g)
+            y.select(tap_axis, t), sy[t], sx[t], g, rule)
     return gy, gsy, gsx
 
 
 def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                           g: torch.Tensor, reach_y: int, tap_axis: int = 0):
+                           g: torch.Tensor, reach_y: int, tap_axis: int = 0,
+                           rule: str = "pallas"):
     """K3 for all K taps of a layer whose outputs were summed: the backward
     of ``sum_t deform_sample(y_t, sy[t], sx[t])`` for upstream gradient g.
 
@@ -461,13 +508,14 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     ``tap_axis`` 0 (``tap_projections``) or side by side (B, H, W, K, C)
     with ``tap_axis`` 3 (``side_by_side_projections``); sy, sx (K, B, H, W)
     f32 with ``|sy - i| <= reach_y`` at every counted sample of pixel
-    (i, j); g (B, H, W, C) in y's dtype. Returns (grad_y in y's layout and
-    dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum in
-    a fixed order, rounded once: two runs give the same bits. CPU tensors
-    take the plain version, which raises on a sample beyond the reach; CUDA
-    tensors launch the two kernels (C % 8 == 0, all contiguous, 16-byte
-    aligned, B * K <= 65535, a band's scanned rows within shared memory:
-    W <= 3058 at reach 7), which give such a sample no gradient to y.
+    (i, j); g (B, H, W, C) in y's dtype; ``rule`` the coordinate derivative
+    (``RULES``). Returns (grad_y in y's layout and dtype, gsy, gsx
+    (K, B, H, W) f32). Each grad_y element is an f32 sum in a fixed
+    order, rounded once: two runs give the same bits. CPU tensors take the
+    plain version, which raises on a sample beyond the reach; CUDA tensors
+    launch the two kernels (C % 8 == 0, all contiguous, 16-byte aligned,
+    B * K <= 65535, a band's scanned rows within shared memory: W <= 3058
+    at reach 7), which give such a sample no gradient to y.
     """
     global launches_bwd_taps
     if tap_axis not in (0, 3):
@@ -475,8 +523,9 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     if reach_y < 0:
         raise ValueError(f"reach_y must be >= 0, got {reach_y}")
     k = _check_taps(y, sy, sx, g, tap_axis)
+    _check_rule(rule, None, y.device)
     if y.device.type == "cpu":
-        return deform_sample_bwd_taps_plain(y, sy, sx, g, reach_y, tap_axis)
+        return deform_sample_bwd_taps_plain(y, sy, sx, g, reach_y, tap_axis, rule)
     b, h, w, c = g.shape
     check_band(b * k, w, reach_y)
     gy = torch.empty_like(y)
@@ -484,9 +533,19 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     tap_major = int(tap_axis == 0)
     band_gather(g, sy, sx, gy, k, reach_y, tap_major)
     launches_bwd_taps += 1
-    coord_pass(y, sy, sx, g, gsy, gsx, k, tap_major)
+    coord_pass(y, sy, sx, g, gsy, gsx, k, tap_major, rule)
     launches_bwd_taps += 1
     return gy, gsy, gsx
+
+
+def _check_rule(rule: str, fast: torch.Tensor | None, device: torch.device) -> None:
+    """A rule of ``RULES`` and a flag that is None or one bool on ``device``."""
+    if rule not in RULES:
+        raise ValueError(f"rule {rule!r} not in {list(RULES)}")
+    if fast is not None and (fast.dtype != torch.bool or fast.numel() != 1
+                             or fast.device != device):
+        raise ValueError(f"fast must be one bool on {device}, got {fast.dtype} "
+                         f"{tuple(fast.shape)} on {fast.device}")
 
 
 def _check_taps(y, sy, sx, g, tap_axis: int, contiguous_on_cpu: bool = False) -> int:
@@ -531,14 +590,17 @@ def band_gather(g, sy, sx, gy, k: int, reach_y: int, tap_major: int) -> None:
                     (k, b, h, w, c, reach_y, tap_major))
 
 
-def coord_pass(y, sy, sx, g, gsy, gsx, k: int, tap_major: int) -> None:
+def coord_pass(y, sy, sx, g, gsy, gsx, k: int, tap_major: int, rule: str = "pallas",
+               fast: torch.Tensor | None = None) -> None:
     """Launch the coordinate pass of both all-tap K3 forms (``offset_grads.cuh``,
     also K8c's kernel): gsy, gsx (K, B, H, W) f32, every element written,
     from y in the layout ``tap_major`` names and CUDA tensors that
-    ``_check_taps`` passed. The K3 form that calls it counts the launch."""
+    ``_check_taps`` passed, under ``rule``, or ``floor`` where the device
+    flag ``fast`` (not None) reads False. The K3 form that calls it counts
+    the launch."""
     b, h, w, c = g.shape
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
-                    (y, sy, sx, g, gsy, gsx), (k, b, h, w, c, tap_major))
+                    (y, sy, sx, g, gsy, gsx, fast), (k, b, h, w, c, tap_major, RULES[rule]))
 
 
 SCAN_TILE = 2048  # bins a block of the counting sort's scan owns (kScanTile)
@@ -555,24 +617,28 @@ def sort_work_len(planes: int, h: int, w: int, n_samples: int) -> int:
 
 
 def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                                g: torch.Tensor):
+                                g: torch.Tensor, rule: str = "pallas",
+                                fast: torch.Tensor | None = None):
     """K3 for all K taps of a layer whose offsets are not clipped (``auto``,
     ``gather``): the backward of ``sum_t deform_sample(y_t, sy[t], sx[t])``
     for upstream gradient g, samples anywhere.
 
     y (K, B, H, W, C) tap-major; sy, sx (K, B, H, W) f32, any values; g
-    (B, H, W, C) in y's dtype. Returns (grad_y (K, B, H, W, C) in y's dtype,
-    gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum in a fixed
-    order, rounded once: two runs give the same bits. CPU tensors take the
-    plain version; CUDA tensors launch the counting-sort gather and the
-    coordinate pass (C % 8 == 0, all contiguous, 16-byte aligned,
+    (B, H, W, C) in y's dtype; ``rule`` the coordinate derivative
+    (``RULES``) and ``fast`` None or a one-element bool flag on y's device
+    (False: ``floor`` instead, as ``auto`` chooses). Returns (grad_y (K, B, H, W, C) in
+    y's dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum
+    in a fixed order, rounded once: two runs give the same bits. CPU tensors
+    take the plain version; CUDA tensors launch the counting-sort gather and
+    the coordinate pass (C % 8 == 0, all contiguous, 16-byte aligned,
     K * B * (H + 1) * (W + 1) < 2^31) with int32 scratch of about 4 bytes a
     bin and 24 a sample.
     """
     global launches_bwd_unclipped
     k = _check_taps(y, sy, sx, g, 0)
+    _check_rule(rule, fast, y.device)
     if y.device.type == "cpu":
-        return deform_sample_bwd_taps_plain(y, sy, sx, g, None)
+        return deform_sample_bwd_taps_plain(y, sy, sx, g, None, 0, rule, fast)
     b, h, w, c = g.shape
     n_work = sort_work_len(k * b, h, w, k * b * h * w)
     if n_work >= 2 ** 31:
@@ -583,7 +649,7 @@ def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Ten
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_unclipped_grad_y", y,
                     (g, sy, sx, gy, work), (k, b, h, w, c, n_work))
     launches_bwd_unclipped += 1
-    coord_pass(y, sy, sx, g, gsy, gsx, k, 1)
+    coord_pass(y, sy, sx, g, gsy, gsx, k, 1, rule, fast)
     launches_bwd_unclipped += 1
     return gy, gsy, gsx
 
@@ -594,7 +660,9 @@ class DeformSampleTaps(torch.autograd.Function):
     adds them; gradients to y, sy and sx by the all-tap K3 (their plain
     versions on CPU tensors), the row-band form where dy is clipped
     (``pallas``, ``mxu``) and the unclipped form for ``reach_y`` None
-    (``auto``, ``gather``).
+    (``auto``, ``gather``), with the coordinate derivative ``rule`` and, on
+    the unclipped form only, the flag ``fast`` that ``deform_conv2d`` chose
+    for the route.
 
     y (K, B, H, W, C) tap-major; sy, sx (K, B, H, W) f32 within ``reach_y``
     rows of their pixels, or anywhere for None. Returns (B, H, W, C) in
@@ -603,19 +671,26 @@ class DeformSampleTaps(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, y, sy, sx, reach_y: int | None):
+    def forward(ctx, y, sy, sx, reach_y: int | None, rule: str = "pallas",
+                fast: torch.Tensor | None = None):
+        _check_rule(rule, fast, y.device)
+        if fast is not None and reach_y is not None:
+            raise ValueError("a flag takes the unclipped form: reach_y must be None")
         ctx.save_for_backward(y, sy, sx)
-        ctx.reach_y = reach_y
+        ctx.reach_y, ctx.rule, ctx.fast = reach_y, rule, fast
         return sampled(lambda: deform_sample_taps(y, sy, sx))
 
     @staticmethod
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
         if ctx.reach_y is None:
-            gy, gsy, gsx = deform_sample_bwd_unclipped(y, sy, sx, g.contiguous())
+            gy, gsy, gsx = deform_sample_bwd_unclipped(y, sy, sx, g.contiguous(), ctx.rule,
+                                                       ctx.fast)
         else:
-            gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 0)
-        return gy, gsy, gsx, None
+            gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 0,
+                                                  ctx.rule)
+        # one gradient per input given: reach_y, and rule and fast where given
+        return (gy, gsy, gsx) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
 # ---------------------------------------------------------------------------
@@ -828,5 +903,6 @@ class DeformSampleTiled(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
-        gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 3)
+        gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 3,
+                                              "pallas")
         return gy, gsy, gsx, None, None

@@ -136,8 +136,8 @@ def _tap_nodes(sy_t, sx_t, b: int, h: int, w: int, acc_t):
     inside = ((sy_t > -1.0) & (sy_t < h) & (sx_t > -1.0) & (sx_t < w)).reshape(n)
     base = _image_base(b, h, w, sy_t.device).expand(b, h, w).reshape(n)
     sy_f, sx_f = sy_t.reshape(n).to(acc_t), sx_t.reshape(n).to(acc_t)
-    for yy, vy, dvy in _hat_nodes(sy_f):
-        for xx, vx, dvx in _hat_nodes(sx_f):
+    for yy, vy, dvy in _hat_nodes(sy_f, "pallas"):
+        for xx, vx, dvx in _hat_nodes(sx_f, "pallas"):
             ok = (inside & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)).to(acc_t)
             idx = base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
             yield idx, ok, vy, dvy, vx, dvx
