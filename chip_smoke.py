@@ -260,13 +260,14 @@ from upsnet_torch.models import get_model, layers
 from upsnet_torch.models.resnet import STAGE_BLOCKS
 from upsnet_torch.models.upsnet import build_model, forward_predict
 from upsnet_torch.ops import (
-    cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, nms, roi_align_fpn)
+    cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, roi_align_fpn)
 from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt
 from upsnet_torch.tools import bench_deform_impls
 from upsnet_torch.train.checkpoints import save_checkpoint
 from upsnet_torch.train.optimizer import make_optimizer
 from upsnet_torch.train.step import make_train_step
 from upsnet_torch.train.trainer import WATCHED_IMPLS, train_steps
+from upsnet_torch.utils.profiling import read_syncs, reset_syncs
 from upsnet_torch.ops.boxes import fpn_level_assignment
 from upsnet_torch.ops.roi_align import _bilinear_corners, _sample_coords
 
@@ -2259,7 +2260,7 @@ def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
     lat, per_request = [], []
     for i, batch in enumerate(batches):
         before = read_launches()
-        nms.iterations = 0
+        reset_syncs()
         t0 = time.perf_counter()
         out = forward_predict(model, cfg, anchors, batch)
         torch.cuda.synchronize()
@@ -2283,7 +2284,7 @@ def phase_predict(dev, impl: str = "auto", tag: str = "predict", bucket=BUCKET,
         print(f"[{tag}] request {i}: {lat[-1]:.1f} ms, {int(out['det_valid'].sum())} "
               f"detections, {int(out['pan_keep'].sum())} in pan_map, launches "
               f"{nonzero(per_request[-1])}, NMS fixpoint iterations "
-              f"{nms.iterations} (RPN + detection)")
+              f"{read_syncs()['nms_fixpoint']} (RPN + detection)")
     launches = read_launches()
     for moved in per_request:  # exact, so a training kernel in a request fails too
         if moved != expect_n:

@@ -19,7 +19,7 @@ on the CPU.
   reference ``.pth`` and a JAX (Orbax) snapshot refused by name.
 * ``tools.train.run`` and ``tools.test.run`` (coco and cityscapes) end to end
   with ``--device cpu``; without a card the default device is refused.
-* ``utils/profiling.py``: ``trace`` writes a Chrome trace, ``timed`` a time.
+* ``utils/profiling.py``: ``trace`` writes a Chrome trace.
 """
 
 import dataclasses
@@ -301,8 +301,8 @@ def test_train_entry_refuses_a_missing_card(sets, monkeypatch):  # noqa: F811
 
 def test_profiling_trace_and_timed(tmp_path):
     """``trace`` writes a Chrome trace of its region, and nothing without a
-    directory; ``timed`` puts the region's seconds under its name."""
-    from upsnet_torch.utils.profiling import timed, trace
+    directory."""
+    from upsnet_torch.utils.profiling import trace
 
     with trace(str(tmp_path / "prof")):
         torch.ones(64, 64) @ torch.ones(64, 64)
@@ -310,7 +310,3 @@ def test_profiling_trace_and_timed(tmp_path):
     assert any("aten::mm" in e.get("name", "") for e in events)
     with trace(None):
         pass
-    results = {}
-    with timed("region", results):
-        torch.ones(8).sum()
-    assert list(results) == ["region"] and results["region"] >= 0.0

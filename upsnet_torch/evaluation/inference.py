@@ -32,6 +32,7 @@ from upsnet_torch.models.upsnet import forward_predict
 from upsnet_torch.ops.anchors import pyramid_anchors
 from upsnet_torch.parallel.mesh import Group
 from upsnet_torch.train.checkpoints import restore_checkpoint
+from upsnet_torch.utils.profiling import host_sync
 
 # seg_pred_q is uint8, as the JAX predict step's
 MAX_SEG_CLASSES = 256
@@ -159,7 +160,8 @@ def predict_step(model, cfg: Config, anchors, batch, seg_argmax: bool = True) ->
     With ``seg_argmax`` False (test-time augmentation, which averages them)
     the float32 ``seg_logits`` cross instead. Every output comes back as a
     numpy array; the argmax and the copies run inside a ``predict.to_host``
-    profiler range, after ``forward_predict``'s ``predict.<stage>`` ranges."""
+    profiler range, after ``forward_predict``'s ``predict.<stage>`` ranges,
+    each copy a ``to_host`` host sync (``utils/profiling.py``)."""
     out = forward_predict(model, cfg, anchors, batch)
     with record_function("predict.to_host"):
         if seg_argmax:
@@ -168,7 +170,11 @@ def predict_step(model, cfg: Config, anchors, batch, seg_argmax: bool = True) ->
                 raise ValueError(f"{seg.shape[-1]} semantic classes do not fit "
                                  "seg_pred_q's uint8")
             out["seg_pred_q"] = torch.argmax(seg, dim=-1).to(torch.uint8)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        host = {}
+        for k, v in out.items():
+            with host_sync("to_host"):
+                host[k] = v.cpu().numpy()
+        return host
 
 
 def tta_results(cfg: Config, dataset, r: dict) -> dict:

@@ -46,6 +46,7 @@ from upsnet_torch.ops.proposals import pyramid_proposals, top_k
 from upsnet_torch.ops.roi_align_fpn import FPNRoIAlign
 from upsnet_torch.ops.targets import proposal_mask_targets, rpn_targets
 from upsnet_torch.train import losses as L
+from upsnet_torch.utils.profiling import host_sync
 
 
 class UPSNetModule(nn.Module):
@@ -333,10 +334,11 @@ def forward_train(model: UPSNetModule, cfg: Config, anchors, batch,
     k_fg = int(tc.batch_rois * tc.fg_fraction)
     seg_gt = batch["seg_gt"].long()
     with torch.no_grad():
-        counts = torch.stack([
-            (rt.labels >= 0).sum().float(), rt.norm.sum().float(), tgt.valid.sum().float(),
-            tgt.fg[:, :k_fg].sum().float(), (seg_gt != L.IGNORE).sum().float(),
-            torch.tensor(float(bsz), device=dev)])
+        sums = [(rt.labels >= 0).sum().float(), rt.norm.sum().float(), tgt.valid.sum().float(),
+                tgt.fg[:, :k_fg].sum().float(), (seg_gt != L.IGNORE).sum().float()]
+        with host_sync("const_h2d"):
+            n_images_t = torch.tensor(float(bsz), device=dev)
+        counts = torch.stack([*sums, n_images_t])
         if joined_counts is not None:
             counts = joined_counts(counts)
     n_rpn, rpn_norm, n_roi, n_fg, n_seg, n_images = counts.unbind()

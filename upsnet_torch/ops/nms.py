@@ -4,10 +4,10 @@ Port of ``upsnet_tpu/ops/nms.py``: sort by score (stable, so ties keep input
 order as ``jnp.argsort`` does), build the "i suppresses j" matrix for i < j
 with IoU > thresh, and iterate ``keep[j] = not any_i(keep[i] & sup[i, j])``
 to its fixpoint, which is exactly greedy NMS. The JAX ``lax.while_loop``
-becomes a Python loop that reads one flag from the device per iteration;
-every image of the batch iterates together until none changes.
-
-``iterations`` counts the fixpoint iterations run since it was last reset.
+becomes a Python loop that reads one flag from the device per iteration
+(a ``nms_fixpoint`` host sync, ``utils/profiling.py``, so that site's count
+is the number of iterations); every image of the batch iterates together
+until none changes.
 """
 
 from __future__ import annotations
@@ -15,8 +15,7 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops.boxes import pairwise_iou
-
-iterations = 0
+from upsnet_torch.utils.profiling import host_sync
 
 
 def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
@@ -28,10 +27,10 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
     Returns (indices (..., max_out) int64 padded with -1 and ordered by
     descending score, keep_valid (..., max_out) bool).
     """
-    global iterations
     n = boxes.shape[-2]
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
-                           device=scores.device)
+    with host_sync("const_h2d"):
+        neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
+                               device=scores.device)
     if valid is not None:
         scores = torch.where(valid, scores, neg_inf)
     order = torch.sort(-scores, dim=-1, stable=True).indices
@@ -49,9 +48,10 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
 
     keep = body(svalid)
     while True:
-        iterations += 1
         nxt = body(keep)
-        if torch.equal(nxt, keep):
+        with host_sync("nms_fixpoint"):
+            fixed = torch.equal(nxt, keep)
+        if fixed:
             break
         keep = nxt
 

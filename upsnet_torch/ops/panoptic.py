@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from upsnet_torch.ops.mask_paste import paste_masks
+from upsnet_torch.utils.profiling import host_sync
 
 IGNORE = 255
 
@@ -58,7 +59,8 @@ def panoptic_logits(seg_logits, boxes, classes, mask_logits, inst_valid,
     stuff = seg_logits[:, :, :num_stuff].permute(2, 0, 1)
     seg_t = seg_term(seg_logits, boxes, classes, num_stuff)
     inst = seg_t + mask_term(mask_logits, boxes, (h, w))
-    neg = torch.tensor(-1e4, dtype=inst.dtype, device=inst.device)
+    with host_sync("const_h2d"):
+        neg = torch.tensor(-1e4, dtype=inst.dtype, device=inst.device)
     valid = inst_valid[:, None, None]
     inst = torch.where(valid, inst, neg)
     thing_max = seg_logits[:, :, num_stuff:].amax(-1)
@@ -111,7 +113,8 @@ def panoptic_argmax_stream(seg_logits, boxes, classes, mask_logits,
 
     seg_t = seg_term(seg_logits, boxes, classes, num_stuff, row0)
     inst = seg_t + mask_term(mask_logits, boxes, (h, w), row0)
-    neg = torch.tensor(-1e4, dtype=inst.dtype, device=inst.device)
+    with host_sync("const_h2d"):
+        neg = torch.tensor(-1e4, dtype=inst.dtype, device=inst.device)
     valid = inst_valid[:, None, None]
     inst = torch.where(valid, inst, neg)
     inst_max, inst_arg = inst.max(0)

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from upsnet_torch.utils.profiling import host_sync
+
 
 def _bilinear_corners(y, x, height, width):
     """Corner indices + weights with Detectron clamping.
@@ -76,14 +78,17 @@ def _sample_coords(rois: torch.Tensor, spatial_scale: float, pooled: int,
     roi_y2 = rois[:, 3] * spatial_scale
     roi_w = (roi_x2 - roi_x1).clamp(min=1.0)
     roi_h = (roi_y2 - roi_y1).clamp(min=1.0)
-    inv_p = torch.tensor(1.0 / pooled, dtype=rois.dtype, device=rois.device)
+    with host_sync("const_h2d"):
+        inv_p = torch.tensor(1.0 / pooled, dtype=rois.dtype, device=rois.device)
     bin_w = roi_w * inv_p
     bin_h = roi_h * inv_p
     ph = torch.arange(pooled, dtype=rois.dtype, device=rois.device)
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which rounds otherwise at s = 3
-    iy = ((torch.arange(s, dtype=rois.dtype, device=rois.device) + 0.5)
-          / torch.tensor(float(s), dtype=rois.dtype, device=rois.device))
+    iy = torch.arange(s, dtype=rois.dtype, device=rois.device) + 0.5
+    with host_sync("const_h2d"):
+        s_t = torch.tensor(float(s), dtype=rois.dtype, device=rois.device)
+    iy = iy / s_t
     frac = ph[None, :, None] + iy[None, None, :]  # (1, P, S)
     ys = _fma(frac, bin_h[:, None, None], roi_y1[:, None, None])  # (N, P, S)
     xs = _fma(frac, bin_w[:, None, None], roi_x1[:, None, None])

@@ -2,22 +2,60 @@
 
 ``trace(logdir)`` records the region under ``torch.profiler`` (the host, and
 the card where there is one) and writes a Chrome trace, ``trace.json``, into
-``logdir`` (open it in ``chrome://tracing`` or Perfetto); ``timed`` takes the
-wall time of a region with the card synchronised on entry and on exit.
+``logdir`` (open it in ``chrome://tracing`` or Perfetto).
+
+``host_sync(site)`` marks one blocking read from the card: a value the host
+waits for (a flag, a copy to the host, a constant copied from pageable host
+memory, which PyTorch follows with a stream synchronise). Every entry adds 1
+to ``site``'s count in a per-process table (``read_syncs``,
+``reset_syncs``); while a ``torch.profiler`` records, the read also runs
+inside a ``sync.<site>`` range, on the profiler's clock with the kernels and
+the ``predict.<stage>`` / ``train.<stage>`` ranges. With no profiler
+recording it costs one flag check and one integer add.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
+
+SYNC_PREFIX = "sync."
+
+_syncs: dict[str, int] = {}
 
 
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+class host_sync:
+    """Context manager around one blocking read at ``site``: counts it, and
+    records it as a ``sync.<site>`` range while a profiler records."""
+
+    __slots__ = ("site", "_range")
+
+    def __init__(self, site: str):
+        self.site = site
+        self._range = None
+
+    def __enter__(self):
+        _syncs[self.site] = _syncs.get(self.site, 0) + 1
+        if _profiler_enabled():
+            self._range = record_function(SYNC_PREFIX + self.site)
+            self._range.__enter__()
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+
+
+def read_syncs() -> dict[str, int]:
+    """The blocking reads counted per site since the last ``reset_syncs``."""
+    return dict(_syncs)
+
+
+def reset_syncs() -> None:
+    _syncs.clear()
 
 
 @contextlib.contextmanager
@@ -36,18 +74,3 @@ def trace(logdir: str | None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-@contextlib.contextmanager
-def timed(name: str, results: dict | None = None):
-    """Wall-clock a region, the card synchronised on entry and on exit; the
-    seconds go to ``results[name]``, or are printed."""
-    _sync()
-    t0 = time.perf_counter()
-    yield
-    _sync()
-    dt = time.perf_counter() - t0
-    if results is not None:
-        results[name] = dt
-    else:
-        print(f"[timed] {name}: {dt * 1000:.2f} ms")
