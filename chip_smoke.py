@@ -23,10 +23,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 2. kernels: each of the twelve kernels (K2 and K6 in their all-tap forms,
    K3 in its all-tap forms, clipped and unclipped) against its plain
    PyTorch version on the card, on the shapes the paths below give it
-   (batch 2 at 832x1344; K6 and the clipped K3's side-by-side layout at P2
-   of the wide canvas, batch 1), with errors, kernel / plain / library-call
-   times (CUDA events, median of 30 single calls; the all-tap K2 and K6
-   also per call of 20 queued back to back) and the least time the card
+   (batch 2 at 832x1344; the all-tap K2 and both all-tap K3 forms at the
+   training batch 8 there, side by side as every route trains, and timed
+   beside on a tap-major copy, which must give the same bits; K6 and the
+   clipped K3 also at P2 of the wide canvas, batch 1), with errors,
+   kernel / plain / library-call times (CUDA events, median of 30 single
+   calls; the all-tap K2 and K6 also per call of 20 queued back to back)
+   and the least time the card
    could take for the same work; the all-tap K2 and K6 must also equal
    (values) the one-tap kernel launched per tap with the adds in y's dtype,
    in the same run, in bf16 and, at P3, in float32;
@@ -71,7 +74,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    (K1) and 2 (K4) per request; peak memory allocated; with ``--profile``,
    one more request under torch.profiler (device time per stage and kernel,
    idle share, and whether any ``aten::copy_`` of a ``[9, N, C]`` tensor,
-   the nine-fold copy of x that a tap-major projection makes, remains);
+   the transposing copy that a tap-major projection stack makes, remains);
 4. train: the same model in its train configuration (``dcn_impl: pallas``,
    ``dcn_boundary_grad: clip``) takes four SGD steps through
    ``train_steps`` on a synthetic batch of 2 (512 RoIs, 256 anchors, 100 GT
@@ -197,11 +200,12 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 20. remat: the GN rehearsal file's model at its batch 8 (832x1344,
    ``pallas``, bf16) under ``train.remat`` off, full and ``save_dcn``, from
    the same weights and batch, each with its own model, a warm step and
-   nine timed ones each, the three's steps in turns: step ms (CUDA events),
+   15 timed ones each, the three's steps in turns: step ms (CUDA events),
    peak allocated above what was resident, K2 / K3 launches a step; the
    three the same losses and weights bit for bit, K2 8 / 16 / 8 a step,
-   ``save_dcn``'s peak below off's and not above full's, its median step at
-   most 1.02 times full's; with ``--profile`` two more steps of full and of
+   ``save_dcn``'s peak below off's and not above full's, its step longer
+   than full's (the median of the differences within a round) by at most a
+   quarter of what full adds to off's; with ``--profile`` two more steps of full and of
    ``save_dcn`` in turns under torch.profiler, the trunk's host ms of each;
 21. train_frozenbn: ``upsnet_torch.tools.make_synth_pretrained`` folds the
    frozen-BN parity file's R50 (each pass's worst |mean| and |std - 1|), then
@@ -276,6 +280,9 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 BUCKET = (832, 1344)
 IM_HW = (800.0, 1333.0)
 BATCH = 2
+# the training cells' and the rehearsal files' batch: the all-tap K2 and K3
+# are checked and timed there, on the side-by-side layout every route trains on
+TAPS_BATCH = 8
 # a canvas whose P2 map (208 x 832 at 128 channels) is too wide for the TPU's
 # untiled DCN kernel, so that the routing rule itself picks the tiled form
 WIDE_BUCKET = (832, 3328)
@@ -867,16 +874,23 @@ def _check_forward_taps(what: str, got, chain, ref, plain_tap, taps: int):
     return float(err.max()), float((err / ref.float().abs().clamp(min=1e-3)).max())
 
 
+def _tap_major(y):
+    """A side-by-side stack (B, H, W, K, C) copied to tap-major (K, B, H, W, C)."""
+    return y.permute(3, 0, 1, 2, 4).contiguous()
+
+
 def _k2_layer(g, dev, b: int, h: int, w: int, c: int, dtype, field: str) -> tuple:
-    """y (9, B, H, W, C) in ``dtype``, sy, sx of a nine-tap layer on an
-    h x w x c map, tap-major: offsets ``field`` '+-2 px' (``dcn_offsets``)
-    or '+-40 px' (uniform), then ``_mark_integers``."""
+    """y (B, H, W, 9, C) in ``dtype``, side by side as every route projects
+    it, and sy, sx of a nine-tap layer on an h x w x c map: offsets
+    ``field`` '+-2 px' (``dcn_offsets``) or '+-40 px' (uniform), then
+    ``_mark_integers``."""
     taps = 9
     ky, kx = _tap_grid(dev)
     shape = (taps, b, h, w)
     iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
     ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
     y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(dtype)
+    y = y.permute(1, 2, 3, 0, 4).contiguous()
     if field == "+-40 px":
         off_y = torch.rand(shape, generator=g, device=dev) * 80 - 40
         off_x = torch.rand(shape, generator=g, device=dev) * 80 - 40
@@ -886,7 +900,8 @@ def _k2_layer(g, dev, b: int, h: int, w: int, c: int, dtype, field: str) -> tupl
 
 
 def _k2_chain(y, sy, sx):
-    """The layer as the one-tap K2 did it: 9 launches, 8 adds."""
+    """The layer as the one-tap K2 did it on a tap-major stack: 9 launches,
+    8 adds."""
     out = deform_sample.deform_sample(y[0], sy[0], sx[0])
     for t in range(1, y.shape[0]):
         out = out + deform_sample.deform_sample(y[t], sy[t], sx[t])
@@ -894,40 +909,58 @@ def _k2_chain(y, sy, sx):
 
 
 def _check_k2(what: str, y, sy, sx) -> tuple:
-    """``_check_forward_taps`` of the all-tap K2 on one tap-major layer."""
+    """``_check_forward_taps`` of the all-tap K2 on one side-by-side layer,
+    the one-tap chain on a tap-major copy of it."""
+    y_tm = _tap_major(y)
     return _check_forward_taps(
-        what, deform_sample.deform_sample_taps(y, sy, sx), _k2_chain(y, sy, sx),
-        deform_sample.deform_sample_taps_plain(y, sy, sx),
-        lambda t: deform_sample.deform_sample_plain(y[t], sy[t], sx[t]), y.shape[0])
+        what, deform_sample.deform_sample_taps(y, sy, sx, tap_axis=3), _k2_chain(y_tm, sy, sx),
+        deform_sample.deform_sample_taps_plain(y, sy, sx, tap_axis=3),
+        lambda t: deform_sample.deform_sample_plain(y_tm[t], sy[t], sx[t]), y.shape[3])
+
+
+def _k2_layouts_ms(y, sy, sx) -> tuple:
+    """The all-tap K2 on a side-by-side layer and on its tap-major copy:
+    the same bits, and each layout's ``time_ms`` and ``time_queued_ms``
+    (side by side first)."""
+    y_tm = _tap_major(y)
+    side = lambda: deform_sample.deform_sample_taps(y, sy, sx, tap_axis=3)  # noqa: E731
+    tm = lambda: deform_sample.deform_sample_taps(y_tm, sy, sx, tap_axis=0)  # noqa: E731
+    if not torch.equal(side(), tm()):
+        raise AssertionError("the all-tap K2 gives other bits tap-major than side by side")
+    return time_ms(side), time_queued_ms(side), time_ms(tm), time_queued_ms(tm)
 
 
 def check_k2_taps(dev) -> dict:
-    """The all-tap K2 on a nine-tap layer at P2 of the 832x1344 bucket
-    (9 x 2 x 208 x 336 x 128, bf16, tap-major), at two offset fields: +-2 px
+    """The all-tap K2 on a nine-tap layer at P2 of the 832x1344 bucket at
+    the training batch (8 x 208 x 336 x 9 x 128, bf16, side by side, as
+    every route trains), at two offset fields: +-2 px
     as in ``check_k1`` (3% at 6-12 px; its numbers are the returned ones) and
     uniform in +-40 px (the unclipped route's offsets after one update),
     each with 5% of the samples on integer rows, 5% on integer columns and
     1% beyond the image edge. Held against the one-tap K2 launched per tap
     with the adds (equal), and against the plain version; timed beside the
-    one-tap chain, the plain version, and nine ``grid_sample`` calls and the
-    adds. Then the float32 form of the kernel on the P3 layer (9 x 2 x 104 x
-    168 x 128) at +-2 px, and the bf16 form at the three backbone shapes of
-    the R101-DCN path (``r101_backbone_maps``, C 128 / 256 / 512) at +-2 px,
-    held the same way (the equality and the plain version's tolerance; not
-    timed)."""
+    one-tap chain (on a tap-major copy), the plain version, nine
+    ``grid_sample`` calls and the adds, and the kernel on the tap-major copy
+    (the same bits). Then the float32 form of the kernel on the P3 layer
+    (8 x 104 x 168 x 9 x 128) at +-2 px, and the bf16 form at the three
+    backbone shapes of the R101-DCN path (``r101_backbone_maps``, C 128 /
+    256 / 512; C4 is the 832x1344 bucket's 52 x 84) at +-2 px, held the same
+    way (the equality and the plain version's tolerance), and timed there in
+    both layouts."""
     g = torch.Generator(device=dev).manual_seed(13)
-    taps, b, c = 9, BATCH, 128
+    taps, b, c = 9, TAPS_BATCH, 128
 
     h, w = BUCKET[0] // 4, BUCKET[1] // 4
     row = {}
     for field in ("+-2 px", "+-40 px"):
         y, sy, sx = _k2_layer(g, dev, b, h, w, c, torch.bfloat16, field)
-        planes = [y[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+        y_tm = _tap_major(y)
+        planes = [y_tm[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
         err, rel = _check_k2("K2 taps", y, sy, sx)
         grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
 
         def run():
-            return deform_sample.deform_sample_taps(y, sy, sx)
+            return deform_sample.deform_sample_taps(y, sy, sx, tap_axis=3)
 
         def library():  # on float32 copies (a bf16 grid cannot hold the coordinates)
             acc = F.grid_sample(planes[0], grids[0], mode="bilinear", padding_mode="zeros",
@@ -937,12 +970,12 @@ def check_k2_taps(dev) -> dict:
                                           padding_mode="zeros", align_corners=True)
             return acc
 
-        ms = time_ms(run)
-        queued = [time_queued_ms(f) for f in (run, lambda: _k2_chain(y, sy, sx))]
-        chain_ms = time_ms(lambda: _k2_chain(y, sy, sx))
-        plain_ms = time_ms(lambda: deform_sample.deform_sample_taps_plain(y, sy, sx), 3)
+        ms, queued, tm_ms, tm_queued = _k2_layouts_ms(y, sy, sx)
+        chain_queued = time_queued_ms(lambda: _k2_chain(y_tm, sy, sx))
+        chain_ms = time_ms(lambda: _k2_chain(y_tm, sy, sx))
+        plain_ms = time_ms(lambda: deform_sample.deform_sample_taps_plain(y, sy, sx, 3), 3)
         library_ms = time_ms(library, 10)
-        del grids, planes
+        del grids, planes, y_tm
         # bytes this run needs: the rows of each tap's projection its counted
         # samples touch, the coordinates, one output; 4 corners x 2 flops per
         # channel and sample, and the K - 1 adds
@@ -950,15 +983,16 @@ def check_k2_taps(dev) -> dict:
         n_out = b * h * w * c
         n_bytes = n_rows * c * 2 + 2 * sy.numel() * 4 + n_out * 2
         bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c + (taps - 1) * n_out)
-        print(f"[K2 deform_sample_taps] {field}, y {tuple(y.shape)} bf16: equal to 9 one-tap K2 "
-              f"and 8 adds; against the plain version max abs err {err:.3e}, max rel err "
-              f"{rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} "
-              f"ms, the one-tap chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, 9x grid_sample "
-              f"and adds {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        print(f"[K2 deform_sample_taps] {field}, y {tuple(y.shape)} side by side bf16: equal "
+              f"to 9 one-tap K2 and 8 adds and to the kernel on the tap-major copy; against the "
+              f"plain version max abs err {err:.3e}, max rel err {rel:.3e} (tolerance 2^-7 * "
+              f"(sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} ms (tap-major {tm_ms:.4f} "
+              f"ms), the one-tap chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, 9x "
+              f"grid_sample and adds {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{n_bytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of it; {n_inside} counted "
-              f"samples; 20 calls queued, per call: kernel {queued[0]:.4f} ms "
-              f"({100 * bound_ms / queued[0]:.1f}% of the bound), the one-tap chain "
-              f"{queued[1]:.4f} ms")
+              f"samples; 20 calls queued, per call: kernel {queued:.4f} ms "
+              f"({100 * bound_ms / queued:.1f}% of the bound; tap-major {tm_queued:.4f} ms, "
+              f"{100 * bound_ms / tm_queued:.1f}%), the one-tap chain {chain_queued:.4f} ms")
         if field == "+-2 px":
             row = {"name": "deform_sample_taps", "route": "cuda",
                    "source": "upsnet_torch/csrc/deform_sample.cu",
@@ -978,9 +1012,12 @@ def check_k2_taps(dev) -> dict:
         y, sy, sx = _k2_layer(g, dev, b, hh, ww, cc, torch.bfloat16, "+-2 px")
         err, rel = _check_k2(f"K2 taps backbone {hh}x{ww}x{cc}", y, sy, sx)
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        print(f"[K2 deform_sample_taps] backbone, +-2 px, y {tuple(y.shape)} bf16: equal to 9 "
-              f"one-tap K2 and 8 adds; against the plain version max abs err {err:.3e}, max "
-              f"rel err {rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4)")
+        ms, queued, tm_ms, tm_queued = _k2_layouts_ms(y, sy, sx)
+        print(f"[K2 deform_sample_taps] backbone, +-2 px, y {tuple(y.shape)} side by side bf16: "
+              f"equal to 9 one-tap K2 and 8 adds and to the kernel on the tap-major copy; "
+              f"against the plain version max abs err {err:.3e}, max rel err {rel:.3e} "
+              f"(tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} ms, "
+              f"queued {queued:.4f} ms; tap-major {tm_ms:.4f} ms, queued {tm_queued:.4f} ms")
         del y, sy, sx
     torch.cuda.empty_cache()
     return row
@@ -1424,44 +1461,60 @@ def _check_k3(tag: str, y, grad, sy, sx, tap_axis: int, reach: int,
         sx, f"[K3 deform_sample_bwd_taps] {tag}, rule {rule}, y {tuple(y.shape)} bf16", rule)
 
 
+def _k3_layouts_ms(run, y) -> tuple:
+    """An all-tap K3 form ``run(y, tap_axis)`` on a side-by-side layer and on
+    its tap-major copy: the same bits (grad_y permuted), and each layout's
+    ``time_ms`` (side by side first)."""
+    y_tm = _tap_major(y)
+    side, tm = run(y, 3), run(y_tm, 0)
+    if not (torch.equal(side[0], tm[0].permute(1, 2, 3, 0, 4))
+            and all(torch.equal(a, b) for a, b in zip(side[1:], tm[1:]))):
+        raise AssertionError("an all-tap K3 gives other bits tap-major than side by side")
+    del side, tm
+    return time_ms(lambda: run(y, 3)), time_ms(lambda: run(y_tm, 0))
+
+
 def check_k3_taps(dev) -> dict:
     """The all-tap K3 on a nine-tap layer with dy and dx clipped to +-6
-    (reach 7), C 128, bf16: tap-major at P2 of the 832x1344 bucket
-    (9 x 2 x 208 x 336, the untiled ``pallas`` route; its numbers are the
-    returned ones) and side by side at P2 of the wide canvas
-    (1 x 208 x 832 x 9, the tiled form). Offsets as in ``check_k1`` (+-2 px,
-    3% at 6-12 px) before the clip, 5% of the samples on integer rows, 5% on
-    integer columns (zero coordinate derivative there), 1% beyond the image
-    edge; two runs must give the same bits. Timed beside it in the same run:
-    the one-tap K3 nine times on the same tap-major layer plus the stack
-    that autograd made of its results, which is what the layer cost in the
-    one-tap form. Then, held the same way and not timed, tap-major under
-    each rule of the coordinate derivative (``deform_sample.RULES``: zeros
-    at integer coordinates under ``pallas``, gradients there under ``hat``
-    and ``floor``) on an integer-heavy P2 layer (half the samples on integer
-    rows, half on integer columns), and at the three backbone shapes of the
-    R101-DCN path (``r101_backbone_maps``, C 128 / 256 / 512)."""
+    (reach 7), C 128, bf16, side by side as every route trains: at P2 of
+    the 832x1344 bucket at the training batch (8 x 208 x 336 x 9, the
+    untiled ``pallas`` route; its numbers are the returned ones) and at P2
+    of the wide canvas (1 x 208 x 832 x 9, the tiled form). Offsets as in
+    ``check_k1`` (+-2 px, 3% at 6-12 px) before the clip, 5% of the samples
+    on integer rows, 5% on integer columns (zero coordinate derivative
+    there), 1% beyond the image edge; two runs must give the same bits.
+    Timed beside it at P2 in the same run: the kernel on a tap-major copy
+    (the same bits), and the one-tap K3 nine times on that copy plus the
+    stack that autograd made of its results, which is what the layer cost
+    in the one-tap form. Then, held the same way, side by side under each
+    rule of the coordinate derivative (``deform_sample.RULES``: zeros at
+    integer coordinates under ``pallas``, gradients there under ``hat`` and
+    ``floor``) on an integer-heavy P2 layer (half the samples on integer
+    rows, half on integer columns), not timed, and at the three backbone
+    shapes of the R101-DCN path (``r101_backbone_maps``, C 128 / 256 / 512),
+    timed there in both layouts."""
     g = torch.Generator(device=dev).manual_seed(9)
     taps, c, max_d = 9, 128, 6
     reach = max_d + 1  # max_dy + half * dilation
 
+    def run(yy, tap_axis):
+        return deform_sample.deform_sample_bwd_taps(yy, sy, sx, grad, reach, tap_axis)
+
     row = {}
-    for tag, b, (h, w) in (("P2 tap-major", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
+    for tag, b, (h, w) in (("P2 side by side", TAPS_BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
                            ("wide P2 side by side", WIDE_BATCH,
                             (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4))):
-        tap_axis = 0 if tag.endswith("tap-major") else 3
-        y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, tap_axis, max_d)
-        gy_err, gy_rel, gsy_err, gsx_err = _check_k3(tag, y, grad, sy, sx, tap_axis, reach)
-        ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach,
-                                                                  tap_axis))
+        y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, 3, max_d)
+        gy_err, gy_rel, gsy_err, gsx_err = _check_k3(tag, y, grad, sy, sx, 3, reach)
+        ms = time_ms(lambda: run(y, 3))
         plain_ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps_plain(
-            y, sy, sx, grad, reach, tap_axis), 3)
+            y, sy, sx, grad, reach, 3), 3)
 
         # library yardstick: 9 calls of grid_sample's backward op on float32
         # copies made outside the timed call (one-sided at integer
         # coordinates and in normalised coordinates: speed only)
         grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
-        planes = [y.select(tap_axis, t).float().permute(0, 3, 1, 2).contiguous()
+        planes = [y.select(3, t).float().permute(0, 3, 1, 2).contiguous()
                   for t in range(taps)]
         g32 = grad.float().permute(0, 3, 1, 2).contiguous()
         library_ms = time_ms(lambda: [torch.ops.aten.grid_sampler_2d_backward(
@@ -1480,14 +1533,20 @@ def check_k3_taps(dev) -> dict:
                 f"{plain_ms:.4f} ms, 9x grid_sampler_2d_backward {library_ms:.4f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
                 f"{100 * bound_ms / ms:.1f}% of it")
-        if tap_axis == 0:
+        if not tag.startswith("wide"):
+            pair_ms, tm_ms = _k3_layouts_ms(run, y)
+            y_tm = _tap_major(y)
+
             # the layer as the one-tap K3 did it: nine zeroed canvases, nine
             # launches, nine casts, and autograd's stack of the nine results
             def pertap():
-                return torch.stack([deform_sample.deform_sample_bwd(y[t], sy[t], sx[t], grad)[0]
-                                    for t in range(taps)])
+                return torch.stack([deform_sample.deform_sample_bwd(
+                    y_tm[t], sy[t], sx[t], grad)[0] for t in range(taps)])
             pertap_ms = time_ms(pertap, 10)
-            line += f"; the same layer by 9 one-tap K3 and the stack: {pertap_ms:.4f} ms"
+            del y_tm
+            line += (f"; on a tap-major copy the same bits in {tm_ms:.4f} ms (side by side "
+                     f"{pair_ms:.4f} ms beside it); the same layer by 9 one-tap K3 and the "
+                     f"stack: {pertap_ms:.4f} ms")
             row = {"name": "deform_sample_bwd_taps", "route": "cuda",
                    "source": "upsnet_torch/csrc/deform_sample_bwd.cu",
                    "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:637",
@@ -1498,20 +1557,23 @@ def check_k3_taps(dev) -> dict:
         del y, grad, sy, sx
         torch.cuda.empty_cache()
     # each rule of the coordinate derivative on an integer-heavy P2 layer
-    # (half the rows and half the columns integers), tap-major: the layout
-    # of DeformSampleTaps, which takes pallas and hat on this form
-    y, grad, sy, sx = _k3_layer(g, dev, BATCH, BUCKET[0] // 4, BUCKET[1] // 4, c, 0, max_d,
-                                int_share=0.5)
+    # (half the rows and half the columns integers), side by side: the
+    # layout of DeformSampleTaps, which takes pallas and hat on this form
+    y, grad, sy, sx = _k3_layer(g, dev, TAPS_BATCH, BUCKET[0] // 4, BUCKET[1] // 4, c, 3,
+                                max_d, int_share=0.5)
     for rule in deform_sample.RULES:
-        errs = _check_k3("P2 tap-major integer-heavy", y, grad, sy, sx, 0, reach, rule)
+        errs = _check_k3("P2 side by side integer-heavy", y, grad, sy, sx, 3, reach, rule)
         row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
     del y, grad, sy, sx
     # the training route's layout at the backbone shapes of the R101-DCN path
     g_backbone = torch.Generator(device=dev).manual_seed(22)
     for hh, ww, cc in r101_backbone_maps():
-        y, grad, sy, sx = _k3_layer(g_backbone, dev, BATCH, hh, ww, cc, 0, max_d)
-        errs = _check_k3(f"backbone {hh}x{ww} tap-major", y, grad, sy, sx, 0, reach)
+        y, grad, sy, sx = _k3_layer(g_backbone, dev, TAPS_BATCH, hh, ww, cc, 3, max_d)
+        errs = _check_k3(f"backbone {hh}x{ww} side by side", y, grad, sy, sx, 3, reach)
         row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
+        ms, tm_ms = _k3_layouts_ms(run, y)
+        print(f"[K3 deform_sample_bwd_taps] backbone {hh}x{ww}x{cc}: kernel {ms:.4f} ms side by "
+              f"side, {tm_ms:.4f} ms on a tap-major copy (the same bits)")
         del y, grad, sy, sx
     torch.cuda.empty_cache()
     return row
@@ -1519,22 +1581,24 @@ def check_k3_taps(dev) -> dict:
 
 def check_k3_unclipped(dev) -> dict:
     """The unclipped all-tap K3 on a nine-tap layer of the ``auto`` and
-    ``gather`` routes at P2 of the 832x1344 bucket (9 x 2 x 208 x 336,
-    tap-major, C 128, bf16), at two offset fields, neither clipped: ``in
+    ``gather`` routes at P2 of the 832x1344 bucket at the training batch
+    (8 x 208 x 336 x 9, side by side as every route trains, C 128, bf16),
+    at two offset fields, neither clipped: ``in
     window``, as in ``check_k1`` (+-2 px, 3% at 6-12 px; its numbers are the
     returned ones), and ``far``, uniform in +-40 px (as far as the train
     steps drive them after one update); each with 5% of the samples on
     integer rows, 5% on integer columns and 1% beyond the image edge. Two
-    runs must give the same bits. Timed beside it at each field: the layer
-    as the one-tap K3 did it (nine zeroed canvases, launches and casts, and
-    the stack of the nine results). Then, held the same way and not timed,
+    runs must give the same bits. Timed beside it at each field: the kernel
+    on a tap-major copy (the same bits), and the layer as the one-tap K3 did
+    it on that copy (nine zeroed canvases, launches and casts, and the stack
+    of the nine results). Then, held the same way and not timed,
     on an integer-heavy field (+-2 px, half the samples on integer rows,
     half on integer columns): each rule of the coordinate derivative, and
     ``auto``'s device flag at both values under ``hat`` and ``pallas``
     (False: ``floor`` taken), each against the plain version of the rule
     taken."""
     g = torch.Generator(device=dev).manual_seed(10)
-    taps, b, c = 9, BATCH, 128
+    taps, b, c = 9, TAPS_BATCH, 128
     h, w = BUCKET[0] // 4, BUCKET[1] // 4
     shape = (taps, b, h, w)
     kk = torch.arange(taps, device=dev)
@@ -1542,10 +1606,15 @@ def check_k3_unclipped(dev) -> dict:
     kx = (kk % 3 - 1).float()[:, None, None, None]
     iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
     ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
-    y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    y_tm = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    y = y_tm.permute(1, 2, 3, 0, 4).contiguous()
     grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
     g32 = grad.float().permute(0, 3, 1, 2).contiguous()
-    planes = [y[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+    planes = [y_tm[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+
+    def run(yy, tap_axis, rule="pallas", fast=None):
+        return deform_sample.deform_sample_bwd_unclipped(yy, sy, sx, grad, rule, fast, tap_axis)
+
     row = {}
     for field in ("in window", "far"):
         if field == "far":
@@ -1554,16 +1623,16 @@ def check_k3_unclipped(dev) -> dict:
         else:
             off_y, off_x = dcn_offsets(g, dev, shape), dcn_offsets(g, dev, shape)
         sy, sx = _mark_integers(g, dev, iy + ky + off_y, ix + kx + off_x, h)
-        tag = f"[K3 deform_sample_bwd_unclipped] {field}, y {tuple(y.shape)} bf16"
+        tag = f"[K3 deform_sample_bwd_unclipped] {field}, y {tuple(y.shape)} side by side bf16"
         errs = _check_taps_backward(
-            "K3 unclipped", lambda: deform_sample.deform_sample_bwd_unclipped(y, sy, sx, grad),
-            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None), sy, sx, tag)
-        ms = time_ms(lambda: deform_sample.deform_sample_bwd_unclipped(y, sy, sx, grad))
+            "K3 unclipped", lambda: run(y, 3),
+            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3), sy, sx, tag)
+        ms, tm_ms = _k3_layouts_ms(run, y)
         plain_ms = time_ms(
-            lambda: deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None), 3)
+            lambda: deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3), 3)
 
         def pertap():
-            return torch.stack([deform_sample.deform_sample_bwd(y[t], sy[t], sx[t], grad)[0]
+            return torch.stack([deform_sample.deform_sample_bwd(y_tm[t], sy[t], sx[t], grad)[0]
                                 for t in range(taps)])
 
         pertap_ms = time_ms(pertap, 10)
@@ -1582,9 +1651,9 @@ def check_k3_unclipped(dev) -> dict:
         coords = 2 * sy.numel() * 4
         n_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + y.numel() * 2
         bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 6 * c)
-        print(f"{tag}: kernel {ms:.4f} ms (sort, gather and coordinate pass), plain "
-              f"{plain_ms:.4f} ms, 9x grid_sampler_2d_backward {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% "
+        print(f"{tag}: kernel {ms:.4f} ms (sort, gather and coordinate pass; on a tap-major "
+              f"copy the same bits in {tm_ms:.4f} ms), plain {plain_ms:.4f} ms, 9x "
+              f"grid_sampler_2d_backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% "
               f"of it; {n_inside} counted samples; the same layer by 9 one-tap K3 and the "
               f"stack: {pertap_ms:.4f} ms")
         if field == "in window":
@@ -1605,13 +1674,12 @@ def check_k3_unclipped(dev) -> dict:
         fast = None if flag is None else torch.tensor(flag, device=dev)
         taken = rule if flag is not False else "floor"
         errs = _check_taps_backward(
-            "K3 unclipped",
-            lambda: deform_sample.deform_sample_bwd_unclipped(y, sy, sx, grad, rule, fast),
-            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 0, rule, fast),
+            "K3 unclipped", lambda: run(y, 3, rule, fast),
+            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3, rule, fast),
             sy, sx, f"[K3 deform_sample_bwd_unclipped] integer-heavy, rule {rule}, flag "
-            f"{flag} ({taken} taken), y {tuple(y.shape)} bf16", taken)
+            f"{flag} ({taken} taken), y {tuple(y.shape)} side by side bf16", taken)
         row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
-    del sy, sx, y, grad, g32, planes
+    del sy, sx, y, y_tm, grad, g32, planes
     torch.cuda.empty_cache()
     return row
 
@@ -1982,10 +2050,13 @@ def check_k7(dev) -> tuple[dict, dict]:
 
 COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample_taps": (deform_sample, "launches_taps"),
+            "deform_sample_taps_side": (deform_sample, "launches_taps_side"),
             "deform_sample": (deform_sample, "launches_fwd"),
             "deform_sample_bwd": (deform_sample, "launches_bwd"),
             "deform_sample_bwd_taps": (deform_sample, "launches_bwd_taps"),
+            "deform_sample_bwd_taps_side": (deform_sample, "launches_bwd_taps_side"),
             "deform_sample_bwd_unclipped": (deform_sample, "launches_bwd_unclipped"),
+            "deform_sample_bwd_unclipped_side": (deform_sample, "launches_bwd_unclipped_side"),
             "fpn_roi_align": (roi_align_fpn, "launches"),
             "fpn_roi_align_bwd": (roi_align_fpn, "launches_bwd"),
             "shift_fwd": (deform_shift, "launches_fwd"),
@@ -2005,8 +2076,8 @@ def check_entry_shapes(dev, rows: list) -> None:
 
     - ``train_entry`` (``GN_YAML``: batch 8 in each of its buckets,
       832x1344 and 1344x832): at every DCN layer's map (``dcn_layers``) the
-      all-tap K2 at +-2 px (``_check_k2``), the clipped all-tap K3
-      tap-major at the file's ``dcn_max_dy`` (8, reach 9; ``_check_k3``)
+      all-tap K2 at +-2 px (``_check_k2``), the clipped all-tap K3 at the
+      file's ``dcn_max_dy`` (8, reach 9; ``_check_k3``), both side by side
       and K1 (the saturation probe's pass; ``_check_k1``); K4 and K5 at the
       three calls of a step: ``batch_rois`` RoIs at the box size,
       ``batch_rois * fg_fraction`` and the ``max_gt_instances`` GT slots (3
@@ -2083,13 +2154,13 @@ def check_entry_shapes(dev, rows: list) -> None:
             y, sy, sx = _k2_layer(g, dev, b, h, w, c, torch.bfloat16, "+-2 px")
             err, rel = _check_k2(f"K2 taps {where}", y, sy, sx)
             fold("deform_sample_taps", err)
-            print(f"[K2 deform_sample_taps] {where}, +-2 px, y {tuple(y.shape)} bf16: equal to 9 "
-                  f"one-tap K2 and 8 adds; against the plain version max abs err {err:.3e}, max "
+            print(f"[K2 deform_sample_taps] {where}, +-2 px, y {tuple(y.shape)} side by side "
+                  f"bf16: equal to 9 one-tap K2 and 8 adds; against the plain version max abs err {err:.3e}, max "
                   f"rel err {rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4)")
             del y, sy, sx
-            y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, 0, net.dcn_max_dy)
-            errs = _check_k3(f"{where} tap-major, clipped +-{net.dcn_max_dy}", y, grad, sy, sx,
-                             0, net.dcn_max_dy + 1)
+            y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, 3, net.dcn_max_dy)
+            errs = _check_k3(f"{where} side by side, clipped +-{net.dcn_max_dy}", y, grad, sy,
+                             sx, 3, net.dcn_max_dy + 1)
             fold("deform_sample_bwd_taps", max(errs[0], errs[2], errs[3]))
             del y, grad, sy, sx
             y9, sy9, sx9 = _k1_inputs(g, dev, b, h, w, c)
@@ -2161,13 +2232,13 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
         elif impl in ("pallas", "shift") and deform_sample.pallas_route(
                 shape, cout, net.dcn_max_dy, 1)[0] == "tiled":
             n["deform_sample_tiled_taps"] += fwd
-            n["deform_sample_bwd_taps"] += 2 * grad
+            n["deform_sample_bwd_taps_side"] += 2 * grad
         elif grad:
-            n["deform_sample_taps"] += fwd
+            n["deform_sample_taps_side"] += fwd
             if impl in ("pallas", "mxu", "shift"):
-                n["deform_sample_bwd_taps"] += 2
+                n["deform_sample_bwd_taps_side"] += 2
             else:
-                n["deform_sample_bwd_unclipped"] += 2
+                n["deform_sample_bwd_unclipped_side"] += 2
         else:
             n["deform_sample9"] += 1
     if heads:
@@ -2368,9 +2439,9 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
                 ours[label] = (ms + k.time_range.elapsed_us() / 1e3, n + 1)
     print(f"{tag} the port's kernels, summed device ms (launches): " + "; ".join(
         f"{label} {ms:.3f} ({n})" for label, (ms, n) in ours.items()))
-    # the nine-fold copy of x (or of its gradient) that a tap-major batched
-    # projection makes: a (9, N, C) or (9, C, N) tensor; the (9, B, H, W)
-    # coordinates are not counted
+    # the transposing copy of a tap-major projection stack (or of its
+    # gradient) that a batched matmul over the taps makes: a (9, N, C) or
+    # (9, C, N) tensor; the (9, B, H, W) coordinates are not counted
     copies = [(str(e.input_shapes[0]), sum(k.duration for k in e.kernels) / 1e3)
               for e in prof.events()
               if e.name == "aten::copy_" and e.device_type != DeviceType.CUDA
@@ -2475,14 +2546,14 @@ def compare_seg_with_pallas(model, cfg, anchors, batch, seg_shift, tag: str) -> 
 def compare_seg_with_tap_major(model, cfg, anchors, batch, seg) -> None:
     """``seg_logits`` of the ``auto`` model, whose no-grad DCN layers read the
     one-matmul projection side by side, against one more request on the
-    same weights with every such layer switched to the tap-major stack of
-    ``tap_projections`` and K1 reading that: both K1 forms give the same
-    bits on the same projections, so the two differ only where the
-    (N, Cin) x (Cin, 9 C) GEMM rounds a bf16 value otherwise than the batched
-    one; expected 0.0, held within 2^-5 of max |ref| as ``shift`` against
-    ``pallas`` is."""
+    same weights with every such layer switched to a tap-major copy of the
+    same projection (``side_by_side_projections`` permuted to (9, B, H, W, C)
+    and made contiguous) and K1 reading that: both K1 forms give the same
+    bits on the same projections, so the two must be equal; held within
+    2^-5 of max |ref| as ``shift`` against ``pallas`` is, and printed."""
     real_projections, real_k1 = deform_conv.side_by_side_projections, deform_conv.deform_sample9
-    deform_conv.side_by_side_projections = deform_conv.tap_projections
+    deform_conv.side_by_side_projections = (
+        lambda x, w: real_projections(x, w).permute(3, 0, 1, 2, 4).contiguous())
     deform_conv.deform_sample9 = lambda y, sy, sx, tap_axis: real_k1(y, sy, sx)
     try:
         ref = forward_predict(model, cfg, anchors, batch)["seg_logits"]
@@ -3693,8 +3764,8 @@ def phase_mt_tool(dev) -> dict:
         if route == "tiled":
             raise AssertionError(f"the tool's shape {h}x{w} is routed to the tiled form")
         expect["deform_sample9"] += 2 * (2 + reps)
-        expect["deform_sample_taps"] += 2 * (1 + reps)
-        expect["deform_sample_bwd_taps"] += 2 * 2 * (1 + reps)
+        expect["deform_sample_taps_side"] += 2 * (1 + reps)
+        expect["deform_sample_bwd_taps_side"] += 2 * 2 * (1 + reps)
     if launches != expect:
         raise AssertionError(f"mt_tool launches {nonzero(launches)}, expected {nonzero(expect)}")
     for row in rows:
@@ -3716,12 +3787,15 @@ def phase_mt_tool(dev) -> dict:
 
 
 REMAT_POLICIES = {"off": (False, "save_dcn"), "full": (True, ""), "save_dcn": (True, "save_dcn")}
-# timed, after a warm step: each policy first, second and third three times; the
-# medians of 9 host-bound steps part by about 1% between calls
-REMAT_STEPS = 9
-# save_dcn skips 8 K2 a step and is otherwise full remat: its median step may
-# exceed full's by run-to-run spread only
-REMAT_SAVE_DCN_OVER_FULL = 1.02
+# timed, after a warm step: each policy first, second and third five times
+REMAT_STEPS = 15
+# save_dcn is full remat less 8 K2 a step, which the launch counts hold
+# exactly; its step (about 440 ms) is within a few ms of full's, where the
+# steps' noise lies. So its time is held only against a gross loss: the
+# median over the rounds of save_dcn's step less full's in the same round (a
+# drift of the host or the card falls on both) may be at most this share of
+# the same median of full's step less off's, the recompute's cost (~100 ms)
+REMAT_SAVE_DCN_SHARE = 0.25
 
 
 def phase_remat(dev, profile: bool = False) -> dict:
@@ -3740,8 +3814,9 @@ def phase_remat(dev, profile: bool = False) -> dict:
     between two steps that hold the same tensors. Every step's losses and the last weights must be the same bits
     under the three; every step's launches those of ``expected_launches``
     (K2 8, 16 and 8); ``save_dcn``'s peak must lie below ``off``'s and not
-    above full's, its median step not above ``REMAT_SAVE_DCN_OVER_FULL``
-    times full's. With ``profile``, two more steps of full and of
+    above full's, and its step exceed full's by at most
+    ``REMAT_SAVE_DCN_SHARE`` of what full adds to off's (each the median of
+    the differences within a round). With ``profile``, two more steps of full and of
     ``save_dcn`` in turns under torch.profiler, and the trunk's host ms of
     each.
     Returns the three runs' launches."""
@@ -3804,8 +3879,8 @@ def phase_remat(dev, profile: bool = False) -> dict:
               f"allocated {r['peak'] / 2 ** 30:.3f} GiB with the three models resident, "
               f"{r['above'] / 2 ** 30:.3f} GiB above what was resident before a step "
               f"(requested by the step: {r['requested']} bytes); a step "
-              f"launches {r['expect']['deform_sample_taps']} K2, "
-              f"{r['expect']['deform_sample_bwd_taps']} K3; total by step "
+              f"launches {r['expect']['deform_sample_taps_side']} K2, "
+              f"{r['expect']['deform_sample_bwd_taps_side']} K3; total by step "
               f"{[x['total'] for x in r['losses']]}; weights {r['weights']}")
     if profile:  # in turns, twice: a process's first profiled step carries the set-up
         for name in ("full", "save_dcn") * 2:
@@ -3822,12 +3897,15 @@ def phase_remat(dev, profile: bool = False) -> dict:
         raise AssertionError(f"[{tag}] {off}: losses or weights differ from off's bits")
     saved, full = runs["save_dcn"], runs["full"]
     med = {n: statistics.median(r["ms"]) for n, r in runs.items()}
+    saved_over_full = statistics.median(a - b for a, b in zip(saved["ms"], full["ms"]))
+    full_over_off = statistics.median(a - b for a, b in zip(full["ms"], ref["ms"]))
     print(f"[{tag}] the three policies give the same losses and weights bit for bit; against off: "
           + ", ".join(f"{n} step {med[n] - med['off']:+.2f} ms, peak above the resident "
                       f"{(r['above'] - ref['above']) / 2 ** 30:+.3f} GiB"
                       for n, r in runs.items() if n != "off")
-          + f"; save_dcn's median step / full's {med['save_dcn'] / med['full']:.4f} (at most "
-          f"{REMAT_SAVE_DCN_OVER_FULL})")
+          + f"; save_dcn's median step / full's {med['save_dcn'] / med['full']:.4f}; within a "
+          f"round, median save_dcn - full {saved_over_full:+.2f} ms, full - off "
+          f"{full_over_off:+.2f} ms (the first at most {REMAT_SAVE_DCN_SHARE} of the second)")
     if profile:
         print(f"[{tag}] trunk host ms of a profiled step, full then save_dcn in turns: "
               f"save_dcn {saved['trunk_host_ms']}, full {full['trunk_host_ms']}")
@@ -3835,9 +3913,10 @@ def phase_remat(dev, profile: bool = False) -> dict:
         raise AssertionError(f"[{tag}] save_dcn's peak request {saved['requested']} is not "
                              f"below off's {ref['requested']} or is above full's "
                              f"{full['requested']}")
-    if not med["save_dcn"] <= REMAT_SAVE_DCN_OVER_FULL * med["full"]:
-        raise AssertionError(f"[{tag}] save_dcn's median step {med['save_dcn']:.2f} ms is above "
-                             f"{REMAT_SAVE_DCN_OVER_FULL} x full's {med['full']:.2f}")
+    if not saved_over_full <= REMAT_SAVE_DCN_SHARE * full_over_off:
+        raise AssertionError(f"[{tag}] save_dcn's step exceeds full's by {saved_over_full:.2f} "
+                             f"ms, above {REMAT_SAVE_DCN_SHARE} of full's {full_over_off:.2f} ms "
+                             f"over off's")
     return launches
 
 
@@ -4431,8 +4510,8 @@ def run_phases(dev, profile: bool) -> None:
     finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
     phase_reference(dev, norm="gn", dcn_stages=(3, 4, 5))
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    for k in kernels:  # the all-tap K2 and K3 count each layout apart
+        k["launches"] = launches[k["name"]] + launches.get(k["name"] + "_side", 0)
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on a main path")
     print(json.dumps({"kernels": kernels}))

@@ -178,8 +178,9 @@ def test_deform_sample_taps_function_gradcheck_float64(rng):
         frac = s - np.floor(s)
         s += np.where(frac < 0.05, 0.1, 0) - np.where(frac > 0.95, 0.1, 0)
     sy, sx = (_t(s).requires_grad_(True) for s in (sy, sx))
-    assert torch.autograd.gradcheck(lambda *a: tsample.DeformSampleTaps.apply(*a, 2),
-                                    (y, sy, sx), eps=1e-6, atol=1e-6, rtol=1e-5)
+    assert torch.autograd.gradcheck(
+        lambda *a: tsample.DeformSampleTaps.apply(*a, 2, "pallas", None, 0),
+        (y, sy, sx), eps=1e-6, atol=1e-6, rtol=1e-5)
 
 
 @pytest.mark.parametrize("what", ["rank", "tap_axis", "coords", "reach", "g_dtype", "g_shape"])

@@ -248,7 +248,7 @@ def test_unclipped_backward_is_nine_deform_sample_backwards(dtype):
     y, g, sy, sx = (a.to(dtype) for a in _taps(np.random.RandomState(3)))
     a = [v.clone().requires_grad_() for v in (y, sy, sx)]
     b = [v.clone().requires_grad_() for v in (y, sy, sx)]
-    out = tsample.DeformSampleTaps.apply(*a, None)
+    out = tsample.DeformSampleTaps.apply(*a, None, "pallas", None, 0)
     chain = None
     for yt, syt, sxt in zip(b[0].unbind(0), b[1].unbind(0), b[2].unbind(0)):
         tap = tsample.DeformSample.apply(yt, syt, sxt)
@@ -259,7 +259,7 @@ def test_unclipped_backward_is_nine_deform_sample_backwards(dtype):
     for u, v in zip(a, b):
         assert torch.equal(u.grad, v.grad)
     before = tsample.launches_bwd_unclipped
-    gy, gsy, gsx = tsample.deform_sample_bwd_unclipped(y, sy, sx, g)
+    gy, gsy, gsx = tsample.deform_sample_bwd_unclipped(y, sy, sx, g, tap_axis=0)
     assert tsample.launches_bwd_unclipped == before
     for t in range(y.shape[0]):
         ref = tsample.deform_sample_bwd(y[t], sy[t], sx[t], g)
@@ -271,7 +271,7 @@ def test_unclipped_backward_is_nine_deform_sample_backwards(dtype):
 @pytest.mark.parametrize("what", ["rank", "taps", "g_dtype", "g_shape", "sx_shape", "rule",
                                   "fast_dtype", "fast_size"])
 def test_unclipped_wrapper_checks(what):
-    y = torch.zeros((3, 1, 4, 5, 8))
+    y = torch.zeros((1, 4, 5, 3, 8))  # side by side, the default layout
     s = torch.full((3, 1, 4, 5), 40.0)  # far beyond the map: no reach check here
     g = torch.zeros((1, 4, 5, 8))
     tsample.deform_sample_bwd_unclipped(y, s, s, g)
@@ -293,7 +293,7 @@ def test_unclipped_wrapper_checks(what):
 def test_a_flag_takes_the_unclipped_form():
     """``auto``'s device flag goes with the unclipped K3 alone: a node with a
     reach and a flag is refused."""
-    y = torch.zeros((3, 1, 4, 5, 8))
+    y = torch.zeros((1, 4, 5, 3, 8))
     s = torch.full((3, 1, 4, 5), 1.0)
     tsample.DeformSampleTaps.apply(y, s, s, None, "pallas", torch.tensor(True))
     with pytest.raises(ValueError, match="unclipped"):

@@ -98,10 +98,10 @@ def test_taps_plain_is_the_chain_of_one_tap_plains(dtype):
     b, h, w, c = 2, 6, 11, 16
     sy, sx = (_t(s) for s in _coords(rng, b, h, w, 3))
     y = _t(rng.randn(TAPS, b, h, w, c).astype(np.float32)).to(dtype)
-    got = tsample.deform_sample_taps(y, sy, sx)
+    got = tsample.deform_sample_taps(y, sy, sx, 0)
     assert got.dtype == dtype and got.shape == (b, h, w, c)
     assert torch.equal(got, _chain(lambda t: tsample.deform_sample_plain(y[t], sy[t], sx[t])))
-    assert torch.equal(got, tsample.deform_sample_taps_plain(y, sy, sx))
+    assert torch.equal(got, tsample.deform_sample_taps_plain(y, sy, sx, 0))
     side = y.permute(1, 2, 3, 0, 4).contiguous()
     reach_x = 5  # the column shift of 1 and |dx| <= 3, beyond no sample
     tiled = tsample.deform_sample_tiled_taps(side, sy, sx, REACH, reach_x)
@@ -128,7 +128,7 @@ def test_taps_plain_matches_a_chain_of_interpreted_sample_pallas():
         y_pad = jnp.pad(y[t], ((0, 0), (pad, pad), (1, 128 - w - 1), (0, 0)))
         out = out + dcp._sample_pallas(y_pad, jnp.asarray(sy[t]), jnp.asarray(sx[t]), REACH)
     ty = _t(np.asarray(y.astype(jnp.float32))).to(torch.bfloat16)
-    got = tsample.deform_sample_taps(ty, _t(sy), _t(sx))
+    got = tsample.deform_sample_taps(ty, _t(sy), _t(sx), 0)
     taps = [tsample.deform_sample_plain(ty[t], _t(sy[t]), _t(sx[t])).float().numpy()
             for t in range(TAPS)]
     err = np.abs(got.float().numpy() - np.asarray(out.astype(jnp.float32)))
@@ -208,12 +208,12 @@ def test_layers_call_the_all_tap_wrapper_once(monkeypatch, route, grad):
 
 
 def _side_by_side(y):
-    """A tap-major stack as the tiled wrapper takes it, contiguous."""
+    """A tap-major stack as both wrappers take it by default, contiguous."""
     return y.permute(1, 2, 3, 0, 4).contiguous() if y.dim() == 5 else y
 
 
 WRAPPERS = {
-    "taps": tsample.deform_sample_taps,
+    "taps": lambda y, sy, sx: tsample.deform_sample_taps(_side_by_side(y), sy, sx),
     "tiled_taps": lambda y, sy, sx: tsample.deform_sample_tiled_taps(
         _side_by_side(y), sy, sx, 5, 5),
 }
@@ -239,8 +239,8 @@ MALFORMED = {
 def test_all_tap_wrappers_reject_malformed_input(wrapper, what):
     """Both wrappers take a well-formed CPU call without counting a launch
     and raise on a wrong dtype, rank, tap count, shape, C % 8, layout
-    (strided coordinates) or device. The tiled wrapper gets y side by side,
-    a contiguous copy, with a reach that every sample here keeps."""
+    (strided coordinates) or device. Both get y side by side, a contiguous
+    copy, the tiled one with a reach that every sample here keeps."""
     y = torch.zeros((3, 1, 4, 5, 16))
     s = torch.full((3, 1, 4, 5), 0.5)
     call = WRAPPERS[wrapper]

@@ -1,10 +1,10 @@
 """K1 on the side-by-side projection and the coordinate pass's layouts, on
 the CPU (the kernels' plain versions) against the JAX package.
 
-K1 (``deform_sample9``) takes its taps on ``tap_axis`` 0 (tap-major, as
-``tap_projections`` stacks them) or 3 (side by side, the output of the one
-matmul of ``side_by_side_projections``), and the no-grad untiled routes of
-``deform_conv2d`` use the second. The coordinate gradients that K8c and
+K1 (``deform_sample9``) takes its taps on ``tap_axis`` 0 (tap-major) or 3
+(side by side, the output of the one matmul of
+``side_by_side_projections``), and the untiled routes of ``deform_conv2d``
+use the second, with or without gradients. The coordinate gradients that K8c and
 both all-tap K3 forms share are written three ways in the plain versions
 (``shift_offset_grads_plain`` on the one-matmul layout, the coordinate half
 of ``deform_sample_bwd_taps_plain`` in either layout); they must agree, so
@@ -147,21 +147,17 @@ def _dcn_inputs(rng, b=2, h=16, w=20, cin=8, cout=16, spread=4.0):
 
 @pytest.fixture
 def spies(monkeypatch):
-    """Counts of the two projection forms and K1's layouts in
+    """Counts of the side-by-side projection, the layouts K1 reads and the
+    (tap_axis, size of axis 3) of the stacks ``DeformSampleTaps`` gets, in
     ``deform_conv2d``."""
-    calls = {"tap_projections": 0, "side_by_side_projections": 0, "k1_tap_axis": []}
+    calls = {"side_by_side_projections": 0, "k1_tap_axis": [], "taps_layout": []}
+    real_projections = tdc.side_by_side_projections
 
-    def count(name):
-        real = getattr(tdc, name)
+    def projections(*args, **kw):
+        calls["side_by_side_projections"] += 1
+        return real_projections(*args, **kw)
 
-        def spy(*args, **kw):
-            calls[name] += 1
-            return real(*args, **kw)
-
-        monkeypatch.setattr(tdc, name, spy)
-
-    count("tap_projections")
-    count("side_by_side_projections")
+    monkeypatch.setattr(tdc, "side_by_side_projections", projections)
     real_k1 = tdc.deform_sample9
 
     def k1(*args, tap_axis=0):
@@ -169,6 +165,13 @@ def spies(monkeypatch):
         return real_k1(*args, tap_axis=tap_axis)
 
     monkeypatch.setattr(tdc, "deform_sample9", k1)
+    real_taps = tdc.DeformSampleTaps.apply
+
+    def taps(y, *args):
+        calls["taps_layout"].append((args[5] if len(args) > 5 else 3, y.shape[3]))
+        return real_taps(y, *args)
+
+    monkeypatch.setattr(tdc.DeformSampleTaps, "apply", taps)
     return calls
 
 
@@ -179,7 +182,9 @@ def test_no_grad_deform_conv_reads_the_one_matmul_projection(rng, spies, impl):
     its fallback levels: the ``pallas`` route), and equals the JAX layer of
     that route: ``deform_conv2d_auto`` for ``auto``, ``_fused_untiled``
     (``_sample_pallas9`` interpreted) for the clipped ones; atol 1e-5. With
-    gradients the tap-major stack and ``DeformSampleTaps`` stay."""
+    gradients each route builds the same side-by-side projection and
+    ``DeformSampleTaps`` samples it in place (``tap_axis`` 3, the 9 taps on
+    axis 3): no tap-major stack, and no function builds one."""
     x, offsets, weight, bias = _dcn_inputs(rng)
     assert np.abs(offsets[..., 0::2]).max() > 6
     args = [jnp.asarray(a) for a in (x, offsets, weight, bias)]
@@ -191,13 +196,15 @@ def test_no_grad_deform_conv_reads_the_one_matmul_projection(rng, spies, impl):
     with torch.no_grad():
         got = tdc.deform_conv2d(*targs, impl=impl, max_dy=6)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=DCN_ATOL, rtol=0)
-    assert spies == {"tap_projections": 0, "side_by_side_projections": 1, "k1_tap_axis": [3]}
+    assert spies == {"side_by_side_projections": 1, "k1_tap_axis": [3], "taps_layout": []}
 
     targs[0].requires_grad_()
     out = tdc.deform_conv2d(*targs, impl=impl, max_dy=6)
     assert out.grad_fn is not None
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=DCN_ATOL, rtol=0)
-    assert spies == {"tap_projections": 1, "side_by_side_projections": 1, "k1_tap_axis": [3]}
+    assert spies == {"side_by_side_projections": 2, "k1_tap_axis": [3],
+                     "taps_layout": [(3, 9)]}
+    assert not hasattr(tdc, "tap_projections")
 
 
 # ------------------------------------------- the coordinate pass's layouts

@@ -21,12 +21,13 @@
 // corners in f32 and round once. K1 and the all-tap K2 load a tap's four
 // corners before its first FMA (sample_tap_hoisted) and the next tap's
 // coordinates while it is summed; the all-tap K2 keeps the taps' partial
-// sums in registers. K1 reads the projections in either layout through
-// strides: side by side (B, H, W, K, C), the output of one (N, Cin) x
-// (Cin, K * C) matmul that every no-grad route builds, or tap-major
-// (K, B, H, W, C). It adds the taps in tap order and the corners in corner
-// order, as sample_tap does, so both layouts give the same bits; its body,
-// sample_taps_pixel (sample_tap.cuh), is K8a's (deform_shift.cu) too. All
+// sums in registers. K1 and the all-tap K2 read the projections in either
+// layout through strides: side by side (B, H, W, K, C), the output of one
+// (N, Cin) x (Cin, K * C) matmul that every route builds, with or without
+// gradients, or tap-major (K, B, H, W, C). They add the taps in tap order and
+// the corners in corner order, as sample_tap does, so both layouts give the
+// same bits; K1's body, sample_taps_pixel (sample_tap.cuh), is K8a's
+// (deform_shift.cu) too. All
 // are bound by the bytes of the projections; none needs a halo window or
 // padding.
 //
@@ -75,13 +76,14 @@ deform_sample_kernel(const T* __restrict__ y, const float* __restrict__ sy,
   store8(out + pix * C + g * 8, acc);
 }
 
-// K2, all taps: y (taps, B, H, W, C) tap-major, the chain of tap_chain.cuh
-// in registers.
+// K2, all taps: y in either layout through its strides, as K1 reads it; the
+// chain of tap_chain.cuh in registers.
 template <typename T>
 __global__ void __launch_bounds__(256)
 deform_sample_taps_kernel(const T* __restrict__ y, const float* __restrict__ sy,
                           const float* __restrict__ sx, T* __restrict__ out,
-                          int taps, int B, int H, int W, int C) {
+                          int taps, int B, int H, int W, int C, int64_t img_stride,
+                          int64_t tap_stride, int pix_stride) {
   const int groups = C / 8;
   const int64_t plane = (int64_t)B * H * W;  // pixels per tap
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -89,21 +91,15 @@ deform_sample_taps_kernel(const T* __restrict__ y, const float* __restrict__ sy,
   const int g = (int)(tid % groups);
   const int64_t pix = tid / groups;  // (b * H + i) * W + j
   const int b = (int)(pix / ((int64_t)H * W));
-  const T* img = y + (int64_t)b * H * W * C + g * 8;
+  const T* img = y + (int64_t)b * img_stride + g * 8;
   float res[8];
-  float py = __ldg(sy + pix), px = __ldg(sx + pix);
-  for (int t = 0; t < taps; ++t) {
-    const float cy = py, cx = px;
-    if (t + 1 < taps) {  // in flight while this tap is summed
-      py = __ldg(sy + (t + 1) * plane + pix);
-      px = __ldg(sx + (t + 1) * plane + pix);
-    }
+  walk_taps(sy, sx, plane, pix, taps, [&](int t, float cy, float cx) {
     float acc[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-    sample_tap_hoisted(img + t * plane * C, cy, cx, H, W, C, acc);
+    sample_tap_hoisted(img + t * tap_stride, cy, cx, H, W, pix_stride, acc);
     chain_add<T>(t, acc, res);
-  }
+  });
   store8(out + pix * C + g * 8, res);
 }
 
@@ -135,10 +131,13 @@ void launch1(const void* y, const void* sy, const void* sx, void* out,
 
 template <typename T>
 void launch_taps(const void* y, const void* sy, const void* sx, void* out, int taps,
-                 int B, int H, int W, int C, cudaStream_t s) {
+                 int B, int H, int W, int C, int tap_major, cudaStream_t s) {
+  int64_t img, tap, pix;
+  layout_strides(tap_major, taps, B, H, W, C, img, tap, pix);
   deform_sample_taps_kernel<T><<<grid_for(B, H, W, C), kBlock, 0, s>>>(
       static_cast<const T*>(y), static_cast<const float*>(sy),
-      static_cast<const float*>(sx), static_cast<T*>(out), taps, B, H, W, C);
+      static_cast<const float*>(sx), static_cast<T*>(out), taps, B, H, W, C, img, tap,
+      (int)pix);
 }
 
 }  // namespace
@@ -169,14 +168,17 @@ int deform_sample(const void* y, const void* sy, const void* sx, void* out,
   return (int)cudaGetLastError();
 }
 
-// K2, all taps: y (taps, B, H, W, C), sy/sx (taps, B, H, W) f32, out
-// (B, H, W, C).
+// K2, all taps: y (taps, B, H, W, C) for tap_major 1, (B, H, W, taps, C) for
+// 0; sy/sx (taps, B, H, W) f32, out (B, H, W, C).
 int deform_sample_taps(const void* y, const void* sy, const void* sx, void* out, int taps,
-                       int B, int H, int W, int C, int dtype, void* stream) {
+                       int B, int H, int W, int C, int tap_major, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid_for(B, H, W, C) > 0 && taps > 0) {
-    if (dtype == 1) launch_taps<__nv_bfloat16>(y, sy, sx, out, taps, B, H, W, C, s);
-    else launch_taps<float>(y, sy, sx, out, taps, B, H, W, C, s);
+    if (dtype == 1) {
+      launch_taps<__nv_bfloat16>(y, sy, sx, out, taps, B, H, W, C, tap_major, s);
+    } else {
+      launch_taps<float>(y, sy, sx, out, taps, B, H, W, C, tap_major, s);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -55,9 +55,10 @@
 // The rank pass writes each sample as a record (output pixel, fractional
 // coordinates), so that a thread per (source pixel, 16 channels) sums the
 // 2 x 2 bins whose samples reach it with one record load and one g load a
-// sample, and writes grad_y once, tap-major. Scratch: about 4 bytes per bin
-// and 24 per sample. The passes are the bodies of sorted_gather.cuh, which
-// K7b (deform_sample_mt_bwd.cu) runs under kernel names of its own.
+// sample, and writes grad_y once, in y's layout through its strides
+// (tap-major or side by side, as the band gather). Scratch: about 4 bytes
+// per bin and 24 per sample. The passes are the bodies of sorted_gather.cuh,
+// which K7b (deform_sample_mt_bwd.cu) runs under kernel names of its own.
 //
 // One tap (deform_sample_bwd): a sub-warp of `width` lanes (a power of two
 // <= 32, at least C / 8 when that fits) owns one pixel; a lane takes groups
@@ -343,15 +344,16 @@ rank_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
                                   B, H, W);
 }
 
-// grad_y tap-major (K, B, H, W, C): plane t * B + b, g (B, H, W, C) read at
-// image b, key p.
+// grad_y in y's layout (layout_strides): plane t * B + b, g (B, H, W, C)
+// read at image b, key p.
 template <typename T, int NG>
 __global__ void __launch_bounds__(256)
 grad_y_sorted_kernel(const T* __restrict__ g, const int* __restrict__ offsets,
                      const int* __restrict__ tile_start, const int4* __restrict__ records,
-                     T* __restrict__ gy, int planes, int B, int H, int W, int C, int64_t g_img) {
+                     T* __restrict__ gy, int planes, int B, int H, int W, int C, int64_t g_img,
+                     int64_t gy_img, int64_t gy_tap, int64_t gy_pix) {
   sorted_gather::gather_body<T, NG>(g, offsets, tile_start, records, gy, planes, B, H, W, C,
-                                    g_img);
+                                    g_img, gy_img, gy_tap, gy_pix);
 }
 
 int64_t unclipped_work(int K, int B, int H, int W) {
@@ -360,7 +362,8 @@ int64_t unclipped_work(int K, int B, int H, int W) {
 
 template <typename T>
 int launch_grad_y_unclipped(const void* g, const void* sy, const void* sx, void* gy,
-                            void* work, int K, int B, int H, int W, int C, cudaStream_t s) {
+                            void* work, int K, int B, int H, int W, int C, int tap_major,
+                            cudaStream_t s) {
   const sorted_gather::SortKernels kernels{bin_count_kernel, scan_tiles_kernel,
                                            scan_totals_kernel, place_kernel, rank_kernel};
   sorted_gather::Sorted sorted;
@@ -368,9 +371,11 @@ int launch_grad_y_unclipped(const void* g, const void* sy, const void* sx, void*
                                               static_cast<const float*>(sx), work, K, B, H, W,
                                               K * B, sorted, s);
   if (err != 0) return err;
+  int64_t img, tap, pix;
+  layout_strides(tap_major, K, B, H, W, C, img, tap, pix);
   sorted_gather::launch_gather<T>(grad_y_sorted_kernel<T, 2>, grad_y_sorted_kernel<T, 1>,
                                   static_cast<const T*>(g), sorted, static_cast<T*>(gy), K * B,
-                                  B, H, W, C, (int64_t)H * W * C, s);
+                                  B, H, W, C, (int64_t)H * W * C, img, tap, pix, s);
   return (int)cudaGetLastError();
 }
 
@@ -415,19 +420,22 @@ int deform_sample_bwd_taps_grad_y(const void* g, const void* sy, const void* sx,
 }
 
 // All taps, nothing clipped, pass 1. dtype: 0 = float32, 1 = bfloat16 (of g
-// and gy). g (B, H, W, C); sy, sx (K, B, H, W) f32, any values; gy
-// (K, B, H, W, C), every element written; work int32 scratch of `work_len`
-// elements, at least unclipped_work(K, B, H, W) (else
-// cudaErrorInvalidValue), with K * B * (H + 1) * (W + 1) < 2^31.
+// and gy). g (B, H, W, C); sy, sx (K, B, H, W) f32, any values; gy in y's
+// layout (tap_major 1: (K, B, H, W, C), 0: (B, H, W, K, C)), every element
+// written; work int32 scratch of `work_len` elements, at least
+// unclipped_work(K, B, H, W) (else cudaErrorInvalidValue), with
+// K * B * (H + 1) * (W + 1) < 2^31.
 int deform_sample_bwd_unclipped_grad_y(const void* g, const void* sy, const void* sx,
                                        void* gy, void* work, int K, int B, int H, int W,
-                                       int C, int work_len, int dtype, void* stream) {
+                                       int C, int work_len, int tap_major, int dtype,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     if (work_len < unclipped_work(K, B, H, W)) return (int)cudaErrorInvalidValue;
     const int err = dtype == 1
-        ? launch_grad_y_unclipped<__nv_bfloat16>(g, sy, sx, gy, work, K, B, H, W, C, s)
-        : launch_grad_y_unclipped<float>(g, sy, sx, gy, work, K, B, H, W, C, s);
+        ? launch_grad_y_unclipped<__nv_bfloat16>(g, sy, sx, gy, work, K, B, H, W, C,
+                                                 tap_major, s)
+        : launch_grad_y_unclipped<float>(g, sy, sx, gy, work, K, B, H, W, C, tap_major, s);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();

@@ -87,9 +87,9 @@ __global__ void __launch_bounds__(256)
 mt_bwd_gather_kernel(const T* __restrict__ g, const int* __restrict__ offsets,
                      const int* __restrict__ tile_start, const int4* __restrict__ records,
                      T* __restrict__ gx, int planes, int B, int H, int W, int C,
-                     int64_t g_img) {
+                     int64_t g_img, int64_t gx_img, int64_t gx_tap, int64_t gx_pix) {
   sorted_gather::gather_body<T, NG>(g, offsets, tile_start, records, gx, planes, B, H, W, C,
-                                    g_img);
+                                    g_img, gx_img, gx_tap, gx_pix);
 }
 
 template <typename T, int WIDTH>
@@ -120,7 +120,7 @@ int launch(const void* x, const void* sy, const void* sx, const void* g, void* g
   if (err != 0) return err;
   sorted_gather::launch_gather<T>(mt_bwd_gather_kernel<T, 2>, mt_bwd_gather_kernel<T, 1>, tg,
                                   sorted, static_cast<T*>(gx), B, B, H, W, C,
-                                  (int64_t)H * W * K * C, s);
+                                  (int64_t)H * W * K * C, (int64_t)H * W * C, 0, C, s);
   with_width(C, [&](auto width) {
     constexpr int WIDTH = decltype(width)::value;
     mt_bwd_coords_kernel<T, WIDTH>

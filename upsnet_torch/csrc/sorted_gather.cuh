@@ -25,8 +25,11 @@
 // (plane, source pixel (r, q), 8 * NG channels) sums the 2 x 2 bins whose
 // samples reach it with one record load and one g load a sample, and writes
 // its element once in the map's dtype: no canvas, no zero fill, no cast, no
-// float atomics, the same bits on every run. Scratch: int32, about 4 bytes a
-// bin and 24 a sample (work_len).
+// float atomics, the same bits on every run. It writes through (image, tap,
+// pixel) strides, plane t * B + b at out + b * img + t * tap: K3's tap maps
+// tap-major (K, B, H, W, C) or side by side (B, H, W, K, C), K7b's gradient
+// to x (B, H, W, C) with t 0. Scratch: int32, about 4 bytes a bin and 24 a
+// sample (work_len).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -184,14 +187,16 @@ __device__ __forceinline__ void rank_body(const float* __restrict__ sy,
 // (y0 + 1, x0 + 1) numbering, each pair contiguous in the sorted order. Row
 // y0 = r first, then r - 1; within a row x0 = q - 1 first, then q; within a
 // bin ascending key. One 16-byte record load per sample, then its g at
-// g + (plane % B) * g_img + key * C. out (planes, H, W, C).
+// g + (plane % B) * g_img + key * C. Source pixel p of plane t * B + b is
+// written at out + b * out_img + t * out_tap + p * out_pix.
 template <typename T, int NG>
 __device__ __forceinline__ void gather_body(const T* __restrict__ g,
                                             const int* __restrict__ offsets,
                                             const int* __restrict__ tile_start,
                                             const int4* __restrict__ records,
                                             T* __restrict__ out, int planes, int B, int H, int W,
-                                            int C, int64_t g_img) {
+                                            int C, int64_t g_img, int64_t out_img,
+                                            int64_t out_tap, int64_t out_pix) {
   const int slices = C / (8 * NG);
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t hw = (int64_t)H * W;
@@ -199,7 +204,8 @@ __device__ __forceinline__ void gather_body(const T* __restrict__ g,
   const int c0 = (int)(tid % slices) * 8 * NG;
   const int64_t pix = tid / slices;  // (plane * H + r) * W + q
   const int plane = (int)(pix / hw);
-  const int r = (int)(pix % hw / W), q = (int)(pix % W);
+  const int64_t p = pix % hw;  // r * W + q
+  const int r = (int)(p / W), q = (int)(p % W);
   const T* g_b = g + (plane % B) * g_img + c0;
   float acc[NG][8];
 #pragma unroll
@@ -227,7 +233,9 @@ __device__ __forceinline__ void gather_body(const T* __restrict__ g,
     }
   }
 #pragma unroll
-  for (int j = 0; j < NG; ++j) store8(out + pix * C + c0 + j * 8, acc[j]);
+  T* dst = out + (plane % B) * out_img + (plane / B) * out_tap + p * out_pix + c0;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) store8(dst + j * 8, acc[j]);
 }
 
 // The int32 scratch of a sort of n_samples samples into n_bins bins (the
@@ -295,21 +303,22 @@ inline int sort_samples(const SortKernels& k, const float* sy, const float* sx, 
 
 template <typename T>
 using GatherKernel = void (*)(const T*, const int*, const int*, const int4*, T*, int, int, int,
-                              int, int, int64_t);
+                              int, int, int64_t, int64_t, int64_t, int64_t);
 
-// Launches the gather over `planes` planes of (H, W, C) on stream s: `ng2`
+// Launches the gather over `planes` planes of (H, W, C), written through the
+// strides (out_img, out_tap, out_pix) of gather_body, on stream s: `ng2`
 // (16 channels a thread, one record load serving both groups) where C
 // allows it, else `ng1`.
 template <typename T>
 void launch_gather(GatherKernel<T> ng2, GatherKernel<T> ng1, const T* g, const Sorted& sorted,
                    T* out, int planes, int B, int H, int W, int C, int64_t g_img,
-                   cudaStream_t s) {
+                   int64_t out_img, int64_t out_tap, int64_t out_pix, cudaStream_t s) {
   const int ng = C % 16 == 0 ? 2 : 1;
   const int64_t threads = (int64_t)planes * H * W * (C / (8 * ng));
   const unsigned blocks = (unsigned)((threads + 255) / 256);
   const GatherKernel<T> kernel = ng == 2 ? ng2 : ng1;
   kernel<<<blocks, 256, 0, s>>>(g, sorted.offsets, sorted.tile_start, sorted.records, out,
-                                planes, B, H, W, C, g_img);
+                                planes, B, H, W, C, g_img, out_img, out_tap, out_pix);
 }
 
 }  // namespace sorted_gather

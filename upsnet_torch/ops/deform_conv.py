@@ -10,16 +10,17 @@ Bilinear interpolation is linear, so the project-first forms apply each
 tap's weight first and sample the projections:
 
   * untiled (``_fused_untiled`` / ``_pertap_untiled``, chosen as
-    ``_untiled_dispatch`` chooses): without gradients one matmul gives all
-    taps side by side and K1 (``ops/deform_sample.py``) samples and sums
-    them in one launch, in f32. When gradients are recorded one matmul per
-    tap gives a tap-major stack, and one
+    ``_untiled_dispatch`` chooses): one matmul gives all taps side by side,
+    with or without gradients, and the kernels sample that layout in place.
+    Without gradients K1 (``ops/deform_sample.py``) samples and sums them in
+    one launch, in f32. When gradients are recorded one
     ``DeformSampleTaps`` samples all taps in one launch of the all-tap K2,
     which rounds each tap and adds it in ``x.dtype`` in tap order, as the
     JAX package's training does; its backward is the all-tap K3 (two
     launches per layer): the row-band
     form where dy is clipped, the unclipped form where it is not (``auto``,
-    ``gather``).
+    ``gather``). The matmul's backward is two plain matmuls, one for x and
+    one for the weight, with no transposed copy of the taps.
   * tiled (``_deform_conv2d_tiled``, after ``_deform_conv2d_pallas_tiled``):
     one matmul gives all taps side by side, dy **and dx** are clipped, and
     ``DeformSampleTiled`` samples all taps in one launch (the all-tap K6,
@@ -136,17 +137,6 @@ def sample_coords(offsets: torch.Tensor, kernel_size: int, dilation: int,
     sy9 = (iy + ky + off_y).contiguous()
     sx9 = (ix + kx + off_x).contiguous()
     return sy9, sx9
-
-
-def tap_projections(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """x (B, H, W, Cin) @ each tap's weight (K, Cin, Cout) -> the tap-major
-    stack (K, B, H, W, Cout) in x.dtype: one batched matmul whose batch is
-    the tap, so no transpose follows it, but which broadcasts x over the
-    taps and so copies it K times first (forward and backward)."""
-    b, h, w, cin = x.shape
-    k, _, cout = weight.shape
-    x2 = x.reshape(1, b * h * w, cin)
-    return torch.matmul(x2, weight.to(x.dtype)).view(k, b, h, w, cout)
 
 
 def side_by_side_projections(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -274,13 +264,14 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     else:
         raise NotImplementedError(f"dcn_impl {impl!r} is not ported")
     sy9, sx9 = sample_coords(offsets, kernel_size, dilation, clip, boundary_grad)
+    y = side_by_side_projections(x, weight)
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, offsets, weight))):
-        out = deform_sample9(side_by_side_projections(x, weight), sy9, sx9, tap_axis=3)
+        out = deform_sample9(y, sy9, sx9, tap_axis=3)
     else:
         fast = auto_fast(offsets, max_dy, max_dx) if impl == "auto" else None
         reach = None if clip is None else clip + (kernel_size - 1) // 2 * dilation
-        out = DeformSampleTaps.apply(tap_projections(x, weight), sy9, sx9, reach, rule, fast)
+        out = DeformSampleTaps.apply(y, sy9, sx9, reach, rule, fast, 3)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

@@ -33,11 +33,10 @@ thread per (output pixel, 8-channel group), makes one 16-byte load per
 corner along contiguous channels, issues a tap's four corner loads before
 it adds any and loads the next tap's coordinates meanwhile, loops over the
 taps and the 4 corners with an f32 accumulator and rounds once at the end.
-It reads the projections in place in either layout: tap-major, as
-``tap_projections`` gives them, or side by side, the output of the one
-(N, Cin) x (Cin, T·C) matmul of ``side_by_side_projections``, which the
-no-grad routes build because the tap-major batched matmul materialises x
-once per tap first.
+It reads the projections in place in either layout: side by side, the
+output of the one (N, Cin) x (Cin, T·C) matmul of
+``side_by_side_projections``, which every route builds, or tap-major
+(T, B, H, W, C), which tests and tools still hand the kernels.
 
 What bounds it: the bytes of ``y9`` (T·B·H·W·C elements, read once in the
 ideal; neighbouring pixels share corners through L1/L2), plus the f32
@@ -56,7 +55,9 @@ K2's, ``launches_fwd`` the one-tap K2's, ``launches_bwd`` the one-tap K3's,
 ``launches_bwd_taps`` and ``launches_bwd_unclipped`` the all-tap K3's,
 clipped and not (two per call: one per pass), ``launches_tiled_taps`` the
 all-tap K6's and ``launches_tiled`` the one-tap K6's (CPU calls do not
-count).
+count). The all-tap K2's and K3's counts are of tap-major calls; the same
+names ending in ``_side`` count their side-by-side calls, the layout of
+every route.
 """
 
 from __future__ import annotations
@@ -70,10 +71,13 @@ from upsnet_torch.ops.recompute import sampled
 
 launches = 0
 launches_taps = 0
+launches_taps_side = 0
 launches_fwd = 0
 launches_bwd = 0
 launches_bwd_taps = 0
+launches_bwd_taps_side = 0
 launches_bwd_unclipped = 0
+launches_bwd_unclipped_side = 0
 launches_tiled_taps = 0
 launches_tiled = 0
 
@@ -149,9 +153,9 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
     """Σ_t bilinear(y_t; sy9[t], sx9[t]) with DCNv1 zero padding.
 
     y9 bf16/f32 unpadded tap projections with their T taps on ``tap_axis``:
-    tap-major (T, B, H, W, C) for 0 (``tap_projections``), side by side
-    (B, H, W, T, C) for 3 (``side_by_side_projections``, the layout of the
-    no-grad routes); sy9, sx9 (T, B, H, W) f32 absolute sample coordinates.
+    tap-major (T, B, H, W, C) for 0, side by side (B, H, W, T, C) for 3
+    (``side_by_side_projections``, the layout of every route); sy9, sx9
+    (T, B, H, W) f32 absolute sample coordinates.
     Returns (B, H, W, C) in ``y9.dtype``, the same bits in both layouts. CPU
     tensors take the plain version; CUDA tensors launch the kernel
     (C % 8 == 0, contiguous, 16-byte aligned).
@@ -188,7 +192,10 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
 # ``y.dtype`` in tap order. On the TPU both kernels work on zero-padded rows
 # inside a +-max_dy window and K3 read-modify-writes a window of an f32
 # canvas per sequential grid step. On the card a thread reads any coordinate
-# of the unpadded map. The all-tap K2 (``csrc/deform_sample.cu``) runs the
+# of the unpadded map, and the kernels read and write the tap projections in
+# either layout through strides: side by side (B, H, W, K, C), the one
+# matmul's output that every route samples in place, or tap-major
+# (K, B, H, W, C). The all-tap K2 (``csrc/deform_sample.cu``) runs the
 # whole chain in one launch: a thread owns (pixel, 8 channels), rounds each
 # tap's f32 sum to ``y.dtype`` and adds it to the running value in f32 with
 # one more rounding, which is what a bf16 add on the card computes, so its
@@ -427,40 +434,49 @@ def deform_sample_bwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     return canvas.to(y.dtype), gsy, gsx
 
 
-def deform_sample_taps_plain(y: torch.Tensor, sy: torch.Tensor,
-                             sx: torch.Tensor) -> torch.Tensor:
+def deform_sample_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                             tap_axis: int = 3) -> torch.Tensor:
     """Plain PyTorch version of the all-tap K2: ``deform_sample_plain`` on
-    each tap of y (K, B, H, W, C), the results added in ``y.dtype`` in tap
-    order."""
+    each tap of y (its K taps on ``tap_axis``), the results added in
+    ``y.dtype`` in tap order."""
     out = None
-    for t in range(y.shape[0]):
-        tap = deform_sample_plain(y[t], sy[t], sx[t])
+    for t in range(y.shape[tap_axis]):
+        tap = deform_sample_plain(y.select(tap_axis, t), sy[t], sx[t])
         out = tap if out is None else out + tap
     return out
 
 
-def deform_sample_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """K2 for all K taps of a layer: ``sum_t deform_sample(y[t], sy[t],
+def deform_sample_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
+                       tap_axis: int = 3) -> torch.Tensor:
+    """K2 for all K taps of a layer: ``sum_t deform_sample(y_t, sy[t],
     sx[t])`` with each tap rounded to ``y.dtype`` and added in it in tap
     order, as the JAX package's training form adds them.
 
-    y (K, B, H, W, C) bf16/f32 tap-major projections; sy, sx (K, B, H, W)
-    f32 absolute sample coordinates, any values; all three contiguous.
-    Returns (B, H, W, C) in ``y.dtype``, the values of
+    y bf16/f32 tap projections with their K taps on ``tap_axis``: side by
+    side (B, H, W, K, C) for 3, the default (``side_by_side_projections``,
+    the layout of every route), tap-major (K, B, H, W, C) for 0; sy, sx
+    (K, B, H, W) f32 absolute sample coordinates, any values; all three
+    contiguous. Returns (B, H, W, C) in ``y.dtype``, the values of
     ``deform_sample_taps_plain``'s chain up to the f32 summation order
-    inside a tap. CPU tensors take the plain version; CUDA tensors launch
-    the kernel (C % 8 == 0, y 16-byte aligned). Not differentiable by
-    itself: ``DeformSampleTaps`` is.
+    inside a tap, the same bits in both layouts. CPU tensors take the plain
+    version; CUDA tensors launch the kernel (C % 8 == 0, y 16-byte aligned).
+    Not differentiable by itself: ``DeformSampleTaps`` is.
     """
-    global launches_taps
-    k = _check_taps(y, sy, sx, None, 0, contiguous_on_cpu=True)
+    global launches_taps, launches_taps_side
+    if tap_axis not in (0, 3):
+        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
+    k = _check_taps(y, sy, sx, None, tap_axis, contiguous_on_cpu=True)
     if y.device.type == "cpu":
-        return deform_sample_taps_plain(y, sy, sx)
-    _, b, h, w, c = y.shape
+        return deform_sample_taps_plain(y, sy, sx, tap_axis)
+    _, b, h, w = sy.shape
+    c = y.shape[-1]
     out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
     cuda_build.call("deform_sample", "deform_sample_taps", y, (y, sy, sx, out),
-                    (k, b, h, w, c))
-    launches_taps += 1
+                    (k, b, h, w, c, int(tap_axis == 0)))
+    if tap_axis == 0:
+        launches_taps += 1
+    else:
+        launches_taps_side += 1
     return out
 
 
@@ -505,8 +521,8 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     of ``sum_t deform_sample(y_t, sy[t], sx[t])`` for upstream gradient g.
 
     y holds the K tap projections, tap-major (K, B, H, W, C) with
-    ``tap_axis`` 0 (``tap_projections``) or side by side (B, H, W, K, C)
-    with ``tap_axis`` 3 (``side_by_side_projections``); sy, sx (K, B, H, W)
+    ``tap_axis`` 0 or side by side (B, H, W, K, C) with ``tap_axis`` 3
+    (``side_by_side_projections``); sy, sx (K, B, H, W)
     f32 with ``|sy - i| <= reach_y`` at every counted sample of pixel
     (i, j); g (B, H, W, C) in y's dtype; ``rule`` the coordinate derivative
     (``RULES``). Returns (grad_y in y's layout and dtype, gsy, gsx
@@ -517,7 +533,7 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     B * K <= 65535, a band's scanned rows within shared memory: W <= 3058
     at reach 7), which give such a sample no gradient to y.
     """
-    global launches_bwd_taps
+    global launches_bwd_taps, launches_bwd_taps_side
     if tap_axis not in (0, 3):
         raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
     if reach_y < 0:
@@ -532,9 +548,11 @@ def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
     tap_major = int(tap_axis == 0)
     band_gather(g, sy, sx, gy, k, reach_y, tap_major)
-    launches_bwd_taps += 1
     coord_pass(y, sy, sx, g, gsy, gsx, k, tap_major, rule)
-    launches_bwd_taps += 1
+    if tap_major:
+        launches_bwd_taps += 2
+    else:
+        launches_bwd_taps_side += 2
     return gy, gsy, gsx
 
 
@@ -618,27 +636,30 @@ def sort_work_len(planes: int, h: int, w: int, n_samples: int) -> int:
 
 def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
                                 g: torch.Tensor, rule: str = "pallas",
-                                fast: torch.Tensor | None = None):
+                                fast: torch.Tensor | None = None, tap_axis: int = 3):
     """K3 for all K taps of a layer whose offsets are not clipped (``auto``,
     ``gather``): the backward of ``sum_t deform_sample(y_t, sy[t], sx[t])``
     for upstream gradient g, samples anywhere.
 
-    y (K, B, H, W, C) tap-major; sy, sx (K, B, H, W) f32, any values; g
-    (B, H, W, C) in y's dtype; ``rule`` the coordinate derivative
+    y the K tap projections, side by side (B, H, W, K, C) with ``tap_axis``
+    3, the default, or tap-major (K, B, H, W, C) with 0; sy, sx (K, B, H, W)
+    f32, any values; g (B, H, W, C) in y's dtype; ``rule`` the coordinate derivative
     (``RULES``) and ``fast`` None or a one-element bool flag on y's device
-    (False: ``floor`` instead, as ``auto`` chooses). Returns (grad_y (K, B, H, W, C) in
-    y's dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum
+    (False: ``floor`` instead, as ``auto`` chooses). Returns (grad_y in y's
+    layout and dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum
     in a fixed order, rounded once: two runs give the same bits. CPU tensors
     take the plain version; CUDA tensors launch the counting-sort gather and
     the coordinate pass (C % 8 == 0, all contiguous, 16-byte aligned,
     K * B * (H + 1) * (W + 1) < 2^31) with int32 scratch of about 4 bytes a
     bin and 24 a sample.
     """
-    global launches_bwd_unclipped
-    k = _check_taps(y, sy, sx, g, 0)
+    global launches_bwd_unclipped, launches_bwd_unclipped_side
+    if tap_axis not in (0, 3):
+        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
+    k = _check_taps(y, sy, sx, g, tap_axis)
     _check_rule(rule, fast, y.device)
     if y.device.type == "cpu":
-        return deform_sample_bwd_taps_plain(y, sy, sx, g, None, 0, rule, fast)
+        return deform_sample_bwd_taps_plain(y, sy, sx, g, None, tap_axis, rule, fast)
     b, h, w, c = g.shape
     n_work = sort_work_len(k * b, h, w, k * b * h * w)
     if n_work >= 2 ** 31:
@@ -646,11 +667,14 @@ def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Ten
     work = torch.empty(n_work, dtype=torch.int32, device=y.device)
     gy = torch.empty_like(y)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
+    tap_major = int(tap_axis == 0)
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_unclipped_grad_y", y,
-                    (g, sy, sx, gy, work), (k, b, h, w, c, n_work))
-    launches_bwd_unclipped += 1
-    coord_pass(y, sy, sx, g, gsy, gsx, k, 1, rule, fast)
-    launches_bwd_unclipped += 1
+                    (g, sy, sx, gy, work), (k, b, h, w, c, n_work, tap_major))
+    coord_pass(y, sy, sx, g, gsy, gsx, k, tap_major, rule, fast)
+    if tap_major:
+        launches_bwd_unclipped += 2
+    else:
+        launches_bwd_unclipped_side += 2
     return gy, gsy, gsx
 
 
@@ -662,34 +686,36 @@ class DeformSampleTaps(torch.autograd.Function):
     (``pallas``, ``mxu``) and the unclipped form for ``reach_y`` None
     (``auto``, ``gather``), with the coordinate derivative ``rule`` and, on
     the unclipped form only, the flag ``fast`` that ``deform_conv2d`` chose
-    for the route.
+    for the route. All three kernels read and write y's layout in place.
 
-    y (K, B, H, W, C) tap-major; sy, sx (K, B, H, W) f32 within ``reach_y``
-    rows of their pixels, or anywhere for None. Returns (B, H, W, C) in
-    ``y.dtype``. Every tap's upstream gradient is the output's, as in a chain
-    of additions.
+    y the K tap projections with their taps on ``tap_axis``: side by side
+    (B, H, W, K, C) for 3, the default, as ``deform_conv2d`` builds them, or
+    tap-major (K, B, H, W, C) for 0; sy, sx (K, B, H, W) f32 within ``reach_y`` rows of
+    their pixels, or anywhere for None. Returns (B, H, W, C) in ``y.dtype``,
+    the same bits in both layouts, and grad_y in y's layout. Every tap's
+    upstream gradient is the output's, as in a chain of additions.
     """
 
     @staticmethod
     def forward(ctx, y, sy, sx, reach_y: int | None, rule: str = "pallas",
-                fast: torch.Tensor | None = None):
+                fast: torch.Tensor | None = None, tap_axis: int = 3):
         _check_rule(rule, fast, y.device)
         if fast is not None and reach_y is not None:
             raise ValueError("a flag takes the unclipped form: reach_y must be None")
         ctx.save_for_backward(y, sy, sx)
-        ctx.reach_y, ctx.rule, ctx.fast = reach_y, rule, fast
-        return sampled(lambda: deform_sample_taps(y, sy, sx))
+        ctx.reach_y, ctx.rule, ctx.fast, ctx.tap_axis = reach_y, rule, fast, tap_axis
+        return sampled(lambda: deform_sample_taps(y, sy, sx, tap_axis))
 
     @staticmethod
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
         if ctx.reach_y is None:
             gy, gsy, gsx = deform_sample_bwd_unclipped(y, sy, sx, g.contiguous(), ctx.rule,
-                                                       ctx.fast)
+                                                       ctx.fast, ctx.tap_axis)
         else:
-            gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 0,
-                                                  ctx.rule)
-        # one gradient per input given: reach_y, and rule and fast where given
+            gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y,
+                                                  ctx.tap_axis, ctx.rule)
+        # one gradient per input given: reach_y, and rule, fast and tap_axis where given
         return (gy, gsy, gsx) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 

@@ -7,7 +7,7 @@ the sample coordinates under one of three rules (``deform_sample.RULES``):
 ``floor``; with a device flag (``auto`` under training) it reads the flag and
 takes ``floor`` where it is False. This tool times it on the nine-tap P2
 layer of the 832x1344 bucket at batch 2 (9 x 2 x 208 x 336 x 128, bf16,
-tap-major, the layout of ``DeformSampleTaps``) at three offset fields:
+tap-major) at three offset fields:
 
   * ``+-2 px``: uniform in +-2 px, no coordinate an integer;
   * ``integer-heavy``: the same with half of the dy and half of the dx
