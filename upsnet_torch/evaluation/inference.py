@@ -161,7 +161,8 @@ def predict_step(model, cfg: Config, anchors, batch, seg_argmax: bool = True) ->
     the float32 ``seg_logits`` cross instead. Every output comes back as a
     numpy array; the argmax and the copies run inside a ``predict.to_host``
     profiler range, after ``forward_predict``'s ``predict.<stage>`` ranges,
-    each copy a ``to_host`` host sync (``utils/profiling.py``)."""
+    each copy a ``to_host`` host sync (``utils/profiling.py``) that counts
+    its bytes."""
     out = forward_predict(model, cfg, anchors, batch)
     with record_function("predict.to_host"):
         if seg_argmax:
@@ -172,9 +173,34 @@ def predict_step(model, cfg: Config, anchors, batch, seg_argmax: bool = True) ->
             out["seg_pred_q"] = torch.argmax(seg, dim=-1).to(torch.uint8)
         host = {}
         for k, v in out.items():
-            with host_sync("to_host"):
+            with host_sync("to_host", v.nbytes):
                 host[k] = v.cpu().numpy()
         return host
+
+
+def sample_predictor(model, cfg: Config):
+    """``predict(bucket, sample, seg_argmax=True) -> outputs``: one dataset
+    sample (``BaseDataset.sample``) through ``predict_step`` on the model's
+    device, with the anchors of every ``test.image_buckets`` canvas built
+    once; the outputs without the batch axis. The sample's two copies to the
+    device, from pageable host memory, are ``image_h2d`` host syncs. The
+    evaluation loop's predict, and (``seg_argmax`` False) TTA's."""
+    dev = next(model.parameters()).device
+    anchors_by_bucket = {tuple(b): bucket_anchors(cfg, b, dev) for b in cfg.test.image_buckets}
+    # bit-identical downstream (the stem casts to bf16 anyway) at half the
+    # host->device bytes
+    image_dtype = torch.bfloat16 if cfg.network.compute_dtype == "bfloat16" else torch.float32
+
+    def predict(bucket, s, seg_argmax=True):
+        with host_sync("image_h2d"):
+            images = torch.from_numpy(s["images"][None]).to(image_dtype).to(dev)
+        with host_sync("image_h2d"):
+            im_hw = torch.from_numpy(s["im_hw"][None]).to(dev)
+        out = predict_step(model, cfg, anchors_by_bucket[bucket],
+                           {"images": images, "im_hw": im_hw}, seg_argmax)
+        return {k: v[0] for k, v in out.items()}
+
+    return predict
 
 
 def tta_results(cfg: Config, dataset, r: dict) -> dict:
@@ -234,19 +260,7 @@ def run_evaluation(cfg: Config, dataset, weights=None, logger=None,
         if weights:
             restore_checkpoint(weights, model, partial=True)
     dev = next(model.parameters()).device
-    anchors_by_bucket = {tuple(b): bucket_anchors(cfg, b, dev) for b in cfg.test.image_buckets}
-    # bit-identical downstream (the stem casts to bf16 anyway) at half the
-    # host->device bytes
-    image_dtype = torch.bfloat16 if cfg.network.compute_dtype == "bfloat16" else torch.float32
-
-    def predict(bucket, s, seg_argmax=True):
-        batch = {
-            "images": torch.from_numpy(s["images"][None]).to(image_dtype).to(dev),
-            "im_hw": torch.from_numpy(s["im_hw"][None]).to(dev),
-        }
-        out = predict_step(model, cfg, anchors_by_bucket[bucket], batch, seg_argmax)
-        return {k: v[0] for k, v in out.items()}
-
+    predict = sample_predictor(model, cfg)
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     clock = dict.fromkeys(("sample_s", "predict_s", "postprocess_s"), 0.0)
     per_image = []

@@ -13,6 +13,14 @@ Per image:
      device, on the merged evidence resampled to the first variant's
      quarter-scale canvas.
 
+Each stage runs inside a ``torch.profiler`` range, on the profiler's clock
+with the predict step's own ``predict.<stage>`` ranges: ``tta.sample``
+(building a variant's sample), ``tta.predict`` (its predict step),
+``tta.merge`` (its share of the merge, and the final NMS) and ``tta.fuse``
+(the fusion on the device). The fusion's copies to the device and its reads
+back are ``host_sync`` sites (``const_h2d``, ``to_host``), so
+``read_syncs()`` and ``read_bytes()`` count them.
+
 A reference behaviour is copied with the rest: where a scale's canvas fits
 no ``test.image_buckets``, ``pick_bucket`` takes the largest and
 ``pad_to_bucket`` crops the image to it, while ``im_hw`` keeps the uncropped
@@ -26,9 +34,11 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from upsnet_torch.config.defaults import Config
 from upsnet_torch.models.upsnet import panoptic_fuse
+from upsnet_torch.utils.profiling import host_sync
 
 
 def _greedy_nms_per_class(boxes, scores, classes, thresh, max_out):
@@ -56,15 +66,21 @@ def _greedy_nms_per_class(boxes, scores, classes, thresh, max_out):
 def _fuse_device(seg_lg, boxes, classes, ms_logits, scores, valid, *, device,
                  score_thresh: float, overlap_thresh: float, num_stuff: int):
     """The single-scale path's ``panoptic_fuse`` on ``device`` for one image
-    of host arrays; returns (pan_map, keep) as numpy."""
+    of host arrays; returns (pan_map, keep) as numpy. Each copy from pageable
+    host memory to the device and each read back is a host sync."""
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a))[None].to(device)
+        with host_sync("const_h2d"):
+            return torch.from_numpy(np.ascontiguousarray(a))[None].to(device)
+
+    def host(t):
+        with host_sync("to_host", t.nbytes):
+            return t.cpu().numpy()
 
     pan, keep = panoptic_fuse(
         dev(seg_lg), dev(boxes), dev(classes.astype(np.int64)), dev(ms_logits), dev(scores),
         dev(valid), score_thresh=score_thresh, overlap_thresh=overlap_thresh,
         num_stuff=num_stuff)
-    return pan[0].cpu().numpy(), keep[0].cpu().numpy()
+    return host(pan[0]), host(keep[0])
 
 
 def fuse_tta(cfg: Config, seg_avg, boxes, scores, classes, mask_logits,
@@ -145,7 +161,8 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
     base = None  # (scale, bucket, content_hw) of the first variant
     for ts, fl in tta_variants(cfg):
         t0 = time.perf_counter()
-        s = dataset.sample(i, target_scale=ts, hflip=fl)
+        with record_function("tta.sample"):
+            s = dataset.sample(i, target_scale=ts, hflip=fl)
         oh, ow = (int(v) for v in s["orig_hw"])
         image_id = s["image_id"]
         rh, rw = (int(v) for v in s["im_hw"])
@@ -153,55 +170,59 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
         if base is None:
             base = (float(s["scale"]), bucket, (rh, rw))
         t1 = time.perf_counter()
-        out = predict(bucket, s)
+        with record_function("tta.predict"):
+            out = predict(bucket, s)
         t2 = time.perf_counter()
-        # semantic: crop content, de-flip, resize to orig, accumulate
-        seg = out["seg_logits"][: max(rh // 4, 1), : max(rw // 4, 1)]
-        if fl:
-            seg = seg[:, ::-1]
-        seg = cv2.resize(seg, (ow, oh), interpolation=cv2.INTER_LINEAR)
-        seg_sum = seg if seg_sum is None else seg_sum + seg
-        n_seg += 1
-        # detections to original coords
-        valid = out["det_valid"]
-        boxes = out["boxes"][valid]
-        masks = out["mask_logits"][valid]
-        if fl:
-            x1 = rw - 1.0 - boxes[:, 2]
-            x2 = rw - 1.0 - boxes[:, 0]
-            boxes = np.stack([x1, boxes[:, 1], x2, boxes[:, 3]], -1)
-            masks = masks[:, :, ::-1]
-        boxes = boxes / float(s["scale"])
-        boxes[:, 0::2] = boxes[:, 0::2].clip(0, ow - 1)
-        boxes[:, 1::2] = boxes[:, 1::2].clip(0, oh - 1)
-        all_boxes.append(boxes)
-        all_scores.append(out["scores"][valid])
-        all_classes.append(out["classes"][valid])
-        all_masks.append(masks)
+        with record_function("tta.merge"):
+            # semantic: crop content, de-flip, resize to orig, accumulate
+            seg = out["seg_logits"][: max(rh // 4, 1), : max(rw // 4, 1)]
+            if fl:
+                seg = seg[:, ::-1]
+            seg = cv2.resize(seg, (ow, oh), interpolation=cv2.INTER_LINEAR)
+            seg_sum = seg if seg_sum is None else seg_sum + seg
+            n_seg += 1
+            # detections to original coords
+            valid = out["det_valid"]
+            boxes = out["boxes"][valid]
+            masks = out["mask_logits"][valid]
+            if fl:
+                x1 = rw - 1.0 - boxes[:, 2]
+                x2 = rw - 1.0 - boxes[:, 0]
+                boxes = np.stack([x1, boxes[:, 1], x2, boxes[:, 3]], -1)
+                masks = masks[:, :, ::-1]
+            boxes = boxes / float(s["scale"])
+            boxes[:, 0::2] = boxes[:, 0::2].clip(0, ow - 1)
+            boxes[:, 1::2] = boxes[:, 1::2].clip(0, oh - 1)
+            all_boxes.append(boxes)
+            all_scores.append(out["scores"][valid])
+            all_classes.append(out["classes"][valid])
+            all_masks.append(masks)
         t3 = time.perf_counter()
         clock["sample_s"] += t1 - t0
         clock["predict_s"] += t2 - t1
         clock["merge_s"] += t3 - t2
 
     t0 = time.perf_counter()
-    boxes = np.concatenate(all_boxes, 0)
-    scores = np.concatenate(all_scores, 0)
-    classes = np.concatenate(all_classes, 0)
-    masks = np.concatenate(all_masks, 0)
-    keep = _greedy_nms_per_class(
-        boxes, scores, classes, cfg.test.nms_thresh, cfg.test.max_det
-    )
-    order = keep[np.argsort(-scores[keep], kind="stable")]
-    boxes, scores, classes, masks = (
-        boxes[order], scores[order], classes[order], masks[order],
-    )
-    seg_avg = seg_sum / n_seg
+    with record_function("tta.merge"):
+        boxes = np.concatenate(all_boxes, 0)
+        scores = np.concatenate(all_scores, 0)
+        classes = np.concatenate(all_classes, 0)
+        masks = np.concatenate(all_masks, 0)
+        keep = _greedy_nms_per_class(
+            boxes, scores, classes, cfg.test.nms_thresh, cfg.test.max_det
+        )
+        order = keep[np.argsort(-scores[keep], kind="stable")]
+        boxes, scores, classes, masks = (
+            boxes[order], scores[order], classes[order], masks[order],
+        )
+        seg_avg = seg_sum / n_seg
     t1 = time.perf_counter()
     base_scale, base_bucket, content_hw = base
-    pan_map, pan_keep, padded = fuse_tta(
-        cfg, seg_avg, boxes, scores, classes, masks,
-        base_scale, base_bucket, content_hw, device,
-    )
+    with record_function("tta.fuse"):
+        pan_map, pan_keep, padded = fuse_tta(
+            cfg, seg_avg, boxes, scores, classes, masks,
+            base_scale, base_bucket, content_hw, device,
+        )
     pb, ps, pc, pm, pv = padded
     n = int(pv.sum())
     result = {

@@ -8,10 +8,12 @@ the card where there is one) and writes a Chrome trace, ``trace.json``, into
 waits for (a flag, a copy to the host, a constant copied from pageable host
 memory, which PyTorch follows with a stream synchronise). Every entry adds 1
 to ``site``'s count in a per-process table (``read_syncs``,
-``reset_syncs``); while a ``torch.profiler`` records, the read also runs
-inside a ``sync.<site>`` range, on the profiler's clock with the kernels and
-the ``predict.<stage>`` / ``train.<stage>`` ranges. With no profiler
-recording it costs one flag check and one integer add.
+``reset_syncs``); a read that copies a tensor to the host also adds its
+bytes to ``site``'s total (``read_bytes``). While a ``torch.profiler``
+records, the read also runs inside a ``sync.<site>`` range, on the
+profiler's clock with the kernels and the ``predict.<stage>`` /
+``train.<stage>`` / ``tta.<stage>`` ranges. With no profiler recording it
+costs one flag check and one or two integer adds.
 """
 
 from __future__ import annotations
@@ -26,20 +28,25 @@ from torch.profiler import record_function
 SYNC_PREFIX = "sync."
 
 _syncs: dict[str, int] = {}
+_bytes: dict[str, int] = {}
 
 
 class host_sync:
-    """Context manager around one blocking read at ``site``: counts it, and
-    records it as a ``sync.<site>`` range while a profiler records."""
+    """Context manager around one blocking read at ``site``: counts it, adds
+    ``nbytes`` (the bytes it copies to the host, if any) to the site's total,
+    and records it as a ``sync.<site>`` range while a profiler records."""
 
-    __slots__ = ("site", "_range")
+    __slots__ = ("site", "nbytes", "_range")
 
-    def __init__(self, site: str):
+    def __init__(self, site: str, nbytes: int = 0):
         self.site = site
+        self.nbytes = nbytes
         self._range = None
 
     def __enter__(self):
         _syncs[self.site] = _syncs.get(self.site, 0) + 1
+        if self.nbytes:
+            _bytes[self.site] = _bytes.get(self.site, 0) + self.nbytes
         if _profiler_enabled():
             self._range = record_function(SYNC_PREFIX + self.site)
             self._range.__enter__()
@@ -54,8 +61,14 @@ def read_syncs() -> dict[str, int]:
     return dict(_syncs)
 
 
+def read_bytes() -> dict[str, int]:
+    """The bytes copied to the host per site since the last ``reset_syncs``."""
+    return dict(_bytes)
+
+
 def reset_syncs() -> None:
     _syncs.clear()
+    _bytes.clear()
 
 
 @contextlib.contextmanager
