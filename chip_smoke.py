@@ -58,7 +58,10 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    runs its body (K8a is timed beside K1 on the same data); the
    coordinate pass that both all-tap K3 forms share with K8c is checked and
    timed alone on the P2 layers at +-2, +-40 and clipped +-6 px (and on its
-   25-tap, C 384 path). The one-tap K2, K3
+   25-tap, C 384 path). The TTA merge and its resample (``check_tta_merge``,
+   no TPU counterpart) at the Cityscapes TTA cell's shapes, each with its
+   plain version's bits, two runs the same, timed beside its bound and its
+   plain version. The one-tap K2, K3
    and K6, which no route takes any more, are checked and timed as the
    yardsticks of the layers they used to serve, and are not in the kernels
    line. Then, not timed, the kernels of the train entry and the two
@@ -192,8 +195,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
 18. eval_tta: ``upsnet_torch.tools.test`` on a copy of the ResNet-101-DCN
    COCO file with its own ``multi_scale`` [640, 800, 960] and ``flip_test``
    (6 forwards an image, each 38 K1 and 2 K4) on 2 COCO-layout images from a
-   checkpoint of the seeded model: img/s and the per-image split (samples,
-   predicts, merge, fusion, postprocess);
+   checkpoint of the seeded model, one TTA merge and one resample launch
+   an image: img/s and the per-image split (samples, predicts, merge,
+   fusion, postprocess);
 19. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels), with frozen BN and no backbone DCN,
    then with GroupNorm and DCN in C3-C5;
@@ -264,7 +268,8 @@ from upsnet_torch.models import get_model, layers
 from upsnet_torch.models.resnet import STAGE_BLOCKS
 from upsnet_torch.models.upsnet import build_model, forward_predict
 from upsnet_torch.ops import (
-    cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, roi_align_fpn)
+    cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, roi_align_fpn,
+    tta_merge)
 from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt
 from upsnet_torch.tools import bench_deform_impls
 from upsnet_torch.train.checkpoints import save_checkpoint
@@ -1807,6 +1812,84 @@ def check_k6(dev) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def check_tta_merge(dev) -> dict:
+    """The TTA merge and its resample (``ops/tta_merge.py``) at the
+    Cityscapes TTA cell's shapes: six 19-channel float32 maps of 256x512,
+    contents 256x512 (scales 1024 and 1280) and 192x384 (768), each
+    unflipped then flipped, into the 1024x2048 frame; then the average to the
+    first variant's 256x512 content on its canvas. Each must give its plain
+    version's bits on the card (both round every product and sum as cv2
+    does) and the same bits on two runs; kernel ms (CUDA events, median of
+    30 calls), per call of 20 queued, device ms under the profiler, plain
+    ms, and the bound: the bytes the taps read once and the outputs written
+    once, at 3.35 TB/s."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    size, c = (1024, 2048), 19
+    crops = [(256, 512)] * 2 + [(192, 384)] * 2 + [(256, 512)] * 2
+    flips = [False, True] * 3
+    maps = [torch.randn((256, 512, c), generator=g, device=dev) * 4 for _ in crops]
+
+    def run():
+        return tta_merge.merge(maps, crops, flips, size)
+
+    avg, arg = run()
+    ref_avg, ref_arg = tta_merge.merge_plain(maps, crops, flips, size)
+    again = run()
+    torch.cuda.synchronize()
+    if not (torch.equal(avg, ref_avg) and torch.equal(arg, ref_arg)):
+        raise AssertionError(
+            f"tta_merge: {int((avg != ref_avg).sum())} averages and {int((arg != ref_arg).sum())}"
+            f" argmax pixels differ from the plain version; max abs "
+            f"{float((avg - ref_avg).abs().max()):.3e}")
+    if not (torch.equal(avg, again[0]) and torch.equal(arg, again[1])):
+        raise AssertionError("tta_merge: two runs differ")
+    del ref_avg, ref_arg, again
+    ms, queued = time_ms(run), time_queued_ms(run)
+    dev_ms = device_ms(run, "tta_merge_kernel")
+    plain_ms = time_ms(lambda: tta_merge.merge_plain(maps, crops, flips, size), 3)
+    n_bytes = sum(h * w for h, w in crops) * c * 4 + avg.numel() * 4 + arg.numel()
+    bound_ms, bound_by = bound(n_bytes, 0)
+    print(f"[tta_merge] six ({256}, {512}, {c}) f32 maps, contents {sorted(set(crops))}, "
+          f"flips {flips}, into {size}: the plain version's bits, two runs the same; kernel "
+          f"{ms:.4f} ms, queued {queued:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
+          f"{100 * bound_ms / dev_ms:.1f}% of it (device); registers "
+          f"{ptxas_registers('tta_merge', 'tta_merge_kernel')}")
+    del maps, arg
+
+    content = canvas = (256, 512)
+
+    def resample():
+        return tta_merge.resample(avg, content, canvas)
+
+    got, want, again = resample(), tta_merge.resample_plain(avg, content, canvas), resample()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(got, again):
+        raise AssertionError(f"tta_resample: {int((got != want).sum())} values differ from the "
+                             f"plain version, or two runs differ")
+    r_ms, r_queued = time_ms(resample), time_queued_ms(resample)
+    r_dev = device_ms(resample, "tta_resample_kernel")
+    r_plain = time_ms(lambda: tta_merge.resample_plain(avg, content, canvas), 3)
+    rows = len(set(np.concatenate(tta_merge._axis(content[0], size[0], False)[:2]).tolist()))
+    cols = len(set(np.concatenate(tta_merge._axis(content[1], size[1], True)[:2]).tolist()))
+    r_bytes = rows * cols * c * 4 + got.numel() * 4
+    r_bound, r_by = bound(r_bytes, 0)
+    print(f"[tta_resample] {tuple(avg.shape)} to {content} on a {canvas} canvas: the plain "
+          f"version's bits, two runs the same; kernel {r_ms:.4f} ms, queued {r_queued:.4f} ms, "
+          f"device {r_dev:.4f} ms, plain {r_plain:.4f} ms, bound {r_bound:.4f} ms ({r_by}: "
+          f"{r_bytes / 1e6:.1f} MB: {rows} rows x {cols} columns read), "
+          f"{100 * r_bound / r_dev:.1f}% of it (device); registers "
+          f"{ptxas_registers('tta_merge', 'tta_resample_kernel')}")
+    del avg, got, want, again
+    torch.cuda.empty_cache()
+    return {"name": "tta_merge", "route": "cuda", "source": "upsnet_torch/csrc/tta_merge.cu",
+            "replaces": "none (the JAX package merges on the host, cv2)",
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "resample_ms": r_ms,
+            "resample_device_ms": r_dev, "resample_plain_ms": r_plain,
+            "resample_bound_ms": r_bound}
+
+
 # K7b's kernels as the profiler names them: the sort's five, then the
 # gather (grad_x) and the coordinate pass
 K7B_SORT = ("mt_bwd_count_kernel", "mt_bwd_scan_tiles_kernel", "mt_bwd_scan_totals_kernel",
@@ -2065,7 +2148,9 @@ COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample_tiled_taps": (deform_sample, "launches_tiled_taps"),
             "deform_sample_tiled": (deform_sample, "launches_tiled"),
             "deform_sample_mt": (deform_sample_mt, "launches_fwd"),
-            "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd")}
+            "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd"),
+            "tta_merge": (tta_merge, "launches"),
+            "tta_resample": (tta_merge, "launches_resample")}
 
 
 def check_entry_shapes(dev, rows: list) -> None:
@@ -3703,6 +3788,7 @@ def phase_eval_tta(dev, tmp: str, root: str) -> dict:
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"[{tag}] non-finite metrics: {metrics}")
     expect = {k: TTA_IMAGES * len(variants) * v for k, v in per_forward[0].items()}
+    expect.update(tta_merge=TTA_IMAGES, tta_resample=TTA_IMAGES)  # one of each an image
     if launches != expect:
         raise AssertionError(f"[{tag}] launches {nonzero(launches)}, expected {nonzero(expect)}")
     n = timings["images"]
@@ -4420,7 +4506,8 @@ def run_phases(dev, profile: bool) -> None:
     check_k2_k3(dev)
     check_coords(dev)
     kernels = [check_k1(dev), check_k2_taps(dev), check_k3_taps(dev), check_k3_unclipped(dev),
-               check_k4(dev), check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev)]
+               check_k4(dev), check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev),
+               check_tta_merge(dev)]
     check_entry_shapes(dev, kernels)
     launches = dict.fromkeys(COUNTERS, 0)
 

@@ -245,7 +245,9 @@ def run_evaluation(cfg: Config, dataset, weights=None, logger=None,
     Test-time augmentation (``test.multi_scale``, ``test.flip_test``) runs
     ``evaluation/tta.py:predict_image_tta`` per image, with the full float32
     semantic logits on the way to the host (the JAX ``seg_argmax=not
-    use_tta``).
+    use_tta``); they go back to the model's device, where one launch of
+    ``ops/tta_merge.py:merge`` an image resizes, averages and argmaxes them
+    (the JAX package merges on the host, with cv2).
 
     Under a process group (``group``; the model then lives on the group's
     device) rank r predicts images ``r::world``, the JAX shard; the

@@ -3,22 +3,29 @@
 
 Per image:
   1. every (scale, flip) runs the ordinary predict step (``predict_step``
-     with the full float32 semantic logits, no on-device argmax);
-  2. semantic logits are de-flipped, cropped to content, resized to the
-     original resolution (cv2, on the host) and averaged;
+     with the full float32 semantic logits, no on-device argmax), and its
+     semantic logits go back to the model's device;
+  2. after the last variant, one launch of ``ops/tta_merge.py:merge`` crops
+     each variant's logits to content, de-flips them, resizes them to the
+     original resolution (cv2's ``INTER_LINEAR``, as the JAX package's host
+     merge computes it), averages them and takes the argmax, on the device;
+     only the uint8 argmax is read back;
   3. detections are mapped to original coordinates (de-flip + unscale),
      concatenated, per-class-NMS'd on the host (greedy), the top
      ``max_det`` kept; mask logits follow their detection (de-flipped);
   4. fusion runs the single-scale path's ``panoptic_fuse`` on the model's
      device, on the merged evidence resampled to the first variant's
-     quarter-scale canvas.
+     quarter-scale canvas (``ops/tta_merge.py:resample``, on the device
+     where the average lies).
 
 Each stage runs inside a ``torch.profiler`` range, on the profiler's clock
 with the predict step's own ``predict.<stage>`` ranges: ``tta.sample``
 (building a variant's sample), ``tta.predict`` (its predict step),
-``tta.merge`` (its share of the merge, and the final NMS) and ``tta.fuse``
-(the fusion on the device). The fusion's copies to the device and its reads
-back are ``host_sync`` sites (``const_h2d``, ``to_host``), so
+``tta.merge`` (its share of the merge: the copy of its logits to the device,
+its detections; then the final NMS and the merge's launch) and ``tta.fuse``
+(the fusion on the device). The copies of the logits to the device
+(``logits_h2d``), the fusion's copies of host arrays (``const_h2d``) and its
+reads back and the argmax's (``to_host``) are ``host_sync`` sites, so
 ``read_syncs()`` and ``read_bytes()`` count them.
 
 A reference behaviour is copied with the rest: where a scale's canvas fits
@@ -38,6 +45,7 @@ from torch.profiler import record_function
 
 from upsnet_torch.config.defaults import Config
 from upsnet_torch.models.upsnet import panoptic_fuse
+from upsnet_torch.ops import tta_merge
 from upsnet_torch.utils.profiling import host_sync
 
 
@@ -63,14 +71,23 @@ def _greedy_nms_per_class(boxes, scores, classes, thresh, max_out):
     return np.array(keep, np.int64)
 
 
+def _on(t: torch.Tensor, device) -> bool:
+    d = torch.device(device)
+    return t.device.type == d.type and (d.index is None or t.device.index == d.index)
+
+
 def _fuse_device(seg_lg, boxes, classes, ms_logits, scores, valid, *, device,
                  score_thresh: float, overlap_thresh: float, num_stuff: int):
-    """The single-scale path's ``panoptic_fuse`` on ``device`` for one image
-    of host arrays; returns (pan_map, keep) as numpy. Each copy from pageable
-    host memory to the device and each read back is a host sync."""
+    """The single-scale path's ``panoptic_fuse`` on ``device`` for one image;
+    returns (pan_map, keep) as numpy. A tensor already on ``device`` is used
+    as it is; each copy of a host array or tensor to the device and each
+    read back is a host sync."""
     def dev(a):
+        if torch.is_tensor(a) and _on(a, device):
+            return a[None]
         with host_sync("const_h2d"):
-            return torch.from_numpy(np.ascontiguousarray(a))[None].to(device)
+            t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+            return t[None].to(device)
 
     def host(t):
         with host_sync("to_host", t.nbytes):
@@ -87,10 +104,12 @@ def fuse_tta(cfg: Config, seg_avg, boxes, scores, classes, mask_logits,
              base_scale: float, bucket: tuple, content_hw: tuple, device):
     """Fuse TTA-merged evidence with ``panoptic_fuse`` on ``device``.
 
-    seg_avg (oh, ow, C) averaged logits at ORIGINAL resolution; detections
-    in original coordinates. Evidence is resampled onto the base bucket's
-    quarter-scale canvas (the frame the single-scale path fuses in), fused,
-    and the channel map is mapped back to original resolution.
+    seg_avg (oh, ow, C) averaged logits at ORIGINAL resolution, a float32
+    tensor (on ``device`` it is resampled there, with no copy) or a numpy
+    array; detections in original coordinates. Evidence is resampled onto
+    the base bucket's quarter-scale canvas (the frame the single-scale path
+    fuses in, ``ops/tta_merge.py:resample``), fused, and the channel map is
+    mapped back to original resolution.
 
     Returns (pan_map (oh, ow) int32 channel indices, keep (max_det,) bool,
     padded detection arrays in original coords).
@@ -101,9 +120,9 @@ def fuse_tta(cfg: Config, seg_avg, boxes, scores, classes, mask_logits,
     rh, rw = content_hw
     qh, qw = bucket[0] // 4, bucket[1] // 4
     cqh, cqw = max(rh // 4, 1), max(rw // 4, 1)
-    seg_q = cv2.resize(seg_avg, (cqw, cqh), interpolation=cv2.INTER_LINEAR)
-    seg_canvas = np.zeros((qh, qw, seg_avg.shape[-1]), np.float32)
-    seg_canvas[:cqh, :cqw] = seg_q
+    if not torch.is_tensor(seg_avg):
+        seg_avg = torch.from_numpy(np.ascontiguousarray(seg_avg, np.float32))
+    seg_canvas = tta_merge.resample(seg_avg, (cqh, cqw), (qh, qw))
 
     d = cfg.test.max_det
     pb = np.zeros((d, 4), np.float32)
@@ -146,15 +165,12 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
                       timings: dict | None = None):
     """Run every (scale, flip) variant of image ``i`` through
     ``predict(bucket, sample) -> outputs`` (numpy, full f32 ``seg_logits``)
-    and merge them; returns the same output contract as
+    and merge them on ``device``; returns the same output contract as
     ``postprocess_image`` consumes, already in original coordinates. Where
     ``timings`` is given, the seconds spent building samples, predicting,
     merging and fusing are added to it."""
-    import cv2
-
     clock = dict.fromkeys(("sample_s", "predict_s", "merge_s", "fuse_s"), 0.0)
-    seg_sum = None
-    n_seg = 0
+    maps, crops, flips = [], [], []
     all_boxes, all_scores, all_classes, all_masks = [], [], [], []
     oh = ow = None
     image_id = None
@@ -174,13 +190,12 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
             out = predict(bucket, s)
         t2 = time.perf_counter()
         with record_function("tta.merge"):
-            # semantic: crop content, de-flip, resize to orig, accumulate
-            seg = out["seg_logits"][: max(rh // 4, 1), : max(rw // 4, 1)]
-            if fl:
-                seg = seg[:, ::-1]
-            seg = cv2.resize(seg, (ow, oh), interpolation=cv2.INTER_LINEAR)
-            seg_sum = seg if seg_sum is None else seg_sum + seg
-            n_seg += 1
+            # semantic: the logits to the device, merged there after the loop
+            with host_sync("logits_h2d"):
+                maps.append(torch.from_numpy(
+                    np.ascontiguousarray(out["seg_logits"], np.float32)).to(device))
+            crops.append((max(rh // 4, 1), max(rw // 4, 1)))
+            flips.append(fl)
             # detections to original coords
             valid = out["det_valid"]
             boxes = out["boxes"][valid]
@@ -215,7 +230,8 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
         boxes, scores, classes, masks = (
             boxes[order], scores[order], classes[order], masks[order],
         )
-        seg_avg = seg_sum / n_seg
+        seg_avg, seg_arg = tta_merge.merge(maps, crops, flips, (oh, ow))
+        del maps
     t1 = time.perf_counter()
     base_scale, base_bucket, content_hw = base
     with record_function("tta.fuse"):
@@ -223,6 +239,8 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
             cfg, seg_avg, boxes, scores, classes, masks,
             base_scale, base_bucket, content_hw, device,
         )
+    with host_sync("to_host", seg_arg.nbytes):
+        seg_pred = seg_arg.cpu().numpy().astype(np.int32)
     pb, ps, pc, pm, pv = padded
     n = int(pv.sum())
     result = {
@@ -232,7 +250,7 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
         "scores": ps[:n],
         "classes": pc[:n],
         "mask_logits": pm[:n],
-        "seg_pred": seg_avg.argmax(-1).astype(np.int32),
+        "seg_pred": seg_pred,
         "pan_map": pan_map,
         "pan_keep": pan_keep[:n],
     }

@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "upsnet_torch_kernels"
 SOURCES = ("deform_sample", "deform_sample_bwd", "roi_align_fpn",
            "roi_align_fpn_bwd", "deform_shift", "deform_sample_tiled",
-           "deform_sample_mt", "deform_sample_mt_bwd")
+           "deform_sample_mt", "deform_sample_mt_bwd", "tta_merge")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
