@@ -24,15 +24,13 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    K3 in its all-tap forms, clipped and unclipped) against its plain
    PyTorch version on the card, on the shapes the paths below give it
    (batch 2 at 832x1344; the all-tap K2 and both all-tap K3 forms at the
-   training batch 8 there, side by side as every route trains, and timed
-   beside on a tap-major copy, which must give the same bits; K6 and the
+   training batch 8 there, side by side as every route trains; K6 and the
    clipped K3 also at P2 of the wide canvas, batch 1), with errors,
    kernel / plain / library-call times (CUDA events, median of 30 single
    calls; the all-tap K2 and K6 also per call of 20 queued back to back)
-   and the least time the card
-   could take for the same work; the all-tap K2 and K6 must also equal
-   (values) the one-tap kernel launched per tap with the adds in y's dtype,
-   in the same run, in bf16 and, at P3, in float32;
+   and the least time the card could take for the same work; the all-tap
+   K2 and K6 within one bf16 ulp per rounding of their plain chain, in bf16
+   and, at P3, in float32;
    the gathers (both all-tap K3 forms, K5, K8b, K7b) must give the same bits
    on two runs, K5 also on RoIs clustered as training samples them, the
    all-tap K2 and the unclipped K3 also at offsets of +-40 px, and every K3
@@ -52,21 +50,17 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    all-zero padded boxes an image) and at sampling ratio 3 (its runtime-S
    path) on the predict calls' RoIs, in bf16 and float32, each with the
    plain version's bits and two runs bit-identical, with its registers from
-   ptxas and its device time under the profiler. K1 is checked and
-   timed in both layouts it takes, side by side (the no-grad routes') and
-   tap-major, which must give the same bits as each other and as K8a, which
-   runs its body (K8a is timed beside K1 on the same data); the
-   coordinate pass that both all-tap K3 forms share with K8c is checked and
-   timed alone on the P2 layers at +-2, +-40 and clipped +-6 px (and on its
+   ptxas and its device time under the profiler. K1 is checked and timed on
+   the side-by-side projections of the no-grad routes and must give the
+   bits of K8a, which runs its body (K8a is timed beside K1 on the same
+   data); the coordinate pass that both all-tap K3 forms share with K8c is
+   checked and timed alone on the P2 layers at +-2, +-40 and clipped +-6 px (and on its
    25-tap, C 384 path). The TTA merge and its resample (``check_tta_merge``,
    no TPU counterpart) at the Cityscapes TTA cell's shapes, each with its
    plain version's bits, two runs the same, timed beside its bound and its
-   plain version. The one-tap K2, K3
-   and K6, which no route takes any more, are checked and timed as the
-   yardsticks of the layers they used to serve, and are not in the kernels
-   line. Then, not timed, the kernels of the train entry and the two
-   evaluation phases at their own shapes (``check_entry_shapes``): K1, the
-   all-tap K2 and the clipped all-tap K3 (reach 9) on every DCN map of
+   plain version. Then, not timed, the kernels of the train entry and the
+   two evaluation phases at their own shapes (``check_entry_shapes``): K1,
+   the all-tap K2 and the clipped all-tap K3 (reach 9) on every DCN map of
    the GN rehearsal file at batch 8 in both its buckets, 832x1344 and
    1344x832, with K4 and K5 at the three calls of its step; K1 and K4 at
    batch 1 at the evaluations' buckets, 1024x2048 included;
@@ -84,8 +78,8 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    slots) with a display interval of one step; every interval must launch
    exactly 8 all-tap K2 and 16 all-tap K3 (one K2 and the K3's two passes
    for each of the 8 DCN layers), 3 K4, 3 K5 for its step and 8 K1 for the
-   saturation watch's probe of the trunk, and no one-tap K2 or K6; give 7
-   finite loss terms, finite gradients
+   saturation watch's probe of the trunk; give 7 finite loss terms, finite
+   gradients
    everywhere, non-zero offset-conv gradients, leave the frozen parameters
    untouched and append one line to ``metrics.jsonl``; with ``--profile``,
    one more step under torch.profiler (also each kernel's summed device time
@@ -113,7 +107,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    beyond the +-6 window (the tiled form clips dx, ``auto`` does not);
 7. train_auto: phase 4 with ``dcn_impl: auto`` (two steps), the unclipped
    route: 8 all-tap K2, 16 unclipped all-tap K3 (its two passes for each of
-   the 8 DCN layers), no one-tap K2 or K3, 3 K4, 3 K5 per step, no probe
+   the 8 DCN layers), 3 K4, 3 K5 per step, no probe
    (the loop watches only ``pallas`` and ``mxu``);
 8. mt_tool: the sample-first form (K7a, one GEMM, K7b) through its caller,
    ``upsnet_torch.tools.bench_deform_impls``, at batch 2 over the tool's
@@ -268,8 +262,7 @@ from upsnet_torch.models import get_model, layers
 from upsnet_torch.models.resnet import STAGE_BLOCKS
 from upsnet_torch.models.upsnet import build_model, forward_predict
 from upsnet_torch.ops import (
-    cuda_build, deform_conv, deform_sample, deform_sample_mt, deform_shift, roi_align_fpn,
-    tta_merge)
+    cuda_build, deform_sample, deform_sample_mt, deform_shift, roi_align_fpn, tta_merge)
 from upsnet_torch.ops.deform_conv import clip_offsets, deform_conv2d_mt
 from upsnet_torch.tools import bench_deform_impls
 from upsnet_torch.train.checkpoints import save_checkpoint
@@ -447,13 +440,14 @@ def _tap_grid(dev) -> tuple:
 
 
 def _k1_inputs(g, dev, b: int, h: int, w: int, c: int) -> tuple:
-    """y9 (9, B, H, W, C) bf16 and the sample coordinates sy9, sx9 of a
-    nine-tap layer: +-2 px offsets with 3% of the samples moved 6-12 px
-    (``dcn_offsets``) and 1% pushed beyond the image edge."""
+    """y9 (B, H, W, 9, C) bf16 side by side and the sample coordinates sy9,
+    sx9 of a nine-tap layer: +-2 px offsets with 3% of the samples moved
+    6-12 px (``dcn_offsets``) and 1% pushed beyond the image edge."""
     taps = 9
     ky, kx = _tap_grid(dev)
     shape = (taps, b, h, w)
     y9 = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    y9 = y9.permute(1, 2, 3, 0, 4).contiguous()
     iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
     ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
 
@@ -470,38 +464,31 @@ K1_RTOL, K1_ATOL = 2.0 ** -7, 1e-4
 
 
 def _check_k1(where: str, y9, sy9, sx9, k8a: bool = True) -> tuple:
-    """K1 on one nine-tap layer in both layouts, side by side (the no-grad
-    routes') and tap-major, and with ``k8a`` K8a on the side-by-side data:
-    the same bits, and within one bf16 ulp of the plain version. Returns
-    (the max abs error, the plain version's output)."""
-    y_sbs = y9.permute(1, 2, 3, 0, 4).contiguous()
-    got = deform_sample.deform_sample9(y_sbs, sy9, sx9, tap_axis=3)
-    same = [deform_sample.deform_sample9(y9, sy9, sx9)]
-    if k8a:
-        same.append(deform_shift.shift_fwd(y_sbs.flatten(3), sy9, sx9))
+    """K1 on one nine-tap layer, side by side as the no-grad routes project
+    it, and with ``k8a`` K8a on the same data: the same bits, and within one
+    bf16 ulp of the plain version. Returns (the max abs error, the plain
+    version's output)."""
+    got = deform_sample.deform_sample9(y9, sy9, sx9)
     ref = deform_sample.deform_sample9_plain(y9, sy9, sx9)
     torch.cuda.synchronize()
-    if not all(torch.equal(got, other) for other in same):
-        raise AssertionError(f"K1 {where}: the side-by-side, tap-major{' and K8a' * k8a} "
-                             f"results differ")
+    if k8a and not torch.equal(got, deform_shift.shift_fwd(y9.flatten(3), sy9, sx9)):
+        raise AssertionError(f"K1 {where}: K1 and K8a differ on the same data")
     err, rel = compare(got, ref, K1_RTOL, K1_ATOL)
-    print(f"[K1 deform_sample9] {where}, y {tuple(y_sbs.shape)} side by side bf16: max abs err "
-          f"{err:.3e}, max rel err {rel:.3e} (tolerance {K1_RTOL:.4g}*|ref| + {K1_ATOL:g}); "
-          f"equal to tap-major K1{' and to K8a' * k8a}")
+    print(f"[K1 deform_sample9] {where}, y {tuple(y9.shape)} side by side bf16: max abs err "
+          f"{err:.3e}, max rel err {rel:.3e} (tolerance {K1_RTOL:.4g}*|ref| + {K1_ATOL:g})"
+          f"{'; equal to K8a' * k8a}")
     return err, ref
 
 
 def check_k1(dev) -> dict:
     """K1 at the three backbone shapes of the R101-DCN path
     (``r101_backbone_maps``, C 128 / 256 / 512) and the four FCN levels
-    (P2 208x336 .. P5 26x42, C=128), bf16, 9 taps, on ``_k1_inputs``, in
-    both layouts: side by side (B, H, W, 9, C), the output of the one matmul
-    that the no-grad routes build (its numbers are the returned ones), and
-    tap-major (9, B, H, W, C). At every shape the two layouts and K8a
-    (``shift_fwd``) on the same side-by-side data must give the same bits,
-    and lie within one bf16 ulp of the plain version (``_check_k1``). Times,
-    the bound and the library yardstick are for P2; the tap-major time is
-    printed beside the side-by-side one."""
+    (P2 208x336 .. P5 26x42, C=128), bf16, 9 taps, on ``_k1_inputs``, side
+    by side (B, H, W, 9, C), the output of the one matmul that the no-grad
+    routes build. At every shape K1 and K8a (``shift_fwd``) on the same data
+    must give the same bits, and lie within one bf16 ulp of the plain
+    version (``_check_k1``). Times, the bound and the library yardstick are
+    for P2."""
     g = torch.Generator(device=dev).manual_seed(1)
     taps, b, c = 9, BATCH, 128
     max_abs = 0.0
@@ -516,7 +503,6 @@ def check_k1(dev) -> dict:
         y9, sy9, sx9 = _k1_inputs(gen, dev, b, h, w, cc)
         err, ref = _check_k1(where, y9, sy9, sx9)
         max_abs = max(max_abs, err)
-    y_sbs = y9.permute(1, 2, 3, 0, 4).contiguous()
 
     # the library yardstick: 9 grid_sample calls (zeros padding, corner-
     # aligned grid = DCN's zero-padded bilinear sampling) and a sum.
@@ -524,7 +510,7 @@ def check_k1(dev) -> dict:
     # cannot hold the coordinates, so it samples float32 copies of y9
     # (made outside the timed call)
     grids = torch.stack([2 * sx9 / (w - 1) - 1, 2 * sy9 / (h - 1) - 1], dim=-1)
-    planes = [y9[t].float().permute(0, 3, 1, 2) for t in range(taps)]
+    planes = [y9[:, :, :, t].float().permute(0, 3, 1, 2) for t in range(taps)]
 
     def library():
         acc = F.grid_sample(planes[0], grids[0], mode="bilinear",
@@ -535,11 +521,9 @@ def check_k1(dev) -> dict:
         return acc
 
     lib_err = float((library().permute(0, 2, 3, 1) - ref.float()).abs().max())
-    side = lambda: deform_sample.deform_sample9(y_sbs, sy9, sx9, tap_axis=3)  # noqa: E731
-    major = lambda: deform_sample.deform_sample9(y9, sy9, sx9)  # noqa: E731
-    ms, ms_tm = time_ms(side), time_ms(major)
-    queued, queued_tm = time_queued_ms(side), time_queued_ms(major)
-    plain_ms = time_ms(lambda: deform_sample.deform_sample9_plain(y_sbs, sy9, sx9, 3), 10)
+    run = lambda: deform_sample.deform_sample9(y9, sy9, sx9)  # noqa: E731
+    ms, queued = time_ms(run), time_queued_ms(run)
+    plain_ms = time_ms(lambda: deform_sample.deform_sample9_plain(y9, sy9, sx9), 10)
     library_ms = time_ms(library)
 
     # bytes this run needs: every projection row a counted sample touches
@@ -548,9 +532,8 @@ def check_k1(dev) -> dict:
     n_bytes = n_rows * c * 2 + 2 * sy9.numel() * 4 + ref.numel() * 2
     n_flops = n_inside * 4 * 2 * c
     bound_ms, bound_by = bound(n_bytes, n_flops)
-    print(f"[K1 deform_sample9] P2: kernel side by side {ms:.4f} ms ({100 * bound_ms / ms:.1f}% "
-          f"of the bound; per call of 20 queued {queued:.4f}), tap-major {ms_tm:.4f} ms "
-          f"(queued {queued_tm:.4f}), plain {plain_ms:.4f} ms, 9x grid_sample "
+    print(f"[K1 deform_sample9] P2: kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f}% of the "
+          f"bound; per call of 20 queued {queued:.4f}), plain {plain_ms:.4f} ms, 9x grid_sample "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
           f"{n_flops / 1e9:.3f} GFLOP); grid_sample yardstick max abs diff {lib_err:.3e}")
     return {
@@ -565,8 +548,8 @@ def check_k1(dev) -> dict:
 def check_coords(dev) -> None:
     """The coordinate pass of both all-tap K3 forms alone (``coord_pass``:
     ``offset_grads.cuh``, K8c's kernel) on the nine-tap P2 layer of the
-    832x1344 bucket, tap-major (9 x 2 x 208 x 336 x 128), and on the wide
-    P2 layer, side by side (1 x 208 x 832 x 9 x 128), bf16, at three offset
+    832x1344 bucket (2 x 208 x 336 x 9 x 128) and on the wide P2 layer
+    (1 x 208 x 832 x 9 x 128), side by side, bf16, at three offset
     fields: +-2 px (``dcn_offsets``), uniform +-40 px, and +-2 px clipped to
     +-6 (as ``check_k8`` draws K8c's); each with 5% of the samples on
     integer rows, 5% on integer columns and 1% beyond the image edge. Each
@@ -581,13 +564,11 @@ def check_coords(dev) -> None:
     kk = torch.arange(taps, device=dev)
     ky = (kk // 3 - 1).float()[:, None, None, None]
     kx = (kk % 3 - 1).float()[:, None, None, None]
-    for tag, b, (h, w), tap_axis in (
-            ("P2 tap-major", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4), 0),
-            ("wide P2 side by side", WIDE_BATCH, (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4), 3)):
+    for tag, b, (h, w) in (("P2", BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
+                           ("wide P2", WIDE_BATCH, (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4))):
         shape = (taps, b, h, w)
         y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-        if tap_axis == 3:
-            y = y.permute(1, 2, 3, 0, 4).contiguous()
+        y = y.permute(1, 2, 3, 0, 4).contiguous()
         grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
         iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
         ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
@@ -604,11 +585,11 @@ def check_coords(dev) -> None:
 
             def run():
                 gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
-                deform_sample.coord_pass(y, sy, sx, grad, gsy, gsx, taps, int(tap_axis == 0))
+                deform_sample.coord_pass(y, sy, sx, grad, gsy, gsx, taps)
                 return gsy, gsx
 
             got, again = run(), run()
-            ref = deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, tap_axis)
+            ref = deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None)
             torch.cuda.synchronize()
             gsy_err, _ = compare(got[0], ref[1], c_rtol, c_atol)
             gsx_err, _ = compare(got[1], ref[2], c_rtol, c_atol)
@@ -638,7 +619,7 @@ def check_coords(dev) -> None:
 
     # the kernel's other paths, on no route of the model: 25 taps (a 5 x 5
     # layer: a chunk of 9 taps, then 9, then 7) and C 384 (a lane takes two
-    # groups), in float32 at +-3 px, side by side
+    # groups), in float32 at +-3 px
     taps, b, h, w, c = 25, 2, 24, 40, 384
     y = torch.randn((b, h, w, taps, c), generator=g, device=dev)
     grad = torch.randn((b, h, w, c), generator=g, device=dev)
@@ -648,8 +629,8 @@ def check_coords(dev) -> None:
           + torch.rand((taps, b, h, w), generator=g, device=dev) * 6 - 3)
     sy, sx = _mark_integers(g, dev, sy, sx, h)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
-    deform_sample.coord_pass(y, sy, sx, grad, gsy, gsx, taps, 0)
-    ref = deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3)
+    deform_sample.coord_pass(y, sy, sx, grad, gsy, gsx, taps)
+    ref = deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None)
     torch.cuda.synchronize()
     # f32 sums of 4 x 384 products: 1e-4 relative plus 2e-3 absolute
     gsy_err, _ = compare(gsy, ref[1], c_rtol, 2e-3)
@@ -842,27 +823,22 @@ def check_k4(dev) -> dict:
     return out
 
 
-def _check_forward_taps(what: str, got, chain, ref, plain_tap, taps: int):
+def _check_forward_taps(what: str, got, ref, plain_tap, taps: int):
     """An all-tap forward kernel's output ``got`` on one input against
-    ``chain``, the one-tap kernel launched per tap with the results added in
-    y's dtype in tap order in the same run, and ``ref``, its plain version.
+    ``ref``, its plain version, the chain of one-tap plain samples
+    (``plain_tap(t)``) added in y's dtype in tap order.
 
-    ``got`` must equal ``chain`` (``torch.equal``, which compares values: a
-    first tap of -0.0 may come out as +0.0). Against the plain version: the
-    two chains round at the same 2K - 1 places (K taps, K - 1 adds), and
-    their tap sums differ only in f32 order (one FMA per corner against a
-    product and an add), so a rounding may land one bf16 ulp (2^-7
-    relative) apart and carry on: |got - ref| <= 2^-7 * (sum_t |tap_t| +
-    sum_{t>0} |partial_t|) + 1e-4, taps and partial sums from the plain
-    chain (``plain_tap(t)``), the 1e-4 for f32 order near zero. In float32
-    the tap sums' order moves a rounding by a few f32 ulps: 2^-20 * the same
-    sum + 1e-5. Returns the max abs and rel error against ``ref``."""
+    The kernel's chain and the plain one round at the same 2K - 1 places (K
+    taps, K - 1 adds), and their tap sums differ only in f32 order (one FMA
+    per corner against a product and an add), so a rounding may land one
+    bf16 ulp (2^-7 relative) apart and carry on: |got - ref| <= 2^-7 *
+    (sum_t |tap_t| + sum_{t>0} |partial_t|) + 1e-4, taps and partial sums
+    from the plain chain, the 1e-4 for f32 order near zero. In float32 the
+    tap sums' order moves a rounding by a few f32 ulps: 2^-20 * the same sum
+    + 1e-5. Returns the max abs and rel error against ``ref``."""
     torch.cuda.synchronize()
     if not torch.isfinite(got.float()).all() or float(got.float().abs().max()) == 0.0:
         raise AssertionError(f"{what}: output not finite or all zero")
-    if not torch.equal(got, chain):
-        raise AssertionError(f"{what}: {int((got != chain).sum())} elements differ from the "
-                             "one-tap chain")
     part, scale = None, torch.zeros(got.shape, dtype=torch.float32, device=got.device)
     for t in range(taps):
         tap = plain_tap(t)
@@ -877,11 +853,6 @@ def _check_forward_taps(what: str, got, chain, ref, plain_tap, taps: int):
         raise AssertionError(f"{what}: {int(bad.sum())} elements outside tolerance; max abs "
                              f"{float(err.max())}")
     return float(err.max()), float((err / ref.float().abs().clamp(min=1e-3)).max())
-
-
-def _tap_major(y):
-    """A side-by-side stack (B, H, W, K, C) copied to tap-major (K, B, H, W, C)."""
-    return y.permute(3, 0, 1, 2, 4).contiguous()
 
 
 def _k2_layer(g, dev, b: int, h: int, w: int, c: int, dtype, field: str) -> tuple:
@@ -904,35 +875,12 @@ def _k2_layer(g, dev, b: int, h: int, w: int, c: int, dtype, field: str) -> tupl
     return (y, *_mark_integers(g, dev, iy + ky + off_y, ix + kx + off_x, h))
 
 
-def _k2_chain(y, sy, sx):
-    """The layer as the one-tap K2 did it on a tap-major stack: 9 launches,
-    8 adds."""
-    out = deform_sample.deform_sample(y[0], sy[0], sx[0])
-    for t in range(1, y.shape[0]):
-        out = out + deform_sample.deform_sample(y[t], sy[t], sx[t])
-    return out
-
-
 def _check_k2(what: str, y, sy, sx) -> tuple:
-    """``_check_forward_taps`` of the all-tap K2 on one side-by-side layer,
-    the one-tap chain on a tap-major copy of it."""
-    y_tm = _tap_major(y)
+    """``_check_forward_taps`` of the all-tap K2 on one side-by-side layer."""
     return _check_forward_taps(
-        what, deform_sample.deform_sample_taps(y, sy, sx, tap_axis=3), _k2_chain(y_tm, sy, sx),
-        deform_sample.deform_sample_taps_plain(y, sy, sx, tap_axis=3),
-        lambda t: deform_sample.deform_sample_plain(y_tm[t], sy[t], sx[t]), y.shape[3])
-
-
-def _k2_layouts_ms(y, sy, sx) -> tuple:
-    """The all-tap K2 on a side-by-side layer and on its tap-major copy:
-    the same bits, and each layout's ``time_ms`` and ``time_queued_ms``
-    (side by side first)."""
-    y_tm = _tap_major(y)
-    side = lambda: deform_sample.deform_sample_taps(y, sy, sx, tap_axis=3)  # noqa: E731
-    tm = lambda: deform_sample.deform_sample_taps(y_tm, sy, sx, tap_axis=0)  # noqa: E731
-    if not torch.equal(side(), tm()):
-        raise AssertionError("the all-tap K2 gives other bits tap-major than side by side")
-    return time_ms(side), time_queued_ms(side), time_ms(tm), time_queued_ms(tm)
+        what, deform_sample.deform_sample_taps(y, sy, sx),
+        deform_sample.deform_sample_taps_plain(y, sy, sx),
+        lambda t: deform_sample.deform_sample_plain(y[:, :, :, t], sy[t], sx[t]), y.shape[3])
 
 
 def check_k2_taps(dev) -> dict:
@@ -942,16 +890,12 @@ def check_k2_taps(dev) -> dict:
     as in ``check_k1`` (3% at 6-12 px; its numbers are the returned ones) and
     uniform in +-40 px (the unclipped route's offsets after one update),
     each with 5% of the samples on integer rows, 5% on integer columns and
-    1% beyond the image edge. Held against the one-tap K2 launched per tap
-    with the adds (equal), and against the plain version; timed beside the
-    one-tap chain (on a tap-major copy), the plain version, nine
-    ``grid_sample`` calls and the adds, and the kernel on the tap-major copy
-    (the same bits). Then the float32 form of the kernel on the P3 layer
-    (8 x 104 x 168 x 9 x 128) at +-2 px, and the bf16 form at the three
-    backbone shapes of the R101-DCN path (``r101_backbone_maps``, C 128 /
-    256 / 512; C4 is the 832x1344 bucket's 52 x 84) at +-2 px, held the same
-    way (the equality and the plain version's tolerance), and timed there in
-    both layouts."""
+    1% beyond the image edge. Held against the plain version; timed beside
+    the plain version and nine ``grid_sample`` calls and the adds. Then the
+    float32 form of the kernel on the P3 layer (8 x 104 x 168 x 9 x 128) at
+    +-2 px, and the bf16 form at the three backbone shapes of the R101-DCN
+    path (``r101_backbone_maps``, C 128 / 256 / 512; C4 is the 832x1344
+    bucket's 52 x 84) at +-2 px, held the same way, and timed there."""
     g = torch.Generator(device=dev).manual_seed(13)
     taps, b, c = 9, TAPS_BATCH, 128
 
@@ -959,13 +903,12 @@ def check_k2_taps(dev) -> dict:
     row = {}
     for field in ("+-2 px", "+-40 px"):
         y, sy, sx = _k2_layer(g, dev, b, h, w, c, torch.bfloat16, field)
-        y_tm = _tap_major(y)
-        planes = [y_tm[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+        planes = [y[:, :, :, t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
         err, rel = _check_k2("K2 taps", y, sy, sx)
         grids = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
 
         def run():
-            return deform_sample.deform_sample_taps(y, sy, sx, tap_axis=3)
+            return deform_sample.deform_sample_taps(y, sy, sx)
 
         def library():  # on float32 copies (a bf16 grid cannot hold the coordinates)
             acc = F.grid_sample(planes[0], grids[0], mode="bilinear", padding_mode="zeros",
@@ -975,12 +918,10 @@ def check_k2_taps(dev) -> dict:
                                           padding_mode="zeros", align_corners=True)
             return acc
 
-        ms, queued, tm_ms, tm_queued = _k2_layouts_ms(y, sy, sx)
-        chain_queued = time_queued_ms(lambda: _k2_chain(y_tm, sy, sx))
-        chain_ms = time_ms(lambda: _k2_chain(y_tm, sy, sx))
-        plain_ms = time_ms(lambda: deform_sample.deform_sample_taps_plain(y, sy, sx, 3), 3)
+        ms, queued = time_ms(run), time_queued_ms(run)
+        plain_ms = time_ms(lambda: deform_sample.deform_sample_taps_plain(y, sy, sx), 3)
         library_ms = time_ms(library, 10)
-        del grids, planes, y_tm
+        del grids, planes
         # bytes this run needs: the rows of each tap's projection its counted
         # samples touch, the coordinates, one output; 4 corners x 2 flops per
         # channel and sample, and the K - 1 adds
@@ -988,16 +929,13 @@ def check_k2_taps(dev) -> dict:
         n_out = b * h * w * c
         n_bytes = n_rows * c * 2 + 2 * sy.numel() * 4 + n_out * 2
         bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c + (taps - 1) * n_out)
-        print(f"[K2 deform_sample_taps] {field}, y {tuple(y.shape)} side by side bf16: equal "
-              f"to 9 one-tap K2 and 8 adds and to the kernel on the tap-major copy; against the "
-              f"plain version max abs err {err:.3e}, max rel err {rel:.3e} (tolerance 2^-7 * "
-              f"(sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} ms (tap-major {tm_ms:.4f} "
-              f"ms), the one-tap chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, 9x "
-              f"grid_sample and adds {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        print(f"[K2 deform_sample_taps] {field}, y {tuple(y.shape)} side by side bf16: against "
+              f"the plain version max abs err {err:.3e}, max rel err {rel:.3e} (tolerance 2^-7 * "
+              f"(sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"9x grid_sample and adds {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{n_bytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of it; {n_inside} counted "
               f"samples; 20 calls queued, per call: kernel {queued:.4f} ms "
-              f"({100 * bound_ms / queued:.1f}% of the bound; tap-major {tm_queued:.4f} ms, "
-              f"{100 * bound_ms / tm_queued:.1f}%), the one-tap chain {chain_queued:.4f} ms")
+              f"({100 * bound_ms / queued:.1f}% of the bound)")
         if field == "+-2 px":
             row = {"name": "deform_sample_taps", "route": "cuda",
                    "source": "upsnet_torch/csrc/deform_sample.cu",
@@ -1009,123 +947,23 @@ def check_k2_taps(dev) -> dict:
         del y, sy, sx
     y, sy, sx = _k2_layer(g, dev, b, h // 2, w // 2, c, torch.float32, "+-2 px")
     err, rel = _check_k2("K2 taps float32", y, sy, sx)
-    print(f"[K2 deform_sample_taps] +-2 px, y {tuple(y.shape)} float32: equal to 9 one-tap K2 "
-          f"and 8 adds; against the plain version max abs err {err:.3e}, max rel err "
-          f"{rel:.3e} (tolerance 2^-20 * (sum |tap| + sum |partial|) + 1e-5)")
+    print(f"[K2 deform_sample_taps] +-2 px, y {tuple(y.shape)} float32: against the plain "
+          f"version max abs err {err:.3e}, max rel err {rel:.3e} (tolerance 2^-20 * (sum |tap| "
+          f"+ sum |partial|) + 1e-5)")
     del y, sy, sx
     for hh, ww, cc in r101_backbone_maps():
         y, sy, sx = _k2_layer(g, dev, b, hh, ww, cc, torch.bfloat16, "+-2 px")
         err, rel = _check_k2(f"K2 taps backbone {hh}x{ww}x{cc}", y, sy, sx)
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        ms, queued, tm_ms, tm_queued = _k2_layouts_ms(y, sy, sx)
+        run = lambda: deform_sample.deform_sample_taps(y, sy, sx)  # noqa: E731
+        ms, queued = time_ms(run), time_queued_ms(run)
         print(f"[K2 deform_sample_taps] backbone, +-2 px, y {tuple(y.shape)} side by side bf16: "
-              f"equal to 9 one-tap K2 and 8 adds and to the kernel on the tap-major copy; "
               f"against the plain version max abs err {err:.3e}, max rel err {rel:.3e} "
               f"(tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} ms, "
-              f"queued {queued:.4f} ms; tap-major {tm_ms:.4f} ms, queued {tm_queued:.4f} ms")
+              f"queued {queued:.4f} ms")
         del y, sy, sx
     torch.cuda.empty_cache()
     return row
-
-
-def check_k2_k3(dev) -> None:
-    """K2 and K3 on one tap at P2 of the 832x1344 bucket (2x208x336, C=128,
-    bf16), which is the largest of the four shapes a train step gives them:
-    offsets as in ``check_k1`` (+-2 px, 3% far, 1% beyond the edge) with 5%
-    of the samples on exactly integer rows and another 5% on integer
-    columns, where the coordinate derivative must be zero. No route takes
-    either one-tap form any more: they are checked and timed as the
-    yardsticks of the all-tap forms."""
-    g = torch.Generator(device=dev).manual_seed(4)
-    b, c = BATCH, 128
-    h, w = BUCKET[0] // 4, BUCKET[1] // 4
-    shape = (b, h, w)
-    y = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-    grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-    iy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
-    ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
-    sy = iy + dcn_offsets(g, dev, shape)
-    sx = ix + dcn_offsets(g, dev, shape)
-    int_y = torch.rand(shape, generator=g, device=dev) < 0.05
-    int_x = torch.rand(shape, generator=g, device=dev) < 0.05
-    sy = torch.where(int_y, sy.round(), sy)
-    sx = torch.where(int_x, sx.round(), sx).contiguous()
-    edge = torch.rand(shape, generator=g, device=dev) < 0.01
-    sy = torch.where(edge, sy + torch.where(sy < h / 2, -float(h), float(h)), sy).contiguous()
-
-    # K2: the same four f32 products summed in another order, rounded once
-    # to bf16: at most one bf16 ulp (2^-7 relative) apart, plus slack near 0
-    rtol, atol = 2.0 ** -7, 1e-4
-    got = deform_sample.deform_sample(y, sy, sx)
-    ref = deform_sample.deform_sample_plain(y, sy, sx)
-    torch.cuda.synchronize()
-    k2_err, k2_rel = compare(got, ref, rtol, atol)
-    print(f"[K2 deform_sample] y {tuple(y.shape)} bf16: max abs err {k2_err:.3e}, max rel "
-          f"err {k2_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g})")
-
-    # K3. grad_y: f32 canvas sums (atomics on the card, so their order
-    # changes from run to run) rounded once to bf16: one bf16 ulp plus slack.
-    # gsy, gsx: f32 sums of 4 x 128 products of O(1) values in another
-    # order: 1e-4 relative plus 1e-3 absolute.
-    got3 = deform_sample.deform_sample_bwd(y, sy, sx, grad)
-    ref3 = deform_sample.deform_sample_bwd_plain(y, sy, sx, grad)
-    torch.cuda.synchronize()
-    k3_err, k3_rel = compare(got3[0], ref3[0], rtol, atol)
-    c_rtol, c_atol = 1e-4, 1e-3
-    gsy_err, _ = compare(got3[1], ref3[1], c_rtol, c_atol)
-    gsx_err, _ = compare(got3[2], ref3[2], c_rtol, c_atol)
-    at_int_y, at_int_x = sy == sy.round(), sx == sx.round()
-    if float(got3[1][at_int_y].abs().max()) != 0.0 or float(got3[2][at_int_x].abs().max()) != 0.0:
-        raise AssertionError("K3: non-zero coordinate gradient at an integer coordinate")
-    if float(got3[1].abs().max()) == 0.0 or float(got3[2].abs().max()) == 0.0:
-        raise AssertionError("K3: coordinate gradients are all zero")
-    print(f"[K3 deform_sample_bwd] grad_y max abs err {k3_err:.3e}, max rel err "
-          f"{k3_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); gsy / gsx max abs err "
-          f"{gsy_err:.3e} / {gsx_err:.3e} (tolerance {c_rtol:g}*|ref| + {c_atol:g}); exactly 0 "
-          f"at the {int(at_int_y.sum())} integer rows and {int(at_int_x.sum())} integer columns")
-
-    # library yardsticks, on float32 copies made outside the timed calls (a
-    # bf16 grid cannot hold the coordinates): one grid_sample call for K2,
-    # and its backward op for K3. The latter differentiates one-sidedly at
-    # integer coordinates and in normalised coordinates, so it is a
-    # yardstick of speed only.
-    grid = torch.stack([2 * sx / (w - 1) - 1, 2 * sy / (h - 1) - 1], dim=-1)
-    y32 = y.float().permute(0, 3, 1, 2).contiguous()
-    g32 = grad.float().permute(0, 3, 1, 2).contiguous()
-
-    def lib_fwd():
-        return F.grid_sample(y32, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=True)
-
-    def lib_bwd():
-        return torch.ops.aten.grid_sampler_2d_backward(
-            g32, y32, grid, 0, 0, True, [True, True])
-
-    lib_err = float((lib_fwd().permute(0, 2, 3, 1) - ref.float()).abs().max())
-    k2_ms = time_ms(lambda: deform_sample.deform_sample(y, sy, sx))
-    k2_plain = time_ms(lambda: deform_sample.deform_sample_plain(y, sy, sx), 10)
-    k2_lib = time_ms(lib_fwd)
-    k3_ms = time_ms(lambda: deform_sample.deform_sample_bwd(y, sy, sx, grad))
-    k3_plain = time_ms(lambda: deform_sample.deform_sample_bwd_plain(y, sy, sx, grad), 10)
-    k3_lib = time_ms(lib_bwd)
-
-    # bytes this run needs. K2: the rows of y its counted samples touch, the
-    # coordinates, the output; 4 corners x 2 flops per channel. K3: those
-    # rows, g, the coordinates, grad_y (bf16, every element written) and the
-    # two coordinate gradients; 4 corners x 6 flops per channel.
-    n_rows, n_inside = touched_rows(sy, sx, h, w)
-    coords = 2 * sy.numel() * 4
-    k2_bytes = n_rows * c * 2 + coords + got.numel() * 2
-    k2_bound, k2_by = bound(k2_bytes, n_inside * 4 * 2 * c)
-    k3_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + y.numel() * 2
-    k3_flops = n_inside * 4 * 6 * c
-    k3_bound, k3_by = bound(k3_bytes, k3_flops)
-    print(f"[K2 deform_sample] kernel {k2_ms:.4f} ms, plain {k2_plain:.4f} ms, grid_sample "
-          f"{k2_lib:.4f} ms (max abs diff {lib_err:.3e}), bound {k2_bound:.4f} ms ({k2_by}: "
-          f"{k2_bytes / 1e6:.1f} MB)")
-    print(f"[K3 deform_sample_bwd] kernel {k3_ms:.4f} ms (zeroed canvas, kernel, cast), "
-          f"plain {k3_plain:.4f} ms, grid_sampler_2d_backward {k3_lib:.4f} ms, bound "
-          f"{k3_bound:.4f} ms ({k3_by}: {k3_bytes / 1e6:.1f} MB, {k3_flops / 1e9:.3f} GFLOP)")
 
 
 def _clustered_rois(g, dev, n: int) -> torch.Tensor:
@@ -1321,7 +1159,7 @@ def check_k8(dev) -> tuple[dict, dict, dict]:
     lib_err = float((lib_fwd().permute(0, 2, 3, 1) - ref_a.float()).abs().max())
     # K8a runs K1's body: K1 on the same side-by-side data, for its bits and
     # its time beside K8a's
-    k1 = lambda: deform_sample.deform_sample9(y_taps, sy, sx, tap_axis=3)  # noqa: E731
+    k1 = lambda: deform_sample.deform_sample9(y_taps, sy, sx)  # noqa: E731
     if not torch.equal(k1(), got_a):
         raise AssertionError("K8a and K1 differ on the same side-by-side data")
     a_ms = time_ms(lambda: deform_shift.shift_fwd(y, sy, sx))
@@ -1433,18 +1271,16 @@ def _check_taps_backward(what: str, run, ref, sy, sx, tag: str, rule: str = "pal
     return gy_err, gy_rel, gsy_err, gsx_err
 
 
-def _k3_layer(g, dev, b: int, h: int, w: int, c: int, tap_axis: int, max_d: int,
+def _k3_layer(g, dev, b: int, h: int, w: int, c: int, max_d: int,
               int_share: float = 0.05) -> tuple:
     """y, grad, sy, sx of a nine-tap layer on a b x h x w x c map, bf16, y
-    tap-major (``tap_axis`` 0) or side by side (3): ``dcn_offsets`` clipped
-    to +-``max_d``, then ``_mark_integers`` at ``int_share``; within reach
-    ``max_d + 1``."""
+    side by side: ``dcn_offsets`` clipped to +-``max_d``, then
+    ``_mark_integers`` at ``int_share``; within reach ``max_d + 1``."""
     taps = 9
     ky, kx = _tap_grid(dev)
     shape = (taps, b, h, w)
     y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-    if tap_axis == 3:
-        y = y.permute(1, 2, 3, 0, 4).contiguous()
+    y = y.permute(1, 2, 3, 0, 4).contiguous()
     grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
     iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
     ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
@@ -1455,28 +1291,14 @@ def _k3_layer(g, dev, b: int, h: int, w: int, c: int, tap_axis: int, max_d: int,
     return y, grad, sy, sx
 
 
-def _check_k3(tag: str, y, grad, sy, sx, tap_axis: int, reach: int,
-              rule: str = "pallas") -> tuple:
+def _check_k3(tag: str, y, grad, sy, sx, reach: int, rule: str = "pallas") -> tuple:
     """``_check_taps_backward`` of the clipped all-tap K3 on one layer under
     ``rule``."""
     return _check_taps_backward(
         f"K3 taps {tag}",
-        lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach, tap_axis, rule),
-        deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, tap_axis, rule), sy,
+        lambda: deform_sample.deform_sample_bwd_taps(y, sy, sx, grad, reach, rule),
+        deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, reach, rule), sy,
         sx, f"[K3 deform_sample_bwd_taps] {tag}, rule {rule}, y {tuple(y.shape)} bf16", rule)
-
-
-def _k3_layouts_ms(run, y) -> tuple:
-    """An all-tap K3 form ``run(y, tap_axis)`` on a side-by-side layer and on
-    its tap-major copy: the same bits (grad_y permuted), and each layout's
-    ``time_ms`` (side by side first)."""
-    y_tm = _tap_major(y)
-    side, tm = run(y, 3), run(y_tm, 0)
-    if not (torch.equal(side[0], tm[0].permute(1, 2, 3, 0, 4))
-            and all(torch.equal(a, b) for a, b in zip(side[1:], tm[1:]))):
-        raise AssertionError("an all-tap K3 gives other bits tap-major than side by side")
-    del side, tm
-    return time_ms(lambda: run(y, 3)), time_ms(lambda: run(y_tm, 0))
 
 
 def check_k3_taps(dev) -> dict:
@@ -1488,32 +1310,28 @@ def check_k3_taps(dev) -> dict:
     ``check_k1`` (+-2 px, 3% at 6-12 px) before the clip, 5% of the samples
     on integer rows, 5% on integer columns (zero coordinate derivative
     there), 1% beyond the image edge; two runs must give the same bits.
-    Timed beside it at P2 in the same run: the kernel on a tap-major copy
-    (the same bits), and the one-tap K3 nine times on that copy plus the
-    stack that autograd made of its results, which is what the layer cost
-    in the one-tap form. Then, held the same way, side by side under each
-    rule of the coordinate derivative (``deform_sample.RULES``: zeros at
-    integer coordinates under ``pallas``, gradients there under ``hat`` and
-    ``floor``) on an integer-heavy P2 layer (half the samples on integer
-    rows, half on integer columns), not timed, and at the three backbone
-    shapes of the R101-DCN path (``r101_backbone_maps``, C 128 / 256 / 512),
-    timed there in both layouts."""
+    Then, held the same way, under each rule of the coordinate derivative
+    (``deform_sample.RULES``: zeros at integer coordinates under ``pallas``,
+    gradients there under ``hat`` and ``floor``) on an integer-heavy P2
+    layer (half the samples on integer rows, half on integer columns), not
+    timed, and at the three backbone shapes of the R101-DCN path
+    (``r101_backbone_maps``, C 128 / 256 / 512), timed there."""
     g = torch.Generator(device=dev).manual_seed(9)
     taps, c, max_d = 9, 128, 6
     reach = max_d + 1  # max_dy + half * dilation
 
-    def run(yy, tap_axis):
-        return deform_sample.deform_sample_bwd_taps(yy, sy, sx, grad, reach, tap_axis)
+    def run(yy):
+        return deform_sample.deform_sample_bwd_taps(yy, sy, sx, grad, reach)
 
     row = {}
     for tag, b, (h, w) in (("P2 side by side", TAPS_BATCH, (BUCKET[0] // 4, BUCKET[1] // 4)),
                            ("wide P2 side by side", WIDE_BATCH,
                             (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4))):
-        y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, 3, max_d)
-        gy_err, gy_rel, gsy_err, gsx_err = _check_k3(tag, y, grad, sy, sx, 3, reach)
-        ms = time_ms(lambda: run(y, 3))
+        y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, max_d)
+        gy_err, gy_rel, gsy_err, gsx_err = _check_k3(tag, y, grad, sy, sx, reach)
+        ms = time_ms(lambda: run(y))
         plain_ms = time_ms(lambda: deform_sample.deform_sample_bwd_taps_plain(
-            y, sy, sx, grad, reach, 3), 3)
+            y, sy, sx, grad, reach), 3)
 
         # library yardstick: 9 calls of grid_sample's backward op on float32
         # copies made outside the timed call (one-sided at integer
@@ -1539,19 +1357,6 @@ def check_k3_taps(dev) -> dict:
                 f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
                 f"{100 * bound_ms / ms:.1f}% of it")
         if not tag.startswith("wide"):
-            pair_ms, tm_ms = _k3_layouts_ms(run, y)
-            y_tm = _tap_major(y)
-
-            # the layer as the one-tap K3 did it: nine zeroed canvases, nine
-            # launches, nine casts, and autograd's stack of the nine results
-            def pertap():
-                return torch.stack([deform_sample.deform_sample_bwd(
-                    y_tm[t], sy[t], sx[t], grad)[0] for t in range(taps)])
-            pertap_ms = time_ms(pertap, 10)
-            del y_tm
-            line += (f"; on a tap-major copy the same bits in {tm_ms:.4f} ms (side by side "
-                     f"{pair_ms:.4f} ms beside it); the same layer by 9 one-tap K3 and the "
-                     f"stack: {pertap_ms:.4f} ms")
             row = {"name": "deform_sample_bwd_taps", "route": "cuda",
                    "source": "upsnet_torch/csrc/deform_sample_bwd.cu",
                    "replaces": "upsnet_tpu/ops/deform_conv_pallas.py:637",
@@ -1562,23 +1367,22 @@ def check_k3_taps(dev) -> dict:
         del y, grad, sy, sx
         torch.cuda.empty_cache()
     # each rule of the coordinate derivative on an integer-heavy P2 layer
-    # (half the rows and half the columns integers), side by side: the
-    # layout of DeformSampleTaps, which takes pallas and hat on this form
-    y, grad, sy, sx = _k3_layer(g, dev, TAPS_BATCH, BUCKET[0] // 4, BUCKET[1] // 4, c, 3,
-                                max_d, int_share=0.5)
+    # (half the rows and half the columns integers): DeformSampleTaps takes
+    # pallas and hat on this form
+    y, grad, sy, sx = _k3_layer(g, dev, TAPS_BATCH, BUCKET[0] // 4, BUCKET[1] // 4, c, max_d,
+                                int_share=0.5)
     for rule in deform_sample.RULES:
-        errs = _check_k3("P2 side by side integer-heavy", y, grad, sy, sx, 3, reach, rule)
+        errs = _check_k3("P2 side by side integer-heavy", y, grad, sy, sx, reach, rule)
         row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
     del y, grad, sy, sx
     # the training route's layout at the backbone shapes of the R101-DCN path
     g_backbone = torch.Generator(device=dev).manual_seed(22)
     for hh, ww, cc in r101_backbone_maps():
-        y, grad, sy, sx = _k3_layer(g_backbone, dev, TAPS_BATCH, hh, ww, cc, 3, max_d)
-        errs = _check_k3(f"backbone {hh}x{ww} side by side", y, grad, sy, sx, 3, reach)
+        y, grad, sy, sx = _k3_layer(g_backbone, dev, TAPS_BATCH, hh, ww, cc, max_d)
+        errs = _check_k3(f"backbone {hh}x{ww} side by side", y, grad, sy, sx, reach)
         row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
-        ms, tm_ms = _k3_layouts_ms(run, y)
-        print(f"[K3 deform_sample_bwd_taps] backbone {hh}x{ww}x{cc}: kernel {ms:.4f} ms side by "
-              f"side, {tm_ms:.4f} ms on a tap-major copy (the same bits)")
+        ms = time_ms(lambda: run(y))
+        print(f"[K3 deform_sample_bwd_taps] backbone {hh}x{ww}x{cc}: kernel {ms:.4f} ms")
         del y, grad, sy, sx
     torch.cuda.empty_cache()
     return row
@@ -1593,10 +1397,7 @@ def check_k3_unclipped(dev) -> dict:
     returned ones), and ``far``, uniform in +-40 px (as far as the train
     steps drive them after one update); each with 5% of the samples on
     integer rows, 5% on integer columns and 1% beyond the image edge. Two
-    runs must give the same bits. Timed beside it at each field: the kernel
-    on a tap-major copy (the same bits), and the layer as the one-tap K3 did
-    it on that copy (nine zeroed canvases, launches and casts, and the stack
-    of the nine results). Then, held the same way and not timed,
+    runs must give the same bits. Then, held the same way and not timed,
     on an integer-heavy field (+-2 px, half the samples on integer rows,
     half on integer columns): each rule of the coordinate derivative, and
     ``auto``'s device flag at both values under ``hat`` and ``pallas``
@@ -1611,14 +1412,14 @@ def check_k3_unclipped(dev) -> dict:
     kx = (kk % 3 - 1).float()[:, None, None, None]
     iy = torch.arange(h, device=dev, dtype=torch.float32)[None, None, :, None]
     ix = torch.arange(w, device=dev, dtype=torch.float32)[None, None, None, :]
-    y_tm = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
-    y = y_tm.permute(1, 2, 3, 0, 4).contiguous()
+    y = torch.randn((taps, b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
+    y = y.permute(1, 2, 3, 0, 4).contiguous()
     grad = torch.randn((b, h, w, c), generator=g, device=dev).to(torch.bfloat16)
     g32 = grad.float().permute(0, 3, 1, 2).contiguous()
-    planes = [y_tm[t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
+    planes = [y[:, :, :, t].float().permute(0, 3, 1, 2).contiguous() for t in range(taps)]
 
-    def run(yy, tap_axis, rule="pallas", fast=None):
-        return deform_sample.deform_sample_bwd_unclipped(yy, sy, sx, grad, rule, fast, tap_axis)
+    def run(rule="pallas", fast=None):
+        return deform_sample.deform_sample_bwd_unclipped(y, sy, sx, grad, rule, fast)
 
     row = {}
     for field in ("in window", "far"):
@@ -1630,17 +1431,11 @@ def check_k3_unclipped(dev) -> dict:
         sy, sx = _mark_integers(g, dev, iy + ky + off_y, ix + kx + off_x, h)
         tag = f"[K3 deform_sample_bwd_unclipped] {field}, y {tuple(y.shape)} side by side bf16"
         errs = _check_taps_backward(
-            "K3 unclipped", lambda: run(y, 3),
-            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3), sy, sx, tag)
-        ms, tm_ms = _k3_layouts_ms(run, y)
+            "K3 unclipped", run,
+            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None), sy, sx, tag)
+        ms = time_ms(run)
         plain_ms = time_ms(
-            lambda: deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3), 3)
-
-        def pertap():
-            return torch.stack([deform_sample.deform_sample_bwd(y_tm[t], sy[t], sx[t], grad)[0]
-                                for t in range(taps)])
-
-        pertap_ms = time_ms(pertap, 10)
+            lambda: deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None), 3)
         # library yardstick: 9 calls of grid_sample's backward op on float32
         # copies made outside the timed call (one-sided at integer
         # coordinates and in normalised coordinates: speed only)
@@ -1656,11 +1451,10 @@ def check_k3_unclipped(dev) -> dict:
         coords = 2 * sy.numel() * 4
         n_bytes = n_rows * c * 2 + grad.numel() * 2 + 2 * coords + y.numel() * 2
         bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 6 * c)
-        print(f"{tag}: kernel {ms:.4f} ms (sort, gather and coordinate pass; on a tap-major "
-              f"copy the same bits in {tm_ms:.4f} ms), plain {plain_ms:.4f} ms, 9x "
-              f"grid_sampler_2d_backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% "
-              f"of it; {n_inside} counted samples; the same layer by 9 one-tap K3 and the "
-              f"stack: {pertap_ms:.4f} ms")
+        print(f"{tag}: kernel {ms:.4f} ms (sort, gather and coordinate pass), plain "
+              f"{plain_ms:.4f} ms, 9x grid_sampler_2d_backward {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
+              f"{100 * bound_ms / ms:.1f}% of it; {n_inside} counted samples")
         if field == "in window":
             row = {"name": "deform_sample_bwd_unclipped", "route": "cuda",
                    "source": "upsnet_torch/csrc/deform_sample_bwd.cu",
@@ -1679,12 +1473,12 @@ def check_k3_unclipped(dev) -> dict:
         fast = None if flag is None else torch.tensor(flag, device=dev)
         taken = rule if flag is not False else "floor"
         errs = _check_taps_backward(
-            "K3 unclipped", lambda: run(y, 3, rule, fast),
-            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, 3, rule, fast),
+            "K3 unclipped", lambda: run(rule, fast),
+            deform_sample.deform_sample_bwd_taps_plain(y, sy, sx, grad, None, rule, fast),
             sy, sx, f"[K3 deform_sample_bwd_unclipped] integer-heavy, rule {rule}, flag "
             f"{flag} ({taken} taken), y {tuple(y.shape)} side by side bf16", taken)
         row["max_abs_err"] = max(row["max_abs_err"], errs[0], errs[2], errs[3])
-    del sy, sx, y, y_tm, grad, g32, planes
+    del sy, sx, y, grad, g32, planes
     torch.cuda.empty_cache()
     return row
 
@@ -1695,15 +1489,12 @@ def check_k6(dev) -> dict:
     ``check_k1`` (+-2 px, 3% at 6-12 px) clipped to +-6 on both axes as the
     tiled form clips them, 5% of the samples on integer rows, 5% on integer
     columns, 1% beyond the image edge (not counted, so beyond the reach).
-    The all-tap K6 (its numbers are the returned ones) is held against nine
-    one-tap K6 launches with the adds (equal) and its plain version, and
-    timed beside them and nine ``grid_sample`` calls and the adds; then its
-    float32 form, held the same way on the wide P3 layer (1 x 104 x 416 x 9
-    x 128, not timed). The one-tap K6, on no route since the all-tap form
-    took the layer, is held against its plain version on tap 4 and timed as
-    the yardstick of one launch."""
+    The all-tap K6 is held against its plain version, and timed beside it
+    and nine ``grid_sample`` calls and the adds; then its float32 form, held
+    the same way on the wide P3 layer (1 x 104 x 416 x 9 x 128, not
+    timed)."""
     g = torch.Generator(device=dev).manual_seed(6)
-    taps, tap, c, max_d = 9, 4, 128, 6
+    taps, c, max_d = 9, 128, 6
     reach = max_d + 1  # max_dy + dilation
     b, (h, w) = WIDE_BATCH, (WIDE_BUCKET[0] // 4, WIDE_BUCKET[1] // 4)
     if deform_sample.pallas_route((b, h, w, c), c, max_d, 1) != ("tiled", max_d):
@@ -1720,35 +1511,12 @@ def check_k6(dev) -> dict:
     sy, sx = _mark_integers(g, dev, sy, sx, h)
     deform_sample.check_reach(sy, sx, reach, reach)
 
-    # the one-tap K6 on tap 4: the same four f32 products summed in another
-    # order, rounded once to bf16: at most one bf16 ulp (2^-7 relative)
-    # apart, plus slack near 0
-    rtol, atol = 2.0 ** -7, 1e-4
-    sy4, sx4 = sy[tap], sx[tap]
-    one = deform_sample.deform_sample_tiled(y, tap, sy4, sx4, reach, reach)
-    one_ref = deform_sample.deform_sample_tiled_plain(y, tap, sy4, sx4, reach, reach)
-    torch.cuda.synchronize()
-    one_err, one_rel = compare(one, one_ref, rtol, atol)
-    if float(one.float().abs().max()) == 0.0:
-        raise AssertionError("K6: output is all zero")
-    one_ms = time_ms(lambda: deform_sample.deform_sample_tiled(y, tap, sy4, sx4, reach, reach))
-    del one, one_ref
-    print(f"[K6 deform_sample_tiled] one tap ({tap}) of y {tuple(y.shape)} bf16: max abs err "
-          f"{one_err:.3e}, max rel err {one_rel:.3e} (tolerance {rtol:.4g}*|ref| + {atol:g}); "
-          f"kernel {one_ms:.4f} ms")
-
     def run():
         return deform_sample.deform_sample_tiled_taps(y, sy, sx, reach, reach)
 
-    def chain():  # the layer as the one-tap K6 did it: 9 launches, 8 adds
-        out = deform_sample.deform_sample_tiled(y, 0, sy[0], sx[0], reach, reach)
-        for t in range(1, taps):
-            out = out + deform_sample.deform_sample_tiled(y, t, sy[t], sx[t], reach, reach)
-        return out
-
     got = run()
     err, rel = _check_forward_taps(
-        "K6 taps", got, chain(),
+        "K6 taps", got,
         deform_sample.deform_sample_tiled_taps_plain(y, sy, sx, reach, reach),
         lambda t: deform_sample.deform_sample_plain(y[:, :, :, t], sy[t], sx[t]), taps)
 
@@ -1766,9 +1534,7 @@ def check_k6(dev) -> dict:
                                       padding_mode="zeros", align_corners=True)
         return acc
 
-    ms = time_ms(run)
-    queued = [time_queued_ms(f) for f in (run, chain)]
-    chain_ms = time_ms(chain)
+    ms, queued = time_ms(run), time_queued_ms(run)
     plain_ms = time_ms(
         lambda: deform_sample.deform_sample_tiled_taps_plain(y, sy, sx, reach, reach), 3)
     library_ms = time_ms(library, 10)
@@ -1778,14 +1544,12 @@ def check_k6(dev) -> dict:
     n_rows, n_inside = touched_rows(sy, sx, h, w)
     n_bytes = n_rows * c * 2 + 2 * sy.numel() * 4 + got.numel() * 2
     bound_ms, bound_by = bound(n_bytes, n_inside * 4 * 2 * c + (taps - 1) * got.numel())
-    print(f"[K6 deform_sample_tiled_taps] y {tuple(y.shape)} bf16: equal to 9 one-tap K6 and 8 "
-          f"adds; against the plain version max abs err {err:.3e}, max rel err {rel:.3e} "
-          f"(tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4); kernel {ms:.4f} ms, the "
-          f"one-tap chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, 9x grid_sample and adds "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB), "
-          f"{100 * bound_ms / ms:.1f}% of it; 20 calls queued, per call: kernel "
-          f"{queued[0]:.4f} ms ({100 * bound_ms / queued[0]:.1f}% of the bound), the one-tap "
-          f"chain {queued[1]:.4f} ms")
+    print(f"[K6 deform_sample_tiled_taps] y {tuple(y.shape)} bf16: against the plain version "
+          f"max abs err {err:.3e}, max rel err {rel:.3e} (tolerance 2^-7 * (sum |tap| + sum "
+          f"|partial|) + 1e-4); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, 9x grid_sample and "
+          f"adds {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{n_bytes / 1e6:.1f} MB), {100 * bound_ms / ms:.1f}% of it; 20 calls queued, per "
+          f"call: kernel {queued:.4f} ms ({100 * bound_ms / queued:.1f}% of the bound)")
     del y, sy, sx, planes, grids, got
 
     # float32 at the wide P3 layer
@@ -1797,12 +1561,12 @@ def check_k6(dev) -> dict:
     sx = ix + kx + clip_offsets(dcn_offsets(g, dev, (taps, b, h, w)), float(max_d))
     sy, sx = _mark_integers(g, dev, sy, sx, h)
     f32_err, f32_rel = _check_forward_taps(
-        "K6 taps float32", run(), chain(),
+        "K6 taps float32", run(),
         deform_sample.deform_sample_tiled_taps_plain(y, sy, sx, reach, reach),
         lambda t: deform_sample.deform_sample_plain(y[:, :, :, t], sy[t], sx[t]), taps)
-    print(f"[K6 deform_sample_tiled_taps] y {tuple(y.shape)} float32: equal to 9 one-tap K6 "
-          f"and 8 adds; against the plain version max abs err {f32_err:.3e}, max rel err "
-          f"{f32_rel:.3e} (tolerance 2^-20 * (sum |tap| + sum |partial|) + 1e-5)")
+    print(f"[K6 deform_sample_tiled_taps] y {tuple(y.shape)} float32: against the plain "
+          f"version max abs err {f32_err:.3e}, max rel err {f32_rel:.3e} (tolerance 2^-20 * "
+          f"(sum |tap| + sum |partial|) + 1e-5)")
     del y, sy, sx
     torch.cuda.empty_cache()
     return {"name": "deform_sample_tiled_taps", "route": "cuda",
@@ -2133,21 +1897,15 @@ def check_k7(dev) -> tuple[dict, dict]:
 
 COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample_taps": (deform_sample, "launches_taps"),
-            "deform_sample_taps_side": (deform_sample, "launches_taps_side"),
-            "deform_sample": (deform_sample, "launches_fwd"),
-            "deform_sample_bwd": (deform_sample, "launches_bwd"),
             "deform_sample_bwd_taps": (deform_sample, "launches_bwd_taps"),
-            "deform_sample_bwd_taps_side": (deform_sample, "launches_bwd_taps_side"),
             "deform_sample_bwd_unclipped": (deform_sample, "launches_bwd_unclipped"),
-            "deform_sample_bwd_unclipped_side": (deform_sample, "launches_bwd_unclipped_side"),
             "fpn_roi_align": (roi_align_fpn, "launches"),
             "fpn_roi_align_bwd": (roi_align_fpn, "launches_bwd"),
-            "shift_fwd": (deform_shift, "launches_fwd"),
+            "shift_fwd": (deform_shift, "launches"),
             "shift_adjoint": (deform_shift, "launches_adjoint"),
             "shift_offset_grads": (deform_shift, "launches_offset_grads"),
             "deform_sample_tiled_taps": (deform_sample, "launches_tiled_taps"),
-            "deform_sample_tiled": (deform_sample, "launches_tiled"),
-            "deform_sample_mt": (deform_sample_mt, "launches_fwd"),
+            "deform_sample_mt": (deform_sample_mt, "launches"),
             "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd"),
             "tta_merge": (tta_merge, "launches"),
             "tta_resample": (tta_merge, "launches_resample")}
@@ -2240,12 +1998,12 @@ def check_entry_shapes(dev, rows: list) -> None:
             err, rel = _check_k2(f"K2 taps {where}", y, sy, sx)
             fold("deform_sample_taps", err)
             print(f"[K2 deform_sample_taps] {where}, +-2 px, y {tuple(y.shape)} side by side "
-                  f"bf16: equal to 9 one-tap K2 and 8 adds; against the plain version max abs err {err:.3e}, max "
-                  f"rel err {rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4)")
+                  f"bf16: against the plain version max abs err {err:.3e}, max rel err "
+                  f"{rel:.3e} (tolerance 2^-7 * (sum |tap| + sum |partial|) + 1e-4)")
             del y, sy, sx
-            y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, 3, net.dcn_max_dy)
+            y, grad, sy, sx = _k3_layer(g, dev, b, h, w, c, net.dcn_max_dy)
             errs = _check_k3(f"{where} side by side, clipped +-{net.dcn_max_dy}", y, grad, sy,
-                             sx, 3, net.dcn_max_dy + 1)
+                             sx, net.dcn_max_dy + 1)
             fold("deform_sample_bwd_taps", max(errs[0], errs[2], errs[3]))
             del y, grad, sy, sx
             y9, sy9, sx9 = _k1_inputs(g, dev, b, h, w, c)
@@ -2299,7 +2057,7 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
     passes in backward); any other launches K1 without autograd, and with it
     the all-tap K2 and the two passes of the all-tap K3, clipped where dy is
     (``pallas``, ``mxu``, ``shift``'s fallback), else (``auto``, ``gather``)
-    unclipped. The one-tap K2 and K6 run on no path. Under ``train.remat``
+    unclipped. Under ``train.remat``
     with a policy other than ``save_dcn`` a step recomputes the trunk, the
     sampling forwards (K2, K6, K8a) included, in its backward: they launch
     twice; ``save_dcn`` keeps their outputs (once). ``heads`` False leaves
@@ -2317,13 +2075,13 @@ def expected_launches(cfg, grad: bool, heads: bool = True, bucket=BUCKET,
         elif impl in ("pallas", "shift") and deform_sample.pallas_route(
                 shape, cout, net.dcn_max_dy, 1)[0] == "tiled":
             n["deform_sample_tiled_taps"] += fwd
-            n["deform_sample_bwd_taps_side"] += 2 * grad
+            n["deform_sample_bwd_taps"] += 2 * grad
         elif grad:
-            n["deform_sample_taps_side"] += fwd
+            n["deform_sample_taps"] += fwd
             if impl in ("pallas", "mxu", "shift"):
-                n["deform_sample_bwd_taps_side"] += 2
+                n["deform_sample_bwd_taps"] += 2
             else:
-                n["deform_sample_bwd_unclipped_side"] += 2
+                n["deform_sample_bwd_unclipped"] += 2
         else:
             n["deform_sample9"] += 1
     if heads:
@@ -2578,8 +2336,6 @@ def phase_profile(run, prefix: str, what: str, other_thread=()) -> None:
 # kernels, K7b seven (its sort, its gather and its coordinate pass, under
 # names of their own)
 KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_taps_kernel": "K2 taps",
-                  "deform_sample_kernel": "K2 one tap",
-                  "deform_sample_bwd_kernel": "K3 one tap",
                   "grad_y_gather_kernel": "K3 taps grad_y / K8b",
                   "offset_grads_kernel": "K3 coords / K8c",
                   **dict.fromkeys(("bin_count_kernel", "scan_tiles_kernel",
@@ -2587,8 +2343,7 @@ KERNEL_SYMBOLS = {"deform_sample9_kernel": "K1", "deform_sample_taps_kernel": "K
                                    "grad_y_sorted_kernel"), "K3 unclipped grad_y"),
                   "fpn_roi_align_kernel": "K4", "fpn_roi_align_any_kernel": "K4 runtime S",
                   "fpn_roi_align_bwd_kernel": "K5",
-                  "deform_sample_tiled_taps_kernel": "K6 taps",
-                  "deform_sample_tiled_kernel": "K6 one tap", "deform_sample_mt_kernel": "K7a",
+                  "deform_sample_tiled_taps_kernel": "K6 taps", "deform_sample_mt_kernel": "K7a",
                   **dict.fromkeys(K7B_SORT, "K7b sort"), "mt_bwd_gather_kernel": "K7b grad_x",
                   "mt_bwd_coords_kernel": "K7b coords", "shift_fwd_kernel": "K8a"}
 LOSS_KEYS = ("rpn_cls", "rpn_bbox", "cls", "bbox", "mask", "seg", "pano")
@@ -2626,32 +2381,6 @@ def compare_seg_with_pallas(model, cfg, anchors, batch, seg_shift, tag: str) -> 
           f"{err:.3e}, max |ref| {scale:.3f} (tolerance 2^-5 * max |ref| = {scale / 32:.3e})")
     if not err <= scale / 32:
         raise AssertionError(f"seg_logits shift vs pallas: {err} > {scale / 32}")
-
-
-def compare_seg_with_tap_major(model, cfg, anchors, batch, seg) -> None:
-    """``seg_logits`` of the ``auto`` model, whose no-grad DCN layers read the
-    one-matmul projection side by side, against one more request on the
-    same weights with every such layer switched to a tap-major copy of the
-    same projection (``side_by_side_projections`` permuted to (9, B, H, W, C)
-    and made contiguous) and K1 reading that: both K1 forms give the same
-    bits on the same projections, so the two must be equal; held within
-    2^-5 of max |ref| as ``shift`` against ``pallas`` is, and printed."""
-    real_projections, real_k1 = deform_conv.side_by_side_projections, deform_conv.deform_sample9
-    deform_conv.side_by_side_projections = (
-        lambda x, w: real_projections(x, w).permute(3, 0, 1, 2, 4).contiguous())
-    deform_conv.deform_sample9 = lambda y, sy, sx, tap_axis: real_k1(y, sy, sx)
-    try:
-        ref = forward_predict(model, cfg, anchors, batch)["seg_logits"]
-    finally:
-        deform_conv.side_by_side_projections = real_projections
-        deform_conv.deform_sample9 = real_k1
-    err = float((seg - ref).abs().max())
-    scale = float(ref.abs().max())
-    print(f"[predict] seg_logits, side-by-side vs tap-major projections on the same weights: "
-          f"max abs diff {err:.3e}, max |ref| {scale:.3f} (tolerance 2^-5 * max |ref| = "
-          f"{scale / 32:.3e})")
-    if not err <= scale / 32:
-        raise AssertionError(f"seg_logits side by side vs tap-major: {err} > {scale / 32}")
 
 
 def compare_wide_with_auto(model, cfg, anchors, batch, seg_pallas) -> None:
@@ -3850,8 +3579,8 @@ def phase_mt_tool(dev) -> dict:
         if route == "tiled":
             raise AssertionError(f"the tool's shape {h}x{w} is routed to the tiled form")
         expect["deform_sample9"] += 2 * (2 + reps)
-        expect["deform_sample_taps_side"] += 2 * (1 + reps)
-        expect["deform_sample_bwd_taps_side"] += 2 * 2 * (1 + reps)
+        expect["deform_sample_taps"] += 2 * (1 + reps)
+        expect["deform_sample_bwd_taps"] += 2 * 2 * (1 + reps)
     if launches != expect:
         raise AssertionError(f"mt_tool launches {nonzero(launches)}, expected {nonzero(expect)}")
     for row in rows:
@@ -3965,8 +3694,8 @@ def phase_remat(dev, profile: bool = False) -> dict:
               f"allocated {r['peak'] / 2 ** 30:.3f} GiB with the three models resident, "
               f"{r['above'] / 2 ** 30:.3f} GiB above what was resident before a step "
               f"(requested by the step: {r['requested']} bytes); a step "
-              f"launches {r['expect']['deform_sample_taps_side']} K2, "
-              f"{r['expect']['deform_sample_bwd_taps_side']} K3; total by step "
+              f"launches {r['expect']['deform_sample_taps']} K2, "
+              f"{r['expect']['deform_sample_bwd_taps']} K3; total by step "
               f"{[x['total'] for x in r['losses']]}; weights {r['weights']}")
     if profile:  # in turns, twice: a process's first profiled step carries the set-up
         for name in ("full", "save_dcn") * 2:
@@ -4500,10 +4229,6 @@ def main() -> None:
 def run_phases(dev, profile: bool) -> None:
     """Phases 1-22 (the module's docstring), ending in the kernels line."""
     phase_build()
-    # the one-tap K2, K3 and K6 are held against their plain versions and
-    # timed, but no route takes them any more: they are not in the kernels
-    # line
-    check_k2_k3(dev)
     check_coords(dev)
     kernels = [check_k1(dev), check_k2_taps(dev), check_k3_taps(dev), check_k3_unclipped(dev),
                check_k4(dev), check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev),
@@ -4523,7 +4248,6 @@ def run_phases(dev, profile: bool) -> None:
     counts, run, model, batch, seg = phase_predict(dev)
     cfg = default_config()
     anchors = bucket_anchors(cfg, BUCKET, dev)
-    compare_seg_with_tap_major(model, cfg, anchors, batch, seg)
     finish("predict", counts, run, "predict.")
     del run, model, batch, seg
     counts, run, pallas_history = phase_train(dev)
@@ -4597,8 +4321,8 @@ def run_phases(dev, profile: bool) -> None:
     finish("mt_tool", phase_mt_tool(dev), None, "")
     phase_reference(dev)
     phase_reference(dev, norm="gn", dcn_stages=(3, 4, 5))
-    for k in kernels:  # the all-tap K2 and K3 count each layout apart
-        k["launches"] = launches[k["name"]] + launches.get(k["name"] + "_side", 0)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} was not launched on a main path")
     print(json.dumps({"kernels": kernels}))

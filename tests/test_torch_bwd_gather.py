@@ -2,8 +2,8 @@
 package on the CPU.
 
 K3, all taps (``deform_sample_bwd_taps``): its plain version against nine
-calls of ``deform_conv_pallas._sample_pallas_bwd`` in interpret mode, in both
-layouts the port produces (tap-major and side by side), on fractional,
+calls of ``deform_conv_pallas._sample_pallas_bwd`` in interpret mode, on the
+side-by-side layout every route builds, in f32 and bf16, on fractional,
 integer and beyond-the-edge coordinates; the reach contract; and
 ``deform_conv2d(impl="pallas")`` with its gradients through
 ``DeformSampleTaps`` (untiled) and ``DeformSampleTiled`` (tiled) against
@@ -101,24 +101,37 @@ def _jax_taps(y9, sy, sx, g):
     return np.stack(gys), np.stack(gsys), np.stack(gsxs)
 
 
+# bf16: grad_y is an f32 sum rounded once to bf16 on both sides, so one bf16
+# ulp apart at most (2^-7 relative, 2^-8 at rounding to nearest) plus f32
+# slack near zero
+BF16_GY_TOL = dict(rtol=2.0 ** -7, atol=1e-4)
+
+
 @pytest.mark.parametrize("kind", ["fractional", "integer", "outside"])
-@pytest.mark.parametrize("tap_axis", [0, 3], ids=["tap_major", "side_by_side"])
-def test_bwd_taps_plain_matches_nine_pallas_calls(rng, kind, tap_axis):
-    """The all-tap K3's plain version == nine ``_sample_pallas_bwd`` calls
-    in interpret mode, f32, in both layouts (grad_y comes back in y's).
-    grad_y: f32 sums in another order (1e-5). gsy, gsx: sums of C x 4
-    products of O(1) values (rtol 1e-5, atol 1e-4). At integer coordinates
-    both give gsy = gsx = 0 exactly."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_bwd_taps_plain_matches_nine_pallas_calls(rng, kind, dtype):
+    """The all-tap K3's plain version on the side-by-side layout == nine
+    ``_sample_pallas_bwd`` calls in interpret mode on the same values, f32
+    and bf16 (grad_y comes back in y's layout and dtype; the JAX kernel's
+    f32 canvas is rounded to the dtype as its wrapper rounds it). grad_y:
+    f32 sums in another order (1e-5; bf16 ``BF16_GY_TOL``). gsy, gsx: f32
+    sums of C x 4 products of O(1) values (rtol 1e-5, atol 1e-4). At integer
+    coordinates both give gsy = gsx = 0 exactly."""
     y9 = rng.randn(K, B, H, W, C).astype(np.float32)
     g = rng.randn(B, H, W, C).astype(np.float32)
+    if dtype == torch.bfloat16:  # both sides get the same bf16 values
+        y9, g = (_t(a).bfloat16().float().numpy() for a in (y9, g))
     sy, sx = _tap_coords(rng, kind)
     r_gy, r_gsy, r_gsx = _jax_taps(y9, sy, sx, g)
-    y = y9 if tap_axis == 0 else np.ascontiguousarray(np.moveaxis(y9, 0, 3))
-    gy, gsy, gsx = tsample.deform_sample_bwd_taps(_t(y), _t(sy), _t(sx), _t(g), REACH,
-                                                  tap_axis)
-    assert gy.shape == y.shape and gy.dtype == torch.float32 and gsy.shape == (K, B, H, W)
-    got_gy = gy.numpy() if tap_axis == 0 else np.moveaxis(gy.numpy(), 3, 0)
-    np.testing.assert_allclose(got_gy, r_gy, **F32_TOL)
+    r_gy = _t(r_gy).to(dtype).float().numpy()
+    y = np.ascontiguousarray(np.moveaxis(y9, 0, 3))
+    gy, gsy, gsx = tsample.deform_sample_bwd_taps(_t(y).to(dtype), _t(sy), _t(sx),
+                                                  _t(g).to(dtype), REACH)
+    assert gy.shape == y.shape and gy.dtype == dtype and gsy.shape == (K, B, H, W)
+    assert gsy.dtype == torch.float32
+    got_gy = np.moveaxis(gy.float().numpy(), 3, 0)
+    np.testing.assert_allclose(got_gy, r_gy, **(F32_TOL if dtype == torch.float32
+                                                else BF16_GY_TOL))
     np.testing.assert_allclose(gsy.numpy(), r_gsy, rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(gsx.numpy(), r_gsx, rtol=1e-5, atol=1e-4)
     if kind == "integer":
@@ -137,7 +150,7 @@ def test_bwd_taps_plain_raises_beyond_the_row_reach(rng):
     """The reach contract: one counted sample more than ``reach_y`` rows
     from its pixel raises (the kernel would give it no gradient to y); the
     same sample outside the map does not count and passes; dx is free."""
-    y = _t(rng.randn(3, 1, 8, 12, 8).astype(np.float32))
+    y = _t(rng.randn(1, 8, 12, 3, 8).astype(np.float32))
     g = _t(rng.randn(1, 8, 12, 8).astype(np.float32))
     sy = torch.arange(8, dtype=torch.float32)[None, None, :, None].expand(3, 1, 8, 12).clone()
     sx = torch.arange(12, dtype=torch.float32).expand(3, 1, 8, 12).clone()
@@ -152,50 +165,80 @@ def test_bwd_taps_plain_raises_beyond_the_row_reach(rng):
 
 
 def test_bwd_taps_is_the_one_tap_backward_per_tap(rng):
-    """In float64 the all-tap plain version equals the one-tap K3 on each
-    tap exactly, in both layouts: the same arithmetic, tap by tap."""
-    y9 = _t(rng.randn(K, 1, 6, 7, 8))
+    """In float64 the all-tap plain version equals the one-tap plain K3
+    (``deform_sample_bwd_plain``) on each tap exactly: the same arithmetic,
+    tap by tap."""
+    y = _t(rng.randn(1, 6, 7, K, 8))
     g = _t(rng.randn(1, 6, 7, 8))
     sy = _t(np.arange(6)[None, None, :, None] + rng.uniform(-2.5, 2.5, (K, 1, 6, 7)))
     sx = _t(np.arange(7)[None, None, None, :] + rng.uniform(-9, 9, (K, 1, 6, 7)))
-    for tap_axis in (0, 3):
-        y = y9 if tap_axis == 0 else y9.permute(1, 2, 3, 0, 4).contiguous()
-        gy, gsy, gsx = tsample.deform_sample_bwd_taps(y, sy, sx, g, 3, tap_axis)
-        for t in range(K):
-            ref = tsample.deform_sample_bwd(y9[t], sy[t], sx[t], g)
-            assert torch.equal(gy.select(tap_axis, t), ref[0])
-            assert torch.equal(gsy[t], ref[1]) and torch.equal(gsx[t], ref[2])
+    gy, gsy, gsx = tsample.deform_sample_bwd_taps(y, sy, sx, g, 3)
+    for t in range(K):
+        ref = tsample.deform_sample_bwd_plain(y[:, :, :, t].contiguous(), sy[t], sx[t], g)
+        assert torch.equal(gy[:, :, :, t], ref[0])
+        assert torch.equal(gsy[t], ref[1]) and torch.equal(gsx[t], ref[2])
+
+
+def _gradcheck_coords(rng, k, b, h, w, dy, dx):
+    """(K, B, H, W) float64 coordinates within +-dy rows and +-dx columns of
+    each pixel, kept 0.05 away from every grid line (the sampler is smooth
+    there)."""
+    sy = np.arange(h)[None, None, :, None] + rng.uniform(-dy, dy, (k, b, h, w))
+    sx = np.arange(w)[None, None, None, :] + rng.uniform(-dx, dx, (k, b, h, w))
+    for s in (sy, sx):
+        frac = s - np.floor(s)
+        s += np.where(frac < 0.05, 0.1, 0) - np.where(frac > 0.95, 0.1, 0)
+    return (_t(s).requires_grad_(True) for s in (sy, sx))
 
 
 def test_deform_sample_taps_function_gradcheck_float64(rng):
-    """Finite differences of ``DeformSampleTaps`` in float64 at non-integer
-    coordinates within the reach (the function is smooth there)."""
+    """Finite differences of ``DeformSampleTaps`` (clipped K3) in float64 at
+    non-integer coordinates within the reach (the function is smooth
+    there)."""
     k, b, h, w, c = 3, 1, 5, 6, 3
-    y = _t(rng.randn(k, b, h, w, c)).requires_grad_(True)
-    sy = np.arange(h)[None, None, :, None] + rng.uniform(-1.8, 1.8, (k, b, h, w))
-    sx = np.arange(w)[None, None, None, :] + rng.uniform(-4.5, 4.5, (k, b, h, w))
-    for s in (sy, sx):  # keep 0.05 away from every grid line
-        frac = s - np.floor(s)
-        s += np.where(frac < 0.05, 0.1, 0) - np.where(frac > 0.95, 0.1, 0)
-    sy, sx = (_t(s).requires_grad_(True) for s in (sy, sx))
+    y = _t(rng.randn(b, h, w, k, c)).requires_grad_(True)
+    sy, sx = _gradcheck_coords(rng, k, b, h, w, 1.8, 4.5)
     assert torch.autograd.gradcheck(
-        lambda *a: tsample.DeformSampleTaps.apply(*a, 2, "pallas", None, 0),
+        lambda *a: tsample.DeformSampleTaps.apply(*a, 2, "pallas"),
         (y, sy, sx), eps=1e-6, atol=1e-6, rtol=1e-5)
 
 
-@pytest.mark.parametrize("what", ["rank", "tap_axis", "coords", "reach", "g_dtype", "g_shape"])
+def test_deform_sample_taps_unclipped_function_gradcheck_float64(rng):
+    """The same for the unclipped K3 (``reach_y`` None): samples up to 7 rows
+    away and outside the map, as ``auto`` and ``gather`` take them."""
+    k, b, h, w, c = 3, 1, 5, 6, 3
+    y = _t(rng.randn(b, h, w, k, c)).requires_grad_(True)
+    sy, sx = _gradcheck_coords(rng, k, b, h, w, 7.0, 7.0)
+    assert torch.autograd.gradcheck(
+        lambda *a: tsample.DeformSampleTaps.apply(*a, None, "pallas"),
+        (y, sy, sx), eps=1e-6, atol=1e-6, rtol=1e-5)
+
+
+def test_deform_sample_tiled_function_gradcheck_float64(rng):
+    """The same for ``DeformSampleTiled`` (K6, backward the clipped K3), with
+    every sample within the row and the column reach."""
+    k, b, h, w, c = 3, 1, 5, 6, 3
+    y = _t(rng.randn(b, h, w, k, c)).requires_grad_(True)
+    sy, sx = _gradcheck_coords(rng, k, b, h, w, 1.8, 1.8)
+    assert torch.autograd.gradcheck(
+        lambda *a: tsample.DeformSampleTiled.apply(*a, 2, 2),
+        (y, sy, sx), eps=1e-6, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("what", ["rank", "coords", "sx_shape", "reach", "rule", "g_dtype",
+                                  "g_shape"])
 def test_bwd_taps_wrapper_checks_and_cpu_counts_nothing(rng, what):
-    y = torch.zeros((3, 1, 4, 5, 8))
+    y = torch.zeros((1, 4, 5, 3, 8))
     s = torch.arange(4.0)[:, None].expand(3, 1, 4, 5).contiguous()  # on each pixel's row
     g = torch.zeros((1, 4, 5, 8))
     before = tsample.launches_bwd_taps
     tsample.deform_sample_bwd_taps(y, s, s, g, 1)
-    tsample.deform_sample_bwd_taps(y.permute(1, 2, 3, 0, 4).contiguous(), s, s, g, 1, 3)
     assert tsample.launches_bwd_taps == before
     bad = {"rank": lambda: tsample.deform_sample_bwd_taps(y[0], s, s, g, 1),
-           "tap_axis": lambda: tsample.deform_sample_bwd_taps(y, s, s, g, 1, 4),
            "coords": lambda: tsample.deform_sample_bwd_taps(y, s[:2], s[:2], g, 1),
+           "sx_shape": lambda: tsample.deform_sample_bwd_taps(y, s, s[..., :4], g, 1),
            "reach": lambda: tsample.deform_sample_bwd_taps(y, s, s, g, -1),
+           "rule": lambda: tsample.deform_sample_bwd_taps(y, s, s, g, 1, "central"),
            "g_dtype": lambda: tsample.deform_sample_bwd_taps(y, s, s, g.bfloat16(), 1),
            "g_shape": lambda: tsample.deform_sample_bwd_taps(y, s, s, g[..., :4], 1)}[what]
     with pytest.raises(TypeError if what == "g_dtype" else ValueError):
@@ -220,7 +263,7 @@ def test_deform_conv2d_pallas_gradients_match_the_jax_layer(monkeypatch, route,
     """``deform_conv2d(impl="pallas")`` and its four gradients against
     ``jax.vjp`` of ``deform_conv2d_pallas`` with both routing rules fixed to
     ``route`` (the JAX rule answers ``mxu`` on a CPU): untiled through
-    ``DeformSampleTaps`` (never ``DeformSample``), tiled through
+    ``DeformSampleTaps``, tiled through
     ``DeformSampleTiled``, both with the all-tap K3 as backward. f32; atol
     2e-3 forward, 5e-3 + 1e-3 relative for the gradients: the tolerances
     the JAX package holds its windowed forms to (sums over 9 taps and 4
@@ -237,8 +280,7 @@ def test_deform_conv2d_pallas_gradients_match_the_jax_layer(monkeypatch, route,
     ref_grads = vjp(jnp.asarray(cot))
     targs = [_t(a).requires_grad_(True) for a in (x, offsets, weight, bias)]
     taps = mock.Mock(side_effect=tsample.DeformSampleTaps.apply)
-    with mock.patch.object(tsample.DeformSample, "apply", side_effect=AssertionError("per tap")), \
-            mock.patch.object(tdc.DeformSampleTaps, "apply", taps):
+    with mock.patch.object(tdc.DeformSampleTaps, "apply", taps):
         got = tdc.deform_conv2d(*targs, impl="pallas", max_dy=6, boundary_grad=boundary_grad)
     assert taps.call_count == (route == "untiled")
     got.backward(_t(cot))

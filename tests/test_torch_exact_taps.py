@@ -6,8 +6,8 @@ Under autograd these routes sample the K taps one by one (K2) in one
 (``deform_sample_bwd_unclipped``; on the CPU its plain version). Held here:
 the gradients of ``deform_conv2d`` against ``jax.grad`` of the exact gather
 form ``deform_conv2d_batched``, offsets near and far beyond any window; the
-plain backward against nine ``DeformSample`` backwards; that no per-tap node
-is built any more; and ``deform_conv2d(impl="auto")`` against the JAX
+plain backward against nine one-tap plain backwards; that one node is built
+per layer; and ``deform_conv2d(impl="auto")`` against the JAX
 ``deform_conv2d_auto`` on a map that the JAX routing rule, lowered as
 ``test_torch_tiled_mt.py`` lowers it, sends to the column-tiled Pallas
 kernel, run in interpret mode. Then the derivative at integer sample
@@ -226,9 +226,9 @@ def test_the_pallas_kernels_routes_keep_zero_at_integers(monkeypatch, route):
 
 
 def _taps(rng, k=9, b=2, h=6, w=7, c=8, reach=12.0):
-    """y (K, B, H, W, C), g, and coordinates anywhere within +-reach px of
+    """y (B, H, W, K, C), g, and coordinates anywhere within +-reach px of
     each pixel, a quarter of them on integer rows or columns."""
-    y = _t(rng.randn(k, b, h, w, c))
+    y = _t(rng.randn(b, h, w, k, c))
     g = _t(rng.randn(b, h, w, c))
     sy = np.arange(h)[None, None, :, None] + rng.uniform(-reach, reach, (k, b, h, w))
     sx = np.arange(w)[None, None, None, :] + rng.uniform(-reach, reach, (k, b, h, w))
@@ -239,32 +239,30 @@ def _taps(rng, k=9, b=2, h=6, w=7, c=8, reach=12.0):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_unclipped_backward_is_nine_deform_sample_backwards(dtype):
-    """``DeformSampleTaps`` with no reach against the chain of nine
-    ``DeformSample`` nodes it replaces: forward, and gradients to y, sy and
-    sx for one upstream gradient, exactly equal (the same plain arithmetic,
-    tap by tap, with the same tap adds); ``deform_sample_bwd_unclipped``
-    equals the one-tap K3 on each tap exactly, counts no launch on the CPU
-    and takes coordinates far beyond any window and outside the map."""
+    """``DeformSampleTaps`` with no reach against the chain of nine one-tap
+    plain versions it stands for (``deform_sample_plain`` added in tap
+    order, ``deform_sample_bwd_plain`` per tap): forward, and gradients to
+    y, sy and sx for one upstream gradient, exactly equal (the same plain
+    arithmetic, tap by tap, with the same tap adds);
+    ``deform_sample_bwd_unclipped`` counts no launch on the CPU and takes
+    coordinates far beyond any window and outside the map."""
     y, g, sy, sx = (a.to(dtype) for a in _taps(np.random.RandomState(3)))
     a = [v.clone().requires_grad_() for v in (y, sy, sx)]
-    b = [v.clone().requires_grad_() for v in (y, sy, sx)]
-    out = tsample.DeformSampleTaps.apply(*a, None, "pallas", None, 0)
+    out = tsample.DeformSampleTaps.apply(*a, None, "pallas", None)
     chain = None
-    for yt, syt, sxt in zip(b[0].unbind(0), b[1].unbind(0), b[2].unbind(0)):
-        tap = tsample.DeformSample.apply(yt, syt, sxt)
+    for t in range(y.shape[3]):
+        tap = tsample.deform_sample_plain(y[:, :, :, t], sy[t], sx[t])
         chain = tap if chain is None else chain + tap
     assert torch.equal(out, chain)
     out.backward(g)
-    chain.backward(g)
-    for u, v in zip(a, b):
-        assert torch.equal(u.grad, v.grad)
     before = tsample.launches_bwd_unclipped
-    gy, gsy, gsx = tsample.deform_sample_bwd_unclipped(y, sy, sx, g, tap_axis=0)
+    gy, gsy, gsx = tsample.deform_sample_bwd_unclipped(y, sy, sx, g)
     assert tsample.launches_bwd_unclipped == before
-    for t in range(y.shape[0]):
-        ref = tsample.deform_sample_bwd(y[t], sy[t], sx[t], g)
-        assert torch.equal(gy[t], ref[0])
-        assert torch.equal(gsy[t], ref[1]) and torch.equal(gsx[t], ref[2])
+    for t in range(y.shape[3]):
+        ref = tsample.deform_sample_bwd_plain(y[:, :, :, t], sy[t], sx[t], g)
+        assert torch.equal(a[0].grad[:, :, :, t], ref[0]) and torch.equal(gy[:, :, :, t], ref[0])
+        assert torch.equal(a[1].grad[t], ref[1]) and torch.equal(gsy[t], ref[1])
+        assert torch.equal(a[2].grad[t], ref[2]) and torch.equal(gsx[t], ref[2])
     assert float(gy.abs().max()) > 0 and float(gsy.abs().max()) > 0
 
 
@@ -303,14 +301,11 @@ def test_a_flag_takes_the_unclipped_form():
 @pytest.mark.parametrize("impl", ["gather", "auto"])
 def test_exact_routes_build_one_all_tap_node(impl):
     """Under autograd ``auto`` and ``gather`` build one ``DeformSampleTaps``
-    with no reach per layer and never a per-tap ``DeformSample`` (which
-    raises here); the backward runs through it. Without autograd they take
-    the fused sampler and build no node."""
+    with no reach per layer; the backward runs through it. Without autograd
+    they take the fused sampler and build no node."""
     targs = [_t(a).requires_grad_() for a in _conv_inputs(4, 9.0)]
     taps = mock.Mock(side_effect=tsample.DeformSampleTaps.apply)
-    with mock.patch.object(tsample.DeformSample, "apply",
-                           side_effect=AssertionError("per-tap node")), \
-            mock.patch.object(tsample.DeformSampleTaps, "apply", taps):
+    with mock.patch.object(tsample.DeformSampleTaps, "apply", taps):
         out = tdc.deform_conv2d(*targs, impl=impl)
         out.square().sum().backward()
         with torch.no_grad():

@@ -1,6 +1,5 @@
-"""The all-tap training forwards of the port, the all-tap K2
-(``deform_sample_taps``) and the all-tap K6 (``deform_sample_tiled_taps``),
-against the JAX package on the CPU.
+"""The training forwards of the port, K2 (``deform_sample_taps``) and K6
+(``deform_sample_tiled_taps``), against the JAX package on the CPU.
 
 The JAX training forms sample a layer's taps one by one and add each tap's
 output in the projection's dtype in tap order: ``_pertap_untiled`` with
@@ -10,8 +9,8 @@ the CPU its wrappers run the plain versions, which are the chain of one-tap
 plain versions. Held here: that chain exactly, in f32 and bf16; the chain of
 interpreted Pallas kernels within the bf16 chain's tolerance; the tiled
 plain version's reach check; one all-tap call per ``DeformSampleTaps`` and
-``DeformSampleTiled`` forward and no one-tap call; and the wrappers' checks,
-with no launch counted for a CPU call.
+``DeformSampleTiled`` forward; and the wrappers' checks, with no launch
+counted for a CPU call.
 
 Inputs come from numpy seeds. Every tolerance is stated where it is used.
 """
@@ -97,17 +96,17 @@ def test_taps_plain_is_the_chain_of_one_tap_plains(dtype):
     rng = np.random.RandomState(0)
     b, h, w, c = 2, 6, 11, 16
     sy, sx = (_t(s) for s in _coords(rng, b, h, w, 3))
-    y = _t(rng.randn(TAPS, b, h, w, c).astype(np.float32)).to(dtype)
-    got = tsample.deform_sample_taps(y, sy, sx, 0)
+    y = _t(rng.randn(b, h, w, TAPS, c).astype(np.float32)).to(dtype)
+    got = tsample.deform_sample_taps(y, sy, sx)
     assert got.dtype == dtype and got.shape == (b, h, w, c)
-    assert torch.equal(got, _chain(lambda t: tsample.deform_sample_plain(y[t], sy[t], sx[t])))
-    assert torch.equal(got, tsample.deform_sample_taps_plain(y, sy, sx, 0))
-    side = y.permute(1, 2, 3, 0, 4).contiguous()
+    assert torch.equal(got, _chain(lambda t: tsample.deform_sample_plain(
+        y[:, :, :, t], sy[t], sx[t])))
+    assert torch.equal(got, tsample.deform_sample_taps_plain(y, sy, sx))
     reach_x = 5  # the column shift of 1 and |dx| <= 3, beyond no sample
-    tiled = tsample.deform_sample_tiled_taps(side, sy, sx, REACH, reach_x)
+    tiled = tsample.deform_sample_tiled_taps(y, sy, sx, REACH, reach_x)
     assert tiled.dtype == dtype
     assert torch.equal(tiled, _chain(lambda t: tsample.deform_sample_tiled_plain(
-        side, t, sy[t], sx[t], REACH, reach_x)))
+        y, t, sy[t], sx[t], REACH, reach_x)))
     assert torch.equal(tiled, got)  # the same samples, read in place
 
 
@@ -128,7 +127,7 @@ def test_taps_plain_matches_a_chain_of_interpreted_sample_pallas():
         y_pad = jnp.pad(y[t], ((0, 0), (pad, pad), (1, 128 - w - 1), (0, 0)))
         out = out + dcp._sample_pallas(y_pad, jnp.asarray(sy[t]), jnp.asarray(sx[t]), REACH)
     ty = _t(np.asarray(y.astype(jnp.float32))).to(torch.bfloat16)
-    got = tsample.deform_sample_taps(ty, _t(sy), _t(sx), 0)
+    got = tsample.deform_sample_taps(ty.permute(1, 2, 3, 0, 4).contiguous(), _t(sy), _t(sx))
     taps = [tsample.deform_sample_plain(ty[t], _t(sy[t]), _t(sx[t])).float().numpy()
             for t in range(TAPS)]
     err = np.abs(got.float().numpy() - np.asarray(out.astype(jnp.float32)))
@@ -143,7 +142,7 @@ def test_tiled_taps_plain_matches_a_chain_of_interpreted_sample_pallas_tiled():
     ``_sample_pallas_tiled`` calls on a map two column tiles wide (ct 128),
     each tap padded as that function pads it, added to a bf16 running sum
     from zero; tolerance as in the untiled test. Then a sample beyond the
-    column reach: the plain version raises, as the one-tap K6's does."""
+    column reach: the plain version raises."""
     rng = np.random.RandomState(2)
     b, h, w, c, dx = 1, 8, 256, 16, 3
     reach_x = dx + 1  # |dx| <= 3 plus the taps' column shift
@@ -185,17 +184,14 @@ def test_layers_call_the_all_tap_wrapper_once(monkeypatch, route, grad):
     """``deform_conv2d(impl="pallas")`` under autograd (untiled: one
     ``DeformSampleTaps``) and on a map the routing rule tiles, with and
     without autograd (one ``DeformSampleTiled``), call the all-tap forward
-    once a layer and the one-tap K2 and K6 never; the backward runs."""
+    once a layer; the backward runs."""
     fixed = (lambda *a, **k: ("tiled", 2)) if route == "tiled" else (
         lambda *a, **k: ("untiled", None))
     monkeypatch.setattr(tdc, "pallas_route", fixed)
     name = "deform_sample_tiled_taps" if route == "tiled" else "deform_sample_taps"
     spy = mock.Mock(side_effect=getattr(tsample, name))
     leaves = [_t(a).requires_grad_(grad) for a in _conv_inputs(3, 24)]
-    with mock.patch.object(tsample, name, spy), \
-            mock.patch.object(tsample, "deform_sample", side_effect=AssertionError("one tap")), \
-            mock.patch.object(tsample, "deform_sample_tiled",
-                              side_effect=AssertionError("one tap")):
+    with mock.patch.object(tsample, name, spy):
         out = tdc.deform_conv2d(*leaves, impl="pallas", max_dy=2)
         if grad:
             out.square().sum().backward()
@@ -207,20 +203,14 @@ def test_layers_call_the_all_tap_wrapper_once(monkeypatch, route, grad):
         assert all(float(t.grad.abs().max()) > 0 for t in leaves)
 
 
-def _side_by_side(y):
-    """A tap-major stack as both wrappers take it by default, contiguous."""
-    return y.permute(1, 2, 3, 0, 4).contiguous() if y.dim() == 5 else y
-
-
 WRAPPERS = {
-    "taps": lambda y, sy, sx: tsample.deform_sample_taps(_side_by_side(y), sy, sx),
-    "tiled_taps": lambda y, sy, sx: tsample.deform_sample_tiled_taps(
-        _side_by_side(y), sy, sx, 5, 5),
+    "taps": tsample.deform_sample_taps,
+    "tiled_taps": lambda y, sy, sx: tsample.deform_sample_tiled_taps(y, sy, sx, 5, 5),
 }
 MALFORMED = {
     "y_dtype": (TypeError, lambda y, s: (y.to(torch.float16), s, s)),
     "s_dtype": (TypeError, lambda y, s: (y, s.double(), s)),
-    "y_rank": (ValueError, lambda y, s: (y[0], s, s)),
+    "y_rank": (ValueError, lambda y, s: (y[..., 0, :], s, s)),
     "taps": (ValueError, lambda y, s: (y, s[:2], s[:2])),
     "sx_shape": (ValueError, lambda y, s: (y, s, s[..., :4])),
     # off the CPU the kernel's layout is checked before the device, so a
@@ -230,6 +220,9 @@ MALFORMED = {
     "cuda_only": (ValueError, lambda y, s: (y.to("meta"), s.to("meta"), s.to("meta"))),
     "strides": (ValueError, lambda y, s: (y, s.transpose(2, 3).contiguous().transpose(2, 3),
                                           s)),
+    # a permuted view of a tap-major stack: the kernels read y in place
+    "y_strides": (ValueError, lambda y, s: (y.permute(3, 0, 1, 2, 4).contiguous()
+                                            .permute(1, 2, 3, 0, 4), s, s)),
     "device": (ValueError, lambda y, s: (y, s.to("meta"), s)),
 }
 
@@ -239,9 +232,9 @@ MALFORMED = {
 def test_all_tap_wrappers_reject_malformed_input(wrapper, what):
     """Both wrappers take a well-formed CPU call without counting a launch
     and raise on a wrong dtype, rank, tap count, shape, C % 8, layout
-    (strided coordinates) or device. Both get y side by side, a contiguous
-    copy, the tiled one with a reach that every sample here keeps."""
-    y = torch.zeros((3, 1, 4, 5, 16))
+    (strided coordinates) or device, the tiled one with a reach that every
+    sample here keeps."""
+    y = torch.zeros((1, 4, 5, 3, 16))
     s = torch.full((3, 1, 4, 5), 0.5)
     call = WRAPPERS[wrapper]
     before = (tsample.launches_taps, tsample.launches_tiled_taps)
@@ -255,8 +248,8 @@ def test_all_tap_wrappers_reject_malformed_input(wrapper, what):
 
 @pytest.mark.parametrize("what", ["y_strides", "reach_sign"])
 def test_tiled_taps_wrapper_rejects_strided_y_and_negative_reach(what):
-    """The tiled wrapper reads y in place: a non-contiguous y (a view of the
-    tap-major stack) is refused, as is a negative reach."""
+    """The tiled wrapper reads y in place: a non-contiguous y (a permuted
+    view of a tap-major stack) is refused, as is a negative reach."""
     y = torch.zeros((3, 1, 4, 5, 16))
     s = torch.zeros((3, 1, 4, 5))
     side = y.permute(1, 2, 3, 0, 4)

@@ -1,15 +1,15 @@
-"""K1 on the side-by-side projection and the coordinate pass's layouts, on
-the CPU (the kernels' plain versions) against the JAX package.
+"""K1 on the side-by-side projection and the coordinate pass, on the CPU
+(the kernels' plain versions) against the JAX package.
 
-K1 (``deform_sample9``) takes its taps on ``tap_axis`` 0 (tap-major) or 3
-(side by side, the output of the one matmul of
-``side_by_side_projections``), and the untiled routes of ``deform_conv2d``
-use the second, with or without gradients. The coordinate gradients that K8c and
-both all-tap K3 forms share are written three ways in the plain versions
-(``shift_offset_grads_plain`` on the one-matmul layout, the coordinate half
-of ``deform_sample_bwd_taps_plain`` in either layout); they must agree, so
-that the one kernel's layout strides are held by one function. Inputs come
-from numpy seeds; ``pl.pallas_call`` runs in interpret mode.
+K1 (``deform_sample9``) reads the taps side by side, (B, H, W, K, C), the
+output of the one matmul of ``side_by_side_projections`` that the untiled
+routes of ``deform_conv2d`` build, with or without gradients. The
+coordinate gradients that K8c, both K3 forms and K7b share are written
+three ways in the plain versions (``shift_offset_grads_plain`` on the
+one-matmul layout, the coordinate half of ``deform_sample_bwd_taps_plain``,
+and ``deform_sample_mt_bwd_plain`` with one map for every tap); they must
+agree, so that the one kernel's strides are held by one function. Inputs
+come from numpy seeds; ``pl.pallas_call`` runs in interpret mode.
 """
 
 import jax.numpy as jnp
@@ -66,47 +66,49 @@ def _side_by_side(y9):
     return y9.permute(1, 2, 3, 0, 4).contiguous()
 
 
-# ------------------------------------------------------------ K1 layouts
+# ------------------------------------------------------------ K1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("spread", [2.0, 12.0], ids=["near", "far"])
-def test_sample9_side_by_side_equals_tap_major(dtype, spread):
-    """The same projections in both layouts give the same bits, with
-    samples on integer coordinates and beyond every edge of the map."""
+def test_sample9_is_its_taps_in_f32_and_k8a(dtype, spread):
+    """K1 on the side-by-side projections is the f32 sum of its taps' one-tap
+    plain samples (``deform_sample_plain`` of the f32 values) in tap order,
+    rounded once to the dtype, and gives K8a's bits on the one-matmul
+    layout: the same bits, with samples on integer coordinates and beyond
+    every edge of the map."""
     rng = np.random.RandomState(1)
     k, b, h, w, c = 9, 2, 7, 9, 16
-    y9 = _t(rng.randn(k, b, h, w, c).astype(np.float32)).to(dtype)
+    y9 = _side_by_side(_t(rng.randn(k, b, h, w, c).astype(np.float32)).to(dtype))
     sy, sx = (_t(a) for a in _coords(rng, k, b, h, w, spread))
     assert bool(((sy < -1) | (sy > h) | (sx < -1) | (sx > w)).any())
     assert bool((sy == sy.round()).any()) and bool((sx == sx.round()).any())
-    tap_major = deform_sample.deform_sample9(y9, sy, sx)
-    side = deform_sample.deform_sample9(_side_by_side(y9), sy, sx, tap_axis=3)
-    assert side.dtype == dtype and side.shape == (b, h, w, c)
-    assert torch.equal(side, tap_major)
-    assert torch.equal(side, deform_sample.deform_sample9_plain(_side_by_side(y9), sy, sx, 3))
+    got = deform_sample.deform_sample9(y9, sy, sx)
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    acc = torch.zeros((b, h, w, c))
+    for t in range(k):
+        acc += deform_sample.deform_sample_plain(y9[:, :, :, t].float(), sy[t], sx[t])
+    assert torch.equal(got, acc.to(dtype))
     # and K8a on the one-matmul layout, whose plain version adds in the same order
-    assert torch.equal(side, deform_shift.shift_fwd(_side_by_side(y9).flatten(3), sy, sx))
+    assert torch.equal(got, deform_shift.shift_fwd(y9.flatten(3), sy, sx))
 
 
 def test_sample9_wrapper_checks_the_layout_and_counts_no_cpu_call():
     y = torch.zeros((1, 4, 5, 9, 8))
     s = torch.zeros((9, 1, 4, 5))
     before = deform_sample.launches
-    assert deform_sample.deform_sample9(y, s, s, tap_axis=3).shape == (1, 4, 5, 8)
+    assert deform_sample.deform_sample9(y, s, s).shape == (1, 4, 5, 8)
     assert deform_sample.launches == before
-    with pytest.raises(ValueError, match="tap_axis"):
-        deform_sample.deform_sample9(y, s, s, tap_axis=1)
-    with pytest.raises(ValueError):  # coordinates of the tap-major reading
-        deform_sample.deform_sample9(y, s, s, tap_axis=0)
+    with pytest.raises(ValueError):  # a tap-major stack: the coordinates do not fit it
+        deform_sample.deform_sample9(y.permute(3, 0, 1, 2, 4).contiguous(), s, s)
     with pytest.raises(ValueError):
-        deform_sample.deform_sample9(y, s[:8], s[:8], tap_axis=3)
+        deform_sample.deform_sample9(y, s[:8], s[:8])
     with pytest.raises(ValueError):
-        deform_sample.deform_sample9(y[..., 0], s, s, tap_axis=3)
+        deform_sample.deform_sample9(y[..., 0], s, s)
     with pytest.raises(TypeError):
-        deform_sample.deform_sample9(y.double(), s, s, tap_axis=3)
+        deform_sample.deform_sample9(y.double(), s, s)
     with pytest.raises(TypeError):
-        deform_sample.deform_sample9(y, s.double(), s, tap_axis=3)
+        deform_sample.deform_sample9(y, s.double(), s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -127,8 +129,7 @@ def test_side_by_side_sample9_matches_the_pallas_kernel(rng, dtype):
     y_pad9 = np.pad(y9, ((0, 0), (0, 0), (r + 2, r + 2), (1, wp - w - 1), (0, 0)))
     ref = np.asarray(dcp._sample_pallas9(jnp.asarray(y_pad9), jnp.asarray(sy),
                                          jnp.asarray(sx), r))
-    got = deform_sample.deform_sample9(_side_by_side(_t(y9).to(dtype)), _t(sy), _t(sx),
-                                       tap_axis=3)
+    got = deform_sample.deform_sample9(_side_by_side(_t(y9).to(dtype)), _t(sy), _t(sx))
     assert got.dtype == dtype
     rtol = 0.0 if dtype == torch.float32 else BF16_RTOL
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol, atol=DCN_ATOL)
@@ -147,10 +148,9 @@ def _dcn_inputs(rng, b=2, h=16, w=20, cin=8, cout=16, spread=4.0):
 
 @pytest.fixture
 def spies(monkeypatch):
-    """Counts of the side-by-side projection, the layouts K1 reads and the
-    (tap_axis, size of axis 3) of the stacks ``DeformSampleTaps`` gets, in
-    ``deform_conv2d``."""
-    calls = {"side_by_side_projections": 0, "k1_tap_axis": [], "taps_layout": []}
+    """Counts of the side-by-side projection, and the shapes of the stacks
+    that K1 and ``DeformSampleTaps`` get, in ``deform_conv2d``."""
+    calls = {"side_by_side_projections": 0, "k1_layout": [], "taps_layout": []}
     real_projections = tdc.side_by_side_projections
 
     def projections(*args, **kw):
@@ -160,15 +160,15 @@ def spies(monkeypatch):
     monkeypatch.setattr(tdc, "side_by_side_projections", projections)
     real_k1 = tdc.deform_sample9
 
-    def k1(*args, tap_axis=0):
-        calls["k1_tap_axis"].append(tap_axis)
-        return real_k1(*args, tap_axis=tap_axis)
+    def k1(y, *args):
+        calls["k1_layout"].append(tuple(y.shape))
+        return real_k1(y, *args)
 
     monkeypatch.setattr(tdc, "deform_sample9", k1)
     real_taps = tdc.DeformSampleTaps.apply
 
     def taps(y, *args):
-        calls["taps_layout"].append((args[5] if len(args) > 5 else 3, y.shape[3]))
+        calls["taps_layout"].append(tuple(y.shape))
         return real_taps(y, *args)
 
     monkeypatch.setattr(tdc.DeformSampleTaps, "apply", taps)
@@ -183,8 +183,8 @@ def test_no_grad_deform_conv_reads_the_one_matmul_projection(rng, spies, impl):
     that route: ``deform_conv2d_auto`` for ``auto``, ``_fused_untiled``
     (``_sample_pallas9`` interpreted) for the clipped ones; atol 1e-5. With
     gradients each route builds the same side-by-side projection and
-    ``DeformSampleTaps`` samples it in place (``tap_axis`` 3, the 9 taps on
-    axis 3): no tap-major stack, and no function builds one."""
+    ``DeformSampleTaps`` samples it in place (the 9 taps on axis 3): no
+    tap-major stack, and no function builds one."""
     x, offsets, weight, bias = _dcn_inputs(rng)
     assert np.abs(offsets[..., 0::2]).max() > 6
     args = [jnp.asarray(a) for a in (x, offsets, weight, bias)]
@@ -196,18 +196,19 @@ def test_no_grad_deform_conv_reads_the_one_matmul_projection(rng, spies, impl):
     with torch.no_grad():
         got = tdc.deform_conv2d(*targs, impl=impl, max_dy=6)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=DCN_ATOL, rtol=0)
-    assert spies == {"side_by_side_projections": 1, "k1_tap_axis": [3], "taps_layout": []}
+    side = (2, 16, 20, 9, 16)  # (B, H, W, K, Cout)
+    assert spies == {"side_by_side_projections": 1, "k1_layout": [side], "taps_layout": []}
 
     targs[0].requires_grad_()
     out = tdc.deform_conv2d(*targs, impl=impl, max_dy=6)
     assert out.grad_fn is not None
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=DCN_ATOL, rtol=0)
-    assert spies == {"side_by_side_projections": 2, "k1_tap_axis": [3],
-                     "taps_layout": [(3, 9)]}
+    assert spies == {"side_by_side_projections": 2, "k1_layout": [side],
+                     "taps_layout": [side]}
     assert not hasattr(tdc, "tap_projections")
 
 
-# ------------------------------------------- the coordinate pass's layouts
+# ------------------------------------------------- the coordinate pass
 
 
 # (spread, dtype, g per tap): the one-g cases keep their ids
@@ -223,13 +224,13 @@ def _coord_case_id(case):
 
 @pytest.mark.parametrize("spread, dtype, g_per_tap", COORD_CASES,
                          ids=[_coord_case_id(c) for c in COORD_CASES])
-def test_coordinate_pass_plain_versions_agree_in_both_layouts(dtype, spread, g_per_tap):
-    """gsy, gsx of the same projections and coordinates through K8c's plain
-    version (one-matmul layout) and the coordinate half of the all-tap K3's
-    plain version, tap-major and side by side: the same bits, exact zeros
-    at integer coordinates and at samples that do not count. With
+def test_coordinate_pass_plain_versions_agree(dtype, spread, g_per_tap):
+    """gsy, gsx of the same projections and coordinates through the
+    coordinate half of the all-tap K3's plain version (side by side) and
+    K8c's plain version (one-matmul layout): the same bits, exact zeros at
+    integer coordinates and at samples that do not count. With
     ``g_per_tap`` (K7b's case: one input x as every tap's map, a g row per
-    (pixel, tap)) each tap of those three with its own g, and K7b's plain
+    (pixel, tap)) each tap of those two with its own g, and K7b's plain
     version on x: the same bits."""
     rng = np.random.RandomState(2)
     k, b, h, w, c = 9, 2, 6, 8, 16
@@ -239,14 +240,11 @@ def test_coordinate_pass_plain_versions_agree_in_both_layouts(dtype, spread, g_p
     taps_plain = deform_sample.deform_sample_bwd_taps_plain
     if not g_per_tap:
         side = _side_by_side(y9)
-        _, gsy_tm, gsx_tm = taps_plain(y9, sy, sx, g, None, 0)
-        _, gsy_sbs, gsx_sbs = taps_plain(side, sy, sx, g, None, 3)
-        others = [(gsy_sbs, gsx_sbs), deform_shift.shift_offset_grads_plain(side.flatten(3), sy,
-                                                                            sx, g)]
+        _, gsy_ref, gsx_ref = taps_plain(side, sy, sx, g, None)
+        others = [deform_shift.shift_offset_grads_plain(side.flatten(3), sy, sx, g)]
     else:
         x = y9[0]
-        y9 = x.expand(k, *x.shape).contiguous()
-        side = _side_by_side(y9)
+        side = _side_by_side(x.expand(k, *x.shape).contiguous())
         g9 = _t(rng.randn(b, h, w, k, c).astype(np.float32)).to(dtype)
 
         def tapwise(fn):
@@ -254,20 +252,19 @@ def test_coordinate_pass_plain_versions_agree_in_both_layouts(dtype, spread, g_p
             parts = [fn(t, g9[:, :, :, t].contiguous()) for t in range(k)]
             return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
-        gsy_tm, gsx_tm = tapwise(lambda t, g_t: taps_plain(
-            y9[t:t + 1], sy[t:t + 1], sx[t:t + 1], g_t, None, 0)[1:])
+        gsy_ref, gsx_ref = tapwise(lambda t, g_t: taps_plain(
+            side[:, :, :, t:t + 1], sy[t:t + 1], sx[t:t + 1], g_t, None)[1:])
         others = [
-            tapwise(lambda t, g_t: taps_plain(side[:, :, :, t:t + 1], sy[t:t + 1],
-                                              sx[t:t + 1], g_t, None, 3)[1:]),
             tapwise(lambda t, g_t: deform_shift.shift_offset_grads_plain(
                 side[:, :, :, t:t + 1].flatten(3), sy[t:t + 1], sx[t:t + 1], g_t)),
             deform_sample_mt.deform_sample_mt_bwd_plain(x, sy, sx, g9)[1:],
         ]
+    assert gsy_ref.dtype == gsx_ref.dtype == torch.float32
     for got_y, got_x in others:
         assert got_y.dtype == got_x.dtype == torch.float32
-        assert torch.equal(got_y, gsy_tm) and torch.equal(got_x, gsx_tm)
+        assert torch.equal(got_y, gsy_ref) and torch.equal(got_x, gsx_ref)
     outside = (sy <= -1) | (sy >= h) | (sx <= -1) | (sx >= w)
     assert bool(outside.any())
-    assert not gsy_tm[(sy == sy.round()) | outside].any()
-    assert not gsx_tm[(sx == sx.round()) | outside].any()
-    assert bool(gsy_tm.abs().max() > 0) and bool(gsx_tm.abs().max() > 0)
+    assert not gsy_ref[(sy == sy.round()) | outside].any()
+    assert not gsx_ref[(sx == sx.round()) | outside].any()
+    assert bool(gsy_ref.abs().max() > 0) and bool(gsx_ref.abs().max() > 0)

@@ -71,7 +71,8 @@ def test_sample9_plain_matches_pallas_kernel(rng, integer):
     wp = 128
     y_pad9 = np.pad(y9, ((0, 0), (0, 0), (r + 2, r + 2), (1, wp - w - 1), (0, 0)))
     ref = dcp._sample_pallas9(jnp.asarray(y_pad9), jnp.asarray(sy), jnp.asarray(sx), r)
-    got = deform_sample.deform_sample9(_t(y9), _t(sy), _t(sx))
+    got = deform_sample.deform_sample9(_t(y9).permute(1, 2, 3, 0, 4).contiguous(), _t(sy),
+                                       _t(sx))
     assert got.shape == (b, h, w, c) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=DCN_ATOL, rtol=0)
 
@@ -127,7 +128,7 @@ def test_deform_conv_any_odd_kernel_size(rng):
 
 
 def test_sample9_wrapper_checks_and_cpu_counts_nothing(rng):
-    y9 = torch.zeros((9, 1, 4, 4, 8))
+    y9 = torch.zeros((1, 4, 4, 9, 8))
     sy = torch.zeros((9, 1, 4, 4))
     before = deform_sample.launches
     deform_sample.deform_sample9(y9, sy, sy)

@@ -115,11 +115,11 @@ def test_k7_wrappers_check_the_kernels_needs_before_the_device(what):
     x = torch.empty((b, h, w, c), dtype=torch.bfloat16, device="meta")
     sy = torch.empty((k, b, h, w), device="meta")
     sx = torch.empty((k, b, h, w), device="meta")
-    before = tmt.launches_fwd, tmt.launches_bwd
+    before = tmt.launches, tmt.launches_bwd
     with pytest.raises(ValueError, match=match):
         if kernel == "fwd":
             tmt.deform_sample_mt(x, sy, sx)
         else:
             g = torch.empty((b, h, w, k, c), dtype=torch.bfloat16, device="meta")
             tmt.deform_sample_mt_bwd(x, sy, sx, g)
-    assert (tmt.launches_fwd, tmt.launches_bwd) == before
+    assert (tmt.launches, tmt.launches_bwd) == before

@@ -165,9 +165,9 @@ def test_auto_takes_the_same_rule_in_the_recompute(inputs, monkeypatch):
     real = deform_sample.deform_sample_bwd_unclipped
     seen = []
 
-    def spy(y, sy, sx, g, rule="pallas", fast=None, tap_axis=3):
+    def spy(y, sy, sx, g, rule="pallas", fast=None):
         seen.append((rule, None if fast is None else bool(fast)))
-        return real(y, sy, sx, g, rule, fast, tap_axis)
+        return real(y, sy, sx, g, rule, fast)
 
     monkeypatch.setattr(deform_sample, "deform_sample_bwd_unclipped", spy)
     runs, choices = {}, {}
@@ -203,9 +203,9 @@ def test_save_dcn_matches_the_saved_outputs_not_a_rerun(inputs, monkeypatch):
     real = deform_sample.deform_sample_taps
     n = [0]
 
-    def drifting(y, sy, sx, tap_axis=3):
+    def drifting(y, sy, sx):
         n[0] += 1
-        out = real(y, sy, sx, tap_axis)
+        out = real(y, sy, sx)
         return out if n[0] <= N_DCN else out * 2.0
 
     ref = _one_step(_cfg("off"), state, batch, noise)

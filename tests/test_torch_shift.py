@@ -37,7 +37,6 @@ from upsnet_torch.convert.from_jax import load_jax_params
 from upsnet_torch.models import upsnet as tup
 from upsnet_torch.models.layers import DeformConv
 from upsnet_torch.ops import deform_conv as tdc
-from upsnet_torch.ops import deform_sample as tsample
 from upsnet_torch.ops import deform_shift as tshift
 from upsnet_torch.train.trainer import train_steps
 from upsnet_torch.utils import dcn_probe as tprobe
@@ -156,16 +155,15 @@ def test_deform_conv2d_shift_bfloat16_batch_and_bias():
 
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
 def test_impl_shift_routes_as_the_jax_layer(monkeypatch, grad):
-    """An eligible shape takes the fused sampler, also under autograd (never
-    the per-tap ``DeformSample``); an ineligible one (height 12) takes the
-    ``pallas`` route, which clips dy only."""
+    """An eligible shape takes the fused sampler, also under autograd; an
+    ineligible one (height 12) takes the ``pallas`` route, which clips dy
+    only."""
     x, offsets, weight, bias = _conv_inputs(4)
     args = [_t(a).requires_grad_(grad) for a in (x, offsets, weight, bias)]
     calls = []
     real = tshift.shift_fwd
     monkeypatch.setattr(tshift, "shift_fwd", lambda *a: (calls.append(1), real(*a))[1])
-    with torch.set_grad_enabled(grad), mock.patch.object(
-            tsample.DeformSample, "apply", side_effect=AssertionError("per-tap route")):
+    with torch.set_grad_enabled(grad):
         got = tdc.deform_conv2d(*args, impl="shift", max_dy=MAX_D)
     assert calls == [1] and got.requires_grad == grad
     want = tdc.deform_conv2d_shift(*args, max_dy=MAX_D, max_dx=MAX_D)
@@ -308,16 +306,68 @@ def test_offset_probe_matches_the_jax_probe(model_setup):
             np.testing.assert_allclose(got[layer][k], v, rtol=1e-5, atol=1e-6,
                                        err_msg=f"{layer} {k}")
     assert 0 < got["fcn_head/subnet/dcn1"]["sat_frac"] < 1
-    # the record is a running maximum until it is reset
-    dcn = s["tm"].fcn_head.subnet.dcn1
-    before = dcn.offset_max.clone()
-    with torch.no_grad():
-        dcn(torch.zeros(1, dcn.weight.shape[1], 8, 8))
-    assert torch.equal(dcn.offset_max, before)
-    tprobe.reset_offset_stats(s["tm"])
-    assert dcn.offset_max is None and tprobe.offset_stats(s["tm"]) == {}
     assert tprobe.check_window(got, MAX_D, MAX_D) == jprobe.check_window(ref, MAX_D, MAX_D)
     assert not tprobe.check_window(got, 0.5)
+
+
+def _offset_hooks(model):
+    return sum(len(m.offset_conv._forward_hooks) for m in model.modules()
+               if isinstance(m, DeformConv))
+
+
+def test_offset_probe_records_only_while_it_probes(model_setup):
+    """The probe's hooks live for its one pass: none before or after it, a
+    forward outside it leaves every layer as it was (no attribute, no hook),
+    and two probes in a row give the same numbers."""
+    tm = model_setup["tm"]
+    images = _t(np.random.RandomState(2).uniform(-10, 10, (BSZ, H, W, 3)).astype(np.float32))
+    before = {n: dict(vars(m)) for n, m in tm.named_modules() if isinstance(m, DeformConv)}
+    assert _offset_hooks(tm) == 0
+    first = tprobe.probe_dcn_offsets(tm, images)
+    assert _offset_hooks(tm) == 0
+    assert set(first) == {n.replace(".", "/") for n in before}
+    with torch.no_grad():
+        tm.extract(images.permute(0, 3, 1, 2))
+    assert {n: dict(vars(m)) for n, m in tm.named_modules()
+            if isinstance(m, DeformConv)} == before
+    assert tprobe.probe_dcn_offsets(tm, images) == first
+
+
+def test_offset_probe_removes_its_hooks_when_the_pass_raises(model_setup):
+    """A pass that fails (here an image with a channel too many) leaves no
+    hook behind, and a model without deformable layers gives no numbers."""
+    tm = model_setup["tm"]
+    with pytest.raises(RuntimeError):
+        tprobe.probe_dcn_offsets(tm, torch.zeros((1, H, W, 4)))
+    assert _offset_hooks(tm) == 0
+    plain = torch.nn.Module()
+    plain.extract = lambda x: x
+    assert tprobe.probe_dcn_offsets(plain, torch.zeros((1, H, W, 3))) == {}
+
+
+@pytest.mark.parametrize("impl", ["gather", "pallas"])
+def test_offset_probe_matches_the_jax_probe_under_each_impl(model_setup, impl):
+    """The probe on the tiny model built with ``dcn_impl`` ``impl`` against
+    the JAX probe of the same model: dcn1's +-2 px offset biases stretched
+    to +-5 px, beyond the +-3 window, so that the second layer's offsets
+    follow the first layer's route (``pallas`` clips dy, ``mxu`` on the
+    JAX side's CPU; ``gather`` does not). 1e-5, as above."""
+    s = model_setup
+    images = np.random.RandomState(3).uniform(-10, 10, (BSZ, H, W, 3)).astype(np.float32)
+    params = jax.tree.map(np.array, s["params"])
+    params["fcn_head"]["subnet"]["dcn1"]["offset_conv"]["bias"] *= 2.5
+    jcfg, tcfg = (c.replace(network=dataclasses.replace(c.network, dcn_impl=impl))
+                  for c in (s["jcfg"], s["tcfg"]))
+    tm = tup.build_model(tcfg, device="cpu")
+    load_jax_params(tm, params)
+    ref = jprobe.probe_dcn_offsets(jup.build_model(jcfg), params, jnp.asarray(images))
+    got = tprobe.probe_dcn_offsets(tm, _t(images))
+    assert set(got) == set(ref) == {"fcn_head/subnet/dcn1", "fcn_head/subnet/dcn2"}
+    assert ref["fcn_head/subnet/dcn1"]["max_dy"] > MAX_D
+    for layer, r in ref.items():
+        for k, v in r.items():
+            np.testing.assert_allclose(got[layer][k], v, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{impl} {layer} {k}")
 
 
 @pytest.mark.parametrize("boundary_grad", ["clip", "straight_through"])

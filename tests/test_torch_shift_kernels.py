@@ -144,22 +144,18 @@ def test_shift_offset_grads_match_the_interpreted_tpu_kernel(c, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("tap_axis", [0, 3], ids=["tap_major", "side_by_side"])
-def test_shift_fwd_equals_the_tap_major_sampler(tap_axis, dtype):
-    """K8a and K1 compute the same function, K1 on the tap-major copy of
-    K8a's projection or on its side-by-side view (B, H, W, K, C), which is
-    K8a's own layout; their plain versions add in the same order, so the
-    bits agree in float32 and bfloat16."""
+def test_shift_fwd_equals_k1(dtype):
+    """K8a and K1 compute the same function, K1 on the side-by-side view
+    (B, H, W, K, C) of K8a's projection, which is K8a's own layout; their
+    plain versions add in the same order, so the bits agree in float32 and
+    bfloat16."""
     y, _, sy, sx = _inputs(3, c=8)
     b, h, w, kc = y.shape
     ty = torch.from_numpy(y).to(dtype)
     tsy, tsx = torch.from_numpy(sy), torch.from_numpy(sx)
-    y9 = ty.view(b, h, w, K, kc // K)
-    if tap_axis == 0:
-        y9 = y9.permute(3, 0, 1, 2, 4).contiguous()
     got = tshift.shift_fwd(ty, tsy, tsx)
     assert got.dtype == dtype and float(got.float().abs().max()) > 0.0
-    assert torch.equal(got, tsample.deform_sample9(y9, tsy, tsx, tap_axis=tap_axis))
+    assert torch.equal(got, tsample.deform_sample9(ty.view(b, h, w, K, kc // K), tsy, tsx))
 
 
 def test_autograd_function_matches_finite_differences():

@@ -1,6 +1,6 @@
 """The wide-map and sample-first slice of the port against the JAX package on
 the CPU: the port's ``pallas_route`` and ``_col_tile``, K6
-(``deform_sample_tiled``) and the tiled form of ``deform_conv2d``, K7a / K7b
+(``deform_sample_tiled_taps``) and the tiled form of ``deform_conv2d``, K7a / K7b
 (``deform_sample_mt``, ``deform_sample_mt_bwd``) and ``deform_conv2d_mt``,
 the tiny model on a canvas whose P2 map is routed to the tiled form, and the
 ``bench_deform_impls`` tool.
@@ -114,14 +114,12 @@ def test_sample_tiled_plain_matches_pallas_kernel(rng):
     y_pad = np.pad(y[:, :, :, 1], ((0, 0), (r + 2, r + 2), (left, dcp.CTW - dcp.CT - left),
                                    (0, 0)))
     ref = dcp._sample_pallas_tiled(jnp.asarray(y_pad), jnp.asarray(sy), jnp.asarray(sx), r, dx)
-    before = tsample.launches_tiled
-    got = tsample.deform_sample_tiled(_t(y), 1, _t(sy), _t(sx), r, dx)
+    got = tsample.deform_sample_tiled_plain(_t(y), 1, _t(sy), _t(sx), r, dx)
     assert got.shape == (b, h, w, c) and got.dtype == torch.float32
-    assert tsample.launches_tiled == before  # a CPU call launches nothing
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-4)
     outside = ~((sy > -1) & (sy < h) & (sx > -1) & (sx < w))
     assert outside.any() and not got.numpy()[outside].any()
-    assert not np.allclose(got.numpy(), tsample.deform_sample_tiled(
+    assert not np.allclose(got.numpy(), tsample.deform_sample_tiled_plain(
         _t(y), 0, _t(sy), _t(sx), r, dx).numpy(), atol=1e-2)
 
 
@@ -185,7 +183,8 @@ def test_impl_pallas_on_a_map_the_tpu_would_tile_is_the_tiled_form():
     assert tsample.pallas_route(targs[0].shape, 128, 6, 1) == ("tiled", 6)
     tall = [_t(a) for a in _conv_inputs(4, h=16, w=832)]
     assert not tdc.shift_route_ok(tall[0].shape, 128, 6, 6, 1)
-    with mock.patch.object(tsample.DeformSample, "apply", side_effect=AssertionError("untiled")):
+    with mock.patch.object(tdc.DeformSampleTaps, "apply", side_effect=AssertionError("untiled")), \
+            mock.patch.object(tdc, "deform_sample9", side_effect=AssertionError("untiled")):
         got = tdc.deform_conv2d(*targs, impl="pallas")
         np.testing.assert_allclose(got.numpy(), ref, atol=2e-3)
         assert torch.equal(tdc.deform_conv2d(*tall, impl="shift"),
@@ -269,10 +268,10 @@ def test_sample_mt_plain_matches_pallas_kernel(rng, kind):
     x_pad, sy_j, sx_j = _mt_jax_layout(x, sy, sx)
     ref = dcp._sample_pallas_mt(x_pad, sy_j, sx_j, dcp._mt_syt(sy_j), MR)
     ref = np.moveaxis(np.asarray(ref)[:, :, :, :MW], 2, 3)  # (B, H, W, K, C)
-    before = tmt.launches_fwd
+    before = tmt.launches
     got = tmt.deform_sample_mt(_t(x), _t(sy), _t(sx))
     assert got.shape == (MB, MH, MW, MK, MC) and got.dtype == torch.float32
-    assert tmt.launches_fwd == before
+    assert tmt.launches == before
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
     if kind == "outside":
         outside = ~((sy > -1) & (sy < MH) & (sx > -1) & (sx < MW))
@@ -313,21 +312,25 @@ def test_sample_mt_bwd_plain_matches_pallas_kernel(rng, kind):
 
 
 def test_deform_sample_mt_function_is_its_taps_one_by_one(rng):
-    """``DeformSampleMT`` == K ``DeformSample`` calls on the same input:
-    equal columns, and gradients to x, sy, sx within f32 summation order."""
+    """``DeformSampleMT`` == the one-tap plain K2 and K3 on each tap of the
+    same input (``deform_sample_plain``, ``deform_sample_bwd_plain``):
+    equal columns, and gradients to x (the taps' sum), sy, sx within f32
+    summation order."""
     x = rng.randn(MB, MH, MW, MC).astype(np.float32)
-    g = rng.randn(MB, MH, MW, MK, MC).astype(np.float32)
-    sy, sx = _mt_coords(rng, "outside")
-    a = [_t(v).requires_grad_() for v in (x, sy, sx)]
-    b = [_t(v).requires_grad_() for v in (x, sy, sx)]
+    g = _t(rng.randn(MB, MH, MW, MK, MC).astype(np.float32))
+    sy, sx = (_t(a) for a in _mt_coords(rng, "outside"))
+    a = [_t(x).requires_grad_(), sy.clone().requires_grad_(), sx.clone().requires_grad_()]
     cols = tmt.DeformSampleMT.apply(*a)
-    taps = torch.stack([tsample.DeformSample.apply(b[0], b[1][t], b[2][t])
-                        for t in range(MK)], dim=3)
+    taps = torch.stack([tsample.deform_sample_plain(_t(x), sy[t], sx[t]) for t in range(MK)],
+                       dim=3)
     assert torch.equal(cols, taps)
-    cols.backward(_t(g))
-    taps.backward(_t(g))
-    for u, v in zip(a, b):
-        np.testing.assert_allclose(u.grad.numpy(), v.grad.numpy(), rtol=1e-5, atol=1e-5)
+    cols.backward(g)
+    grads = [tsample.deform_sample_bwd_plain(_t(x), sy[t], sx[t], g[:, :, :, t].contiguous())
+             for t in range(MK)]
+    gx = torch.stack([gr[0] for gr in grads]).sum(0)
+    gsy, gsx = (torch.stack([gr[i] for gr in grads]) for i in (1, 2))
+    for u, v in zip(a, (gx, gsy, gsx)):
+        np.testing.assert_allclose(u.grad.numpy(), v.numpy(), rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------------------ (e) deform_conv2d_mt
@@ -392,33 +395,26 @@ def test_deform_conv2d_mt_takes_any_height_and_kernel_size(rng):
 # ------------------------------------------------------------ (f) wrappers
 
 
-@pytest.mark.parametrize("what", ["y_dims", "tap", "sy_shape", "sx_dtype", "y_dtype",
-                                  "y_strides", "reach_sign", "reach_y", "reach_x", "device"])
+@pytest.mark.parametrize("what", ["sy_shape", "reach_y", "reach_x"])
 def test_sample_tiled_wrapper_rejects_malformed_input(rng, what):
+    """K6's wrapper (``deform_sample_tiled_taps``) on the checks that
+    ``test_all_tap_wrappers_reject_malformed_input`` leaves out: a wrong
+    spatial shape of sy, and a counted sample beyond the row or the column
+    reach, which the CPU path checks because the kernel cannot."""
     y = _t(rng.randn(1, 6, 10, 3, 8).astype(np.float32))
-    sy = _t((np.arange(6)[None, :, None] + rng.uniform(-1.5, 1.5, (1, 6, 10))).astype(np.float32))
-    sx = _t((np.arange(10)[None, None, :] + rng.uniform(-1.5, 1.5, (1, 6, 10))).astype(
+    sy = _t((np.arange(6)[None, None, :, None] + rng.uniform(-1.5, 1.5, (3, 1, 6, 10))).astype(
         np.float32))
-    call = tsample.deform_sample_tiled
-    call(y, 2, sy, sx, 2, 2)
+    sx = _t((np.arange(10)[None, None, None, :] + rng.uniform(-1.5, 1.5, (3, 1, 6, 10))).astype(
+        np.float32))
+    call = tsample.deform_sample_tiled_taps
+    call(y, sy, sx, 2, 2)
     bad = {
-        "y_dims": (ValueError, lambda: call(y.flatten(3), 2, sy, sx, 2, 2)),
-        "tap": (ValueError, lambda: call(y, 3, sy, sx, 2, 2)),
-        "sy_shape": (ValueError, lambda: call(y, 2, sy[:, :5], sx, 2, 2)),
-        "sx_dtype": (TypeError, lambda: call(y, 2, sy, sx.double(), 2, 2)),
-        "y_dtype": (TypeError, lambda: call(y.to(torch.float16), 2, sy, sx, 2, 2)),
-        "y_strides": (ValueError, lambda: call(y.transpose(1, 2).contiguous().transpose(1, 2),
-                                               2, sy, sx, 2, 2)),
-        "reach_sign": (ValueError, lambda: call(y, 2, sy, sx, -1, 2)),
-        # the CPU path checks what the kernel cannot
-        "reach_y": (ValueError, lambda: call(y, 2, sy, sx, 1, 2)),
-        "reach_x": (ValueError, lambda: call(y, 2, sy, sx, 2, 1)),
-        "device": (ValueError, lambda: call(y.to("meta"), 2, sy.to("meta"), sx.to("meta"),
-                                            2, 2)),
-    }
-    error, fn = bad[what]
-    with pytest.raises(error):
-        fn()
+        "sy_shape": lambda: call(y, sy[:, :, :5].contiguous(), sx, 2, 2),
+        "reach_y": lambda: call(y, sy, sx, 1, 2),
+        "reach_x": lambda: call(y, sy, sx, 2, 1),
+    }[what]
+    with pytest.raises(ValueError):
+        bad()
 
 
 @pytest.mark.parametrize("what", ["x_dims", "sy_dims", "sx_shape", "sy_dtype", "x_dtype",

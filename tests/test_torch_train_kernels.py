@@ -2,15 +2,15 @@
 against the JAX package's Pallas kernels in interpret mode and its XLA
 references.
 
-K2: ``deform_sample`` vs ``deform_conv_pallas._sample_pallas``.
-K3: ``deform_sample_bwd`` vs ``_sample_pallas_bwd``, on fractional, integer
-and out-of-range coordinates; the plain version under each rule of the
+K2, one tap: ``deform_sample_plain`` vs ``deform_conv_pallas._sample_pallas``.
+K3, one tap: ``deform_sample_bwd_plain`` vs ``_sample_pallas_bwd``, on
+fractional, integer and out-of-range coordinates; under each rule of the
 coordinate derivative against ``jax.vjp`` of its JAX form at integer
 coordinates.
 K5: ``fpn_roi_align_bwd`` vs ``roi_align._fpn_roi_align_bwd`` and
 ``roi_align_pallas.fpn_roi_align_window_bwd``.
-Then the two ``torch.autograd.Function``s, the training form of
-``deform_conv2d`` and ``clip_offsets`` against ``jax.vjp``.
+Then ``FPNRoIAlign``, the training form of ``deform_conv2d`` and
+``clip_offsets`` against ``jax.vjp``.
 Inputs come from numpy seeds. Every tolerance is stated where it is used.
 """
 
@@ -98,7 +98,7 @@ def test_sample_plain_matches_pallas_kernel(rng, kind):
     y = rng.randn(B, H, W, C).astype(np.float32)
     sy, sx = _coords(rng, kind)
     ref = dcp._sample_pallas(jnp.asarray(_pad(y)), jnp.asarray(sy), jnp.asarray(sx), MAX_DY)
-    got = deform_sample.deform_sample(_t(y), _t(sy), _t(sx))
+    got = deform_sample.deform_sample_plain(_t(y), _t(sy), _t(sx))
     assert got.shape == (B, H, W, C) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
     if kind == "outside":
@@ -116,7 +116,7 @@ def test_sample_bwd_plain_matches_pallas_kernel_f32(rng, kind):
     sy, sx = _coords(rng, kind)
     r_gy, r_gsy, r_gsx = dcp._sample_pallas_bwd(
         jnp.asarray(_pad(y)), jnp.asarray(sy), jnp.asarray(sx), jnp.asarray(g), MAX_DY)
-    gy, gsy, gsx = deform_sample.deform_sample_bwd(_t(y), _t(sy), _t(sx), _t(g))
+    gy, gsy, gsx = deform_sample.deform_sample_bwd_plain(_t(y), _t(sy), _t(sx), _t(g))
     assert gy.dtype == torch.float32 and gsy.shape == (B, H, W)
     np.testing.assert_allclose(gy.numpy(), _unpad(r_gy), **F32_TOL)
     # coordinate gradients sum 4 x C products of O(1) values
@@ -161,8 +161,8 @@ def test_sample_bwd_integer_coordinates_zero_not_one_sided(rng, rule):
     column and samples outside the map: K3's plain version under each rule
     against ``jax.vjp`` of the JAX form it stands for (``_jax_form_vjp``),
     f32 (grad_y rtol 1e-5, atol 1e-5; gsy, gsx sums of 4 x C products of O(1)
-    values, rtol 1e-5, atol 1e-4). ``pallas`` is 0 there, and the autograd
-    Function (the one-tap K3, which has that rule only) gives 0 too; ``floor``
+    values, rtol 1e-5, atol 1e-4). ``pallas`` is 0 there, and
+    ``DeformSampleTaps`` under it, on a one-tap layer, gives 0 too; ``floor``
     is the one-sided derivative that autograd through the floor-based
     forward gives; ``hat`` is neither."""
     y = rng.randn(B, H, W, C).astype(np.float32)
@@ -188,8 +188,9 @@ def test_sample_bwd_integer_coordinates_zero_not_one_sided(rng, rule):
     assert floor_like == (rule == "floor")
     if rule == "pallas":
         assert not gsy.numpy().any() and not gsx.numpy().any()
-        ty, tsy, tsx = (_t(a).requires_grad_(True) for a in (y, sy, sx))
-        deform_sample.DeformSample.apply(ty, tsy, tsx).backward(_t(g))
+        ty = _t(y)[:, :, :, None].requires_grad_(True)
+        tsy, tsx = (_t(a)[None].requires_grad_(True) for a in (sy, sx))
+        deform_sample.DeformSampleTaps.apply(ty, tsy, tsx, None, "pallas").backward(_t(g))
         assert not tsy.grad.any() and not tsx.grad.any() and ty.grad.abs().max() > 0
     else:
         assert np.abs(gsy.numpy()).max() > 1 and np.abs(gsx.numpy()).max() > 1
@@ -211,7 +212,7 @@ def test_sample_bwd_plain_matches_pallas_kernel_bf16(rng, kind):
                                                 MAX_DY)
     ty = _t(np.asarray(y.astype(jnp.float32))).to(torch.bfloat16)
     tg = _t(np.asarray(g.astype(jnp.float32))).to(torch.bfloat16)
-    gy, gsy, gsx = deform_sample.deform_sample_bwd(ty, _t(sy), _t(sx), tg)
+    gy, gsy, gsx = deform_sample.deform_sample_bwd_plain(ty, _t(sy), _t(sx), tg)
     assert gy.dtype == torch.bfloat16 and gsy.dtype == torch.float32
     np.testing.assert_allclose(gy.float().numpy(), _unpad(r_gy.astype(jnp.float32)),
                                rtol=BF16_ULP, atol=BF16_ULP)
@@ -219,44 +220,12 @@ def test_sample_bwd_plain_matches_pallas_kernel_bf16(rng, kind):
     np.testing.assert_allclose(gsx.numpy(), np.asarray(r_gsx), rtol=1e-4, atol=1e-3)
     # the forward in bf16: one rounding of the same f32 sum
     ref = dcp._sample_pallas(y_pad, jnp.asarray(sy), jnp.asarray(sx), MAX_DY)
-    got = deform_sample.deform_sample(ty, _t(sy), _t(sx))
+    got = deform_sample.deform_sample_plain(ty, _t(sy), _t(sx))
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref.astype(jnp.float32)),
                                rtol=BF16_ULP, atol=1e-6)
 
 
-def test_deform_sample_function_gradcheck_float64(rng):
-    """Finite differences of ``DeformSample`` in float64 at non-integer
-    coordinates (the function is smooth there), including samples whose
-    corners fall outside the map."""
-    b, h, w, c = 1, 5, 6, 3
-    y = _t(rng.randn(b, h, w, c)).requires_grad_(True)
-    sy = np.arange(h)[None, :, None] + rng.uniform(-2.5, 2.5, (b, h, w))
-    sx = np.arange(w)[None, None, :] + rng.uniform(-2.5, 2.5, (b, h, w))
-    for s in (sy, sx):  # keep 0.05 away from every grid line
-        frac = s - np.floor(s)
-        s += np.where(frac < 0.05, 0.1, 0) - np.where(frac > 0.95, 0.1, 0)
-    sy, sx = (_t(s).requires_grad_(True) for s in (sy, sx))
-    assert torch.autograd.gradcheck(deform_sample.DeformSample.apply, (y, sy, sx),
-                                    eps=1e-6, atol=1e-6, rtol=1e-5)
-
-
 def test_train_wrappers_check_and_cpu_counts_nothing():
-    y = torch.zeros((1, 4, 4, 8))
-    s = torch.zeros((1, 4, 4))
-    before = (deform_sample.launches_fwd, deform_sample.launches_bwd)
-    deform_sample.deform_sample(y, s, s)
-    deform_sample.deform_sample_bwd(y, s, s, y)
-    assert (deform_sample.launches_fwd, deform_sample.launches_bwd) == before
-    with pytest.raises(TypeError):
-        deform_sample.deform_sample(y.half(), s, s)
-    with pytest.raises(TypeError):
-        deform_sample.deform_sample(y, s.double(), s)
-    with pytest.raises(TypeError):
-        deform_sample.deform_sample_bwd(y, s, s, y.bfloat16())
-    with pytest.raises(ValueError):
-        deform_sample.deform_sample(y, s[:, :3], s)
-    with pytest.raises(ValueError):
-        deform_sample.deform_sample_bwd(y, s, s, y[..., :4])
     g = torch.zeros((1, 1, 7, 7, 8))
     rois = torch.tensor([[[0.0, 0.0, 30.0, 30.0]]])
     lev = torch.zeros((1, 1), dtype=torch.int32)
@@ -290,8 +259,8 @@ def _dcn_inputs(rng, b=2, h=16, w=20, cin=8, cout=16):
 
 @pytest.mark.parametrize("boundary_grad", ["clip", "damped", "straight_through"])
 def test_deform_conv_training_form_matches_pertap_untiled(rng, boundary_grad):
-    """Forward and all four gradients of the training form (9 x
-    ``DeformSample``, taps added in order) against ``jax.vjp`` of
+    """Forward and all four gradients of the training form (``DeformSampleTaps``,
+    taps added in order) against ``jax.vjp`` of
     ``_pertap_untiled``, whose sampler and backward are the Pallas kernels
     in interpret mode; f32, rtol 1e-4 and atol 1e-4 (sums over 9 taps x 4
     corners x up to 320 pixels in another order)."""

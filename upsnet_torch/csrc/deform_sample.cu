@@ -1,35 +1,29 @@
-// K1 and K2: deformable bilinear sampling of tap projections.
+// K1 and K2: deformable bilinear sampling of a layer's tap projections.
 //
-// K1        out[b, i, j, :] = sum_t bilinear(y_t[b], sy9[t, b, i, j], sx9[t, b, i, j])
-// K2 taps   the same sum, each tap rounded to y's dtype and added in it in
-//           tap order: out = tap_0, out = out + tap_1, ...
-// K2        out[b, i, j, :] =       bilinear(y[b],     sy[b, i, j],     sx[b, i, j])
+// K1  out[b, i, j, :] = sum_t bilinear(y_t[b], sy9[t, b, i, j], sx9[t, b, i, j])
+// K2  the same sum, each tap rounded to y's dtype and added in it in tap
+//     order: out = tap_0, out = out + tap_1, ...
 //
 // DCNv1 zero padding: a sample counts iff it lies in (-1, H) x (-1, W), and a
 // corner outside [0, H) x [0, W) reads zero. K1 replaces the TPU kernel
 // upsnet_tpu/ops/deform_conv_pallas.py:_sample_pallas9 (_sample9_kernel), the
 // inference sampler; K2 replaces _sample_pallas (_sample_kernel), the
 // training forward, which _pertap_untiled calls once per tap and adds in
-// bf16 (its backward is deform_sample_bwd.cu). The all-tap K2 is the layer's
-// training forward in one launch: the chain of tap_chain.cuh, which gives the
-// values of the one-tap K2 launched per tap and added in y's dtype. The
-// one-tap K2 stays as that chain's yardstick, on no route.
+// bf16 (its backward is deform_sample_bwd.cu). K2 is that loop in one
+// launch: the chain of tap_chain.cuh, which gives the values of the per-tap
+// samples added in y's dtype.
 //
-// All three: one thread per (output pixel, group of 8 channels): each corner
-// is one 16-byte load (bf16) or two (f32) along contiguous channels, and the
-// output is stored once. K1 and the one-tap K2 accumulate the taps x 4
-// corners in f32 and round once. K1 and the all-tap K2 load a tap's four
-// corners before its first FMA (sample_tap_hoisted) and the next tap's
-// coordinates while it is summed; the all-tap K2 keeps the taps' partial
-// sums in registers. K1 and the all-tap K2 read the projections in either
-// layout through strides: side by side (B, H, W, K, C), the output of one
-// (N, Cin) x (Cin, K * C) matmul that every route builds, with or without
-// gradients, or tap-major (K, B, H, W, C). They add the taps in tap order and
-// the corners in corner order, as sample_tap does, so both layouts give the
-// same bits; K1's body, sample_taps_pixel (sample_tap.cuh), is K8a's
-// (deform_shift.cu) too. All
-// are bound by the bytes of the projections; none needs a halo window or
-// padding.
+// Both: one thread per (output pixel, group of 8 channels): each corner is
+// one 16-byte load (bf16) or two (f32) along contiguous channels, and the
+// output is stored once. A tap's four corners are loaded before its first
+// FMA (sample_tap_hoisted) and the next tap's coordinates while it is
+// summed. K1 accumulates the taps x 4 corners in f32 and rounds once; K2
+// keeps the taps' partial sums in registers. Both read the projections side
+// by side (B, H, W, K, C), the output of the one (N, Cin) x (Cin, K * C)
+// matmul that every route builds, in place through its strides
+// (side_by_side_strides). K1's body, sample_taps_pixel (sample_tap.cuh), is
+// K8a's (deform_shift.cu) too. Both are bound by the bytes of the
+// projections; neither needs a halo window or padding.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -43,7 +37,7 @@
 
 namespace {
 
-// K1: y in either layout through its strides (tap t of image b's pixel p at
+// K1: y through its side-by-side strides (tap t of image b's pixel p at
 // y + b * img_stride + t * tap_stride + p * pix_stride); the body is
 // sample_taps_pixel (sample_tap.cuh), which K8a runs too.
 template <typename T>
@@ -56,28 +50,8 @@ deform_sample9_kernel(const T* __restrict__ y, const float* __restrict__ sy9,
                     B, H, W, C, img_stride, tap_stride, pix_stride);
 }
 
-// K2: one tap, y (B, H, W, C).
-template <typename T>
-__global__ void __launch_bounds__(256)
-deform_sample_kernel(const T* __restrict__ y, const float* __restrict__ sy,
-                     const float* __restrict__ sx, T* __restrict__ out,
-                     int B, int H, int W, int C) {
-  const int groups = C / 8;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (int64_t)B * H * W * groups) return;
-  const int g = (int)(tid % groups);
-  const int64_t pix = tid / groups;  // (b * H + i) * W + j
-  const int b = (int)(pix / ((int64_t)H * W));
-  float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  sample_tap(y + (int64_t)b * H * W * C + g * 8, __ldg(sy + pix), __ldg(sx + pix),
-             H, W, C, acc);
-  store8(out + pix * C + g * 8, acc);
-}
-
-// K2, all taps: y in either layout through its strides, as K1 reads it; the
-// chain of tap_chain.cuh in registers.
+// K2: y through its side-by-side strides, as K1 reads it; the chain of
+// tap_chain.cuh in registers.
 template <typename T>
 __global__ void __launch_bounds__(256)
 deform_sample_taps_kernel(const T* __restrict__ y, const float* __restrict__ sy,
@@ -112,9 +86,9 @@ unsigned grid_for(int B, int H, int W, int C) {
 
 template <typename T>
 void launch9(const void* y, const void* sy9, const void* sx9, void* out, int taps, int B,
-             int H, int W, int C, int tap_major, cudaStream_t s) {
+             int H, int W, int C, cudaStream_t s) {
   int64_t img, tap, pix;
-  layout_strides(tap_major, taps, B, H, W, C, img, tap, pix);
+  side_by_side_strides(taps, H, W, C, img, tap, pix);
   deform_sample9_kernel<T><<<grid_for(B, H, W, C), kBlock, 0, s>>>(
       static_cast<const T*>(y), static_cast<const float*>(sy9),
       static_cast<const float*>(sx9), static_cast<T*>(out), taps, B, H, W, C, img, tap,
@@ -122,18 +96,10 @@ void launch9(const void* y, const void* sy9, const void* sx9, void* out, int tap
 }
 
 template <typename T>
-void launch1(const void* y, const void* sy, const void* sx, void* out,
-             int B, int H, int W, int C, cudaStream_t s) {
-  deform_sample_kernel<T><<<grid_for(B, H, W, C), kBlock, 0, s>>>(
-      static_cast<const T*>(y), static_cast<const float*>(sy),
-      static_cast<const float*>(sx), static_cast<T*>(out), B, H, W, C);
-}
-
-template <typename T>
 void launch_taps(const void* y, const void* sy, const void* sx, void* out, int taps,
-                 int B, int H, int W, int C, int tap_major, cudaStream_t s) {
+                 int B, int H, int W, int C, cudaStream_t s) {
   int64_t img, tap, pix;
-  layout_strides(tap_major, taps, B, H, W, C, img, tap, pix);
+  side_by_side_strides(taps, H, W, C, img, tap, pix);
   deform_sample_taps_kernel<T><<<grid_for(B, H, W, C), kBlock, 0, s>>>(
       static_cast<const T*>(y), static_cast<const float*>(sy),
       static_cast<const float*>(sx), static_cast<T*>(out), taps, B, H, W, C, img, tap,
@@ -145,40 +111,24 @@ void launch_taps(const void* y, const void* sy, const void* sx, void* out, int t
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Pointers are device pointers.
-// K1: y (taps, B, H, W, C) for tap_major 1, (B, H, W, taps, C) for 0;
-// sy9/sx9 (taps, B, H, W) f32, out (B, H, W, C).
+// K1: y (B, H, W, taps, C); sy9/sx9 (taps, B, H, W) f32, out (B, H, W, C).
 int deform_sample9(const void* y, const void* sy9, const void* sx9, void* out, int taps,
-                   int B, int H, int W, int C, int tap_major, int dtype, void* stream) {
+                   int B, int H, int W, int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid_for(B, H, W, C) > 0 && taps > 0) {
-    if (dtype == 1) launch9<__nv_bfloat16>(y, sy9, sx9, out, taps, B, H, W, C, tap_major, s);
-    else launch9<float>(y, sy9, sx9, out, taps, B, H, W, C, tap_major, s);
+    if (dtype == 1) launch9<__nv_bfloat16>(y, sy9, sx9, out, taps, B, H, W, C, s);
+    else launch9<float>(y, sy9, sx9, out, taps, B, H, W, C, s);
   }
   return (int)cudaGetLastError();
 }
 
-// K2: y (B, H, W, C), sy/sx (B, H, W) f32, out (B, H, W, C).
-int deform_sample(const void* y, const void* sy, const void* sx, void* out,
-                  int B, int H, int W, int C, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (grid_for(B, H, W, C) > 0) {
-    if (dtype == 1) launch1<__nv_bfloat16>(y, sy, sx, out, B, H, W, C, s);
-    else launch1<float>(y, sy, sx, out, B, H, W, C, s);
-  }
-  return (int)cudaGetLastError();
-}
-
-// K2, all taps: y (taps, B, H, W, C) for tap_major 1, (B, H, W, taps, C) for
-// 0; sy/sx (taps, B, H, W) f32, out (B, H, W, C).
+// K2: y (B, H, W, taps, C); sy/sx (taps, B, H, W) f32, out (B, H, W, C).
 int deform_sample_taps(const void* y, const void* sy, const void* sx, void* out, int taps,
-                       int B, int H, int W, int C, int tap_major, int dtype, void* stream) {
+                       int B, int H, int W, int C, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grid_for(B, H, W, C) > 0 && taps > 0) {
-    if (dtype == 1) {
-      launch_taps<__nv_bfloat16>(y, sy, sx, out, taps, B, H, W, C, tap_major, s);
-    } else {
-      launch_taps<float>(y, sy, sx, out, taps, B, H, W, C, tap_major, s);
-    }
+    if (dtype == 1) launch_taps<__nv_bfloat16>(y, sy, sx, out, taps, B, H, W, C, s);
+    else launch_taps<float>(y, sy, sx, out, taps, B, H, W, C, s);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,6 @@
-// K3: backward of the deformable bilinear sampler, in three forms: all taps
-// where dy is clipped (the row-band gather), all taps where nothing is
-// clipped (a counting sort and a gather), and one tap (backward of K2, a
-// scatter).
+// K3: backward of the deformable bilinear sampler for all taps of a layer,
+// in two forms: where dy is clipped (the row-band gather) and where nothing
+// is clipped (a counting sort and a gather).
 //
 // For out[b, i, j, :] = sum_t sum_{r, q} vy_r * vx_q * y_t[b, r, q, :] with
 // the hat weights vy_r = max(0, 1 - |sy_t - r|), vx_q = max(0, 1 - |sx_t - q|)
@@ -17,11 +16,11 @@
 // default that of the TPU kernel this replaces,
 // upsnet_tpu/ops/deform_conv_pallas.py:_sample_pallas_bwd
 // (_sample_bwd_kernel), dv = -sign(d) where |d| < 1, else 0, which is 0 at
-// an integer coordinate. The one-tap form has that rule only.
+// an integer coordinate.
 //
 // The TPU kernel read-modify-writes a window of an f32 canvas in a fixed
 // sequence of grid steps, so its sums come out the same on every run. Blocks
-// here run in no order, so both all-tap forms gather instead: each grad_y
+// here run in no order, so both forms gather instead: each grad_y
 // element is summed in f32 registers over its contributing samples in a
 // fixed order (ascending output pixel within each low-corner bucket) and
 // written once in y's dtype. No canvas, no zero fill, no cast, no float
@@ -31,7 +30,7 @@
 // grad_y and the coordinate gradients written once; the gathers read g once
 // per corner, from L1/L2.
 //
-// All taps, dy clipped (deform_sample_bwd_taps_grad_y; also K8b, the shift
+// Dy clipped (deform_sample_bwd_taps_grad_y; also K8b, the shift
 // route's gradient to its projections): every counted sample of pixel
 // (i, j) lies within `reach` rows of i, so canvas row r receives only from
 // the output rows [r - reach - 1, r + reach]; dx is free. A block owns 2
@@ -40,13 +39,13 @@
 // corner column (integer shared-memory atomics: shared-memory float atomics
 // are compare-and-swap loops on this card), orders each bucket by output
 // pixel, then a thread per (column, 8 channels) sums the two buckets that
-// reach its column and writes the band once, in y's layout (tap-major
-// (K, B, H, W, C) or side by side (B, H, W, K, C)): a warp writes whole runs
-// of channels. The taps are a grid dimension, not a loop in the block, so
-// that blocks of different taps overlap their phases. A counted sample
+// reach its column and writes the band once, in y's side-by-side layout
+// (B, H, W, K, C): a warp writes whole runs of channels. The taps are a grid
+// dimension, not a loop in the block, so that blocks of different taps
+// overlap their phases. A counted sample
 // beyond the reach gets no gradient to y (the callers' clip rules it out).
 //
-// All taps, nothing clipped (deform_sample_bwd_unclipped_grad_y: `auto`,
+// Nothing clipped (deform_sample_bwd_unclipped_grad_y: `auto`,
 // `gather`): a sample may lie anywhere, so there is no band. A counting sort
 // of all samples by their low corner (y0, x0) in [-1, H - 1] x [-1, W - 1],
 // per tap and image, in device memory: an integer histogram (atomics, so the
@@ -55,18 +54,9 @@
 // The rank pass writes each sample as a record (output pixel, fractional
 // coordinates), so that a thread per (source pixel, 16 channels) sums the
 // 2 x 2 bins whose samples reach it with one record load and one g load a
-// sample, and writes grad_y once, in y's layout through its strides
-// (tap-major or side by side, as the band gather). Scratch: about 4 bytes
-// per bin and 24 per sample. The passes are the bodies of sorted_gather.cuh,
+// sample, and writes grad_y once, side by side through its strides, as the
+// band gather. Scratch: about 4 bytes per bin and 24 per sample. The passes are the bodies of sorted_gather.cuh,
 // which K7b (deform_sample_mt_bwd.cu) runs under kernel names of its own.
-//
-// One tap (deform_sample_bwd): a sub-warp of `width` lanes (a power of two
-// <= 32, at least C / 8 when that fits) owns one pixel; a lane takes groups
-// of 8 channels. It reads g and the four corners of y with 16-byte loads,
-// scatters the weighted g into a zeroed f32 canvas with vector atomics (so
-// its sums differ between runs by f32 rounding), and the sub-warp reduces
-// the two coordinate gradients with shuffles in f32. The per-sample
-// arithmetic is sample_bwd of sample_bwd.cuh. No route takes it any more.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
@@ -75,54 +65,11 @@
 #include <stdint.h>
 
 #include "offset_grads.cuh"
-#include "sample_bwd.cuh"
 #include "sample_tap.cuh"
 #include "sorted_gather.cuh"
 #include "vec8.cuh"
 
 namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-deform_sample_bwd_kernel(const T* __restrict__ y, const float* __restrict__ sy,
-                         const float* __restrict__ sx, const T* __restrict__ g,
-                         float* __restrict__ canvas, float* __restrict__ gsy,
-                         float* __restrict__ gsx, int B, int H, int W, int C, int width) {
-  const int64_t pixels = (int64_t)B * H * W;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t pix = tid / width;  // (b * H + i) * W + j
-  const int lane = (int)(tid % width);
-  float gy = 0.f, gx = 0.f;
-  // every lane of the warp reaches the shuffles below, so no early return
-  if (pix < pixels) {
-    const int64_t img_off = pix / ((int64_t)H * W) * H * W * C;
-    sample_bwd(y + img_off, canvas + img_off, g + pix * C, __ldg(sy + pix),
-               __ldg(sx + pix), H, W, C, lane, width, gy, gx);
-  }
-  for (int off = width / 2; off > 0; off /= 2) {
-    gy += __shfl_xor_sync(0xffffffffu, gy, off);
-    gx += __shfl_xor_sync(0xffffffffu, gx, off);
-  }
-  if (lane == 0 && pix < pixels) {
-    gsy[pix] = gy;
-    gsx[pix] = gx;
-  }
-}
-
-template <typename T>
-void launch(const void* y, const void* sy, const void* sx, const void* g, void* canvas,
-            void* gsy, void* gsx, int B, int H, int W, int C, cudaStream_t s) {
-  const int width = sub_warp_width(C);
-  const int block = 256;  // a multiple of every width
-  const int64_t threads = (int64_t)B * H * W * width;
-  const unsigned grid = (unsigned)((threads + block - 1) / block);
-  deform_sample_bwd_kernel<T><<<grid, block, 0, s>>>(
-      static_cast<const T*>(y), static_cast<const float*>(sy),
-      static_cast<const float*>(sx), static_cast<const T*>(g),
-      static_cast<float*>(canvas), static_cast<float*>(gsy), static_cast<float*>(gsx),
-      B, H, W, C, width);
-}
-
 
 constexpr int kBandRows = 2;      // grad_y rows a block owns
 constexpr int kSliceGroups = 16;  // 8-channel groups a block owns (128 channels)
@@ -282,9 +229,9 @@ size_t gather_bytes(int W, int reach) {
 
 template <typename T>
 int launch_grad_y(const void* g, const void* sy, const void* sx, void* gy, int K, int B,
-                  int H, int W, int C, int reach, int tap_major, cudaStream_t s) {
+                  int H, int W, int C, int reach, cudaStream_t s) {
   int64_t img, tap, pix;
-  layout_strides(tap_major, K, B, H, W, C, img, tap, pix);
+  side_by_side_strides(K, H, W, C, img, tap, pix);
   // the limit is raised only when a launch needs more than the last one
   // raised it to: a cudaFuncSetAttribute call on every launch leaves the card idle
   static size_t raised = 0;
@@ -305,7 +252,7 @@ int launch_grad_y(const void* g, const void* sy, const void* sx, void* gy, int K
 }
 
 
-// ---- all taps, nothing clipped: a counting sort of the samples, a gather ----
+// ---- nothing clipped: a counting sort of the samples, a gather ----
 // (sorted_gather.cuh, shared with K7b; K3's planes are (tap, image), its keys
 // output pixels)
 
@@ -344,7 +291,7 @@ rank_kernel(const float* __restrict__ sy, const float* __restrict__ sx,
                                   B, H, W);
 }
 
-// grad_y in y's layout (layout_strides): plane t * B + b, g (B, H, W, C)
+// grad_y side by side (side_by_side_strides): plane t * B + b, g (B, H, W, C)
 // read at image b, key p.
 template <typename T, int NG>
 __global__ void __launch_bounds__(256)
@@ -362,8 +309,7 @@ int64_t unclipped_work(int K, int B, int H, int W) {
 
 template <typename T>
 int launch_grad_y_unclipped(const void* g, const void* sy, const void* sx, void* gy,
-                            void* work, int K, int B, int H, int W, int C, int tap_major,
-                            cudaStream_t s) {
+                            void* work, int K, int B, int H, int W, int C, cudaStream_t s) {
   const sorted_gather::SortKernels kernels{bin_count_kernel, scan_tiles_kernel,
                                            scan_totals_kernel, place_kernel, rank_kernel};
   sorted_gather::Sorted sorted;
@@ -372,7 +318,7 @@ int launch_grad_y_unclipped(const void* g, const void* sy, const void* sx, void*
                                               K * B, sorted, s);
   if (err != 0) return err;
   int64_t img, tap, pix;
-  layout_strides(tap_major, K, B, H, W, C, img, tap, pix);
+  side_by_side_strides(K, H, W, C, img, tap, pix);
   sorted_gather::launch_gather<T>(grad_y_sorted_kernel<T, 2>, grad_y_sorted_kernel<T, 1>,
                                   static_cast<const T*>(g), sorted, static_cast<T*>(gy), K * B,
                                   B, H, W, C, (int64_t)H * W * C, img, tap, pix, s);
@@ -383,76 +329,56 @@ int launch_grad_y_unclipped(const void* g, const void* sy, const void* sx, void*
 
 extern "C" {
 
-// One tap. dtype: 0 = float32, 1 = bfloat16 (of y and g). y, g (B, H, W, C);
-// sy, sx, gsy, gsx (B, H, W) f32; canvas (B, H, W, C) f32, zeroed by the
-// caller.
-int deform_sample_bwd(const void* y, const void* sy, const void* sx, const void* g,
-                      void* canvas, void* gsy, void* gsx, int B, int H, int W, int C,
-                      int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((int64_t)B * H * W > 0 && C >= 8) {
-    if (dtype == 1) {
-      launch<__nv_bfloat16>(y, sy, sx, g, canvas, gsy, gsx, B, H, W, C, s);
-    } else {
-      launch<float>(y, sy, sx, g, canvas, gsy, gsx, B, H, W, C, s);
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
-// All taps, pass 1. dtype: 0 = float32, 1 = bfloat16 (of g and gy). g
+// Dy clipped, pass 1. dtype: 0 = float32, 1 = bfloat16 (of g and gy). g
 // (B, H, W, C); sy, sx (K, B, H, W) f32 with |sy - i| <= reach at every
-// counted sample of pixel (i, j); gy in y's layout (tap_major 1:
-// (K, B, H, W, C), 0: (B, H, W, K, C)), every element written. B * K <=
-// 65535 and gather_bytes(W, reach) within the 232448 bytes of shared memory
-// a block can use (so a band's scanned pixels fit their 16-bit numbers).
+// counted sample of pixel (i, j); gy (B, H, W, K, C), every element
+// written. B * K <= 65535 and gather_bytes(W, reach) within the 232448 bytes
+// of shared memory a block can use (so a band's scanned pixels fit their
+// 16-bit numbers).
 int deform_sample_bwd_taps_grad_y(const void* g, const void* sy, const void* sx, void* gy,
                                   int K, int B, int H, int W, int C, int reach,
-                                  int tap_major, int dtype, void* stream) {
+                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     const int err = dtype == 1
-        ? launch_grad_y<__nv_bfloat16>(g, sy, sx, gy, K, B, H, W, C, reach, tap_major, s)
-        : launch_grad_y<float>(g, sy, sx, gy, K, B, H, W, C, reach, tap_major, s);
+        ? launch_grad_y<__nv_bfloat16>(g, sy, sx, gy, K, B, H, W, C, reach, s)
+        : launch_grad_y<float>(g, sy, sx, gy, K, B, H, W, C, reach, s);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }
 
-// All taps, nothing clipped, pass 1. dtype: 0 = float32, 1 = bfloat16 (of g
-// and gy). g (B, H, W, C); sy, sx (K, B, H, W) f32, any values; gy in y's
-// layout (tap_major 1: (K, B, H, W, C), 0: (B, H, W, K, C)), every element
-// written; work int32 scratch of `work_len` elements, at least
+// Nothing clipped, pass 1. dtype: 0 = float32, 1 = bfloat16 (of g and gy).
+// g (B, H, W, C); sy, sx (K, B, H, W) f32, any values; gy (B, H, W, K, C),
+// every element written; work int32 scratch of `work_len` elements, at least
 // unclipped_work(K, B, H, W) (else cudaErrorInvalidValue), with
 // K * B * (H + 1) * (W + 1) < 2^31.
 int deform_sample_bwd_unclipped_grad_y(const void* g, const void* sy, const void* sx,
                                        void* gy, void* work, int K, int B, int H, int W,
-                                       int C, int work_len, int tap_major, int dtype,
-                                       void* stream) {
+                                       int C, int work_len, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     if (work_len < unclipped_work(K, B, H, W)) return (int)cudaErrorInvalidValue;
     const int err = dtype == 1
-        ? launch_grad_y_unclipped<__nv_bfloat16>(g, sy, sx, gy, work, K, B, H, W, C,
-                                                 tap_major, s)
-        : launch_grad_y_unclipped<float>(g, sy, sx, gy, work, K, B, H, W, C, tap_major, s);
+        ? launch_grad_y_unclipped<__nv_bfloat16>(g, sy, sx, gy, work, K, B, H, W, C, s)
+        : launch_grad_y_unclipped<float>(g, sy, sx, gy, work, K, B, H, W, C, s);
     if (err != 0) return err;
   }
   return (int)cudaGetLastError();
 }
 
-// All taps, pass 2 (both forms): gsy, gsx (K, B, H, W) f32, every element
-// written; y in the layout named by tap_major, g (B, H, W, C); rule 0
-// (kPallas), 1 (kHat) or 2 (kFloor), else cudaErrorInvalidValue; fast null,
-// or a device byte: where it reads 0, kFloor instead of rule (`auto`).
+// Pass 2 (both forms): gsy, gsx (K, B, H, W) f32, every element written;
+// y (B, H, W, K, C), g (B, H, W, C); rule 0 (kPallas), 1 (kHat) or 2
+// (kFloor), else cudaErrorInvalidValue; fast null, or a device byte: where
+// it reads 0, kFloor instead of rule (`auto`).
 int deform_sample_bwd_taps_coords(const void* y, const void* sy, const void* sx,
                                   const void* g, void* gsy, void* gsx, const void* fast, int K,
-                                  int B, int H, int W, int C, int tap_major, int rule,
-                                  int dtype, void* stream) {
+                                  int B, int H, int W, int C, int rule, int dtype,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     int64_t img, tap, pix;
-    layout_strides(tap_major, K, B, H, W, C, img, tap, pix);
+    side_by_side_strides(K, H, W, C, img, tap, pix);
     const int err = dtype == 1
         ? launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
                                              pix, rule, fast, s)

@@ -1,37 +1,33 @@
-// K6: the deformable bilinear sampler read out of the side-by-side
-// projection, for maps too wide for the TPU's untiled kernel, in two forms:
+// K6: the deformable bilinear sampler of all taps of a layer read out of the
+// side-by-side projection, for maps too wide for the TPU's untiled kernel:
 //
-//   K6 taps  out[b, i, j, :] = sum_t bilinear(y[b, :, :, t*C:(t+1)*C], sy[t, b, i, j],
-//                                             sx[t, b, i, j]),
-//            each tap rounded to y's dtype and added in it in tap order
-//   K6       out[b, i, j, :] = bilinear(y[b, :, :, t*C:(t+1)*C], sy[b, i, j], sx[b, i, j])
+//   out[b, i, j, :] = sum_t bilinear(y[b, :, :, t*C:(t+1)*C], sy[t, b, i, j], sx[t, b, i, j]),
+//   each tap rounded to y's dtype and added in it in tap order
 //
 // y (B, H, W, K*C) is one matmul's output with the K tap projections side by
-// side; the kernels read tap t's block in place with pixel stride K*C (no
+// side; the kernel reads tap t's block in place with pixel stride K*C (no
 // per-tap copy, no padding). DCNv1 zero padding on the true H and W: a sample
 // counts iff it lies in (-1, H) x (-1, W), and a corner outside the map reads
 // zero. Replaces upsnet_tpu/ops/deform_conv_pallas.py:_sample_pallas_tiled
 // (_sample_kernel_tiled), whose grid is (batch, row blocks, column tiles) so
 // that each program's VMEM window stays bounded on a wide map, and which
-// _deform_conv2d_pallas_tiled calls once per tap and adds in bf16. The
-// all-tap form is that loop in one launch (the chain of tap_chain.cuh: the
-// values of the one-tap K6 per tap added in y's dtype); the one-tap form
-// stays as its yardstick, on no route.
+// _deform_conv2d_pallas_tiled calls once per tap and adds in bf16. K6 is that
+// loop in one launch (the chain of tap_chain.cuh: the values of the per-tap
+// samples added in y's dtype).
 //
 // The grid here is tiled the same way, (column tiles, row tiles, batch): one
-// block per 4 x 32 output pixels for one tap, per 1 x 32 for all taps. The
-// callers clip the offsets, so a counted sample of pixel (i, j) lies within
-// reach_y rows and reach_x columns of it; the kernels hold that contract by
-// giving zero to a sample beyond the reach (the TPU kernel's window ends
-// there too). The all-tap block first stages its tile's 2K x 32 coordinates
-// in shared memory with cp.async (2.3 KB at K 9), then walks (pixel,
-// 8-channel group) items with the group fastest, so that a tap's corner
-// loads of a warp are contiguous per pixel; the taps' partial sums stay in
-// registers and the output is written once. The block's projection
-// footprint (rows [i0 - reach_y, i0 + reach_y], columns [j0 - reach_x, j0 +
-// 32 + reach_x] of every tap, about 60 KB a tap at reach 7 and C 128) is
-// not staged: nine of them do not fit shared memory, and the blocks in
-// flight share those rows through L2.
+// block per 1 x 32 output pixels. The callers clip the offsets, so a counted
+// sample of pixel (i, j) lies within reach_y rows and reach_x columns of it;
+// the kernel holds that contract by giving zero to a sample beyond the reach
+// (the TPU kernel's window ends there too). A block first stages its tile's
+// 2K x 32 coordinates in shared memory with cp.async (2.3 KB at K 9), then
+// walks (pixel, 8-channel group) items with the group fastest, so that a
+// tap's corner loads of a warp are contiguous per pixel; the taps' partial
+// sums stay in registers and the output is written once. The block's
+// projection footprint (rows [i0 - reach_y, i0 + reach_y], columns
+// [j0 - reach_x, j0 + 32 + reach_x] of every tap, about 60 KB a tap at reach
+// 7 and C 128) is not staged: nine of them do not fit shared memory, and the
+// blocks in flight share those rows through L2.
 //
 // Indexing: every offset into y, the coordinates and out is int64_t from a
 // per-image base pointer (B*H*W*K*C passes 2^31 elements at batch 8 of a
@@ -50,45 +46,11 @@
 
 namespace {
 
-constexpr int kTileH = 4;
 constexpr int kTileW = 32;
 constexpr int kBlock = 256;
-// output rows of an all-tap block: one row keeps the projection rows that
-// the blocks in flight read together within L2 (four rows were slower)
+// output rows of a block: one row keeps the projection rows that the blocks
+// in flight read together within L2 (four rows were slower)
 constexpr int kTapsTileH = 1;
-
-template <typename T>
-__global__ void __launch_bounds__(kBlock)
-deform_sample_tiled_kernel(const T* __restrict__ y, const float* __restrict__ sy,
-                           const float* __restrict__ sx, T* __restrict__ out,
-                           int H, int W, int C, int K, int t,
-                           float reach_y, float reach_x) {
-  const int groups = C / 8;
-  const int stride = K * C;  // elements between neighbouring pixels of y
-  const int64_t plane = (int64_t)H * W;
-  const int64_t b = blockIdx.z;
-  const T* img = y + b * plane * stride + (int64_t)t * C;
-  const float* sy_b = sy + b * plane;
-  const float* sx_b = sx + b * plane;
-  T* out_b = out + b * plane * C;
-  const int i0 = blockIdx.y * kTileH, j0 = blockIdx.x * kTileW;
-  const int items = kTileH * kTileW * groups;
-  for (int item = threadIdx.x; item < items; item += kBlock) {
-    const int g = item % groups;
-    const int p = item / groups;
-    const int i = i0 + p / kTileW, j = j0 + p % kTileW;
-    if (i >= H || j >= W) continue;
-    const int64_t pix = (int64_t)i * W + j;
-    const float py = __ldg(sy_b + pix), px = __ldg(sx_b + pix);
-    float acc[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-    if (fabsf(py - (float)i) <= reach_y && fabsf(px - (float)j) <= reach_x) {
-      sample_tap(img + g * 8, py, px, H, W, stride, acc);
-    }
-    store8(out_b + pix * C + g * 8, acc);
-  }
-}
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -104,7 +66,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// K6, all taps: sy, sx (K, B, H, W); dynamic shared memory 2 * K * 32 floats.
+// K6: sy, sx (K, B, H, W); dynamic shared memory 2 * K * 32 floats.
 template <typename T>
 __global__ void __launch_bounds__(kBlock)
 deform_sample_tiled_taps_kernel(const T* __restrict__ y, const float* __restrict__ sy,
@@ -172,39 +134,14 @@ void launch_taps(const void* y, const void* sy, const void* sx, void* out, int B
       (float)reach_y, (float)reach_x);
 }
 
-template <typename T>
-void launch(const void* y, const void* sy, const void* sx, void* out, int B, int H, int W,
-            int C, int K, int t, int reach_y, int reach_x, cudaStream_t s) {
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
-  deform_sample_tiled_kernel<T><<<grid, kBlock, 0, s>>>(
-      static_cast<const T*>(y), static_cast<const float*>(sy),
-      static_cast<const float*>(sx), static_cast<T*>(out), H, W, C, K, t,
-      (float)reach_y, (float)reach_x);
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. y (B, H, W, K*C); sy, sx (B, H, W) f32;
-// out (B, H, W, C); 0 <= t < K; B <= 65535 and H <= 4 * 65535 (grid limits).
-int deform_sample_tiled(const void* y, const void* sy, const void* sx, void* out,
-                        int B, int H, int W, int C, int K, int t, int reach_y,
-                        int reach_x, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B > 0 && H > 0 && W > 0 && C >= 8) {
-    if (dtype == 1) {
-      launch<__nv_bfloat16>(y, sy, sx, out, B, H, W, C, K, t, reach_y, reach_x, s);
-    } else {
-      launch<float>(y, sy, sx, out, B, H, W, C, K, t, reach_y, reach_x, s);
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
-// K6, all taps: y (B, H, W, K*C); sy, sx (K, B, H, W) f32; out (B, H, W, C);
-// B <= 65535, H <= 65535 (grid limits) and 2 * K * 32 floats within 48 KB
-// (K <= 192), else the launch fails and its error is returned.
+// dtype: 0 = float32, 1 = bfloat16. y (B, H, W, K*C); sy, sx (K, B, H, W)
+// f32; out (B, H, W, C); B <= 65535, H <= 65535 (grid limits) and
+// 2 * K * 32 floats within 48 KB (K <= 192), else the launch fails and its
+// error is returned.
 int deform_sample_tiled_taps(const void* y, const void* sy, const void* sx, void* out,
                              int B, int H, int W, int C, int K, int reach_y, int reach_x,
                              int dtype, void* stream) {

@@ -25,7 +25,7 @@
 // from the unpadded map, so there is no window, no padding and no candidate
 // loop. K8a is K1's function on K1's side-by-side layout, so it runs K1's
 // body, sample_taps_pixel (sample_tap.cuh), with the strides of
-// layout_strides(0, ...): image H * W * K * C, tap C, pixel K * C. One
+// side_by_side_strides: image H * W * K * C, tap C, pixel K * C. One
 // thread per (output pixel, 8 channels), one launch for all taps; a tap's
 // four corner loads are issued before its first FMA and the next tap's
 // coordinates are in flight while it is summed; an f32 accumulator over all
@@ -67,7 +67,7 @@ template <typename T>
 void launch_fwd(const void* y, const void* sy, const void* sx, void* out, int K, int B,
                 int H, int W, int C, cudaStream_t s) {
   int64_t img, tap, pix;  // side by side: img H * W * K * C, tap C, pixel K * C
-  layout_strides(0, K, B, H, W, C, img, tap, pix);
+  side_by_side_strides(K, H, W, C, img, tap, pix);
   const int64_t threads = (int64_t)B * H * W * (C / 8);
   const unsigned grid = (unsigned)((threads + kBlock - 1) / kBlock);
   shift_fwd_kernel<T><<<grid, kBlock, 0, s>>>(
@@ -100,7 +100,7 @@ int shift_offset_grads(const void* y, const void* sy, const void* sx, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((int64_t)B * H * W > 0 && C >= 8 && K > 0) {
     int64_t img, tap, pix;  // side by side: img H * W * K * C, tap C, pixel K * C
-    layout_strides(0, K, B, H, W, C, img, tap, pix);
+    side_by_side_strides(K, H, W, C, img, tap, pix);
     const int err = dtype == 1
         ? launch_offset_grads<__nv_bfloat16>(y, sy, sx, g, gsy, gsx, K, B, H, W, C, img, tap,
                                              pix, offset_grads::kPallas, nullptr, s)

@@ -1,7 +1,7 @@
 // The coordinate gradients of a K-tap deformable bilinear sampler, shared by
 // K8c (deform_shift.cu, the shift route's one-matmul layout), the
-// coordinate pass of both all-tap K3 forms (deform_sample_bwd.cu, tap-major
-// or side-by-side layout) and of K7b (deform_sample_mt_bwd.cu: one input x
+// coordinate pass of both K3 forms (deform_sample_bwd.cu, side-by-side
+// layout) and of K7b (deform_sample_mt_bwd.cu: one input x
 // for every tap, at tap stride 0, and a g row per (pixel, tap)).
 //
 // With tap t's map of image b at y + b * img_stride + t * tap_stride, pixel

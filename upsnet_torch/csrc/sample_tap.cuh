@@ -2,8 +2,9 @@
 // samplers (K1, K2 in deform_sample.cu; K6 in deform_sample_tiled.cu; K7a in
 // deform_sample_mt.cu; K8a in deform_shift.cu) and, for its corners, the
 // coordinate gradients (offset_grads.cuh): a sample counts iff it lies in
-// (-1, H) x (-1, W), and a corner outside [0, H) x [0, W) reads zero. sample_taps_pixel is the whole
-// body of K1, which K8a runs too, and sample_each_tap_pixel that of K7a.
+// (-1, H) x (-1, W), and a corner outside [0, H) x [0, W) reads zero.
+// sample_taps_pixel is the whole body of K1, which K8a runs too, and
+// sample_each_tap_pixel that of K7a.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,21 +12,14 @@
 
 #include "vec8.cuh"
 
-// The strides of the K tap projections of a layer in their two layouts,
-// tap t of image b's pixel p at y + b * img + t * tap + p * pix: tap-major
-// (K, B, H, W, C) or side by side (B, H, W, K, C), the output of one
-// (N, Cin) x (Cin, K * C) matmul.
-inline void layout_strides(int tap_major, int K, int B, int H, int W, int C, int64_t& img,
-                           int64_t& tap, int64_t& pix) {
-  if (tap_major) {
-    img = (int64_t)H * W * C;
-    tap = (int64_t)B * H * W * C;
-    pix = C;
-  } else {
-    img = (int64_t)H * W * K * C;
-    tap = C;
-    pix = (int64_t)K * C;
-  }
+// The strides of a layer's K tap projections side by side (B, H, W, K, C),
+// the output of one (N, Cin) x (Cin, K * C) matmul: tap t of image b's pixel
+// p at y + b * img + t * tap + p * pix.
+inline void side_by_side_strides(int K, int H, int W, int C, int64_t& img, int64_t& tap,
+                                 int64_t& pix) {
+  img = (int64_t)H * W * K * C;
+  tap = C;
+  pix = (int64_t)K * C;
 }
 
 // acc[0..8) += wgt * v[0..8), one fmaf a channel: how every sampler adds a
@@ -33,18 +27,6 @@ inline void layout_strides(int tap_major, int K, int B, int H, int W, int C, int
 __device__ __forceinline__ void fma8(float wgt, const float* v, float* acc) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = fmaf(wgt, v[k], acc[k]);
-}
-
-// acc += wgt * img[yy, xx, 0..8). `stride` is the distance in elements
-// between neighbouring pixels of img (C for a (H, W, C) map, K * C for one
-// tap's block of a (H, W, K * C) map).
-template <typename T>
-__device__ __forceinline__ void add_corner(const T* img, int yy, int xx, float wgt,
-                                           int H, int W, int stride, float* acc) {
-  if (yy < 0 || yy >= H || xx < 0 || xx >= W) return;
-  float v[8];
-  load8(img + ((int64_t)yy * W + xx) * stride, v);
-  fma8(wgt, v, acc);
 }
 
 // The top-left corner (y0, x0) of a sample at (sy, sx) and its distances
@@ -76,20 +58,11 @@ __device__ __forceinline__ bool tap_corners(float sy, float sx, int H, int W,
 }
 
 // Adds the bilinear sample of img (one image's map, already offset to the
-// thread's 8 channels) at (sy, sx) to acc.
-template <typename T>
-__device__ __forceinline__ void sample_tap(const T* img, float sy, float sx,
-                                           int H, int W, int stride, float* acc) {
-  int y0, x0;
-  float wgt[4];
-  if (!tap_corners(sy, sx, H, W, &y0, &x0, wgt)) return;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) add_corner(img, y0 + (q >> 1), x0 + (q & 1), wgt[q], H, W, stride, acc);
-}
-
-// sample_tap with the four corners' loads issued before the first FMA, so
-// that a thread has all of them in flight at once (the all-tap forwards);
-// the same sums in the same order.
+// thread's 8 channels, `stride` elements between neighbouring pixels: C for
+// a (H, W, C) map, K * C for one tap's block of a (H, W, K * C) map) at
+// (sy, sx) to acc, one fmaf a channel and corner in corner order. The four
+// corners' loads are issued before the first FMA, so that a thread has all
+// of them in flight at once.
 template <typename T>
 __device__ __forceinline__ void sample_tap_hoisted(const T* img, float sy, float sx,
                                                    int H, int W, int stride, float* acc) {
@@ -135,11 +108,10 @@ __device__ __forceinline__ void walk_taps(const float* __restrict__ sy,
 // of a launch over (pixel, group of 8 channels), group fastest, writes
 // out[pix, g * 8 .. g * 8 + 8) = the sum over the taps of the bilinear
 // samples of tap t at (sy[t, pix], sx[t, pix]), in f32, rounded once. y is
-// read through (image, tap, pixel) strides (layout_strides). A tap's four
-// corner loads are issued before its first FMA (sample_tap_hoisted) and the
-// next tap's coordinates are loaded while it is summed (walk_taps); the taps
-// are added in tap order and the corners in corner order, as sample_tap adds
-// them, so both layouts give the same bits.
+// read through (image, tap, pixel) strides (side_by_side_strides). A tap's
+// four corner loads are issued before its first FMA (sample_tap_hoisted) and
+// the next tap's coordinates are loaded while it is summed (walk_taps); the
+// taps are added in tap order and the corners in corner order.
 template <typename T>
 __device__ __forceinline__ void sample_taps_pixel(const T* __restrict__ y,
                                                   const float* __restrict__ sy,
@@ -169,8 +141,7 @@ __device__ __forceinline__ void sample_taps_pixel(const T* __restrict__ y,
 // group fastest, with a 32-bit index (the caller keeps B * H * W * C / 8
 // below 2^31), writes cols[pix, t, g * 8 .. g * 8 + 8) = the bilinear sample
 // of x (B, H, W, C) at (sy[t, pix], sx[t, pix]), in f32 from a fresh
-// accumulator, rounded once; cols (B, H, W, taps, C). The same sums in the
-// same corner order as sample_tap.
+// accumulator, rounded once; cols (B, H, W, taps, C).
 template <typename T>
 __device__ __forceinline__ void sample_each_tap_pixel(const T* __restrict__ x,
                                                       const float* __restrict__ sy,

@@ -27,8 +27,7 @@
 // its element once in the map's dtype: no canvas, no zero fill, no cast, no
 // float atomics, the same bits on every run. It writes through (image, tap,
 // pixel) strides, plane t * B + b at out + b * img + t * tap: K3's tap maps
-// tap-major (K, B, H, W, C) or side by side (B, H, W, K, C), K7b's gradient
-// to x (B, H, W, C) with t 0. Scratch: int32, about 4 bytes a bin and 24 a
+// side by side (B, H, W, K, C), K7b's gradient to x (B, H, W, C) with t 0. Scratch: int32, about 4 bytes a bin and 24 a
 // sample (work_len).
 #pragma once
 

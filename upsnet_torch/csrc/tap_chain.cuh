@@ -1,13 +1,12 @@
-// The per-tap rounding of the all-tap training forwards (K2 all taps in
-// deform_sample.cu, K6 all taps in deform_sample_tiled.cu), which reproduces
-// a chain of one-tap samples added in y's dtype in tap order.
+// The per-tap rounding of the training forwards (K2 in deform_sample.cu,
+// K6 in deform_sample_tiled.cu), which reproduces a chain of per-tap samples
+// added in y's dtype in tap order, as the JAX training form adds them.
 //
-// A tap's value is the f32 sum of sample_tap_hoisted (sample_tap.cuh), the
-// same sums as the one-tap kernels' sample_tap. The chain is what a loop of
-// one-tap launches and PyTorch adds computes: out = tap_0, then out =
-// round(float(out) + float(tap_t)), each tap rounded to T first (a bf16 add
-// on the card computes in f32 and rounds to nearest even). So an all-tap
-// kernel gives the same values as the nine launches and eight adds it
+// A tap's value is the f32 sum of sample_tap_hoisted (sample_tap.cuh). The
+// chain is what a loop of per-tap samples and PyTorch adds computes: out =
+// tap_0, then out = round(float(out) + float(tap_t)), each tap rounded to T
+// first (a bf16 add on the card computes in f32 and rounds to nearest
+// even). So a kernel gives the values of the nine samples and eight adds it
 // replaces.
 #pragma once
 

@@ -1,6 +1,6 @@
-// 8-channel vector loads, stores and atomic adds shared by the port's
-// kernels: one 16-byte load (bf16) or two (f32) of channels [c, c + 8),
-// widened to f32, the matching round-to-nearest store, and the f32 canvas add.
+// 8-channel vector loads and stores shared by the port's kernels: one
+// 16-byte load (bf16) or two (f32) of channels [c, c + 8), widened to f32,
+// and the matching round-to-nearest store.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -64,12 +64,4 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float* v) {
 __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// acc[c .. c + 8) += v in an f32 canvas, as two 16-byte vector atomics
-// (sm_90); p must be 16-byte aligned. The order of concurrent adds is not
-// fixed, so sums differ between runs by f32 rounding.
-__device__ __forceinline__ void atomic_add8(float* p, const float* v) {
-  atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  atomicAdd(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
 }

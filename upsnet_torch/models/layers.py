@@ -14,7 +14,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from upsnet_torch.ops.recompute import recomputing
 from upsnet_torch.ops.deform_conv import deform_conv2d
 
 
@@ -156,14 +155,8 @@ class DeformConv(nn.Module):
     shift kernel and 'pallas' elsewhere). ``impl_train`` (default: ``impl``)
     takes its place whenever autograd records, as the JAX train step swaps in
     ``dcn_impl_train``; ``boundary_grad`` is the gradient of that clip.
-
-    Every call folds ``[max |dy|, max |dx|, share of offset components at
-    >= 0.9 * max_dy]`` of its raw offsets into ``offset_max`` (a detached
-    tensor on the offsets' device, the elementwise maximum over the calls
-    since it was last set to None; the JAX layer sows the same three numbers
-    per call; the recompute of a checkpointed trunk, ``models/remat.py``,
-    does not record again). Nothing reads it during a step, so it costs no
-    sync; ``utils/dcn_probe.py`` resets and reads it.
+    The offset probe (``utils/dcn_probe.py``) reads the raw offsets through
+    a forward hook on ``offset_conv``.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int = 3,
@@ -179,7 +172,6 @@ class DeformConv(nn.Module):
                                      padding=dilation * (k // 2))
         self.weight = nn.Parameter(torch.empty(features, cin, k, k))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
-        self.offset_max: torch.Tensor | None = None
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -189,19 +181,9 @@ class DeformConv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def _record_offsets(self, offsets):  # (B, 2K, H, W), (dy, dx) interleaved
-        ody, odx = offsets[:, 0::2].abs(), offsets[:, 1::2].abs()
-        edge = 0.9 * float(self.max_dy)
-        stat = torch.stack([ody.max(), odx.max(),
-                            ((ody >= edge) | (odx >= edge)).float().mean()])
-        keep = self.offset_max is not None and self.offset_max.device == stat.device
-        self.offset_max = torch.maximum(self.offset_max, stat) if keep else stat
-
     def forward(self, x):  # (B, Cin, H, W)
         # offsets stay float32: sub-pixel positions must not lose bits
         offsets = self.offset_conv(x.float())
-        if not recomputing():  # a checkpointed trunk's recompute saw them already
-            self._record_offsets(offsets.detach())
         o, i, k, _ = self.weight.shape
         w_taps = self.weight.reshape(o, i, k * k).permute(2, 1, 0)
         y = deform_conv2d(

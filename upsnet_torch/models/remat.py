@@ -24,10 +24,6 @@ there and hand them back in the recompute instead of launching again. No
 dispatch mode runs, so every other op costs what it costs under full remat.
 Recomputed values are the first forward's bits where the ops are
 deterministic, so the three settings give the same step.
-
-Side effects of the trunk that must not repeat in the recompute ask
-``ops.recompute.recomputing()``: ``DeformConv`` records its offsets' extremes
-only in the first forward.
 """
 
 from __future__ import annotations

@@ -11,21 +11,20 @@ tap's weight first and sample the projections:
 
   * untiled (``_fused_untiled`` / ``_pertap_untiled``, chosen as
     ``_untiled_dispatch`` chooses): one matmul gives all taps side by side,
-    with or without gradients, and the kernels sample that layout in place.
-    Without gradients K1 (``ops/deform_sample.py``) samples and sums them in
-    one launch, in f32. When gradients are recorded one
-    ``DeformSampleTaps`` samples all taps in one launch of the all-tap K2,
-    which rounds each tap and adds it in ``x.dtype`` in tap order, as the
-    JAX package's training does; its backward is the all-tap K3 (two
-    launches per layer): the row-band
-    form where dy is clipped, the unclipped form where it is not (``auto``,
-    ``gather``). The matmul's backward is two plain matmuls, one for x and
-    one for the weight, with no transposed copy of the taps.
+    (B, H, W, K, Cout), with or without gradients, and the kernels sample
+    that layout in place (``ops/deform_sample.py``). Without gradients K1
+    samples and sums them in one launch, in f32. When gradients are
+    recorded ``DeformSampleTaps`` samples them in one launch of K2, which
+    rounds each tap and adds it in ``x.dtype`` in tap order, as the JAX
+    package's training does; its backward is K3 (two launches per layer):
+    the row-band form where dy is clipped, the unclipped form where it is
+    not (``auto``, ``gather``). The matmul's backward is two plain matmuls,
+    one for x and one for the weight, with no transposed copy of the taps.
   * tiled (``_deform_conv2d_tiled``, after ``_deform_conv2d_pallas_tiled``):
     one matmul gives all taps side by side, dy **and dx** are clipped, and
-    ``DeformSampleTiled`` samples all taps in one launch (the all-tap K6,
-    backward the all-tap K3) and adds them in ``x.dtype`` in tap order, with
-    or without gradients: the JAX package has no fused tiled forward.
+    ``DeformSampleTiled`` samples all taps in one launch (K6, backward the
+    clipped K3) and adds them in ``x.dtype`` in tap order, with or without
+    gradients: the JAX package has no fused tiled forward.
   * shift (``deform_conv2d_shift``, after ``deform_conv2d_pallas_shift``):
     the same one matmul and clips, and ``DeformSampleShift`` samples all taps
     in one launch (K8a) also when gradients are recorded (backward K8b +
@@ -267,11 +266,11 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, weight: torch.Tensor,
     y = side_by_side_projections(x, weight)
     if not (torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, offsets, weight))):
-        out = deform_sample9(y, sy9, sx9, tap_axis=3)
+        out = deform_sample9(y, sy9, sx9)
     else:
         fast = auto_fast(offsets, max_dy, max_dx) if impl == "auto" else None
         reach = None if clip is None else clip + (kernel_size - 1) // 2 * dilation
-        out = DeformSampleTaps.apply(y, sy9, sx9, reach, rule, fast, 3)
+        out = DeformSampleTaps.apply(y, sy9, sx9, reach, rule, fast)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out

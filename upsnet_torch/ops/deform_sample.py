@@ -1,28 +1,29 @@
-"""K1, K2, K3, K6: deformable bilinear sampling of tap projections and its
-backward, and the routing rule of the ``pallas`` route.
+"""K1, K2, K3, K6: deformable bilinear sampling of a layer's tap
+projections and its backward, and the routing rule of the ``pallas`` route.
 
-K1 (``deform_sample9``), the inference sampler, sums all taps in one launch.
-K2 is the training forward in two forms: all taps of a layer in one launch,
-``deform_sample_taps``, which rounds each tap and adds it in the projection's
-dtype in tap order as the JAX training form does, and ``deform_sample``, one
-tap (``DeformSample``), which no route takes any more. K3 is its backward in
-three forms: all taps of a layer at once, ``deform_sample_bwd_taps`` where dy
-is clipped and ``deform_sample_bwd_unclipped`` where nothing is
-(``DeformSampleTaps``: forward the all-tap K2, backward the one or the
-other), and ``deform_sample_bwd``, one tap (``DeformSample``), on no route.
-K6 is the sampler of the column-tiled form that the JAX package takes on
-wide maps, where ``pallas_route`` answers ``tiled``, in the same two forms:
-``deform_sample_tiled_taps`` for all taps (``DeformSampleTiled``, with the
-all-tap K3 as backward) and ``deform_sample_tiled``, one tap, on no route.
-The one-tap forms stay as the yardsticks of the all-tap ones. K2, K3 and K6
-are described above their wrappers below.
+Every form takes the K tap projections side by side, (B, H, W, K, C), the
+output of the one (N, Cin) x (Cin, K·C) matmul of
+``side_by_side_projections``, which every route builds, and reads it in
+place, and the coordinates as (K, B, H, W) f32.
+
+K1 (``deform_sample9``), the inference sampler, sums all taps in one launch
+in f32. K2 (``deform_sample_taps``), the training forward, samples all taps
+in one launch and rounds each tap and adds it in the projection's dtype in
+tap order, as the JAX training form does. K3 is its backward in two forms:
+``deform_sample_bwd_taps`` where dy is clipped and
+``deform_sample_bwd_unclipped`` where nothing is (``DeformSampleTaps``:
+forward K2, backward the one or the other). K6 (``deform_sample_tiled_taps``)
+is the sampler of the column-tiled form that the JAX package takes on wide
+maps, where ``pallas_route`` answers ``tiled`` (``DeformSampleTiled``, with
+the clipped K3 as backward). K2, K3 and K6 are described above their
+wrappers below.
 
 K1 replaces the TPU kernel ``upsnet_tpu/ops/deform_conv_pallas.py:
 _sample_pallas9`` (kernel body ``_sample9_kernel``), the inference DCN
-sampler: given the per-tap projections ``y9[t] = x @ W_t`` and per-tap f32
-sample coordinates, it returns ``sum_t bilinear(y9[t]; sy9[t], sx9[t])`` with
-DCNv1 zero padding — a sample counts iff it lies in (-1, H) x (-1, W), and
-corners outside the map read zero.
+sampler: given the per-tap projections ``y9[..., t, :] = x @ W_t`` and
+per-tap f32 sample coordinates, it returns ``sum_t bilinear(y_t; sy9[t],
+sx9[t])`` with DCNv1 zero padding — a sample counts iff it lies in (-1, H) x
+(-1, W), and corners outside the map read zero.
 
 On the TPU the kernel DMAs a halo window of padded rows per row block and
 turns the sampling into hat-matrix matmuls, because VMEM is large and
@@ -33,10 +34,6 @@ thread per (output pixel, 8-channel group), makes one 16-byte load per
 corner along contiguous channels, issues a tap's four corner loads before
 it adds any and loads the next tap's coordinates meanwhile, loops over the
 taps and the 4 corners with an f32 accumulator and rounds once at the end.
-It reads the projections in place in either layout: side by side, the
-output of the one (N, Cin) x (Cin, T·C) matmul of
-``side_by_side_projections``, which every route builds, or tap-major
-(T, B, H, W, C), which tests and tools still hand the kernels.
 
 What bounds it: the bytes of ``y9`` (T·B·H·W·C elements, read once in the
 ideal; neighbouring pixels share corners through L1/L2), plus the f32
@@ -50,19 +47,19 @@ and its plain version add in f32 and round once, so they differ from the
 TPU result by bf16 rounding of the partial sums, and from each other only
 by f32 summation order before that one rounding.
 
-``launches`` counts K1's kernel launches, ``launches_taps`` the all-tap
-K2's, ``launches_fwd`` the one-tap K2's, ``launches_bwd`` the one-tap K3's,
-``launches_bwd_taps`` and ``launches_bwd_unclipped`` the all-tap K3's,
-clipped and not (two per call: one per pass), ``launches_tiled_taps`` the
-all-tap K6's and ``launches_tiled`` the one-tap K6's (CPU calls do not
-count). The all-tap K2's and K3's counts are of tap-major calls; the same
-names ending in ``_side`` count their side-by-side calls, the layout of
-every route.
+The one-tap plain versions ``deform_sample_plain``,
+``deform_sample_bwd_plain`` and ``deform_sample_tiled_plain`` stand for the
+JAX kernels sampled one tap at a time (``_sample_pallas``,
+``_sample_pallas_bwd``, ``_sample_pallas_tiled``); the all-tap plain
+versions chain them.
+
+``launches`` counts K1's kernel launches, ``launches_taps`` K2's,
+``launches_bwd_taps`` and ``launches_bwd_unclipped`` K3's, clipped and not
+(two per call: one per pass), and ``launches_tiled_taps`` K6's (CPU calls
+do not count).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -71,15 +68,9 @@ from upsnet_torch.ops.recompute import sampled
 
 launches = 0
 launches_taps = 0
-launches_taps_side = 0
-launches_fwd = 0
-launches_bwd = 0
 launches_bwd_taps = 0
-launches_bwd_taps_side = 0
 launches_bwd_unclipped = 0
-launches_bwd_unclipped_side = 0
 launches_tiled_taps = 0
-launches_tiled = 0
 
 SHARED_BYTES = 232448  # shared memory a block can use on the H100
 
@@ -112,33 +103,25 @@ def _bilinear_zero_pad(flat, y, x, h: int, w: int, base=None, acc=torch.float32)
     return out
 
 
-def deform_sample9_plain(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
-                         tap_axis: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: same math, f32 accumulation
-    over taps and corners in tap and corner order, one rounding to
-    ``y9.dtype`` at the end; the taps on ``tap_axis`` of y9 (0: (T, B, H,
-    W, C), 3: (B, H, W, T, C))."""
-    t_n = y9.shape[tap_axis]
-    b, h, w = sy9.shape[1:]
-    c = y9.shape[-1]
+def deform_sample9_plain(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1: same math, f32 accumulation over taps
+    and corners in tap and corner order, one rounding to ``y9.dtype`` at the
+    end; y9 (B, H, W, T, C)."""
+    b, h, w, t_n, c = y9.shape
     base = (torch.arange(b, device=y9.device) * (h * w))[:, None, None]
     acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=y9.device)
     for t in range(t_n):
-        acc += _bilinear_zero_pad(y9.select(tap_axis, t).reshape(b * h * w, c), sy9[t],
-                                  sx9[t], h, w, base)
+        acc += _bilinear_zero_pad(y9[:, :, :, t].reshape(b * h * w, c), sy9[t], sx9[t], h, w,
+                                  base)
     return acc.to(y9.dtype)
 
 
-def _check(y9, sy9, sx9, tap_axis):
-    if tap_axis not in (0, 3):
-        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
+def _check(y9, sy9, sx9):
     if y9.dim() != 5:
-        raise ValueError(f"y9 must be (T, B, H, W, C) or (B, H, W, T, C), "
-                         f"got {tuple(y9.shape)}")
+        raise ValueError(f"y9 must be (B, H, W, T, C), got {tuple(y9.shape)}")
     if y9.dtype not in cuda_build.DTYPE_CODES:
         raise TypeError(f"y9 dtype {y9.dtype} not in {list(cuda_build.DTYPE_CODES)}")
-    t_n = y9.shape[tap_axis]
-    b, h, w = (y9.shape[1:4] if tap_axis == 0 else y9.shape[:3])
+    b, h, w, t_n = y9.shape[:4]
     for name, s in (("sy9", sy9), ("sx9", sx9)):
         if s.shape != (t_n, b, h, w):
             raise ValueError(f"{name} must be {(t_n, b, h, w)}, got {tuple(s.shape)}")
@@ -148,22 +131,19 @@ def _check(y9, sy9, sx9, tap_axis):
             raise ValueError(f"{name} on {s.device}, y9 on {y9.device}")
 
 
-def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
-                   tap_axis: int = 0) -> torch.Tensor:
+def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor) -> torch.Tensor:
     """Σ_t bilinear(y_t; sy9[t], sx9[t]) with DCNv1 zero padding.
 
-    y9 bf16/f32 unpadded tap projections with their T taps on ``tap_axis``:
-    tap-major (T, B, H, W, C) for 0, side by side (B, H, W, T, C) for 3
-    (``side_by_side_projections``, the layout of every route); sy9, sx9
-    (T, B, H, W) f32 absolute sample coordinates.
-    Returns (B, H, W, C) in ``y9.dtype``, the same bits in both layouts. CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (C % 8 == 0, contiguous, 16-byte aligned).
+    y9 (B, H, W, T, C) bf16/f32 unpadded tap projections side by side
+    (``side_by_side_projections``); sy9, sx9 (T, B, H, W) f32 absolute
+    sample coordinates. Returns (B, H, W, C) in ``y9.dtype``. CPU tensors
+    take the plain version; CUDA tensors launch the kernel (C % 8 == 0,
+    contiguous, 16-byte aligned).
     """
     global launches
-    _check(y9, sy9, sx9, tap_axis)
+    _check(y9, sy9, sx9)
     if y9.device.type == "cpu":
-        return deform_sample9_plain(y9, sy9, sx9, tap_axis)
+        return deform_sample9_plain(y9, sy9, sx9)
     if y9.device.type != "cuda":
         raise ValueError(f"unsupported device {y9.device}")
     t_n, b, h, w = sy9.shape
@@ -177,7 +157,7 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
         raise ValueError("y9 must be 16-byte aligned")
     out = torch.empty((b, h, w, c), dtype=y9.dtype, device=y9.device)
     cuda_build.call("deform_sample", "deform_sample9", y9, (y9, sy9, sx9, out),
-                    (t_n, b, h, w, c, int(tap_axis == 0)))
+                    (t_n, b, h, w, c))
     launches += 1
     return out
 
@@ -192,40 +172,35 @@ def deform_sample9(y9: torch.Tensor, sy9: torch.Tensor, sx9: torch.Tensor,
 # ``y.dtype`` in tap order. On the TPU both kernels work on zero-padded rows
 # inside a +-max_dy window and K3 read-modify-writes a window of an f32
 # canvas per sequential grid step. On the card a thread reads any coordinate
-# of the unpadded map, and the kernels read and write the tap projections in
-# either layout through strides: side by side (B, H, W, K, C), the one
-# matmul's output that every route samples in place, or tap-major
-# (K, B, H, W, C). The all-tap K2 (``csrc/deform_sample.cu``) runs the
-# whole chain in one launch: a thread owns (pixel, 8 channels), rounds each
-# tap's f32 sum to ``y.dtype`` and adds it to the running value in f32 with
-# one more rounding, which is what a bf16 add on the card computes, so its
-# output equals the nine one-tap launches and eight adds that it replaces;
-# the nine tap outputs and the eight adds' traffic go. K3 takes three forms
-# (``csrc/deform_sample_bwd.cu``). The two all-tap forms gather: each grad_y
-# element is an f32 sum over its samples in a fixed order, written once in
-# ``y.dtype``, so two runs give the same bits, as the TPU kernel's
-# sequential read-modify-write does; no canvas, no zero fill, no cast, no
-# float atomics, no copy of the taps. A second launch computes the
-# coordinate gradients of all taps (K8c's kernel at the layout's strides).
+# of the unpadded map, and the kernels read and write the side-by-side tap
+# projections (B, H, W, K, C) in place through their strides. K2
+# (``csrc/deform_sample.cu``) runs the whole chain in one launch: a thread
+# owns (pixel, 8 channels), rounds each tap's f32 sum to ``y.dtype`` and
+# adds it to the running value in f32 with one more rounding, which is what
+# a bf16 add on the card computes, so its output equals the nine per-tap
+# samples and eight adds that it replaces. K3 takes two forms
+# (``csrc/deform_sample_bwd.cu``). Both gather: each grad_y element is an
+# f32 sum over its samples in a fixed order, written once in ``y.dtype``,
+# so two runs give the same bits, as the TPU kernel's sequential
+# read-modify-write does; no canvas, no zero fill, no cast, no float
+# atomics, no copy of the taps. A second launch computes the coordinate
+# gradients of all taps (K8c's kernel at the side-by-side strides).
 #
-#   * all taps, dy clipped (``deform_sample_bwd_taps``: ``pallas``, ``mxu``,
-#     the tiled form, ``shift``'s fallback levels, and K8b): every counted
-#     sample lies within ``reach_y`` rows of its pixel, so a block owns a
-#     band of grad_y rows, buckets the samples of the output rows that can
-#     reach it by column and gathers each column's buckets. A sample beyond
-#     the reach gets no gradient to y there; the plain version raises on
-#     one, as K6's does.
-#   * all taps, nothing clipped (``deform_sample_bwd_unclipped``: ``auto``,
+#   * dy clipped (``deform_sample_bwd_taps``: ``pallas``, ``mxu``, the tiled
+#     form, ``shift``'s fallback levels, and K8b): every counted sample lies
+#     within ``reach_y`` rows of its pixel, so a block owns a band of grad_y
+#     rows, buckets the samples of the output rows that can reach it by
+#     column and gathers each column's buckets. A sample beyond the reach
+#     gets no gradient to y there; the plain version raises on one, as K6's
+#     does.
+#   * nothing clipped (``deform_sample_bwd_unclipped``: ``auto``,
 #     ``gather``): samples may lie anywhere, so a counting sort of all
 #     samples by their low corner pixel, per tap and image, in device memory
 #     (integer histogram, scan, placement, a rank pass that orders each bin),
 #     then a thread per (source pixel, 16 channels) gathers its 2 x 2 bins.
-#   * one tap (``deform_sample_bwd``): a scatter into a zeroed f32 canvas
-#     with atomics, cast by the wrapper to ``y.dtype``, as the TPU wrapper
-#     casts; sums differ between runs by f32 rounding. No route takes it.
 #
 # What bounds them: bytes. K2 reads the touched rows of y and the
-# coordinates and writes the output (all taps: once a layer); K3 reads y, g
+# coordinates and writes the output once a layer; K3 reads y, g
 # and the coordinates and writes grad_y and the two coordinate gradients.
 # About 9 flops per element and corner.
 #
@@ -260,8 +235,9 @@ def _accum_dtype(dtype):
 
 def deform_sample_plain(y: torch.Tensor, sy: torch.Tensor,
                         sx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K2: one tap, accumulated in f32 (f64 for f64
-    input), rounded once to ``y.dtype``."""
+    """One tap of K2's plain version, the JAX package's ``_sample_pallas``:
+    y (B, H, W, C), accumulated in f32 (f64 for f64 input), rounded once to
+    ``y.dtype``."""
     b, h, w, c = y.shape
     base = (torch.arange(b, device=y.device) * (h * w))[:, None, None]
     return _bilinear_zero_pad(y.reshape(b * h * w, c), sy, sx, h, w, base,
@@ -300,9 +276,10 @@ def resolve_rule(rule: str, fast: torch.Tensor | None) -> str:
 
 def deform_sample_bwd_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
                             g: torch.Tensor, rule: str = "pallas"):
-    """Plain PyTorch version of K3, written out over the nodes of each
-    coordinate with the hat weights and their derivative under ``rule``
-    (``RULES``; the one-tap kernel has ``pallas`` only). Returns (grad_y in
+    """One tap of K3's plain version, the JAX package's
+    ``_sample_pallas_bwd`` under the ``pallas`` rule: y, g (B, H, W, C),
+    written out over the nodes of each coordinate with the hat weights and
+    their derivative under ``rule`` (``RULES``). Returns (grad_y in
     ``y.dtype``, gsy, gsx in ``sy.dtype``); grad_y is the same under every
     rule."""
     b, h, w, c = y.shape
@@ -333,11 +310,11 @@ def deform_sample_bwd_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
             gsy.reshape(b, h, w).to(sy.dtype), gsx.reshape(b, h, w).to(sx.dtype))
 
 
-def _check_tap(y, sy, sx, g=None, contiguous=True):
-    """Shapes, dtypes and devices of one tap's tensors; off the CPU also the
-    kernel's layout needs (``contiguous`` False: the caller checks
-    contiguity itself, y being a tap's view of a whole projection), then
-    the device, which must be CUDA. float64 passes on the CPU only."""
+def _check_tap(y, sy, sx, g=None):
+    """Shapes, dtypes and devices of one tap's tensors (y a tap's view of a
+    whole projection, whose contiguity the caller checks); off the CPU also
+    the kernel's layout needs, then the device, which must be CUDA. float64
+    passes on the CPU only."""
     if y.dim() != 4:
         raise ValueError(f"y must be (B, H, W, C), got {tuple(y.shape)}")
     cpu = y.device.type == "cpu"
@@ -366,193 +343,95 @@ def _check_tap(y, sy, sx, g=None, contiguous=True):
         return
     if c % 8:
         raise ValueError(f"C={c} must be a multiple of 8")
-    for name, s in named:
-        if contiguous and not s.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if y.data_ptr() % 16 or (g is not None and g.data_ptr() % 16):
         raise ValueError("y and g must be 16-byte aligned")
     if y.device.type != "cuda":
         raise ValueError(f"unsupported device {y.device}")
 
 
-def deform_sample(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """K2: bilinear(y; sy, sx) with DCNv1 zero padding, one tap.
-
-    y (B, H, W, C) bf16/f32 unpadded projection; sy, sx (B, H, W) f32
-    absolute sample coordinates. Returns (B, H, W, C) in ``y.dtype``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel
-    (C % 8 == 0, contiguous, 16-byte aligned). Not differentiable by
-    itself: ``DeformSample`` is.
-    """
-    global launches_fwd
-    _check_tap(y, sy, sx)
-    if y.device.type == "cpu":
-        return deform_sample_plain(y, sy, sx)
-    b, h, w, c = y.shape
-    out = torch.empty_like(y)
-    lib = cuda_build.load("deform_sample")
-    fn = lib.deform_sample
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    with torch.cuda.device(y.device):
-        status = fn(y.data_ptr(), sy.data_ptr(), sx.data_ptr(), out.data_ptr(),
-                    b, h, w, c, cuda_build.DTYPE_CODES[y.dtype], stream)
-    cuda_build.check(lib, status, "deform_sample")
-    launches_fwd += 1
-    return out
-
-
-def deform_sample_bwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                      g: torch.Tensor):
-    """K3: the backward of ``deform_sample`` for upstream gradient g.
-
-    Returns (grad_y (B, H, W, C) in ``y.dtype``, gsy, gsx (B, H, W) f32).
-    grad_y is summed in an f32 canvas and cast once. On the card the canvas
-    is filled with atomics, so its sums differ between runs by f32 rounding.
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
-    """
-    global launches_bwd
-    _check_tap(y, sy, sx, g)
-    if y.device.type == "cpu":
-        return deform_sample_bwd_plain(y, sy, sx, g)
-    b, h, w, c = y.shape
-    canvas = torch.zeros((b, h, w, c), dtype=torch.float32, device=y.device)
-    gsy = torch.empty((b, h, w), dtype=torch.float32, device=y.device)
-    gsx = torch.empty_like(gsy)
-    lib = cuda_build.load("deform_sample_bwd")
-    fn = lib.deform_sample_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    with torch.cuda.device(y.device):
-        status = fn(y.data_ptr(), sy.data_ptr(), sx.data_ptr(), g.data_ptr(),
-                    canvas.data_ptr(), gsy.data_ptr(), gsx.data_ptr(), b, h, w, c,
-                    cuda_build.DTYPE_CODES[y.dtype], stream)
-    cuda_build.check(lib, status, "deform_sample_bwd")
-    launches_bwd += 1
-    return canvas.to(y.dtype), gsy, gsx
-
-
-def deform_sample_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                             tap_axis: int = 3) -> torch.Tensor:
-    """Plain PyTorch version of the all-tap K2: ``deform_sample_plain`` on
-    each tap of y (its K taps on ``tap_axis``), the results added in
-    ``y.dtype`` in tap order."""
+def deform_sample_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2: ``deform_sample_plain`` on each tap of y
+    (B, H, W, K, C), the results added in ``y.dtype`` in tap order."""
     out = None
-    for t in range(y.shape[tap_axis]):
-        tap = deform_sample_plain(y.select(tap_axis, t), sy[t], sx[t])
+    for t in range(y.shape[3]):
+        tap = deform_sample_plain(y[:, :, :, t], sy[t], sx[t])
         out = tap if out is None else out + tap
     return out
 
 
-def deform_sample_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                       tap_axis: int = 3) -> torch.Tensor:
-    """K2 for all K taps of a layer: ``sum_t deform_sample(y_t, sy[t],
-    sx[t])`` with each tap rounded to ``y.dtype`` and added in it in tap
-    order, as the JAX package's training form adds them.
+def deform_sample_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
+    """K2: ``sum_t bilinear(y_t; sy[t], sx[t])`` for all K taps of a layer,
+    with each tap rounded to ``y.dtype`` and added in it in tap order, as
+    the JAX package's training form adds them.
 
-    y bf16/f32 tap projections with their K taps on ``tap_axis``: side by
-    side (B, H, W, K, C) for 3, the default (``side_by_side_projections``,
-    the layout of every route), tap-major (K, B, H, W, C) for 0; sy, sx
-    (K, B, H, W) f32 absolute sample coordinates, any values; all three
-    contiguous. Returns (B, H, W, C) in ``y.dtype``, the values of
-    ``deform_sample_taps_plain``'s chain up to the f32 summation order
-    inside a tap, the same bits in both layouts. CPU tensors take the plain
+    y (B, H, W, K, C) bf16/f32 tap projections side by side
+    (``side_by_side_projections``); sy, sx (K, B, H, W) f32 absolute sample
+    coordinates, any values; all three contiguous. Returns (B, H, W, C) in
+    ``y.dtype``, the values of ``deform_sample_taps_plain``'s chain up to
+    the f32 summation order inside a tap. CPU tensors take the plain
     version; CUDA tensors launch the kernel (C % 8 == 0, y 16-byte aligned).
     Not differentiable by itself: ``DeformSampleTaps`` is.
     """
-    global launches_taps, launches_taps_side
-    if tap_axis not in (0, 3):
-        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
-    k = _check_taps(y, sy, sx, None, tap_axis, contiguous_on_cpu=True)
+    global launches_taps
+    k = _check_taps(y, sy, sx, None, contiguous_on_cpu=True)
     if y.device.type == "cpu":
-        return deform_sample_taps_plain(y, sy, sx, tap_axis)
-    _, b, h, w = sy.shape
-    c = y.shape[-1]
+        return deform_sample_taps_plain(y, sy, sx)
+    b, h, w, _, c = y.shape
     out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
     cuda_build.call("deform_sample", "deform_sample_taps", y, (y, sy, sx, out),
-                    (k, b, h, w, c, int(tap_axis == 0)))
-    if tap_axis == 0:
-        launches_taps += 1
-    else:
-        launches_taps_side += 1
+                    (k, b, h, w, c))
+    launches_taps += 1
     return out
 
 
-class DeformSample(torch.autograd.Function):
-    """``deform_sample`` with gradients to y, sy and sx: forward K2,
-    backward the one-tap K3 (their plain versions on CPU tensors)."""
-
-    @staticmethod
-    def forward(ctx, y, sy, sx):
-        ctx.save_for_backward(y, sy, sx)
-        return deform_sample(y, sy, sx)
-
-    @staticmethod
-    def backward(ctx, g):
-        y, sy, sx = ctx.saved_tensors
-        return deform_sample_bwd(y, sy, sx, g.contiguous())
-
-
 def deform_sample_bwd_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                                 g: torch.Tensor, reach_y: int | None, tap_axis: int = 0,
-                                 rule: str = "pallas", fast: torch.Tensor | None = None):
-    """Plain PyTorch version of both all-tap K3 forms: the reach check
-    (none for ``reach_y`` None, the unclipped form), then
-    ``deform_sample_bwd_plain`` on each tap of y under ``resolve_rule(rule,
-    fast)``. Returns (grad_y in y's layout and dtype, gsy, gsx (K, B, H,
-    W))."""
+                                 g: torch.Tensor, reach_y: int | None, rule: str = "pallas",
+                                 fast: torch.Tensor | None = None):
+    """Plain PyTorch version of both K3 forms: the reach check (none for
+    ``reach_y`` None, the unclipped form), then ``deform_sample_bwd_plain``
+    on each tap of y (B, H, W, K, C) under ``resolve_rule(rule, fast)``.
+    Returns (grad_y in y's layout and dtype, gsy, gsx (K, B, H, W))."""
     if reach_y is not None:
         check_reach(sy, sx, reach_y, None)
     rule = resolve_rule(rule, fast)
     gy = torch.empty_like(y)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
-    for t in range(y.shape[tap_axis]):
-        gy.select(tap_axis, t)[...], gsy[t], gsx[t] = deform_sample_bwd_plain(
-            y.select(tap_axis, t), sy[t], sx[t], g, rule)
+    for t in range(y.shape[3]):
+        gy[:, :, :, t], gsy[t], gsx[t] = deform_sample_bwd_plain(
+            y[:, :, :, t], sy[t], sx[t], g, rule)
     return gy, gsy, gsx
 
 
 def deform_sample_bwd_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
-                           g: torch.Tensor, reach_y: int, tap_axis: int = 0,
-                           rule: str = "pallas"):
-    """K3 for all K taps of a layer whose outputs were summed: the backward
-    of ``sum_t deform_sample(y_t, sy[t], sx[t])`` for upstream gradient g.
+                           g: torch.Tensor, reach_y: int, rule: str = "pallas"):
+    """K3 where dy is clipped: the backward of ``deform_sample_taps`` (up to
+    its per-tap rounding) for upstream gradient g.
 
-    y holds the K tap projections, tap-major (K, B, H, W, C) with
-    ``tap_axis`` 0 or side by side (B, H, W, K, C) with ``tap_axis`` 3
-    (``side_by_side_projections``); sy, sx (K, B, H, W)
+    y (B, H, W, K, C) the tap projections side by side; sy, sx (K, B, H, W)
     f32 with ``|sy - i| <= reach_y`` at every counted sample of pixel
     (i, j); g (B, H, W, C) in y's dtype; ``rule`` the coordinate derivative
-    (``RULES``). Returns (grad_y in y's layout and dtype, gsy, gsx
-    (K, B, H, W) f32). Each grad_y element is an f32 sum in a fixed
-    order, rounded once: two runs give the same bits. CPU tensors take the
-    plain version, which raises on a sample beyond the reach; CUDA tensors
-    launch the two kernels (C % 8 == 0, all contiguous, 16-byte aligned,
+    (``RULES``). Returns (grad_y (B, H, W, K, C) in y's dtype, gsy, gsx
+    (K, B, H, W) f32). Each grad_y element is an f32 sum in a fixed order,
+    rounded once: two runs give the same bits. CPU tensors take the plain
+    version, which raises on a sample beyond the reach; CUDA tensors launch
+    the two kernels (C % 8 == 0, all contiguous, 16-byte aligned,
     B * K <= 65535, a band's scanned rows within shared memory: W <= 3058
     at reach 7), which give such a sample no gradient to y.
     """
-    global launches_bwd_taps, launches_bwd_taps_side
-    if tap_axis not in (0, 3):
-        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
+    global launches_bwd_taps
     if reach_y < 0:
         raise ValueError(f"reach_y must be >= 0, got {reach_y}")
-    k = _check_taps(y, sy, sx, g, tap_axis)
+    k = _check_taps(y, sy, sx, g)
     _check_rule(rule, None, y.device)
     if y.device.type == "cpu":
-        return deform_sample_bwd_taps_plain(y, sy, sx, g, reach_y, tap_axis, rule)
+        return deform_sample_bwd_taps_plain(y, sy, sx, g, reach_y, rule)
     b, h, w, c = g.shape
     check_band(b * k, w, reach_y)
     gy = torch.empty_like(y)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
-    tap_major = int(tap_axis == 0)
-    band_gather(g, sy, sx, gy, k, reach_y, tap_major)
-    coord_pass(y, sy, sx, g, gsy, gsx, k, tap_major, rule)
-    if tap_major:
-        launches_bwd_taps += 2
-    else:
-        launches_bwd_taps_side += 2
+    band_gather(g, sy, sx, gy, k, reach_y)
+    coord_pass(y, sy, sx, g, gsy, gsx, k, rule)
+    launches_bwd_taps += 2
     return gy, gsy, gsx
 
 
@@ -566,20 +445,20 @@ def _check_rule(rule: str, fast: torch.Tensor | None, device: torch.device) -> N
                          f"{tuple(fast.shape)} on {fast.device}")
 
 
-def _check_taps(y, sy, sx, g, tap_axis: int, contiguous_on_cpu: bool = False) -> int:
-    """Shapes, dtypes and devices of an all-tap call: y with its K >= 1 taps
-    on ``tap_axis`` (0: (K, B, H, W, C), 3: (B, H, W, K, C)), sy and sx
-    (K, B, H, W), g (B, H, W, C) or None (a forward); on CUDA, and with
-    ``contiguous_on_cpu`` on every device, all contiguous. Returns K."""
+def _check_taps(y, sy, sx, g, contiguous_on_cpu: bool = False) -> int:
+    """Shapes, dtypes and devices of an all-tap call: y (B, H, W, K, C) with
+    K >= 1, sy and sx (K, B, H, W), g (B, H, W, C) or None (a forward); on
+    CUDA, and with ``contiguous_on_cpu`` on every device, all contiguous.
+    Returns K."""
     if y.dim() != 5:
-        raise ValueError(f"y must be (K, B, H, W, C) or (B, H, W, K, C), got {tuple(y.shape)}")
-    k = y.shape[tap_axis]
+        raise ValueError(f"y must be (B, H, W, K, C), got {tuple(y.shape)}")
+    k = y.shape[3]
     if k < 1:
         raise ValueError(f"y has no taps: {tuple(y.shape)}")
     if sy.dim() != 4 or sy.shape[0] != k:
         raise ValueError(f"sy must be (K={k}, B, H, W), got {tuple(sy.shape)}")
     # the shape, dtype and device rules of one tap; y itself must be whole
-    _check_tap(y.select(tap_axis, 0), sy[0], sx[0], g, contiguous=False)
+    _check_tap(y[:, :, :, 0], sy[0], sx[0], g)
     if sx.shape != sy.shape:
         raise ValueError(f"sx must be {tuple(sy.shape)}, got {tuple(sx.shape)}")
     if contiguous_on_cpu or y.device.type != "cpu":
@@ -599,26 +478,25 @@ def check_band(planes: int, w: int, reach_y: int) -> None:
         raise ValueError(f"a band of W={w} at reach {reach_y} does not fit shared memory")
 
 
-def band_gather(g, sy, sx, gy, k: int, reach_y: int, tap_major: int) -> None:
+def band_gather(g, sy, sx, gy, k: int, reach_y: int) -> None:
     """Launch the row-band gather: grad_y of all K taps into ``gy``
-    (tap-major for ``tap_major`` 1, side by side for 0) from CUDA tensors
-    that ``_check_taps`` and ``check_band`` passed."""
+    (B, H, W, K, C) from CUDA tensors that ``_check_taps`` and
+    ``check_band`` passed."""
     b, h, w, c = g.shape
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_grad_y", g, (g, sy, sx, gy),
-                    (k, b, h, w, c, reach_y, tap_major))
+                    (k, b, h, w, c, reach_y))
 
 
-def coord_pass(y, sy, sx, g, gsy, gsx, k: int, tap_major: int, rule: str = "pallas",
+def coord_pass(y, sy, sx, g, gsy, gsx, k: int, rule: str = "pallas",
                fast: torch.Tensor | None = None) -> None:
-    """Launch the coordinate pass of both all-tap K3 forms (``offset_grads.cuh``,
+    """Launch the coordinate pass of both K3 forms (``offset_grads.cuh``,
     also K8c's kernel): gsy, gsx (K, B, H, W) f32, every element written,
-    from y in the layout ``tap_major`` names and CUDA tensors that
-    ``_check_taps`` passed, under ``rule``, or ``floor`` where the device
-    flag ``fast`` (not None) reads False. The K3 form that calls it counts
-    the launch."""
+    from y (B, H, W, K, C) and CUDA tensors that ``_check_taps`` passed,
+    under ``rule``, or ``floor`` where the device flag ``fast`` (not None)
+    reads False. The K3 form that calls it counts the launch."""
     b, h, w, c = g.shape
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_taps_coords", y,
-                    (y, sy, sx, g, gsy, gsx, fast), (k, b, h, w, c, tap_major, RULES[rule]))
+                    (y, sy, sx, g, gsy, gsx, fast), (k, b, h, w, c, RULES[rule]))
 
 
 SCAN_TILE = 2048  # bins a block of the counting sort's scan owns (kScanTile)
@@ -636,30 +514,27 @@ def sort_work_len(planes: int, h: int, w: int, n_samples: int) -> int:
 
 def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
                                 g: torch.Tensor, rule: str = "pallas",
-                                fast: torch.Tensor | None = None, tap_axis: int = 3):
-    """K3 for all K taps of a layer whose offsets are not clipped (``auto``,
-    ``gather``): the backward of ``sum_t deform_sample(y_t, sy[t], sx[t])``
-    for upstream gradient g, samples anywhere.
+                                fast: torch.Tensor | None = None):
+    """K3 where the offsets are not clipped (``auto``, ``gather``): the
+    backward of ``deform_sample_taps`` (up to its per-tap rounding) for
+    upstream gradient g, samples anywhere.
 
-    y the K tap projections, side by side (B, H, W, K, C) with ``tap_axis``
-    3, the default, or tap-major (K, B, H, W, C) with 0; sy, sx (K, B, H, W)
-    f32, any values; g (B, H, W, C) in y's dtype; ``rule`` the coordinate derivative
-    (``RULES``) and ``fast`` None or a one-element bool flag on y's device
-    (False: ``floor`` instead, as ``auto`` chooses). Returns (grad_y in y's
-    layout and dtype, gsy, gsx (K, B, H, W) f32). Each grad_y element is an f32 sum
-    in a fixed order, rounded once: two runs give the same bits. CPU tensors
-    take the plain version; CUDA tensors launch the counting-sort gather and
-    the coordinate pass (C % 8 == 0, all contiguous, 16-byte aligned,
-    K * B * (H + 1) * (W + 1) < 2^31) with int32 scratch of about 4 bytes a
-    bin and 24 a sample.
+    y (B, H, W, K, C) the tap projections side by side; sy, sx (K, B, H, W)
+    f32, any values; g (B, H, W, C) in y's dtype; ``rule`` the coordinate
+    derivative (``RULES``) and ``fast`` None or a one-element bool flag on
+    y's device (False: ``floor`` instead, as ``auto`` chooses). Returns
+    (grad_y (B, H, W, K, C) in y's dtype, gsy, gsx (K, B, H, W) f32). Each
+    grad_y element is an f32 sum in a fixed order, rounded once: two runs
+    give the same bits. CPU tensors take the plain version; CUDA tensors
+    launch the counting-sort gather and the coordinate pass (C % 8 == 0, all
+    contiguous, 16-byte aligned, K * B * (H + 1) * (W + 1) < 2^31) with
+    int32 scratch of about 4 bytes a bin and 24 a sample.
     """
-    global launches_bwd_unclipped, launches_bwd_unclipped_side
-    if tap_axis not in (0, 3):
-        raise ValueError(f"tap_axis must be 0 or 3, got {tap_axis}")
-    k = _check_taps(y, sy, sx, g, tap_axis)
+    global launches_bwd_unclipped
+    k = _check_taps(y, sy, sx, g)
     _check_rule(rule, fast, y.device)
     if y.device.type == "cpu":
-        return deform_sample_bwd_taps_plain(y, sy, sx, g, None, tap_axis, rule, fast)
+        return deform_sample_bwd_taps_plain(y, sy, sx, g, None, rule, fast)
     b, h, w, c = g.shape
     n_work = sort_work_len(k * b, h, w, k * b * h * w)
     if n_work >= 2 ** 31:
@@ -667,55 +542,49 @@ def deform_sample_bwd_unclipped(y: torch.Tensor, sy: torch.Tensor, sx: torch.Ten
     work = torch.empty(n_work, dtype=torch.int32, device=y.device)
     gy = torch.empty_like(y)
     gsy, gsx = torch.empty_like(sy), torch.empty_like(sx)
-    tap_major = int(tap_axis == 0)
     cuda_build.call("deform_sample_bwd", "deform_sample_bwd_unclipped_grad_y", y,
-                    (g, sy, sx, gy, work), (k, b, h, w, c, n_work, tap_major))
-    coord_pass(y, sy, sx, g, gsy, gsx, k, tap_major, rule, fast)
-    if tap_major:
-        launches_bwd_unclipped += 2
-    else:
-        launches_bwd_unclipped_side += 2
+                    (g, sy, sx, gy, work), (k, b, h, w, c, n_work))
+    coord_pass(y, sy, sx, g, gsy, gsx, k, rule, fast)
+    launches_bwd_unclipped += 2
     return gy, gsy, gsx
 
 
 class DeformSampleTaps(torch.autograd.Function):
-    """The K taps of the untiled form: forward the all-tap K2, which adds the
-    taps in ``y.dtype`` in tap order, as the JAX package's training form
-    adds them; gradients to y, sy and sx by the all-tap K3 (their plain
-    versions on CPU tensors), the row-band form where dy is clipped
-    (``pallas``, ``mxu``) and the unclipped form for ``reach_y`` None
-    (``auto``, ``gather``), with the coordinate derivative ``rule`` and, on
-    the unclipped form only, the flag ``fast`` that ``deform_conv2d`` chose
-    for the route. All three kernels read and write y's layout in place.
+    """The K taps of the untiled form: forward K2, which adds the taps in
+    ``y.dtype`` in tap order, as the JAX package's training form adds them;
+    gradients to y, sy and sx by K3 (their plain versions on CPU tensors),
+    the row-band form where dy is clipped (``pallas``, ``mxu``) and the
+    unclipped form for ``reach_y`` None (``auto``, ``gather``), with the
+    coordinate derivative ``rule`` and, on the unclipped form only, the flag
+    ``fast`` that ``deform_conv2d`` chose for the route. All three kernels
+    read and write the side-by-side layout in place.
 
-    y the K tap projections with their taps on ``tap_axis``: side by side
-    (B, H, W, K, C) for 3, the default, as ``deform_conv2d`` builds them, or
-    tap-major (K, B, H, W, C) for 0; sy, sx (K, B, H, W) f32 within ``reach_y`` rows of
-    their pixels, or anywhere for None. Returns (B, H, W, C) in ``y.dtype``,
-    the same bits in both layouts, and grad_y in y's layout. Every tap's
-    upstream gradient is the output's, as in a chain of additions.
+    y (B, H, W, K, C) the tap projections side by side, as ``deform_conv2d``
+    builds them; sy, sx (K, B, H, W) f32 within ``reach_y`` rows of their
+    pixels, or anywhere for None. Returns (B, H, W, C) in ``y.dtype``. Every
+    tap's upstream gradient is the output's, as in a chain of additions.
     """
 
     @staticmethod
     def forward(ctx, y, sy, sx, reach_y: int | None, rule: str = "pallas",
-                fast: torch.Tensor | None = None, tap_axis: int = 3):
+                fast: torch.Tensor | None = None):
         _check_rule(rule, fast, y.device)
         if fast is not None and reach_y is not None:
             raise ValueError("a flag takes the unclipped form: reach_y must be None")
         ctx.save_for_backward(y, sy, sx)
-        ctx.reach_y, ctx.rule, ctx.fast, ctx.tap_axis = reach_y, rule, fast, tap_axis
-        return sampled(lambda: deform_sample_taps(y, sy, sx, tap_axis))
+        ctx.reach_y, ctx.rule, ctx.fast = reach_y, rule, fast
+        return sampled(lambda: deform_sample_taps(y, sy, sx))
 
     @staticmethod
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
         if ctx.reach_y is None:
             gy, gsy, gsx = deform_sample_bwd_unclipped(y, sy, sx, g.contiguous(), ctx.rule,
-                                                       ctx.fast, ctx.tap_axis)
+                                                       ctx.fast)
         else:
             gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y,
-                                                  ctx.tap_axis, ctx.rule)
-        # one gradient per input given: reach_y, and rule, fast and tap_axis where given
+                                                  ctx.rule)
+        # one gradient per input given: reach_y, and rule and fast where given
         return (gy, gsy, gsx) + (None,) * (len(ctx.needs_input_grad) - 3)
 
 
@@ -784,15 +653,14 @@ def pallas_route(shape, cout: int, max_dy: int, dilation: int,
 # per tap and adds in bf16. There each program holds a window of
 # ``8 + 2 r + 2`` rows and ``ct + 2 (max_dx + 2)`` columns of one tap's padded
 # projection in VMEM, which is why the tiled form clips dx as well as dy. On
-# the card the kernels read the taps' blocks of the one-matmul projection
+# the card the kernel reads the taps' blocks of the one-matmul projection
 # ``(B, H, W, K*C)`` in place (pixel stride K*C); what stays of the window is
 # its contract: a counted sample of pixel (i, j) lies within ``reach_y`` rows
-# and ``reach_x`` columns of it. The kernels give zero to a sample beyond
-# (they cannot raise); the CPU paths raise instead. ``inside`` is tested on
-# the true H and W. The all-tap form stages a block's coordinates of all taps
-# in shared memory once and runs the chain of the all-tap K2, so its output
-# equals the one-tap K6 launched per tap and added in ``y.dtype``. Its
-# backward is the all-tap K3 on the side-by-side layout.
+# and ``reach_x`` columns of it. The kernel gives zero to a sample beyond (it
+# cannot raise); the CPU paths raise instead. ``inside`` is tested on the
+# true H and W. The kernel stages a block's coordinates of all taps in
+# shared memory once and runs K2's chain, so its output equals the per-tap
+# samples added in ``y.dtype``. Its backward is the clipped K3.
 
 
 def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int,
@@ -800,7 +668,7 @@ def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int,
     """Raise unless every counted sample of coordinates (..., H, W) lies
     within ``reach_y`` rows and ``reach_x`` columns (any column for None) of
     its output pixel: the kernels with a window or a row band (K6, K8b, the
-    all-tap K3) look no further. One pass over the coordinates; the CPU
+    clipped K3) look no further. One pass over the coordinates; the CPU
     paths run it."""
     h, w = sy.shape[-2:]
     inside = (sy > -1.0) & (sy < h) & (sx > -1.0) & (sx < w)
@@ -818,68 +686,26 @@ def check_reach(sy: torch.Tensor, sx: torch.Tensor, reach_y: int,
 
 def deform_sample_tiled_plain(y: torch.Tensor, t: int, sy: torch.Tensor, sx: torch.Tensor,
                               reach_y: int, reach_x: int) -> torch.Tensor:
-    """Plain PyTorch version of K6: the reach check, then
-    ``deform_sample_plain`` on tap t's block of y (B, H, W, K, C)."""
+    """Plain PyTorch version of one tap of K6, the JAX package's
+    ``_sample_pallas_tiled``: the reach check, then ``deform_sample_plain``
+    on tap t's block of y (B, H, W, K, C)."""
     check_reach(sy, sx, reach_y, reach_x)
     return deform_sample_plain(y[:, :, :, t], sy, sx)
 
 
-def deform_sample_tiled(y: torch.Tensor, t: int, sy: torch.Tensor, sx: torch.Tensor,
-                        reach_y: int, reach_x: int) -> torch.Tensor:
-    """K6, one tap: bilinear(y[:, :, :, t]; sy, sx) with DCNv1 zero padding.
-
-    y (B, H, W, K, C) bf16/f32, the one-matmul projection with the K taps
-    side by side (a view of the matmul's (B*H*W, K*C) output); 0 <= t < K;
-    sy, sx (B, H, W) f32 absolute sample coordinates with
-    ``|sy - i| <= reach_y`` and ``|sx - j| <= reach_x`` at every counted
-    sample of pixel (i, j). All three contiguous. Returns (B, H, W, C) in
-    ``y.dtype``, summed in f32 and rounded once. CPU tensors take the plain
-    version, which raises on a sample beyond the reach; CUDA tensors launch
-    the kernel (C % 8 == 0, 16-byte aligned, B <= 65535), which gives zero
-    there. Not
-    differentiable by itself: ``DeformSampleTiled`` is.
-    """
-    global launches_tiled
-    if y.dim() != 5:
-        raise ValueError(f"y must be (B, H, W, K, C), got {tuple(y.shape)}")
-    b, h, w, k, c = y.shape
-    if not 0 <= t < k:
-        raise ValueError(f"tap {t} not in [0, {k})")
-    if reach_y < 0 or reach_x < 0:
-        raise ValueError(f"reach must be >= 0, got ({reach_y}, {reach_x})")
-    # the shape, dtype and device rules of one tap; y itself must be whole
-    _check_tap(y[:, :, :, t], sy, sx, contiguous=False)
-    for name, s in (("y", y), ("sy", sy), ("sx", sx)):
-        if not s.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if y.device.type == "cpu":
-        return deform_sample_tiled_plain(y, t, sy, sx, reach_y, reach_x)
-    if b > 65535:
-        raise ValueError(f"B={b} exceeds the grid's 65535")
-    out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
-    cuda_build.call("deform_sample_tiled", "deform_sample_tiled", y, (y, sy, sx, out),
-                    (b, h, w, c, k, t, reach_y, reach_x))
-    launches_tiled += 1
-    return out
-
-
 def deform_sample_tiled_taps_plain(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
                                    reach_y: int, reach_x: int) -> torch.Tensor:
-    """Plain PyTorch version of the all-tap K6: the reach check, then
-    ``deform_sample_plain`` on each tap's block of y (B, H, W, K, C), the
-    results added in ``y.dtype`` in tap order."""
+    """Plain PyTorch version of K6: the reach check, then K2's plain version
+    (``deform_sample_plain`` on each tap's block of y (B, H, W, K, C), the
+    results added in ``y.dtype`` in tap order)."""
     check_reach(sy, sx, reach_y, reach_x)
-    out = None
-    for t in range(y.shape[3]):
-        tap = deform_sample_plain(y[:, :, :, t], sy[t], sx[t])
-        out = tap if out is None else out + tap
-    return out
+    return deform_sample_taps_plain(y, sy, sx)
 
 
 def deform_sample_tiled_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
                              reach_y: int, reach_x: int) -> torch.Tensor:
-    """K6 for all K taps of a layer: ``sum_t deform_sample_tiled(y, t, sy[t],
-    sx[t])`` with each tap rounded to ``y.dtype`` and added in it in tap
+    """K6: ``sum_t bilinear(y[:, :, :, t]; sy[t], sx[t])`` for all K taps of
+    a layer, with each tap rounded to ``y.dtype`` and added in it in tap
     order, as the JAX package's tiled form adds them.
 
     y (B, H, W, K, C) bf16/f32, the one-matmul projection with the K taps
@@ -895,7 +721,7 @@ def deform_sample_tiled_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor
     global launches_tiled_taps
     if reach_y < 0 or reach_x < 0:
         raise ValueError(f"reach must be >= 0, got ({reach_y}, {reach_x})")
-    k = _check_taps(y, sy, sx, None, 3, contiguous_on_cpu=True)
+    k = _check_taps(y, sy, sx, None, contiguous_on_cpu=True)
     if y.device.type == "cpu":
         return deform_sample_tiled_taps_plain(y, sy, sx, reach_y, reach_x)
     b, h, w, _, c = y.shape
@@ -909,11 +735,10 @@ def deform_sample_tiled_taps(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor
 
 
 class DeformSampleTiled(torch.autograd.Function):
-    """The K taps of the column-tiled form: the all-tap K6, which adds the
-    taps in ``y.dtype`` in tap order (the JAX package has no fused tiled
-    forward, so this is also the inference form), with gradients to y, sy and
-    sx by the all-tap K3, which reads and writes the side-by-side layout in
-    place.
+    """The K taps of the column-tiled form: K6, which adds the taps in
+    ``y.dtype`` in tap order (the JAX package has no fused tiled forward, so
+    this is also the inference form), with gradients to y, sy and sx by the
+    clipped K3, which reads and writes the side-by-side layout in place.
 
     y (B, H, W, K, C); sy, sx (K, B, H, W) f32 within ``reach_y``,
     ``reach_x`` of their pixels. Returns (B, H, W, C) in ``y.dtype``. Every
@@ -929,6 +754,5 @@ class DeformSampleTiled(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         y, sy, sx = ctx.saved_tensors
-        gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, 3,
-                                              "pallas")
+        gy, gsy, gsx = deform_sample_bwd_taps(y, sy, sx, g.contiguous(), ctx.reach_y, "pallas")
         return gy, gsy, gsx, None, None

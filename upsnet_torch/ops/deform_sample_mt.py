@@ -39,8 +39,8 @@ What bounds them: bytes. The columns are K times the input's size (644 MB
 in bf16 at 2 x 208 x 336, C 256, K 9), written once by K7a and read, as
 ``g``, by both passes of K7b.
 
-``launches_fwd`` and ``launches_bwd`` count the wrappers' calls that launch
-(CPU calls do not count).
+``launches`` (K7a) and ``launches_bwd`` (K7b) count the wrappers' calls that
+launch (CPU calls do not count).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from upsnet_torch.ops import cuda_build
 from upsnet_torch.ops.deform_sample import _accum_dtype, _bilinear_zero_pad, sort_work_len
 from upsnet_torch.ops.deform_shift import _image_base, _tap_nodes
 
-launches_fwd = 0
+launches = 0
 launches_bwd = 0
 
 
@@ -166,7 +166,7 @@ def deform_sample_mt(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> tor
     checked before the device); all three contiguous. Not differentiable by
     itself: ``DeformSampleMT`` is.
     """
-    global launches_fwd
+    global launches
     k, b, h, w, c = _check(x, sy, sx)
     if x.device.type == "cpu":
         return deform_sample_mt_plain(x, sy, sx)
@@ -174,7 +174,7 @@ def deform_sample_mt(x: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> tor
     cols = torch.empty((b, h, w, k, c), dtype=x.dtype, device=x.device)
     cuda_build.call("deform_sample_mt", "deform_sample_mt", x, (x, sy, sx, cols),
                     (k, b, h, w, c))
-    launches_fwd += 1
+    launches += 1
     return cols
 
 

@@ -44,7 +44,7 @@ first, so on the model's path the two agree.
 What bounds them: bytes. ``y`` is K*C values per pixel (2304 B in bf16 at
 K 9, C 128), read once by K8a and K8c and written once by K8b.
 
-``launches_fwd``, ``launches_adjoint`` and ``launches_offset_grads`` count
+``launches`` (K8a), ``launches_adjoint`` and ``launches_offset_grads`` count
 the kernel launches (CPU calls do not count).
 """
 
@@ -58,7 +58,7 @@ from upsnet_torch.ops.deform_sample import (
     _accum_dtype, _bilinear_zero_pad, _hat_nodes, _round_up, band_gather, check_band,
     check_reach)
 
-launches_fwd = 0
+launches = 0
 launches_adjoint = 0
 launches_offset_grads = 0
 
@@ -242,16 +242,16 @@ def shift_fwd(y: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor) -> torch.Tens
     (B, H, W, C) in ``y.dtype``. CPU tensors take the plain version; CUDA
     tensors launch the kernel (C % 8 == 0, contiguous, 16-byte aligned),
     which runs K1's body (``sample_taps_pixel``) on this side-by-side layout
-    and so gives ``deform_sample9(y.view(B, H, W, K, C), sy, sx, tap_axis=3)``'s
-    bits. Not differentiable by itself: ``DeformSampleShift`` is.
+    and so gives ``deform_sample9(y.view(B, H, W, K, C), sy, sx)``'s bits.
+    Not differentiable by itself: ``DeformSampleShift`` is.
     """
-    global launches_fwd
+    global launches
     k, b, h, w, c = _check(sy, sx, y=y)
     if y.device.type == "cpu":
         return shift_fwd_plain(y, sy, sx)
     out = torch.empty((b, h, w, c), dtype=y.dtype, device=y.device)
     cuda_build.call("deform_shift", "shift_fwd", y, (y, sy, sx, out), (k, b, h, w, c))
-    launches_fwd += 1
+    launches += 1
     return out
 
 
@@ -280,7 +280,7 @@ def shift_adjoint(g: torch.Tensor, sy: torch.Tensor, sx: torch.Tensor,
         return shift_adjoint_plain(g, sy, sx)
     check_band(b * k, w, reach_y)
     gy = torch.empty((b, h, w, k * c), dtype=g.dtype, device=g.device)
-    band_gather(g, sy, sx, gy, k, reach_y, 0)
+    band_gather(g, sy, sx, gy, k, reach_y)
     launches_adjoint += 1
     return gy
 

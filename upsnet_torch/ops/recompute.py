@@ -1,8 +1,7 @@
 """What a checkpointed trunk (``models/remat.py``) tells the ops inside it.
 
 ``recomputing()`` is True while the backward recomputes a checkpointed
-trunk; ops with side effects that must not repeat ask it
-(``DeformConv._record_offsets``).
+trunk; ``sampled`` asks it.
 
 Under ``train.remat_policy: save_dcn`` one ``SavedSamples`` store belongs to
 each checkpointed call and is in scope in its first forward and in its

@@ -1,11 +1,12 @@
 """DCN offset-magnitude probe and the saturation watch of the train loop.
 
-The port's copy of ``upsnet_tpu/utils/dcn_probe.py``. Every ``DeformConv``
-keeps ``[max |dy|, max |dx|, saturation rate]`` of the offsets it has seen
-(``models/layers.py``); this module resets and reads those records: how far
-the learned offsets reach is the evidence for whether a clipped route
-(``dcn_impl`` 'pallas', 'mxu', 'shift') is exact for a checkpoint, and the
-trigger data of ``SaturationWatch``.
+The port's copy of ``upsnet_tpu/utils/dcn_probe.py``. ``probe_dcn_offsets``
+runs the trunk once and collects ``[max |dy|, max |dx|, saturation rate]``
+of the raw offsets of every ``DeformConv`` (``models/layers.py``) through
+forward hooks that live only as long as the probe: how far the learned
+offsets reach is the evidence for whether a clipped route (``dcn_impl``
+'pallas', 'mxu', 'shift') is exact for a checkpoint, and the trigger data of
+``SaturationWatch``.
 
 Usage:
     stats = probe_dcn_offsets(model, images)
@@ -24,31 +25,45 @@ def _dcn_layers(model):
             if isinstance(m, DeformConv)]
 
 
-def reset_offset_stats(model) -> None:
-    """Forget what every deformable layer of ``model`` has recorded."""
-    for _, m in _dcn_layers(model):
-        m.offset_max = None
-
-
-def offset_stats(model) -> dict:
-    """{layer_path: {max_dy, max_dx, sat_frac}} over the calls since the last
-    reset, layers never called left out. One device read for all layers."""
-    seen = [(path, m.offset_max) for path, m in _dcn_layers(model)
-            if m.offset_max is not None]
-    if not seen:
-        return {}
-    rows = torch.stack([s.float().cpu() for _, s in seen]).tolist()
-    return {path: {"max_dy": r[0], "max_dx": r[1], "sat_frac": r[2]}
-            for (path, _), r in zip(seen, rows)}
+def _offset_stats(offsets: torch.Tensor, max_dy: float) -> torch.Tensor:
+    """[max |dy|, max |dx|, share of offset components at >= 0.9 * max_dy]
+    of raw offsets (B, 2K, H, W) with (dy, dx) interleaved, as the JAX layer
+    sows them."""
+    ody, odx = offsets[:, 0::2].abs(), offsets[:, 1::2].abs()
+    edge = 0.9 * float(max_dy)
+    return torch.stack([ody.max(), odx.max(), ((ody >= edge) | (odx >= edge)).float().mean()])
 
 
 @torch.no_grad()
 def probe_dcn_offsets(model, images) -> dict:
     """Run the dense trunk once on ``images`` (B, H, W, 3), preprocessed, and
-    return the per-layer offset statistics of that run."""
-    reset_offset_stats(model)
-    model.extract(images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
-    return offset_stats(model)
+    return {layer_path: {max_dy, max_dx, sat_frac}} of that run, the
+    elementwise maximum over a layer's calls, layers never called left out.
+    A forward hook on each layer's offset conv collects the numbers on the
+    device; one device read for all layers."""
+    layers = _dcn_layers(model)
+    seen: dict = {}
+
+    def recorder(path, max_dy):
+        def hook(_module, _inputs, offsets):
+            stat = _offset_stats(offsets, max_dy)
+            seen[path] = torch.maximum(seen[path], stat) if path in seen else stat
+        return hook
+
+    hooks = []
+    try:
+        for path, m in layers:
+            hooks.append(m.offset_conv.register_forward_hook(recorder(path, m.max_dy)))
+        model.extract(images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+    finally:
+        for h in hooks:
+            h.remove()
+    paths = [path for path, _ in layers if path in seen]
+    if not paths:
+        return {}
+    rows = torch.stack([seen[p].float() for p in paths]).cpu().tolist()
+    return {path: {"max_dy": r[0], "max_dx": r[1], "sat_frac": r[2]}
+            for path, r in zip(paths, rows)}
 
 
 class SaturationWatch:
