@@ -56,9 +56,9 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    data); the coordinate pass that both all-tap K3 forms share with K8c is
    checked and timed alone on the P2 layers at +-2, +-40 and clipped +-6 px (and on its
    25-tap, C 384 path). The TTA merge and its resample (``check_tta_merge``,
-   no TPU counterpart) at the Cityscapes TTA cell's shapes, each with its
-   plain version's bits, two runs the same, timed beside its bound and its
-   plain version. Then, not timed, the kernels of the train entry and the
+   no TPU counterpart) and TTA's input canvas (``check_tta_sample``) at the
+   Cityscapes TTA cell's shapes, each with its plain version's bits, two
+   runs the same, timed beside its bound and its plain version. Then, not timed, the kernels of the train entry and the
    two evaluation phases at their own shapes (``check_entry_shapes``): K1,
    the all-tap K2 and the clipped all-tap K3 (reach 9) on every DCN map of
    the GN rehearsal file at batch 8 in both its buckets, 832x1344 and
@@ -190,7 +190,7 @@ Phases (any failure raises and exits non-zero; there is no CPU path):
    COCO file with its own ``multi_scale`` [640, 800, 960] and ``flip_test``
    (6 forwards an image, each 38 K1 and 2 K4) on 2 COCO-layout images from a
    checkpoint of the seeded model, one TTA merge and one resample launch
-   an image: img/s and the per-image split (samples, predicts, merge,
+   an image and one sample launch a variant: img/s and the per-image split (samples, predicts, merge,
    fusion, postprocess);
 19. reference: a tiny float32 model on the card against the same model on
    the CPU (plain versions, no kernels), with frozen BN and no backbone DCN,
@@ -1654,6 +1654,60 @@ def check_tta_merge(dev) -> dict:
             "resample_bound_ms": r_bound}
 
 
+def check_tta_sample(dev) -> dict:
+    """TTA's input canvas (``ops/tta_merge.py:sample_canvas``) at the
+    Cityscapes TTA cell's shapes: a 1024x2048 uint8 frame resized to
+    1024x2048 (scales 1024 and 1280) and to 768x1536 (768) on the 1024x2048
+    canvas, unflipped and flipped, in bf16 (the cell's compute dtype) and
+    float32. Each must give its plain version's bits and the same bits on two
+    runs; at each size, flipped, in bf16, kernel ms (CUDA events, median of
+    30 calls), per call of 20 queued, device ms under the profiler, plain
+    ms, and the bound: the frame rows and columns the taps touch read once
+    and the canvas written once, at 3.35 TB/s."""
+    g = torch.Generator(device=dev).manual_seed(24)
+    size = (1024, 2048)
+    frame = torch.randint(0, 256, size + (3,), generator=g, device=dev, dtype=torch.uint8)
+    timed = []
+    for content in ((1024, 2048), (768, 1536)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for flip in (False, True):
+                got, again = (tta_merge.sample_canvas(frame, content, size, flip, dtype)
+                              for _ in range(2))
+                want = tta_merge.sample_canvas_plain(frame, content, size, flip, dtype)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want) or not torch.equal(got, again):
+                    raise AssertionError(
+                        f"tta_sample {content} {dtype} flip {flip}: {int((got != want).sum())} "
+                        f"values differ from the plain version, or two runs differ")
+
+        def run():
+            return tta_merge.sample_canvas(frame, content, size, True, torch.bfloat16)
+
+        rows = len(set(np.concatenate(tta_merge._axis(content[0], size[0], False)[:2]).tolist()))
+        cols = len(set(np.concatenate(tta_merge._axis(content[1], size[1], True)[:2]).tolist()))
+        n_bytes = rows * cols * 3 + size[0] * size[1] * 3 * torch.bfloat16.itemsize
+        bound_ms, bound_by = bound(n_bytes, 0)
+        ms, queued = time_ms(run), time_queued_ms(run)
+        dev_ms = device_ms(run, "tta_sample_kernel")
+        plain_ms = time_ms(lambda: tta_merge.sample_canvas_plain(frame, content, size, True,
+                                                                 torch.bfloat16), 3)
+        timed.append({"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by})
+        print(f"[tta_sample] {size} uint8 frame to {content} on a {size} canvas, bf16, flipped "
+              f"(both flips, bf16 and f32: the plain version's bits, two runs the same): kernel "
+              f"{ms:.4f} ms, queued {queued:.4f} ms, device {dev_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB: "
+              f"{rows} rows x {cols} columns read), {100 * bound_ms / dev_ms:.1f}% of it "
+              f"(device)")
+    print(f"[tta_sample] registers {ptxas_registers('tta_merge', 'tta_sample_kernel')}")
+    del frame
+    torch.cuda.empty_cache()
+    unit, three_q = timed
+    return {"name": "tta_sample", "route": "cuda", "source": "upsnet_torch/csrc/tta_merge.cu",
+            "replaces": "none (the JAX package builds its samples on the host, cv2)",
+            "max_abs_err": 0.0, **unit, **{f"{k}_075": v for k, v in three_q.items()}}
+
+
 # K7b's kernels as the profiler names them: the sort's five, then the
 # gather (grad_x) and the coordinate pass
 K7B_SORT = ("mt_bwd_count_kernel", "mt_bwd_scan_tiles_kernel", "mt_bwd_scan_totals_kernel",
@@ -1908,7 +1962,8 @@ COUNTERS = {"deform_sample9": (deform_sample, "launches"),
             "deform_sample_mt": (deform_sample_mt, "launches"),
             "deform_sample_mt_bwd": (deform_sample_mt, "launches_bwd"),
             "tta_merge": (tta_merge, "launches"),
-            "tta_resample": (tta_merge, "launches_resample")}
+            "tta_resample": (tta_merge, "launches_resample"),
+            "tta_sample": (tta_merge, "launches_sample")}
 
 
 def check_entry_shapes(dev, rows: list) -> None:
@@ -3517,7 +3572,9 @@ def phase_eval_tta(dev, tmp: str, root: str) -> dict:
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"[{tag}] non-finite metrics: {metrics}")
     expect = {k: TTA_IMAGES * len(variants) * v for k, v in per_forward[0].items()}
-    expect.update(tta_merge=TTA_IMAGES, tta_resample=TTA_IMAGES)  # one of each an image
+    # one merge and one resample an image, one sample a variant
+    expect.update(tta_merge=TTA_IMAGES, tta_resample=TTA_IMAGES,
+                  tta_sample=TTA_IMAGES * len(variants))
     if launches != expect:
         raise AssertionError(f"[{tag}] launches {nonzero(launches)}, expected {nonzero(expect)}")
     n = timings["images"]
@@ -4232,7 +4289,7 @@ def run_phases(dev, profile: bool) -> None:
     check_coords(dev)
     kernels = [check_k1(dev), check_k2_taps(dev), check_k3_taps(dev), check_k3_unclipped(dev),
                check_k4(dev), check_k5(dev), check_k6(dev), *check_k7(dev), *check_k8(dev),
-               check_tta_merge(dev)]
+               check_tta_merge(dev), check_tta_sample(dev)]
     check_entry_shapes(dev, kernels)
     launches = dict.fromkeys(COUNTERS, 0)
 

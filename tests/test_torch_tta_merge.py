@@ -14,7 +14,7 @@ On the CPU (the plain versions):
   * the wrappers send CPU tensors to the plain versions (no launch counted)
     and refuse what the kernels do not take;
   * ``fuse_tta`` gives the same result from numpy and from a CPU tensor;
-  * ``predict_image_tta`` on a stub dataset and predictor (six variants:
+  * ``predict_image_tta`` on a one-frame dataset and a stub predictor (six variants:
     the smaller content, the stretch, flips) calls ``merge`` once and
     ``resample`` once, hands the fusion the oracle's average and returns
     its argmax as ``seg_pred`` (int32), counting six ``logits_h2d`` copies
@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from upsnet_torch.config import default_config
+from upsnet_torch.data.base import BaseDataset
 from upsnet_torch.evaluation import tta
 from upsnet_torch.ops import tta_merge
 from upsnet_torch.utils.profiling import read_bytes, read_syncs, reset_syncs
@@ -195,17 +196,24 @@ def test_fuse_tta_takes_numpy_and_a_cpu_tensor_alike():
     assert got_np[1].any()
 
 
-class _Frames:
-    """A stub dataset: each variant's canvas is the one 64x128 bucket; the
-    1.25 variant's content (80x160) outgrows it (the bucket crop)."""
+class _Frames(BaseDataset):
+    """A dataset of one 64x128 frame held in memory: each variant's canvas is
+    the one 64x128 bucket; the 1.25 variant's content (80x160) outgrows it
+    (the bucket crop)."""
     orig_hw = (64, 128)
 
-    def sample(self, i, target_scale, hflip):
-        scale = target_scale / 64
-        rh, rw = round(64 * scale), round(128 * scale)
-        return {"images": np.zeros((64, 128, 3), np.float32), "im_hw": np.array([rh, rw]),
-                "scale": np.float32(scale), "orig_hw": np.array(self.orig_hw),
-                "image_id": 100 + i}
+    def __init__(self, cfg):
+        super().__init__(cfg, training=False)
+        self.frame = np.random.default_rng(12).integers(0, 256, self.orig_hw + (3,), np.uint8)
+
+    def __len__(self):
+        return 1
+
+    def load_image(self, i):
+        return self.frame
+
+    def image_id(self, i):
+        return 100 + i
 
 
 def _run_tta(device, monkeypatch):
@@ -238,7 +246,7 @@ def _run_tta(device, monkeypatch):
         return fuse(cfg_, seg_avg, *a, **kw)
     monkeypatch.setattr(tta, "fuse_tta", keep)
     reset_syncs()
-    result = tta.predict_image_tta(cfg, _Frames(), 0, predict, device)
+    result = tta.predict_image_tta(cfg, _Frames(cfg), 0, predict, device)
     return result, logits, merged["seg_avg"], calls
 
 

@@ -9,9 +9,13 @@
     counted host sync (``const_h2d``, ``to_host``) beside ``panoptic_fuse``'s
     own, with the two reads' bytes counted; the outputs are those of
     ``panoptic_fuse`` called directly;
-  * ``sample_predictor`` copies a sample's image and size to the device as
-    two ``image_h2d`` syncs and reads every output back as ``to_host``,
-    whose bytes are the outputs' bytes;
+  * ``sample_predictor`` copies a sample's numpy image and its size to the
+    device as two ``image_h2d`` syncs and reads every output back as
+    ``to_host``, whose bytes are the outputs' bytes; given the same canvas
+    as a tensor on the model's device in the compute dtype it copies only
+    the size, with the same outputs;
+  * ``predict_image_tta`` copies the frame once an image (one
+    ``image_h2d``) and each variant's size (one more a variant), no canvas;
   * one tiny ``predict_image_tta`` runs its ``tta.sample``, ``tta.predict``,
     ``tta.merge`` and ``tta.fuse`` ranges under a CPU profiler, six
     ``tta.predict`` ranges for six variants, and every ``sync.<site>`` range
@@ -96,6 +100,30 @@ def test_sample_predictor_counts_its_copies_and_bytes():
     assert counts["to_host"] == len(out)
     assert nbytes == {"to_host": sum(v.nbytes for v in out.values())}
     assert out["seg_logits"].dtype == np.float32 and out["seg_logits"].ndim == 3
+
+
+def test_sample_predictor_copies_no_canvas_already_on_the_device():
+    cfg, model, ds = _tiny()
+    predict = sample_predictor(model, cfg)
+    s = ds.sample(0)
+    want = predict(tuple(s["images"].shape[:2]), s, False)
+    on_device = dict(s, images=torch.from_numpy(s["images"]).to(tta.image_dtype(cfg)))
+    reset_syncs()
+    out = predict(tuple(s["images"].shape[:2]), on_device, False)
+    assert read_syncs()["image_h2d"] == 1  # im_hw alone
+    assert set(out) == set(want)
+    for k in out:
+        np.testing.assert_array_equal(out[k], want[k], err_msg=k)
+
+
+def test_predict_image_tta_copies_the_frame_once_and_no_canvas():
+    cfg, model, ds = _tiny()
+    predict = sample_predictor(model, cfg)
+    reset_syncs()
+    tta.predict_image_tta(cfg, ds, 0, lambda b, s: predict(b, s, False), "cpu")
+    n = len(tta.tta_variants(cfg))
+    assert n == 6 and read_syncs()["image_h2d"] == 1 + n
+    assert read_syncs()["logits_h2d"] == n
 
 
 def test_tta_ranges_and_sync_ranges_in_a_trace():

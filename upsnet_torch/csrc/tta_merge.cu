@@ -1,5 +1,5 @@
-// The semantic half of the test-time-augmentation (TTA) merge, and the
-// fusion's resample of its result, on the card.
+// The semantic half of the test-time-augmentation (TTA) merge, the fusion's
+// resample of its result, and each variant's input canvas, on the card.
 //
 // tta_merge: for every frame pixel (y, x) and channel c
 //   avg[y, x, c] = (sum over the variants v, in order, of
@@ -8,9 +8,17 @@
 //                  the first NaN, if any)
 // tta_resample: avg resized to the first variant's quarter-scale content
 // (ch, cw), laid at the top-left of a (qh, qw) canvas that is zero elsewhere.
+// tta_sample: one variant's (bh, bw, 3) input canvas from the (h, w, 3) uint8
+// BGR frame:
+//   canvas[y, x, c] = resize(float(frame))[y, flip ? rw - 1 - x : x, c] - mean[c]
+//   for y < min(rh, bh), x < min(rw, bw), zero elsewhere, rounded to the
+//   canvas's dtype (bf16 by __float2bfloat16_rn, as the host's cast rounds);
+//   where the content (rh, rw) outgrows the bucket, the canvas holds its
+//   top-left, as the host's pad_to_bucket(flip_image(img)) crops.
 //
-// It replaces no TPU kernel: the JAX package merges on the host with cv2
-// (upsnet_tpu/evaluation/tta.py), and so did the port until this kernel.
+// None of them replaces a TPU kernel: the JAX package merges on the host with
+// cv2 and builds its samples there (upsnet_tpu/evaluation/tta.py,
+// upsnet_tpu/data/base.py), and so did the port until these kernels.
 // `resize` is cv2.resize's INTER_LINEAR on float32 as cv2 computes it, so that
 // the plain version (upsnet_torch/ops/tta_merge.py) and the host merge it
 // replaces agree exactly:
@@ -39,14 +47,24 @@
 // consecutive addresses, instead of 32 scattered 4-byte stores a warp and
 // channel.
 //
+// tta_sample takes the same rule on the frame's bytes (a tap's value is
+// float(u8), exact), with one thread a canvas pixel and its three channels:
+// the taps once a pixel, not once a channel. A block's 256 pixels are 768
+// contiguous canvas values, staged in shared memory and written with 16-byte
+// stores, consecutive threads on consecutive addresses.
+//
 // Bound by bytes. At the Cityscapes TTA cell (six 19-channel maps, crops
 // 256x512 four times and 192x384 twice, into 1024x2048): 51.0 MB of crops
 // read, 159.4 MB of averages and 2.1 MB of argmax written, 212.5 MB, 0.063 ms
 // at 3.35 TB/s. The resample to 256x512 reads the rows and columns its taps
-// touch (half of each at 4x, 39.8 MB) and writes 10.0 MB: 0.015 ms.
+// touch (half of each at 4x, 39.8 MB) and writes 10.0 MB: 0.015 ms. A sample
+// of the 1024x2048 frame reads the frame rows and columns its taps touch (all
+// of it at unit scale, 6.3 MB) and writes the 1024x2048x3 canvas (12.6 MB in
+// bf16): 18.9 MB, 0.0056 ms.
 //
 // Plain C interface for ctypes; returns cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,13 +154,20 @@ __device__ __forceinline__ Taps taps_of(const Map& m, int y, int x, int C) {
   return t;
 }
 
-__device__ __forceinline__ float sample(const Map& m, const Taps& t, int c) {
-  const float v00 = __ldg(m.src + t.o00 + c), v01 = __ldg(m.src + t.o01 + c);
-  const float v10 = __ldg(m.src + t.o10 + c), v11 = __ldg(m.src + t.o11 + c);
-  if (m.area) return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(v00, v01), v10), v11), 0.25f);
+// The resized value of channel c from the four taps of src (float32 maps or
+// the uint8 frame; a tap's value is its float).
+template <typename Src>
+__device__ __forceinline__ float lerp(const Src* src, const Taps& t, int area, int c) {
+  const float v00 = __ldg(src + t.o00 + c), v01 = __ldg(src + t.o01 + c);
+  const float v10 = __ldg(src + t.o10 + c), v11 = __ldg(src + t.o11 + c);
+  if (area) return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(v00, v01), v10), v11), 0.25f);
   const float h0 = __fadd_rn(__fmul_rn(v00, t.a0), __fmul_rn(v01, t.a1));
   const float h1 = __fadd_rn(__fmul_rn(v10, t.a0), __fmul_rn(v11, t.a1));
   return __fadd_rn(__fmul_rn(h0, t.b0), __fmul_rn(h1, t.b1));
+}
+
+__device__ __forceinline__ float sample(const Map& m, const Taps& t, int c) {
+  return lerp(m.src, t, m.area, c);
 }
 
 // The block's pixels [first, first + kBlock) are contiguous in the output:
@@ -208,6 +233,58 @@ tta_resample_kernel(const Map m, float* __restrict__ out, int qh, int qw, int ch
   store_staged(stage, out, first, npix, C);
 }
 
+constexpr int kSampleBlock = 256;
+
+struct Means {
+  float v[3];
+};
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// m: the frame's geometry (rows h, cols w, pitch w, area, sy, sx; src and
+// flip unused); (ch, cw) = min((rh, rw), (bh, bw)).
+template <typename Out>
+__global__ void __launch_bounds__(kSampleBlock)
+tta_sample_kernel(const uint8_t* __restrict__ frame, Out* __restrict__ canvas, const Map m,
+                  int ch, int cw, int rw, int bw, int npix, int flip, const Means mean) {
+  __shared__ __align__(16) unsigned char smem[kSampleBlock * 3 * sizeof(Out)];
+  Out* stage = reinterpret_cast<Out*>(smem);
+  const int first = blockIdx.x * kSampleBlock;
+  const int p = first + threadIdx.x;
+  if (p < npix) {
+    const int y = p / bw, x = p - y * bw;
+    Out* s = stage + threadIdx.x * 3;
+    if (y < ch && x < cw) {
+      const Taps t = taps_of(m, y, flip ? rw - 1 - x : x, 3);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) put(s + c, __fsub_rn(lerp(frame, t, m.area, c), mean.v[c]));
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) put(s + c, 0.f);
+    }
+  }
+  __syncthreads();
+  // the block's values are contiguous from a 16-byte boundary (first * 3 is a
+  // multiple of 768): 16-byte stores, then the odd tail of the last block
+  constexpr int kVec = 16 / sizeof(Out);
+  const int n = min(kSampleBlock, npix - first) * 3;
+  Out* dst = canvas + (int64_t)first * 3;
+  const uint4* src4 = reinterpret_cast<const uint4*>(smem);
+  uint4* dst4 = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < n / kVec; i += kSampleBlock) dst4[i] = src4[i];
+  for (int i = n / kVec * kVec + threadIdx.x; i < n; i += kSampleBlock) dst[i] = stage[i];
+}
+
+template <typename Out>
+int launch_sample(const void* frame, void* canvas, const Map& m, int ch, int cw, int rw, int bw,
+                  int npix, int flip, const Means& mean, cudaStream_t stream) {
+  tta_sample_kernel<Out><<<(npix + kSampleBlock - 1) / kSampleBlock, kSampleBlock, 0, stream>>>(
+      static_cast<const uint8_t*>(frame), static_cast<Out*>(canvas), m, ch, cw, rw, bw, npix,
+      flip, mean);
+  return (int)cudaGetLastError();
+}
+
 template <typename Kernel>
 int staged_smem(Kernel kernel, int C, size_t* bytes) {
   *bytes = (size_t)kBlock * C * sizeof(float);
@@ -263,6 +340,27 @@ int tta_resample(const void* src, void* out, int sh, int sw, int qh, int qw, int
                         static_cast<cudaStream_t>(stream)>>>(
       m, static_cast<float*>(out), qh, qw, ch, cw, C);
   return (int)cudaGetLastError();
+}
+
+// frame (h, w, 3) uint8 BGR, h * w * 3 < 2^31; canvas (bh, bw, 3) float32
+// (dtype 0) or bf16 (1), 16-byte aligned, bh * bw * 3 < 2^31; the content
+// (rh, rw) >= 1; sy, sx, area as in tta_merge for (h, w) -> (rh, rw); flip
+// mirrors the resized image; m0, m1, m2 the means subtracted from B, G, R.
+int tta_sample(const void* frame, void* canvas, int h, int w, int rh, int rw, int bh, int bw,
+               double sy, double sx, int area, int flip, float m0, float m1, float m2,
+               int dtype, void* stream) {
+  if (h < 1 || w < 1 || rh < 1 || rw < 1 || bh < 1 || bw < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)h * w * 3 >= ((int64_t)1 << 31) || (int64_t)bh * bw * 3 >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(canvas) % 16) return (int)cudaErrorMisalignedAddress;
+  const Map m{nullptr, h, w, w, 0, area, sy, sx};
+  const Means mean{{m0, m1, m2}};
+  const int ch = rh < bh ? rh : bh, cw = rw < bw ? rw : bw, npix = bh * bw;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_sample<float>(frame, canvas, m, ch, cw, rw, bw, npix, flip, mean, s)
+                    : launch_sample<__nv_bfloat16>(frame, canvas, m, ch, cw, rw, bw, npix, flip,
+                                                   mean, s);
 }
 
 const char* error_string(int code) {

@@ -69,6 +69,17 @@ class BaseDataset:
         return i
 
     # ---- sample construction ----
+    def test_sample(self, i: int, canvas, orig_hw, scale: float, content_hw) -> dict:
+        """The sample's test keys around ``canvas`` (a numpy array here, a
+        tensor on the device from TTA's samples)."""
+        return {
+            "images": canvas,
+            "im_hw": np.array(content_hw, np.float32),
+            "scale": np.float32(scale),
+            "image_id": np.int64(self.image_id(i)),
+            "orig_hw": np.array(orig_hw, np.int64),
+        }
+
     def sample(self, i: int, rng: np.random.RandomState | None = None,
                target_scale: int | None = None, hflip: bool = False) -> dict:
         """Build one preprocessed sample. ``target_scale``/``hflip`` override
@@ -106,24 +117,14 @@ class BaseDataset:
         """Deterministic sample build for a fixed (index, scale, flip)."""
         img = self.load_image(i).astype(np.float32)
         h, w = img.shape[:2]
-        scale = T.compute_resize_scale(h, w, target, self.max_size)
-        img = T.resize_image(img, scale)
-        rh, rw = img.shape[:2]
-        img = T.normalize_bgr(img)
+        scale, (rh, rw), bucket = T.variant_geometry(h, w, target, self.max_size, self.buckets)
+        img = T.normalize_bgr(T.resize_image(img, scale))
 
         gt = self.load_gt(i) if self.training else None
         if flipped:
             img = T.flip_image(img).copy()
 
-        bucket = T.pick_bucket(rh, rw, self.buckets)
-        canvas = T.pad_to_bucket(img, bucket)
-        out = {
-            "images": canvas,
-            "im_hw": np.array([rh, rw], np.float32),
-            "scale": np.float32(scale),
-            "image_id": np.int64(self.image_id(i)),
-            "orig_hw": np.array([h, w], np.int64),
-        }
+        out = self.test_sample(i, T.pad_to_bucket(img, bucket), (h, w), scale, (rh, rw))
         if not self.training:
             return out
 

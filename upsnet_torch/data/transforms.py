@@ -25,12 +25,16 @@ def compute_resize_scale(h: int, w: int, target: int, max_size: int) -> float:
     return scale
 
 
+def resized_hw(h: int, w: int, scale: float) -> tuple[int, int]:
+    """The size of an (h, w) image resized by ``scale``."""
+    return int(round(h * scale)), int(round(w * scale))
+
+
 def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
     """Bilinear resize by a scale factor. img (H, W, C) float32."""
     import cv2
 
-    h, w = img.shape[:2]
-    nh, nw = int(round(h * scale)), int(round(w * scale))
+    nh, nw = resized_hw(*img.shape[:2], scale)
     return cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR)
 
 
@@ -44,6 +48,15 @@ def pick_bucket(h: int, w: int, buckets) -> tuple[int, int]:
     if fitting:
         return min(fitting, key=lambda b: b[0] * b[1])
     return max(buckets, key=lambda b: b[0] * b[1])
+
+
+def variant_geometry(h: int, w: int, target: int, max_size: int, buckets) -> tuple:
+    """The host arithmetic of one sample of an (h, w) image at ``target``:
+    (scale, content (rh, rw), bucket (BH, BW)). ``BaseDataset._build_sample``
+    and TTA's samples built on the device both take it from here."""
+    scale = compute_resize_scale(h, w, target, max_size)
+    rh, rw = resized_hw(h, w, scale)
+    return scale, (rh, rw), pick_bucket(rh, rw, buckets)
 
 
 def pad_to_bucket(img: np.ndarray, bucket: tuple[int, int]) -> np.ndarray:

@@ -26,7 +26,7 @@ from upsnet_torch.config.defaults import Config
 from upsnet_torch.evaluation import rle as rle_mod
 from upsnet_torch.evaluation import rle_native
 from upsnet_torch.evaluation.panoptic_format import build_panoptic_output, write_panoptic_results
-from upsnet_torch.evaluation.tta import predict_image_tta, tta_variants
+from upsnet_torch.evaluation.tta import image_dtype, predict_image_tta, tta_variants
 from upsnet_torch.models.registry import get_model
 from upsnet_torch.models.upsnet import forward_predict
 from upsnet_torch.ops.anchors import pyramid_anchors
@@ -182,22 +182,26 @@ def sample_predictor(model, cfg: Config):
     """``predict(bucket, sample, seg_argmax=True) -> outputs``: one dataset
     sample (``BaseDataset.sample``) through ``predict_step`` on the model's
     device, with the anchors of every ``test.image_buckets`` canvas built
-    once; the outputs without the batch axis. The sample's two copies to the
-    device, from pageable host memory, are ``image_h2d`` host syncs. The
+    once; the outputs without the batch axis. A canvas that is already a
+    tensor on the model's device in the compute dtype (TTA's) is used as it
+    is; any other is cast to that dtype and copied, from pageable host
+    memory: an ``image_h2d`` host sync, as is the copy of ``im_hw``. The
     evaluation loop's predict, and (``seg_argmax`` False) TTA's."""
     dev = next(model.parameters()).device
     anchors_by_bucket = {tuple(b): bucket_anchors(cfg, b, dev) for b in cfg.test.image_buckets}
     # bit-identical downstream (the stem casts to bf16 anyway) at half the
     # host->device bytes
-    image_dtype = torch.bfloat16 if cfg.network.compute_dtype == "bfloat16" else torch.float32
+    dtype = image_dtype(cfg)
 
     def predict(bucket, s, seg_argmax=True):
-        with host_sync("image_h2d"):
-            images = torch.from_numpy(s["images"][None]).to(image_dtype).to(dev)
+        images = s["images"]
+        if not (torch.is_tensor(images) and images.device == dev and images.dtype == dtype):
+            with host_sync("image_h2d"):
+                images = torch.as_tensor(images).to(dtype).to(dev)
         with host_sync("image_h2d"):
             im_hw = torch.from_numpy(s["im_hw"][None]).to(dev)
         out = predict_step(model, cfg, anchors_by_bucket[bucket],
-                           {"images": images, "im_hw": im_hw}, seg_argmax)
+                           {"images": images[None], "im_hw": im_hw}, seg_argmax)
         return {k: v[0] for k, v in out.items()}
 
     return predict

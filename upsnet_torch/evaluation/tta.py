@@ -2,6 +2,11 @@
 ``upsnet_tpu/evaluation/tta.py``.
 
 Per image:
+  0. the frame (``dataset.load_image``, uint8 BGR) goes to the model's
+     device once; each variant's input canvas is made there from it by one
+     launch of ``ops/tta_merge.py:sample_canvas`` (resize, mean subtraction,
+     mirror, bucket), the canvas that ``dataset.sample(i, target_scale=,
+     hflip=)`` builds on the host, in the compute dtype;
   1. every (scale, flip) runs the ordinary predict step (``predict_step``
      with the full float32 semantic logits, no on-device argmax), and its
      semantic logits go back to the model's device;
@@ -20,19 +25,21 @@ Per image:
 
 Each stage runs inside a ``torch.profiler`` range, on the profiler's clock
 with the predict step's own ``predict.<stage>`` ranges: ``tta.sample``
-(building a variant's sample), ``tta.predict`` (its predict step),
+(building a variant's sample; the first also loads and copies the frame),
+``tta.predict`` (its predict step),
 ``tta.merge`` (its share of the merge: the copy of its logits to the device,
 its detections; then the final NMS and the merge's launch) and ``tta.fuse``
-(the fusion on the device). The copies of the logits to the device
+(the fusion on the device). The frame's copy to the device
+(``image_h2d``), the copies of the logits to the device
 (``logits_h2d``), the fusion's copies of host arrays (``const_h2d``) and its
 reads back and the argmax's (``to_host``) are ``host_sync`` sites, so
 ``read_syncs()`` and ``read_bytes()`` count them.
 
 A reference behaviour is copied with the rest: where a scale's canvas fits
-no ``test.image_buckets``, ``pick_bucket`` takes the largest and
-``pad_to_bucket`` crops the image to it, while ``im_hw`` keeps the uncropped
-size, so the semantic crop of step 2 reads beyond the map and stretches what
-is there over the whole image.
+no ``test.image_buckets``, ``pick_bucket`` takes the largest and the canvas
+holds the image cropped to it (``pad_to_bucket``'s crop), while ``im_hw``
+keeps the uncropped size, so the semantic crop of step 2 reads beyond the
+map and stretches what is there over the whole image.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 from torch.profiler import record_function
 
 from upsnet_torch.config.defaults import Config
+from upsnet_torch.data import transforms as T
 from upsnet_torch.models.upsnet import panoptic_fuse
 from upsnet_torch.ops import tta_merge
 from upsnet_torch.utils.profiling import host_sync
@@ -161,28 +169,38 @@ def tta_variants(cfg: Config) -> list:
     return [(ts, fl) for ts in scales for fl in flips]
 
 
+def image_dtype(cfg: Config) -> torch.dtype:
+    """The dtype of ``predict_step``'s images on the device: the compute
+    dtype (the stem casts to it anyway)."""
+    return torch.bfloat16 if cfg.network.compute_dtype == "bfloat16" else torch.float32
+
+
 def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
                       timings: dict | None = None):
-    """Run every (scale, flip) variant of image ``i`` through
-    ``predict(bucket, sample) -> outputs`` (numpy, full f32 ``seg_logits``)
-    and merge them on ``device``; returns the same output contract as
-    ``postprocess_image`` consumes, already in original coordinates. Where
-    ``timings`` is given, the seconds spent building samples, predicting,
-    merging and fusing are added to it."""
+    """Run every (scale, flip) variant of image ``i`` of ``dataset`` (a
+    ``BaseDataset``) through ``predict(bucket, sample) -> outputs`` (numpy,
+    full f32 ``seg_logits``), each sample's canvas made on ``device`` from
+    one copy of the frame, and merge them on ``device``; returns the same
+    output contract as ``postprocess_image`` consumes, already in original
+    coordinates. Where ``timings`` is given, the seconds spent building
+    samples, predicting, merging and fusing are added to it."""
     clock = dict.fromkeys(("sample_s", "predict_s", "merge_s", "fuse_s"), 0.0)
     maps, crops, flips = [], [], []
     all_boxes, all_scores, all_classes, all_masks = [], [], [], []
-    oh = ow = None
-    image_id = None
+    frame = None
     base = None  # (scale, bucket, content_hw) of the first variant
     for ts, fl in tta_variants(cfg):
         t0 = time.perf_counter()
         with record_function("tta.sample"):
-            s = dataset.sample(i, target_scale=ts, hflip=fl)
-        oh, ow = (int(v) for v in s["orig_hw"])
-        image_id = s["image_id"]
-        rh, rw = (int(v) for v in s["im_hw"])
-        bucket = tuple(s["images"].shape[:2])
+            if frame is None:
+                img = np.ascontiguousarray(dataset.load_image(i))
+                with host_sync("image_h2d"):
+                    frame = torch.from_numpy(img).to(device)
+                oh, ow = frame.shape[:2]
+            scale, (rh, rw), bucket = T.variant_geometry(oh, ow, ts, dataset.max_size,
+                                                         dataset.buckets)
+            canvas = tta_merge.sample_canvas(frame, (rh, rw), bucket, fl, image_dtype(cfg))
+            s = dataset.test_sample(i, canvas, (oh, ow), scale, (rh, rw))
         if base is None:
             base = (float(s["scale"]), bucket, (rh, rw))
         t1 = time.perf_counter()
@@ -244,7 +262,7 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
     pb, ps, pc, pm, pv = padded
     n = int(pv.sum())
     result = {
-        "image_id": image_id,
+        "image_id": s["image_id"],
         "orig_hw": (oh, ow),
         "boxes": pb[:n],
         "scores": ps[:n],

@@ -1,5 +1,5 @@
-"""The semantic half of the TTA merge on the card, and the fusion's resample
-of its result (``csrc/tta_merge.cu``).
+"""The semantic half of the TTA merge on the card, the fusion's resample of
+its result, and each variant's input canvas (``csrc/tta_merge.cu``).
 
 ``merge(maps, crops, flips, size)``: each variant's quarter-scale semantic
 logits (H, W, C) float32 cropped to its content (numpy's slice: a crop beyond
@@ -13,19 +13,31 @@ launch an image.
 first variant's quarter-scale content, on a zeroed (qh, qw, C) canvas: the
 frame ``panoptic_fuse`` runs in. One launch an image.
 
-Both replace no TPU kernel: the JAX package merges on the host with cv2, as
-the port did before them. The resize is cv2's, operation for operation
-(the source's header lists the rule), including cv2's switch to
-``INTER_AREA`` where the source is exactly twice the destination on both
-axes, so the plain versions here give cv2's bits for float32 maps of any
-channel count but 1, 3 and 4 (where cv2 takes a vectorised path of its own
-that rounds otherwise; semantic logits have more channels).
+``sample_canvas(frame, scale_hw, bucket, flip, dtype)``: one TTA variant's
+input canvas from the (H, W, 3) uint8 BGR frame on the device: the frame
+resized to ``scale_hw`` by the same rule, the pixel means subtracted,
+mirrored where ``flip``, laid at the top-left of a zeroed ``bucket`` canvas
+(cropped to it where it outgrows it) and rounded to ``dtype``: the canvas of
+``BaseDataset.sample(i, target_scale=, hflip=)`` as ``sample_predictor``
+casts it, built from one upload of the frame. One launch a variant.
+
+None replaces a TPU kernel: the JAX package merges and builds its samples on
+the host with cv2, as the port did before them. The resize is cv2's,
+operation for operation (the source's header lists the rule), including
+cv2's switch to ``INTER_AREA`` where the source is exactly twice the
+destination on both axes, so the plain versions here give cv2's bits for
+float32 maps of any channel count but 1, 3 and 4 (where cv2 takes a
+vectorised path of its own that rounds otherwise; semantic logits have more
+channels). The canvas has three: at unit scale and at exact 2x it has the
+host's bits (the taps are (1, 0) there, and cv2 copies or averages), at
+other scales it lies within about 0.011 of cv2's (float32, 0-255 values).
 
 What bounds them on the card: bytes (the source's header gives the counts;
 about 0.063 ms for the merge at the Cityscapes TTA cell, 0.015 ms for the
-resample). The wrappers send CPU tensors to the plain versions, launch on
-CUDA tensors with no fallback, and count launches: ``launches`` (merge) and
-``launches_resample``.
+resample, 0.0056 ms for a bf16 sample of its 1024x2048 frame). The wrappers
+send CPU tensors to the plain versions, launch on CUDA tensors with no
+fallback, and count launches: ``launches`` (merge), ``launches_resample``
+and ``launches_sample``.
 """
 
 from __future__ import annotations
@@ -36,10 +48,12 @@ import sys
 import numpy as np
 import torch
 
+from upsnet_torch.data.transforms import PIXEL_MEANS_BGR
 from upsnet_torch.ops import cuda_build
 
 launches = 0
 launches_resample = 0
+launches_sample = 0
 
 MAX_MAPS = 8
 MAX_CHANNELS = 256  # the argmax is uint8
@@ -219,4 +233,54 @@ def resample(avg: torch.Tensor, content, canvas) -> torch.Tensor:
                     cuda_build.DTYPE_CODES[torch.float32], stream)
     cuda_build.check(cuda_build.load(_LIB), status, "tta_resample")
     launches_resample += 1
+    return out
+
+
+def sample_canvas_plain(frame: torch.Tensor, scale_hw, bucket, flip: bool,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of the sample: (bh, bw, 3) in ``dtype``."""
+    (rh, rw), (bh, bw) = scale_hw, bucket
+    img = resize_plain(frame.float(), (rh, rw))
+    if flip:
+        img = img.flip(1)
+    img = img - torch.from_numpy(PIXEL_MEANS_BGR).to(img.device)
+    out = torch.zeros((bh, bw, 3), dtype=dtype, device=frame.device)
+    out[:min(rh, bh), :min(rw, bw)] = img[:bh, :bw].to(dtype)
+    return out
+
+
+def sample_canvas(frame: torch.Tensor, scale_hw, bucket, flip: bool,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The canvas (bh, bw, 3) in ``dtype`` (bfloat16 or float32) of the
+    (H, W, 3) uint8 BGR ``frame`` resized to ``scale_hw`` (rh, rw), mirrored
+    where ``flip``, in ``bucket`` (bh, bw), on the frame's device."""
+    global launches_sample
+    (rh, rw), (bh, bw) = (int(v) for v in scale_hw), (int(v) for v in bucket)
+    if not torch.is_tensor(frame) or frame.dtype != torch.uint8:
+        raise TypeError(f"frame must be a uint8 tensor, got {getattr(frame, 'dtype', frame)}")
+    if frame.dim() != 3 or frame.shape[-1] != 3 or frame.numel() == 0:
+        raise ValueError(f"frame must be a non-empty (H, W, 3), got {tuple(frame.shape)}")
+    if not frame.is_contiguous():
+        raise ValueError("frame must be contiguous")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the canvas must be bfloat16 or float32, got {dtype}")
+    if min(rh, rw, bh, bw) < 1 or frame.numel() >= 1 << 31 or bh * bw * 3 >= 1 << 31:
+        raise ValueError(f"content {(rh, rw)} and bucket {(bh, bw)} must be non-empty; "
+                         f"frame and canvas under 2^31 values")
+    if frame.device.type == "cpu":
+        return sample_canvas_plain(frame, (rh, rw), (bh, bw), flip, dtype)
+    if frame.device.type != "cuda":
+        raise ValueError(f"unsupported device {frame.device}")
+    h, w = frame.shape[:2]
+    out = torch.empty((bh, bw, 3), dtype=dtype, device=frame.device)
+    fn = _entry("tta_sample", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
+                + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
+                + [ctypes.c_int, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(frame.device).cuda_stream
+    with torch.cuda.device(frame.device):
+        status = fn(frame.data_ptr(), out.data_ptr(), h, w, rh, rw, bh, bw, _scale(rh, h),
+                    _scale(rw, w), int(_is_area((rh, rw), (h, w))), int(bool(flip)),
+                    *(float(m) for m in PIXEL_MEANS_BGR), cuda_build.DTYPE_CODES[dtype], stream)
+    cuda_build.check(cuda_build.load(_LIB), status, "tta_sample")
+    launches_sample += 1
     return out
