@@ -18,7 +18,10 @@ On the CPU (the plain versions):
     the smaller content, the stretch, flips) calls ``merge`` once and
     ``resample`` once, hands the fusion the oracle's average and returns
     its argmax as ``seg_pred`` (int32), counting six ``logits_h2d`` copies
-    and the argmax's read.
+    and the argmax's read;
+  * the same run tallies each variant's canvas, the content inside it and
+    the resized content (``count_canvas``, ``read_canvas``), the crop
+    included.
 
 Tests marked ``card`` run the kernels on a CUDA card and skip here; this file
 imports no JAX, so on the card they run with
@@ -26,7 +29,11 @@ imports no JAX, so on the card they run with
 the merge against its plain version at the Cityscapes TTA cell's shapes (six
 19-channel maps, contents 256x512 and 192x384, into 1024x2048, flipped and
 not), the resample at the cell's 4x and at an exact 2x, and one launch of
-each per ``predict_image_tta`` image.
+each per ``predict_image_tta`` image; and both at the COCO TTA cell's shapes
+(six 208x336 maps of 133 channels, the 68,096 bytes of staged outputs a
+block that take the shared-memory opt-in, crops 200x266, 160x213 and
+240x320, the last clamped to the map's 208 rows, into 480x640; then the
+fusion's resample to 200x266 on 208x336).
 """
 
 import dataclasses
@@ -37,10 +44,12 @@ import pytest
 import torch
 
 from upsnet_torch.config import default_config
+from upsnet_torch.data import transforms as T
 from upsnet_torch.data.base import BaseDataset
 from upsnet_torch.evaluation import tta
 from upsnet_torch.ops import tta_merge
-from upsnet_torch.utils.profiling import read_bytes, read_syncs, reset_syncs
+from upsnet_torch.utils import profiling
+from upsnet_torch.utils.profiling import read_bytes, read_canvas, read_syncs, reset_syncs
 
 torch.set_num_threads(2)
 
@@ -268,6 +277,27 @@ def test_predict_image_tta_merges_once_on_the_device(monkeypatch):
         assert isinstance(result[k], np.ndarray), k
 
 
+def test_predict_image_tta_tallies_each_variants_canvas(monkeypatch):
+    tallied = []
+
+    def spy(bucket, content):
+        tallied.append((tuple(bucket), tuple(content)))
+        profiling.count_canvas(bucket, content)
+    monkeypatch.setattr(tta, "count_canvas", spy)
+    _run_tta("cpu", monkeypatch)  # resets the tallies first
+    cfg = _cfg()
+    want = [T.variant_geometry(*_Frames.orig_hw, t, cfg.test.max_size, cfg.test.image_buckets)
+            for t, _ in tta.tta_variants(cfg)]
+    assert tallied == [(b, c) for _, c, b in want]
+    # 64x128, 48x96 and 80x160 (cropped to 64x128), each twice, on 64x128
+    assert [c for _, c in tallied[::2]] == [(64, 128), (48, 96), (80, 160)]
+    assert read_canvas() == {"canvas": 6 * 64 * 128,
+                             "inside": 2 * (64 * 128 + 48 * 96 + 64 * 128),
+                             "resized": 2 * (64 * 128 + 48 * 96 + 80 * 160)}
+    reset_syncs()
+    assert read_canvas() == {"canvas": 0, "inside": 0, "resized": 0}
+
+
 @pytest.mark.card
 def test_merge_kernel_equals_its_plain_version_at_the_cell_shapes(card):
     g = torch.Generator().manual_seed(8)
@@ -310,3 +340,20 @@ def test_predict_image_tta_launches_each_kernel_once_an_image(card, monkeypatch)
     assert seg_avg.device.type == "cuda"
     np.testing.assert_array_equal(seg_avg.cpu().numpy(), want_avg)
     np.testing.assert_array_equal(result["seg_pred"], want_arg)
+
+
+@pytest.mark.card
+def test_merge_and_resample_kernels_at_the_coco_cell_shapes(card):
+    g = torch.Generator().manual_seed(10)
+    # 800, 640 and 960 of a 640x480 frame; 960's 240 rows beyond the map
+    crops = [(200, 266), (200, 266), (160, 213), (160, 213), (240, 320), (240, 320)]
+    maps = [torch.randn((208, 336, 133), generator=g) * 4 for _ in crops]
+    flips = [False, True] * 3
+    want_avg, want_arg = tta_merge.merge_plain(maps, crops, flips, (480, 640))
+    before = (tta_merge.launches, tta_merge.launches_resample)
+    avg, arg = tta_merge.merge([m.to(card) for m in maps], crops, flips, (480, 640))
+    canvas = tta_merge.resample(avg, (200, 266), (208, 336))
+    torch.cuda.synchronize()
+    assert (tta_merge.launches, tta_merge.launches_resample) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(avg.cpu(), want_avg) and torch.equal(arg.cpu(), want_arg)
+    assert torch.equal(canvas.cpu(), tta_merge.resample_plain(want_avg, (200, 266), (208, 336)))

@@ -1,6 +1,6 @@
 """The port's test-time augmentation against the benchmark's plain float32
-reference (``portbench/reference/tta_ref.py``), and the Cityscapes TTA
-configuration file against the experiment it copies.
+reference (``portbench/reference/tta_ref.py``), and the TTA cells'
+configuration files against the experiments they copy.
 
   * on seeded random weights (``portbench/weights.py``) at a tiny size (the
     ``resnet_test`` trunk, one 64x128 frame, the Cityscapes file's protocol
@@ -13,15 +13,22 @@ configuration file against the experiment it copies.
     (``judge_tta``) under the TTA cell's limits;
   * the same with the port's ``tta_variants`` cut to the unflipped ones (a
     TTA that drops the flipped variants): the comparison fails;
-  * ``portbench/configs/r101_cityscapes.json`` equals what
-    ``upsnet_torch.config.loader`` makes of
-    ``experiments/upsnet_resnet101_cityscapes_w_coco_16gpu.yaml``, key by
-    key, and builds the file's model.
+  * the same comparison on the R101-DCN COCO file's protocol cut to a tiny
+    size (``coco_dcn_crop``): DCN in the trunk's C3-C5 and the FCN, 81
+    classes and 133 semantic channels (53 stuff), a 48x64 frame at scales
+    64, 48 and 80 over two mirrored buckets, 64x128 and 128x64; 64 and 48
+    fit the first, and 80 (80x107) outgrows both and is cropped to 64x128,
+    as 960 crops a 640x480 frame on the COCO TTA cell's 832x1344;
+  * ``portbench/configs/r101_cityscapes.json`` and
+    ``portbench/configs/r101dcn_coco.json`` equal what
+    ``upsnet_torch.config.loader`` makes of the experiments they copy, key
+    by key, and build the files' models.
 
 No JAX in this file's comparisons: both sides are PyTorch on the CPU.
 """
 
 import copy
+import functools
 import json
 import pathlib
 
@@ -45,9 +52,13 @@ torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CITY_YAML = REPO / "experiments" / "upsnet_resnet101_cityscapes_w_coco_16gpu.yaml"
 CITY_JSON = REPO / "portbench" / "configs" / "r101_cityscapes.json"
+COCO_YAML = REPO / "experiments" / "upsnet_resnet101_dcn_coco_3x_16gpu.yaml"
+COCO_JSON = REPO / "portbench" / "configs" / "r101dcn_coco.json"
 TTA_MIX = REPO / "portbench" / "traffic" / "tta_city_b1.json"
+COCO_MIX = REPO / "portbench" / "traffic" / "tta_coco_b1.json"
 SEED = 2 ** 31 + 2207
 FRAME = (64, 128)
+COCO_FRAME = (48, 64)
 # Float32 on both sides, but convolutions, matmuls and resizes sum in other
 # orders (oneDNN against plain loops): about 1e-7 relative per layer, 1e-6
 # through the tiny trunk; the merged logits and the mask logits are held
@@ -69,6 +80,26 @@ def tiny_model_cfg() -> dict:
                      max_size=128, image_buckets=[list(FRAME)], multi_scale=[48, 64, 80],
                      flip_test=True)
     return {"model": m, "weights": dict(conf["weights"], cls_score_std=0.3)}
+
+
+def tiny_coco_cfg() -> dict:
+    """The R101-DCN COCO file's model and TTA at a tiny size: its DCN trunk
+    and classes, its three scales (800, 640, 960 of a 640x480 frame) cut to
+    64, 48, 80 of a 48x64 one, the largest beyond every bucket."""
+    conf = json.loads(COCO_JSON.read_text())
+    m = copy.deepcopy(conf["model"])
+    m["symbol"] = "upsnet"
+    m["network"].update(backbone="resnet_test", fpn_feature_dim=32, rcnn_fc_dim=64,
+                        fcn_head_dim=16, compute_dtype="float32")
+    m["test"].update(rpn_pre_nms_top_n=64, rpn_post_nms_top_n=32, max_det=8, scales=[64],
+                     max_size=133, image_buckets=[[64, 128], [128, 64]],
+                     multi_scale=[48, 64, 80])
+    return {"model": m, "weights": dict(conf["weights"], cls_score_std=0.3)}
+
+
+# protocol: (configuration, frame, its mix); three things in the frame
+PROTOCOLS = {"city": (tiny_model_cfg, FRAME, TTA_MIX),
+             "coco": (tiny_coco_cfg, COCO_FRAME, COCO_MIX)}
 
 
 def _program(conf, frame, state, monkeypatch, drop_flips: bool):
@@ -104,17 +135,19 @@ def _program(conf, frame, state, monkeypatch, drop_flips: bool):
     return run, dict(merged, pan_map=result["pan_map"], pan_keep=result["pan_keep"]), result
 
 
-@pytest.fixture(scope="module")
-def setup():
-    conf = tiny_model_cfg()
+@functools.lru_cache(maxsize=None)
+def reference_run(protocol: str):
+    make_conf, hw, _ = PROTOCOLS[protocol]
+    conf = make_conf()
+    ds = conf["model"]["dataset"]
     rng = np.random.default_rng(SEED)
-    frame = scene(rng, FRAME, 4, 3, (3, 3), 20)[0]
+    frame = scene(rng, hw, ds["num_classes"] - 1, ds["num_stuff"], (3, 3), 20)[0]
     cfg = update_config(default_config(), conf["model"])
     shapes = W.state_shapes(get_model(cfg.symbol, cfg, device="cpu"))
     state = W.make_state(shapes, conf["weights"], SEED, "cpu")
     ref = Ref(conf["model"], state)
     ref_outs = tta_ref.run_variants(ref, torch.from_numpy(frame), conf["model"])
-    return conf, frame, state, ref_outs, tta_ref.tta(ref_outs, FRAME, conf["model"])
+    return conf, frame, state, ref_outs, tta_ref.tta(ref_outs, hw, conf["model"])
 
 
 def _rel(a, b) -> float:
@@ -122,11 +155,20 @@ def _rel(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-@pytest.mark.parametrize("drop_flips", [False, True], ids=["six_variants", "flips_dropped"])
-def test_port_tta_matches_the_plain_reference(setup, monkeypatch, drop_flips):
-    conf, frame, state, ref_outs, want = setup
+@pytest.mark.parametrize("protocol,drop_flips", [("city", False), ("city", True),
+                                                  ("coco", False)],
+                         ids=["six_variants", "flips_dropped", "coco_dcn_crop"])
+def test_port_tta_matches_the_plain_reference(monkeypatch, protocol, drop_flips):
+    conf, frame, state, ref_outs, want = reference_run(protocol)
     run, merged, result = _program(conf, frame, state, monkeypatch, drop_flips)
-    limits = json.loads(TTA_MIX.read_text())["limits"]
+    limits = json.loads(PROTOCOLS[protocol][2].read_text())["limits"]
+    if protocol == "coco":
+        # the protocol's geometry: the DCN trunk, 133 channels, the crop
+        net = conf["model"]["network"]
+        assert net["backbone_with_dcn"] and net["fcn_with_dcn"]
+        assert run[0]["seg_logits"].shape[-1] == 133
+        assert [(v["bucket"], tuple(int(x) for x in v["im_hw"])) for v in run[::2]] == [
+            ((64, 128), (64, 85)), ((64, 128), (48, 64)), ((64, 128), (80, 107))]
     numbers = tta_ref.judge_tta(ref_outs, run, merged, conf["model"])
     n = len(want["scores"])
     agree = {
@@ -154,15 +196,22 @@ def test_port_tta_matches_the_plain_reference(setup, monkeypatch, drop_flips):
         assert numbers["tta_pan_gap"] == 0.0
 
 
-def test_cityscapes_config_file_is_the_experiment_as_loaded():
-    conf = json.loads(CITY_JSON.read_text())
-    want = json.loads(json.dumps(load_config(str(CITY_YAML)).to_dict()))
+def _config_file_is_the_experiment(path, yaml) -> dict:
+    """The configuration file's model, checked key by key against what the
+    loader makes of ``yaml``."""
+    conf = json.loads(path.read_text())
+    want = json.loads(json.dumps(load_config(str(yaml)).to_dict()))
     got = json.loads(json.dumps(update_config(default_config(), conf["model"]).to_dict()))
     for section in ("network", "test", "dataset", "train"):
         assert got[section] == want[section], section
         assert conf["model"][section] == want[section], section
     assert conf["model"]["symbol"] == want["symbol"] == "resnet_101_upsnet"
     assert conf["reduced"] == []
+    return conf
+
+
+def test_cityscapes_config_file_is_the_experiment_as_loaded():
+    conf = _config_file_is_the_experiment(CITY_JSON, CITY_YAML)
     net, test = conf["model"]["network"], conf["model"]["test"]
     assert (net["backbone"], net["backbone_with_dcn"], net["fcn_with_dcn"]) == (
         "resnet101", False, True)
@@ -174,3 +223,19 @@ def test_cityscapes_config_file_is_the_experiment_as_loaded():
     canvases = [tta_ref.variant_canvas(1024, 2048, s, test) for s, _ in tta_ref.variants(test)]
     assert {c[2] for c in canvases} == {(1024, 2048)}
     assert [c[1] for c in canvases[::2]] == [(1024, 2048), (768, 1536), (1024, 2048)]
+
+
+def test_coco_tta_config_file_is_the_experiment_as_loaded():
+    conf = _config_file_is_the_experiment(COCO_JSON, COCO_YAML)
+    net, test = conf["model"]["network"], conf["model"]["test"]
+    assert (net["backbone"], net["backbone_with_dcn"], net["fcn_with_dcn"]) == (
+        "resnet101", True, True)
+    assert test["image_buckets"] == [[832, 1344], [1344, 832]] and test["flip_test"]
+    assert tta_ref.variants(test) == [(800, False), (800, True), (640, False), (640, True),
+                                      (960, False), (960, True)]
+    # the COCO TTA cell's 640x480 frame: 800 and 640 fit 832x1344; 960 makes
+    # 960x1280, which no bucket holds, and is cropped to the larger (the first)
+    frame = json.loads(COCO_MIX.read_text())["frame"]
+    canvases = [tta_ref.variant_canvas(*frame, s, test) for s, _ in tta_ref.variants(test)]
+    assert {c[2] for c in canvases} == {(832, 1344)}
+    assert [c[1] for c in canvases[::2]] == [(800, 1067), (640, 853), (960, 1280)]

@@ -21,9 +21,10 @@ Tests marked ``card`` run the kernel on a CUDA card and skip here; this file
 imports no JAX, so on the card they run with
 ``python -m pytest tests/test_torch_tta_sample.py -q -m card --noconftest``:
 the kernel against its plain version at the cell's shapes (a 1024x2048
-frame at scales 1.0 and 0.75, flipped and not, bfloat16 and float32), and
-``predict_image_tta`` launching it once a variant, its unit-scale canvases
-the host's.
+frame at scales 1.0 and 0.75, flipped and not, bfloat16 and float32) and at
+the COCO TTA cell's crop (a 480x640 frame at 960x1280, cropped to 832x1344),
+and ``predict_image_tta`` launching it once a variant, its unit-scale
+canvases the host's.
 """
 
 import dataclasses
@@ -188,6 +189,24 @@ def test_sample_kernel_equals_its_plain_version_at_the_cell_shapes(card, target,
     frame = torch.from_numpy(np.random.default_rng(target).integers(0, 256, CELL_FRAME + (3,),
                                                                     np.uint8))
     _, content, bucket = T.variant_geometry(*CELL_FRAME, target, 2048, (CELL_FRAME,))
+    want = tta_merge.sample_canvas_plain(frame, content, bucket, flip, DTYPES[dtype])
+    before = tta_merge.launches_sample
+    got = tta_merge.sample_canvas(frame.to(card), content, bucket, flip, DTYPES[dtype])
+    torch.cuda.synchronize()
+    assert tta_merge.launches_sample == before + 1
+    assert torch.equal(got.cpu(), want), int((got.cpu() != want).sum())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("flip", [False, True], ids=["unflipped", "flipped"])
+def test_sample_kernel_equals_its_plain_version_at_the_coco_crop(card, flip, dtype):
+    """The COCO TTA cell's 960 variant: a 480x640 frame at 960x1280, its rows
+    cropped to the 832x1344 canvas."""
+    hw, buckets, max_size, target = GEOMETRY_CASES["coco_crop"]
+    frame = torch.from_numpy(np.random.default_rng(960).integers(0, 256, hw + (3,), np.uint8))
+    _, content, bucket = T.variant_geometry(*hw, target, max_size, buckets)
+    assert (content, bucket) == ((960, 1280), (832, 1344))
     want = tta_merge.sample_canvas_plain(frame, content, bucket, flip, DTYPES[dtype])
     before = tta_merge.launches_sample
     got = tta_merge.sample_canvas(frame.to(card), content, bucket, flip, DTYPES[dtype])

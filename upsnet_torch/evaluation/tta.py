@@ -33,7 +33,10 @@ its detections; then the final NMS and the merge's launch) and ``tta.fuse``
 (``image_h2d``), the copies of the logits to the device
 (``logits_h2d``), the fusion's copies of host arrays (``const_h2d``) and its
 reads back and the argmax's (``to_host``) are ``host_sync`` sites, so
-``read_syncs()`` and ``read_bytes()`` count them.
+``read_syncs()`` and ``read_bytes()`` count them. Each variant's canvas and
+content go to ``count_canvas``, so ``read_canvas()`` says how much of the
+predicted canvases was padding and how much of the resized images a crop
+threw away.
 
 A reference behaviour is copied with the rest: where a scale's canvas fits
 no ``test.image_buckets``, ``pick_bucket`` takes the largest and the canvas
@@ -54,7 +57,7 @@ from upsnet_torch.config.defaults import Config
 from upsnet_torch.data import transforms as T
 from upsnet_torch.models.upsnet import panoptic_fuse
 from upsnet_torch.ops import tta_merge
-from upsnet_torch.utils.profiling import host_sync
+from upsnet_torch.utils.profiling import count_canvas, host_sync
 
 
 def _greedy_nms_per_class(boxes, scores, classes, thresh, max_out):
@@ -200,6 +203,7 @@ def predict_image_tta(cfg: Config, dataset, i: int, predict, device,
             scale, (rh, rw), bucket = T.variant_geometry(oh, ow, ts, dataset.max_size,
                                                          dataset.buckets)
             canvas = tta_merge.sample_canvas(frame, (rh, rw), bucket, fl, image_dtype(cfg))
+            count_canvas(bucket, (rh, rw))
             s = dataset.test_sample(i, canvas, (oh, ow), scale, (rh, rw))
         if base is None:
             base = (float(s["scale"]), bucket, (rh, rw))

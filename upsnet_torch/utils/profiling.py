@@ -14,6 +14,12 @@ records, the read also runs inside a ``sync.<site>`` range, on the
 profiler's clock with the kernels and the ``predict.<stage>`` /
 ``train.<stage>`` / ``tta.<stage>`` ranges. With no profiler recording it
 costs one flag check and one or two integer adds.
+
+``count_canvas(bucket, content)`` adds one forward's input canvas to a
+per-process tally of pixels (``read_canvas``): the canvas ``bh·bw``, the
+content that lies inside it ``min(rh, bh)·min(rw, bw)``, and the resized
+content ``rh·rw`` (more than what lies inside where the content outgrows
+every bucket and is cropped). Host integers only: no read, no sync.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ SYNC_PREFIX = "sync."
 
 _syncs: dict[str, int] = {}
 _bytes: dict[str, int] = {}
+_pixels = {"canvas": 0, "inside": 0, "resized": 0}
 
 
 class host_sync:
@@ -66,9 +73,25 @@ def read_bytes() -> dict[str, int]:
     return dict(_bytes)
 
 
+def count_canvas(bucket, content) -> None:
+    """Tally one forward's canvas ``bucket`` (bh, bw) holding ``content``
+    (rh, rw), the image resized before any crop to the canvas."""
+    (bh, bw), (rh, rw) = bucket, content
+    _pixels["canvas"] += bh * bw
+    _pixels["inside"] += min(rh, bh) * min(rw, bw)
+    _pixels["resized"] += rh * rw
+
+
+def read_canvas() -> dict[str, int]:
+    """The pixels tallied by ``count_canvas`` since the last
+    ``reset_syncs``: ``canvas``, ``inside`` and ``resized``."""
+    return dict(_pixels)
+
+
 def reset_syncs() -> None:
     _syncs.clear()
     _bytes.clear()
+    _pixels.update(dict.fromkeys(_pixels, 0))
 
 
 @contextlib.contextmanager
